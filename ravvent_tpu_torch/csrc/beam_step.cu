@@ -1,0 +1,446 @@
+// One beam-search decode step for every hypothesis of a batch.
+//
+// Replaces the TPU kernel ravvent_tpu/ops/beam_loop_pallas.py::_beam_step_kernel
+// (entry point beam_step_decode, bf16 or f32 memory, quant=False). Per
+// hypothesis: LSTM cell on [one-hot token | previous attention vector],
+// Luong scores of h against the keys, softmax masked with finfo(f32).min
+// (an all-masked row becomes uniform, as in the reference), context from the
+// pre-projected values, att = h.watt_h + context, logits, log-softmax,
+// finished beams continuing only through the end token, top-W over the
+// flattened W x VP row by iterated first-index argmax (the reference's tie
+// rule; vocabulary columns >= V are padding whose logit is finfo.min), and
+// the beam permutation of h, c, att and the finished flags.
+//
+// What bounds it on the H100: memory bytes. Each step reads every row's keys
+// and values once (B x S x U x 2 tensors; 487 MB per step at B=4096, S=232,
+// U=128 in bf16: ~145 us at 3.35 TB/s), against ~0.3 GFLOP of f32 work per
+// row-step. Design: one CTA per kRows batch rows (all W hypotheses of each).
+// The TPU kernel pipelined batch tiles through VMEM; here each CTA streams
+// its rows' keys and values from HBM exactly once, with coalesced loads (a
+// warp reads one 256-byte key row per position; a thread pair of units reads
+// one value row), and keeps every intermediate in shared memory. The decoder
+// weights (~0.6 MB f32) are read through L2 once per CTA, shared by the
+// kRows x W hypotheses of the CTA.
+//
+// Plain C interface, no PyTorch header: built with nvcc into a shared
+// library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kU = 128;         // decoder units (the flagship's; the wrapper checks)
+constexpr int kG = 4 * kU;
+constexpr int kRows = 4;        // batch rows per CTA
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kNegMax = -3.4028234663852886e38f;  // finfo(float32).min
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Rounding of an f32 operand to the memory's precision: the reference casts
+// h and the alignments to the memory dtype before each dot, accumulating in f32.
+template <typename M> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Four consecutive memory elements starting at p (16 B aligned for f32, 8 B for bf16).
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
+}
+__device__ __forceinline__ void load2(const float* p, float v[2]) {
+  const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+  v[0] = q.x; v[1] = q.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float v[2]) {
+  const unsigned int q = __ldg(reinterpret_cast<const unsigned int*>(p));
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q);
+  v[0] = __low2float(a); v[1] = __high2float(a);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+struct Smem {
+  // offsets into the dynamic shared buffer, in floats
+  int xin, hn, cn, att, sc, ctxp, logit, flat;
+  int total;
+};
+
+__host__ __device__ inline Smem smem_layout(int W, int S, int V, int VP) {
+  const int H = kRows * W;
+  Smem s;
+  int o = 0;
+  s.xin = o;   o += 2 * kU * H;        // [2U][H]  (att_prev ; h_prev), transposed
+  s.hn = o;    o += H * kU;            // [H][U]   new h
+  s.cn = o;    o += H * kU;            // [H][U]   new c
+  s.att = o;   o += H * kU;            // [H][U]   context, then the new attention vector
+  s.sc = o;    o += W * S;             // [W][S]   scores, then alignments, of one row
+  s.ctxp = o;  o += 4 * W * kU;        // [4][W][U] partial contexts
+  s.logit = o; o += H * V;             // [H][V]
+  s.flat = o;  o += kRows * W * VP;    // [rows][W*VP] candidate totals
+  s.total = o;
+  return s;
+}
+
+template <typename M, int W>
+__global__ void __launch_bounds__(kThreads)
+beam_step_kernel(int B, int S, int V, int VP, int end_token,
+                 const int32_t* __restrict__ tok_in,   // [B*W]
+                 const float* __restrict__ h_in,       // [B*W, U]
+                 const float* __restrict__ c_in,       // [B*W, U]
+                 const float* __restrict__ att_in,     // [B*W, U]
+                 const float* __restrict__ cum_in,     // [B, W]
+                 const uint8_t* __restrict__ fin_in,   // [B, W]
+                 const M* __restrict__ keys,           // [B, S, U]
+                 const M* __restrict__ values,         // [B, S, U] (pre-projected)
+                 const uint8_t* __restrict__ mask,     // [B, S]
+                 const float* __restrict__ wx,         // [V+U, 4U]
+                 const float* __restrict__ wh,         // [U, 4U]
+                 const float* __restrict__ bias,       // [4U]
+                 const float* __restrict__ watt_h,     // [U, U]
+                 const float* __restrict__ wfc,        // [U, V]
+                 const float* __restrict__ bfc,        // [V]
+                 int32_t* __restrict__ tok_out,        // [B*W]
+                 int32_t* __restrict__ par_out,        // [B, W]
+                 float* __restrict__ h_out,
+                 float* __restrict__ c_out,
+                 float* __restrict__ att_out,
+                 float* __restrict__ cum_out,          // [B, W]
+                 uint8_t* __restrict__ fin_out) {      // [B, W]
+  constexpr int H = kRows * W;        // hypotheses of this CTA
+  constexpr int HH = H / 2;           // per thread half (H is even: kRows is)
+  extern __shared__ float smem[];
+  const Smem L = smem_layout(W, S, V, VP);
+  float* xin = smem + L.xin;
+  float* hn = smem + L.hn;
+  float* cn = smem + L.cn;
+  float* att = smem + L.att;
+  float* sc = smem + L.sc;
+  float* ctxp = smem + L.ctxp;
+  float* logit = smem + L.logit;
+  float* flat = smem + L.flat;
+  __shared__ int s_tok[H];
+  __shared__ int s_par[H];
+  __shared__ float s_lse[H];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, B - row0);
+  const int nh = nrows * W;           // live hypotheses
+  const size_t hyp0 = (size_t)row0 * W;
+
+  // ---- inputs of the cell: xin[k][j] = att_prev (k < U), h_prev (k >= U)
+  for (int i = tid; i < H * kU; i += kThreads) {
+    const int j = i / kU, k = i - j * kU;
+    const bool live = j < nh;
+    xin[k * H + j] = live ? att_in[(hyp0 + j) * kU + k] : 0.f;
+    xin[(kU + k) * H + j] = live ? h_in[(hyp0 + j) * kU + k] : 0.f;
+  }
+  if (tid < H) s_tok[tid] = tid < nh ? tok_in[hyp0 + tid] : V;
+  __syncthreads();
+
+  // ---- LSTM cell: z = onehot(tok).wx[:V] + att.wx[V:] + h.wh + b
+  {
+    const int u = tid & (kU - 1);
+    const int j0 = (tid >> 7) * HH;
+    float acc[4][HH];
+#pragma unroll
+    for (int j = 0; j < HH; ++j) {
+      const int tk = s_tok[j0 + j];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        acc[g][j] = bias[g * kU + u] + (tk < V ? __ldg(wx + (size_t)tk * kG + g * kU + u) : 0.f);
+    }
+#pragma unroll 2
+    for (int k = 0; k < 2 * kU; ++k) {
+      const float* w = k < kU ? wx + (size_t)(V + k) * kG + u : wh + (size_t)(k - kU) * kG + u;
+      const float w0 = __ldg(w), w1 = __ldg(w + kU), w2 = __ldg(w + 2 * kU), w3 = __ldg(w + 3 * kU);
+      const float* xr = xin + k * H + j0;
+#pragma unroll
+      for (int j = 0; j < HH; ++j) {
+        const float xv = xr[j];
+        acc[0][j] = fmaf(xv, w0, acc[0][j]);
+        acc[1][j] = fmaf(xv, w1, acc[1][j]);
+        acc[2][j] = fmaf(xv, w2, acc[2][j]);
+        acc[3][j] = fmaf(xv, w3, acc[3][j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < HH; ++j) {
+      const int hj = j0 + j;
+      const float cp = hj < nh ? c_in[(hyp0 + hj) * kU + u] : 0.f;
+      const float c = sigmoid_f(acc[1][j]) * cp + sigmoid_f(acc[0][j]) * tanhf(acc[2][j]);
+      cn[hj * kU + u] = c;
+      hn[hj * kU + u] = sigmoid_f(acc[3][j]) * tanhf(c);
+    }
+  }
+  __syncthreads();
+
+  // ---- attention, one batch row at a time (its W hypotheses together)
+  for (int r = 0; r < nrows; ++r) {
+    const size_t brow = (size_t)(row0 + r);
+    const M* K = keys + brow * S * kU;
+    const M* Vv = values + brow * S * kU;
+    const uint8_t* mrow = mask + brow * S;
+
+    // scores: one warp per position, each lane 4 units
+    float q[W][4];
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[w][i] = round_to<M>(hn[(r * W + w) * kU + 4 * lane + i]);
+    for (int s = warp; s < S; s += kWarps) {
+      float kv[4];
+      load4(K + (size_t)s * kU + 4 * lane, kv);
+      const bool m = mrow[s] != 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        float p = q[w][0] * kv[0];
+        p = fmaf(q[w][1], kv[1], p);
+        p = fmaf(q[w][2], kv[2], p);
+        p = fmaf(q[w][3], kv[3], p);
+        p = warp_sum(p);
+        if (lane == 0) sc[w * S + s] = m ? p : kNegMax;
+      }
+    }
+    __syncthreads();
+
+    // masked softmax: one warp per hypothesis; alignments rounded to the
+    // memory's precision for the context product
+    for (int w = warp; w < W; w += kWarps) {
+      float* srow = sc + w * S;
+      float m = kNegMax;
+      for (int s = lane; s < S; s += 32) m = fmaxf(m, srow[s]);
+      m = warp_max(m);
+      float sum = 0.f;
+      for (int s = lane; s < S; s += 32) {
+        const float e = expf(srow[s] - m);
+        srow[s] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int s = lane; s < S; s += 32) srow[s] = round_to<M>(srow[s] / sum);
+    }
+    __syncthreads();
+
+    // context: thread = (unit pair, quarter of the positions)
+    {
+      const int up = tid & 63, quarter = tid >> 6;
+      float acc[W][2];
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[w][0] = acc[w][1] = 0.f;
+      for (int s = quarter; s < S; s += 4) {
+        float v[2];
+        load2(Vv + (size_t)s * kU + 2 * up, v);
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const float a = sc[w * S + s];
+          acc[w][0] = fmaf(a, v[0], acc[w][0]);
+          acc[w][1] = fmaf(a, v[1], acc[w][1]);
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        ctxp[(quarter * W + w) * kU + 2 * up] = acc[w][0];
+        ctxp[(quarter * W + w) * kU + 2 * up + 1] = acc[w][1];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < W * kU; i += kThreads) {
+      const int w = i / kU, u = i - w * kU;
+      att[(r * W + w) * kU + u] = ctxp[(0 * W + w) * kU + u] + ctxp[(1 * W + w) * kU + u] +
+                                  ctxp[(2 * W + w) * kU + u] + ctxp[(3 * W + w) * kU + u];
+    }
+    __syncthreads();
+  }
+
+  // ---- attention vector: att = h.watt_h + context (in place over the context)
+  {
+    const int u = tid & (kU - 1);
+    const int j0 = (tid >> 7) * HH;
+    float acc[HH];
+#pragma unroll
+    for (int j = 0; j < HH; ++j) acc[j] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < kU; ++k) {
+      const float w = __ldg(watt_h + (size_t)k * kU + u);
+#pragma unroll
+      for (int j = 0; j < HH; ++j) acc[j] = fmaf(hn[(j0 + j) * kU + k], w, acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < HH; ++j) att[(j0 + j) * kU + u] += acc[j];
+  }
+  __syncthreads();
+
+  // ---- logits [H][V]
+  for (int i = tid; i < H * V; i += kThreads) {
+    const int j = i / V, v = i - j * V;
+    float acc = 0.f;
+    for (int k = 0; k < kU; ++k) acc = fmaf(att[j * kU + k], __ldg(wfc + (size_t)k * V + v), acc);
+    logit[i] = acc + bfc[v];
+  }
+  __syncthreads();
+
+  // log-sum-exp per hypothesis (padding columns add exp(finfo.min - max) = 0)
+  if (tid < H) {
+    const float* l = logit + tid * V;
+    float m = l[0];
+    for (int v = 1; v < V; ++v) m = fmaxf(m, l[v]);
+    float sum = 0.f;
+    for (int v = 0; v < V; ++v) sum += expf(l[v] - m);
+    s_lse[tid] = logf(sum) + m;
+  }
+  __syncthreads();
+
+  // candidate totals: flat[r][w*VP + v] = cum + step log-prob; finished
+  // beams continue only through the end token; padding columns carry
+  // cum + finfo.min (their log-prob is finfo.min - lse == finfo.min)
+  for (int i = tid; i < nrows * W * VP; i += kThreads) {
+    const int r = i / (W * VP), rem = i - r * W * VP;
+    const int w = rem / VP, v = rem - w * VP;
+    const int j = r * W + w;
+    const size_t bw = (size_t)(row0 + r) * W + w;
+    const bool fin = fin_in[bw] != 0;
+    float lp;
+    if (v >= V) lp = kNegMax;
+    else if (fin) lp = v == end_token ? 0.f : kNegMax;
+    else lp = logit[j * V + v] - s_lse[j];
+    flat[i] = cum_in[bw] + lp;
+  }
+  __syncthreads();
+
+  // top-W by iterated first-index argmax, one warp per batch row
+  if (warp < nrows) {
+    const int r = warp;
+    float* f = flat + r * W * VP;
+    const int n = W * VP;
+    for (int k = 0; k < W; ++k) {
+      float best = __int_as_float(0xff800000);  // -inf
+      int bi = n;
+      for (int i = lane; i < n; i += 32) {
+        const float x = f[i];
+        if (x > best || bi == n) { best = x; bi = i; }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+      }
+      if (lane == 0) {
+        const size_t bw = (size_t)(row0 + r) * W + k;
+        const int parent = bi / VP, token = bi - parent * VP;
+        f[bi] = kNegMax;
+        cum_out[bw] = best;
+        tok_out[bw] = token;
+        par_out[bw] = parent;
+        fin_out[bw] = (fin_in[(size_t)(row0 + r) * W + parent] != 0 || token == end_token) ? 1 : 0;
+        s_tok[r * W + k] = token;
+        s_par[r * W + k] = r * W + parent;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // ---- beam permutation of the recurrent state
+  for (int i = tid; i < nh * kU; i += kThreads) {
+    const int j = i / kU, u = i - j * kU;
+    const int p = s_par[j];
+    const size_t o = (hyp0 + j) * kU + u;
+    h_out[o] = hn[p * kU + u];
+    c_out[o] = cn[p * kU + u];
+    att_out[o] = att[p * kU + u];
+  }
+}
+
+template <typename M, int W>
+int launch(int B, int S, int V, int VP, int end_token, const void* tok_in, const void* h_in,
+           const void* c_in, const void* att_in, const void* cum_in, const void* fin_in,
+           const void* keys, const void* values, const void* mask, const void* wx, const void* wh,
+           const void* bias, const void* watt_h, const void* wfc, const void* bfc, void* tok_out,
+           void* par_out, void* h_out, void* c_out, void* att_out, void* cum_out, void* fin_out,
+           cudaStream_t stream) {
+  const size_t smem = (size_t)smem_layout(W, S, V, VP).total * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(beam_step_kernel<M, W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = (B + kRows - 1) / kRows;
+  beam_step_kernel<M, W><<<grid, kThreads, smem, stream>>>(
+      B, S, V, VP, end_token, (const int32_t*)tok_in, (const float*)h_in, (const float*)c_in,
+      (const float*)att_in, (const float*)cum_in, (const uint8_t*)fin_in, (const M*)keys,
+      (const M*)values, (const uint8_t*)mask, (const float*)wx, (const float*)wh,
+      (const float*)bias, (const float*)watt_h, (const float*)wfc, (const float*)bfc,
+      (int32_t*)tok_out, (int32_t*)par_out, (float*)h_out, (float*)c_out, (float*)att_out,
+      (float*)cum_out, (uint8_t*)fin_out);
+  return (int)cudaGetLastError();
+}
+
+template <typename M>
+int dispatch_w(int W, int B, int S, int V, int VP, int end_token, const void* a0, const void* a1,
+               const void* a2, const void* a3, const void* a4, const void* a5, const void* a6,
+               const void* a7, const void* a8, const void* a9, const void* a10, const void* a11,
+               const void* a12, const void* a13, const void* a14, void* o0, void* o1, void* o2,
+               void* o3, void* o4, void* o5, void* o6, cudaStream_t st) {
+#define RV_BEAM_CASE(WW)                                                                        \
+  case WW:                                                                                      \
+    return launch<M, WW>(B, S, V, VP, end_token, a0, a1, a2, a3, a4, a5, a6, a7, a8, a9, a10,   \
+                         a11, a12, a13, a14, o0, o1, o2, o3, o4, o5, o6, st);
+  switch (W) {
+    RV_BEAM_CASE(1)
+    RV_BEAM_CASE(2)
+    RV_BEAM_CASE(3)
+    RV_BEAM_CASE(4)
+    RV_BEAM_CASE(5)
+    RV_BEAM_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RV_BEAM_CASE
+}
+
+}  // namespace
+
+// mem_bf16: 1 when keys/values are bf16, 0 when f32. Beam widths 1-5 and 8.
+// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int rv_beam_step(int mem_bf16, int W, int B, int S, int V, int VP, int end_token,
+                            const void* tok_in, const void* h_in, const void* c_in,
+                            const void* att_in, const void* cum_in, const void* fin_in,
+                            const void* keys, const void* values, const void* mask,
+                            const void* wx, const void* wh, const void* bias, const void* watt_h,
+                            const void* wfc, const void* bfc, void* tok_out, void* par_out,
+                            void* h_out, void* c_out, void* att_out, void* cum_out, void* fin_out,
+                            void* stream) {
+  if (B <= 0 || S <= 0 || V <= 0 || V > VP || end_token < 0 || end_token >= V)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mem_bf16)
+    return dispatch_w<__nv_bfloat16>(W, B, S, V, VP, end_token, tok_in, h_in, c_in, att_in, cum_in,
+                                     fin_in, keys, values, mask, wx, wh, bias, watt_h, wfc, bfc,
+                                     tok_out, par_out, h_out, c_out, att_out, cum_out, fin_out, st);
+  return dispatch_w<float>(W, B, S, V, VP, end_token, tok_in, h_in, c_in, att_in, cum_in, fin_in,
+                           keys, values, mask, wx, wh, bias, watt_h, wfc, bfc, tok_out, par_out,
+                           h_out, c_out, att_out, cum_out, fin_out, st);
+}

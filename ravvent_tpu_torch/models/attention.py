@@ -1,0 +1,72 @@
+"""Luong attention memory (counterpart of ravvent_tpu/models/attention.py).
+
+``setup_memory`` zeroes the memory at masked positions, computes the keys
+``values @ memory_kernel`` and, given the AttentionWrapper's attention layer,
+pre-projects the values through its context half ``kernel[U:]`` (the
+attention vector is then ``att = query @ watt_h + align @ values`` with
+``watt_h = kernel[:U]``). ``dtype=torch.bfloat16`` stores keys and values in
+bf16; the dots that read them accumulate in f32. Scores are masked with
+``finfo(float32).min``, not ``-inf``, so an all-masked row softmaxes to a
+uniform row, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from ravvent_tpu_torch.models.rnn import glorot_uniform
+
+Params = Dict[str, Any]
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+class AttnMemory(NamedTuple):
+    keys: torch.Tensor  # [B, S, U]
+    values: torch.Tensor  # [B, S, E], or pre-projected [B, S, U]
+    mask: torch.Tensor  # [B, S] bool
+    watt_h: Optional[torch.Tensor] = None  # [U, U] when the values are pre-projected
+
+    @property
+    def projected(self) -> bool:
+        return self.watt_h is not None
+
+
+def init_attention(gen: torch.Generator, units: int, memory_dim: int, device=None) -> Params:
+    """tfa LuongAttention: memory_layer Dense(units, use_bias=False)."""
+    return {"memory_kernel": glorot_uniform(gen, (memory_dim, units), device)}
+
+
+def setup_memory(params: Params, memory: torch.Tensor, mask: torch.Tensor, dtype=None,
+                 attention_layer: Optional[Params] = None) -> AttnMemory:
+    """memory [B, S, E], mask [B, S] bool."""
+    values = torch.where(mask[..., None], memory, torch.zeros((), dtype=memory.dtype,
+                                                              device=memory.device))
+    keys = values @ params["memory_kernel"]
+    watt_h = None
+    if attention_layer is not None:
+        U = keys.shape[-1]
+        kernel = attention_layer["kernel"]  # [U + E, U]
+        watt_h = kernel[:U]
+        values = values @ kernel[U:]
+    if dtype is not None:
+        keys = keys.to(dtype)
+        values = values.to(dtype)
+    return AttnMemory(keys=keys, values=values, mask=mask, watt_h=watt_h)
+
+
+def attend_beams(query: torch.Tensor, mem: AttnMemory):
+    """Beam-batched Luong attention: query [B, W, U] against untiled memory.
+    The query and the alignments are rounded to the memory's dtype before
+    each dot, which accumulates in f32. Returns (context [B, W, E],
+    alignments [B, W, S])."""
+    q = query.to(mem.keys.dtype).float()
+    scores = torch.bmm(q, mem.keys.float().transpose(1, 2))
+    scores = torch.where(mem.mask[:, None, :], scores, torch.full((), NEG_INF, device=q.device))
+    m = scores.max(dim=2, keepdim=True).values
+    e = torch.exp(scores - m)
+    align = e / e.sum(dim=2, keepdim=True)
+    context = torch.bmm(align.to(mem.values.dtype).float(), mem.values.float())
+    return context, align

@@ -1,0 +1,90 @@
+"""Attention-wrapped LSTM decoder (counterpart of ravvent_tpu/models/decoder.py).
+
+tfa AttentionWrapper step semantics, Luong attention, LSTM cells:
+1. cell input = concat([one-hot token, previous attention vector]);
+2. the stacked cells run (cell i's output feeds cell i+1);
+3. the top cell output is the attention query;
+4. attention vector = Dense_{no bias}([cell output; context]), or
+   ``query @ watt_h + context`` on pre-projected memory;
+5. logits = Dense(vocab) of the attention vector.
+
+The parameter layout is the JAX tree's: ``cells`` (list of LSTM cells with
+``kernel`` [V+U, 4U]), ``attention`` (``memory_kernel``),
+``attention_layer`` (``kernel`` [U+E, U]) and ``fc`` (``kernel``, ``bias``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from ravvent_tpu_torch.models import attention as attn
+from ravvent_tpu_torch.models.rnn import dense, init_dense, init_lstm_cell, lstm_step
+
+Params = Dict[str, Any]
+
+
+class DecoderState(NamedTuple):
+    cells: Tuple  # per cell: (h, c)
+    attention: torch.Tensor  # [B, dec_units]
+
+
+def init_decoder(gen: torch.Generator, vocab_size: int, depth: int, dec_units: int,
+                 memory_dim: int, device=None) -> Params:
+    cells = []
+    in_dim = vocab_size + dec_units  # one-hot token + attention vector
+    for _ in range(depth):
+        cells.append(init_lstm_cell(gen, in_dim, dec_units, device))
+        in_dim = dec_units
+    return {
+        "cells": cells,
+        "attention": attn.init_attention(gen, dec_units, memory_dim, device),
+        "attention_layer": init_dense(gen, dec_units + memory_dim, dec_units, use_bias=False,
+                                      device=device),
+        "fc": init_dense(gen, dec_units, vocab_size, use_bias=True, device=device),
+    }
+
+
+def zero_state(params: Params, batch: int, dec_units: int, device=None) -> DecoderState:
+    z = lambda: torch.zeros(batch, dec_units, device=device)  # noqa: E731
+    return DecoderState(cells=tuple((z(), z()) for _ in params["cells"]), attention=z())
+
+
+def embed(token_ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """One-hot embedding; ids outside [0, vocab) embed to zeros."""
+    cols = torch.arange(vocab_size, device=token_ids.device)
+    return (token_ids[..., None] == cols).to(torch.float32)
+
+
+def cells_apply(params: Params, cells_state: Tuple, x: torch.Tensor):
+    """Run the stacked cells; returns (new cells state, top output)."""
+    new_cells = []
+    for cell_p, carry in zip(params["cells"], cells_state):
+        carry, x = lstm_step(cell_p, carry, x)
+        new_cells.append(carry)
+    return tuple(new_cells), x
+
+
+def output_block(params: Params, query: torch.Tensor, context: torch.Tensor):
+    """AttentionWrapper tail on un-projected memory: (attention vector, logits)."""
+    attention_vec = dense(params["attention_layer"], torch.cat([query, context], dim=-1))
+    return attention_vec, dense(params["fc"], attention_vec)
+
+
+def decoder_step(params: Params, state: DecoderState, token_emb: torch.Tensor,
+                 mem: attn.AttnMemory, beams: int = 1):
+    """One decode step for B*beams hypotheses (beam-major within each batch
+    row) against memory of B rows, read once for all of a row's beams.
+    Returns (new_state, logits [B*beams, V], alignments [B, beams, S])."""
+    x = torch.cat([token_emb, state.attention], dim=-1)
+    new_cells, query = cells_apply(params, state.cells, x)
+    B = mem.mask.shape[0]
+    context, align = attn.attend_beams(query.reshape(B, beams, -1), mem)
+    context = context.reshape(B * beams, -1)
+    if mem.projected:
+        attention_vec = query @ mem.watt_h + context
+        logits = dense(params["fc"], attention_vec)
+    else:
+        attention_vec, logits = output_block(params, query, context)
+    return DecoderState(cells=new_cells, attention=attention_vec), logits, align

@@ -1,0 +1,194 @@
+"""One fused beam-search step: the CUDA kernel, its plain version, and the
+decode loop that launches it once per step.
+
+Counterpart of ravvent_tpu/ops/beam_loop_pallas.py (the TPU kernel
+``_beam_step_kernel`` and its loop ``beam_step_decode``, bf16 or f32
+memory) and of ``pack_decoder_weights`` (ops/decode_step_pallas.py). The
+kernel is ``csrc/beam_step.cu``; :func:`beam_step` launches it for CUDA
+tensors and runs :func:`beam_step_plain` for CPU tensors only.
+
+The step state, per batch row b and beam w (hypothesis ``b * W + w``):
+  tok [B*W] int32 (the token fed to this step), h, c, att [B*W, U] f32,
+  cum [B, W] f32 (cumulative log-probs), fin [B, W] bool (finished).
+A step returns the next state plus the parents [B, W] int32. The reference
+kernel fed a one-hot [B*W, 136] embedding; a token id carries the same
+information, and ids >= V embed to zeros as an all-zero one-hot would.
+Top-W runs over the flattened ``W x VP`` row (VP = 128 columns, those >= V
+being padding with logit finfo.min), so parents are ``idx // VP`` and
+tokens ``idx % VP`` exactly as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ravvent_tpu_torch.decode.beam import (
+    NEG_INF, BeamResult, gather_tree, initial_cum, reconstruct_lengths, top_w,
+)
+from ravvent_tpu_torch.models import attention as attn
+from ravvent_tpu_torch.ops import cuda_lib
+
+UNITS = 128  # the kernel's compiled unit count
+VP = 128  # padded vocabulary width of the flattened top-W row
+KERNEL_BEAMS = (1, 2, 3, 4, 5, 8)  # beam widths the kernel is compiled for
+
+
+class DecoderWeights(NamedTuple):
+    """Depth-1 LSTM decoder weights as the step consumes them."""
+
+    wx: torch.Tensor  # [V+U, 4U] cell kernel (one-hot rows, then attention rows)
+    wh: torch.Tensor  # [U, 4U]
+    b: torch.Tensor  # [4U]
+    watt_h: torch.Tensor  # [U, U] cell-output half of the attention layer
+    wfc: torch.Tensor  # [U, V]
+    bfc: torch.Tensor  # [V]
+
+
+def pack_decoder_weights(dec_params, mem: attn.AttnMemory) -> DecoderWeights:
+    if len(dec_params["cells"]) != 1:
+        raise ValueError("the beam step supports decoder_depth=1")
+    if not mem.projected:
+        raise ValueError("the beam step requires pre-projected memory")
+    cell = dec_params["cells"][0]
+    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    return DecoderWeights(f32(cell["kernel"]), f32(cell["recurrent"]), f32(cell["bias"]),
+                          f32(mem.watt_h), f32(dec_params["fc"]["kernel"]),
+                          f32(dec_params["fc"]["bias"]))
+
+
+class StepState(NamedTuple):
+    tok: torch.Tensor
+    h: torch.Tensor
+    c: torch.Tensor
+    att: torch.Tensor
+    cum: torch.Tensor
+    fin: torch.Tensor
+
+
+def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
+    """Plain PyTorch version of one step. Returns (next state, parents)."""
+    B, S, U = keys.shape
+    W = st.cum.shape[1]
+    V = w.wfc.shape[1]
+    emb = (st.tok[:, None] == torch.arange(V, device=st.tok.device)).to(torch.float32)
+    z = torch.cat([emb, st.att], dim=1) @ w.wx + st.h @ w.wh + w.b
+    i, f, g, o = z.split(U, dim=1)
+    c_new = torch.sigmoid(f) * st.c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+
+    mem = attn.AttnMemory(keys=keys, values=values, mask=mask)
+    context, _ = attn.attend_beams(h_new.reshape(B, W, U), mem)
+    att_new = h_new @ w.watt_h + context.reshape(B * W, U)
+    logits = att_new @ w.wfc + w.bfc  # [B*W, V]
+
+    lmax = logits.max(dim=1, keepdim=True).values
+    lse = torch.log(torch.exp(logits - lmax).sum(dim=1, keepdim=True)) + lmax
+    step_lp = (logits - lse).reshape(B, W, V)
+    fin_row = torch.full((V,), NEG_INF, device=keys.device)
+    fin_row[end_token] = 0.0
+    step_lp = torch.where(st.fin[..., None], fin_row, step_lp)
+    # padding columns V..VP-1: logit finfo.min, log-prob finfo.min - lse ==
+    # finfo.min, finished or not
+    total = torch.full((B, W, VP), NEG_INF, device=keys.device) + st.cum[..., None]
+    total[..., :V] = st.cum[..., None] + step_lp
+    new_cum, idx = top_w(total.reshape(B, W * VP), W)
+    parent, token = idx // VP, idx % VP
+
+    flat_parent = (parent + (torch.arange(B, device=keys.device) * W)[:, None]).reshape(-1)
+    new_fin = torch.gather(st.fin, 1, parent) | (token == end_token)
+    nxt = StepState(token.reshape(-1).to(torch.int32), h_new[flat_parent], c_new[flat_parent],
+                    att_new[flat_parent], new_cum, new_fin)
+    return nxt, parent.to(torch.int32)
+
+
+def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
+    """One beam step: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Returns (next state, parents [B, W])."""
+    if not keys.is_cuda:
+        return beam_step_plain(st, keys, values, mask, w, end_token)
+    B, S, U = keys.shape
+    W = st.cum.shape[1]
+    V = w.wfc.shape[1]
+    if U != UNITS:
+        raise ValueError(f"beam_step kernel is compiled for {UNITS} units, got {U}")
+    if W not in KERNEL_BEAMS:
+        raise ValueError(f"beam_step kernel is compiled for beam widths {KERNEL_BEAMS}, got {W}")
+    if keys.dtype not in (torch.bfloat16, torch.float32) or values.dtype != keys.dtype:
+        raise ValueError("beam_step: keys and values must both be bf16 or both f32")
+    if not 0 <= end_token < V <= VP:
+        raise ValueError(f"beam_step: need 0 <= end_token < V <= {VP}")
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    expect = [
+        ("tok", st.tok, i32, (B * W,)), ("h", st.h, f32, (B * W, U)), ("c", st.c, f32, (B * W, U)),
+        ("att", st.att, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)), ("fin", st.fin, b8, (B, W)),
+        ("keys", keys, keys.dtype, (B, S, U)), ("values", values, keys.dtype, (B, S, U)),
+        ("mask", mask, b8, (B, S)), ("wx", w.wx, f32, (V + U, 4 * U)), ("wh", w.wh, f32, (U, 4 * U)),
+        ("b", w.b, f32, (4 * U,)), ("watt_h", w.watt_h, f32, (U, U)), ("wfc", w.wfc, f32, (U, V)),
+        ("bfc", w.bfc, f32, (V,)),
+    ]
+    for name, t, dt, shape in expect:
+        if t.device != keys.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"beam_step: {name} must be a contiguous {dt} tensor on {keys.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"beam_step: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if keys.data_ptr() % 16 or values.data_ptr() % 16:
+        raise ValueError("beam_step: keys and values must be 16-byte aligned")
+    dev = keys.device
+    nxt = StepState(torch.empty(B * W, dtype=i32, device=dev), torch.empty_like(st.h),
+                    torch.empty_like(st.c), torch.empty_like(st.att), torch.empty_like(st.cum),
+                    torch.empty_like(st.fin))
+    parent = torch.empty(B, W, dtype=i32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = cuda_lib.lib().rv_beam_step(
+        int(keys.dtype == torch.bfloat16), W, B, S, V, VP, end_token,
+        st.tok.data_ptr(), st.h.data_ptr(), st.c.data_ptr(), st.att.data_ptr(),
+        st.cum.data_ptr(), st.fin.data_ptr(), keys.data_ptr(), values.data_ptr(),
+        mask.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
+        w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
+        nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
+        nxt.fin.data_ptr(), stream,
+    )
+    cuda_lib.check(rc, "beam_step")
+    cuda_lib.launches["beam_step"] += 1
+    return nxt, parent
+
+
+def initial_state(B: int, W: int, U: int, start_token: int, device) -> StepState:
+    z = lambda: torch.zeros(B * W, U, device=device)  # noqa: E731
+    return StepState(torch.full((B * W,), start_token, dtype=torch.int32, device=device),
+                     z(), z(), z(), initial_cum(B, W, device),
+                     torch.zeros(B, W, dtype=torch.bool, device=device))
+
+
+def beam_step_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_width: int,
+                     total_steps: int, max_steps: Optional[int] = None, start_token: int = 2,
+                     end_token: int = 1) -> BeamResult:
+    """Beam search with one fused step per iteration. Runs
+    ``eff = min(max_steps, total_steps)`` steps (the tail is never computed:
+    tokens, parents and scores stay 0 there), then rebuilds the lengths and
+    backtracks. Requires pre-projected memory, a depth-1 LSTM decoder and
+    Luong attention."""
+    if vocab_size > VP:
+        raise ValueError(f"vocab_size must be <= {VP}")
+    B, S = mem.mask.shape
+    W = beam_width
+    dev = mem.keys.device
+    w = pack_decoder_weights(dec_params, mem)
+    U = w.wh.shape[0]
+    keys, values = mem.keys.contiguous(), mem.values.contiguous()
+    mask = mem.mask.contiguous()
+    eff = total_steps if max_steps is None else min(int(max_steps), total_steps)
+    tokens = torch.zeros(total_steps, B, W, dtype=torch.int32, device=dev)
+    parents = torch.zeros_like(tokens)
+    scores = torch.zeros(total_steps, B, W, device=dev)
+    st = initial_state(B, W, U, start_token, dev)
+    for t in range(eff):
+        st, parent = beam_step(st, keys, values, mask, w, end_token)
+        tokens[t] = st.tok.reshape(B, W)
+        parents[t] = parent
+        scores[t] = st.cum
+    lengths = reconstruct_lengths(tokens, parents, end_token)
+    final = gather_tree(tokens, parents, lengths, eff, end_token)
+    return BeamResult(tokens=final.permute(1, 0, 2), scores=scores.permute(1, 0, 2))

@@ -1,0 +1,118 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source has a plain ``extern "C"`` interface and includes
+no PyTorch header, so it compiles in seconds. On first use each source is
+compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
+the objects are linked into one shared library in the gitignored
+``ravvent_tpu_torch/build/`` directory, and the library is loaded with
+``ctypes``. Every pointer and the stream cross as ``ctypes.c_void_p``.
+
+``launches`` counts kernel launches per kernel: each wrapper adds one where
+it launches its kernel, so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+LIB_PATH = BUILD / "libravvent_kernels.so"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+launches: Dict[str, int] = {"bilstm": 0, "beam_step": 0}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_build_log = ""
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the machine with the card")
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build(force: bool = False) -> str:
+    """Compile every source (one nvcc each, in parallel) and link the shared
+    library. Returns the compilers' output, which includes ``-Xptxas -v``'s
+    registers and shared memory per kernel. Raises on any compiler error."""
+    global _build_log
+    srcs = sources()
+    if (not force and LIB_PATH.exists()
+            and all(LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in srcs)):
+        return _build_log
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}"
+    objs = [BUILD / f"{s.stem}.{tag}.o" for s in srcs]
+    procs = [
+        subprocess.Popen(
+            [nvcc, ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+             "-c", str(s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for s, o in zip(srcs, objs)
+    ]
+    logs = []
+    failed = []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate(timeout=600)
+        logs.append(f"== {s.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(s.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+    tmp = BUILD / f"{LIB_PATH.name}.{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, ARCH, "-shared", "-o", str(tmp)] + [str(o) for o in objs],
+        capture_output=True, text=True, timeout=300,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+    os.replace(tmp, LIB_PATH)  # atomic: a concurrent process never sees half a file
+    for o in objs:
+        o.unlink()
+    _build_log = "\n".join(logs)
+    return _build_log
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            handle = ctypes.CDLL(str(LIB_PATH))
+            P, I = ctypes.c_void_p, ctypes.c_int
+            handle.rv_bilstm_layer.restype = I
+            handle.rv_bilstm_layer.argtypes = [P, I, I, I] + [P] * 8 + [P]
+            handle.rv_beam_step.restype = I
+            handle.rv_beam_step.argtypes = [I] * 7 + [P] * 23
+            _lib = handle
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")

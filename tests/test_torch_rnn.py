@@ -1,0 +1,95 @@
+"""BiLSTM layer and encoder of the port against the JAX package on the CPU.
+
+The JAX side runs the TPU kernel in interpret mode
+(run_bidi_lstm_pallas(interpret=True)); the port's CPU path is the kernel's
+plain version. Both compute in f32 with another summation order: 1e-5."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ravvent_tpu.models import rnn as jrnn
+from ravvent_tpu.ops.rnn_pallas import run_bidi_lstm_pallas
+from ravvent_tpu_torch.models import rnn as trnn
+from ravvent_tpu_torch.ops import rnn_cuda
+from ravvent_tpu_torch.weights import from_jax_params
+
+torch.set_num_threads(1)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _layer(F, U, seed):
+    jl = jrnn.init_encoder(jax.random.PRNGKey(seed), U, 1, F)[0]
+    return jl, from_jax_params(jax.tree_util.tree_map(np.asarray, jl))
+
+
+def test_lstm_step_matches_jax():
+    rng = np.random.default_rng(0)
+    p = jrnn.init_lstm_cell(jax.random.PRNGKey(1), 9, 16)
+    x, h, c = (rng.normal(size=s).astype(np.float32) for s in [(4, 9), (4, 16), (4, 16)])
+    (jh, jc), _ = jrnn.lstm_step(p, (jnp.asarray(h), jnp.asarray(c)), jnp.asarray(x))
+    tp = from_jax_params(jax.tree_util.tree_map(np.asarray, p))
+    (th, tc), _ = trnn.lstm_step(tp, (torch.from_numpy(h), torch.from_numpy(c)), torch.from_numpy(x))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero_state", "initial_state"])
+@pytest.mark.parametrize("F", [1, 5, 256])
+def test_run_bidi_layer_matches_pallas_interpret(F, seeded):
+    U, B, T = 128, 8, 12
+    rng = np.random.default_rng(F)
+    jl, tl = _layer(F, U, F)
+    xs = rng.normal(size=(B, T, F)).astype(np.float32)
+    state = None
+    if seeded:
+        h0, c0 = (0.5 * rng.normal(size=(2, B, U))).astype(np.float32), (
+            0.5 * rng.normal(size=(2, B, U))).astype(np.float32)
+        state = (h0, c0)
+    jout, (jh, jc) = run_bidi_lstm_pallas(
+        jl, jnp.asarray(xs), None if state is None else tuple(map(jnp.asarray, state)),
+        interpret=True)
+    tout, (th, tc) = trnn.run_bidi_layer(
+        tl, torch.from_numpy(xs), None if state is None else tuple(map(torch.from_numpy, state)))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+
+
+def test_bilstm_wrapper_uses_plain_version_on_cpu():
+    U, B, T, F = 128, 3, 5, 4
+    _, tl = _layer(F, U, 7)
+    xs = torch.randn(B, T, F, generator=torch.Generator().manual_seed(0))
+    z = torch.zeros(2, B, U)
+    wx, wh, b = trnn.stacked_weights(tl)
+    got = rnn_cuda.bilstm_layer(xs, wx, wh, b, z, z)
+    ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, z, z)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_encoder_apply_matches_jax_scan():
+    """Two stacked layers: layer 0's final states seed layer 1, forward to
+    forward and backward to backward."""
+    B, T, F, U = 4, 10, 5, 16
+    jls = jrnn.init_encoder(jax.random.PRNGKey(3), U, 2, F)
+    tls = from_jax_params(jax.tree_util.tree_map(np.asarray, jls))
+    xs = np.random.default_rng(1).normal(size=(B, T, F)).astype(np.float32)
+    jout, (jh, jc) = jrnn.encoder_apply(jls, jnp.asarray(xs))
+    tout, (th, tc) = trnn.encoder_apply(tls, torch.from_numpy(xs))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+
+
+def test_seeded_init_shapes_and_keras_conventions():
+    gen = torch.Generator().manual_seed(0)
+    cell = trnn.init_lstm_cell(gen, 5, 16)
+    assert cell["kernel"].shape == (5, 64) and cell["recurrent"].shape == (16, 64)
+    assert torch.equal(cell["bias"][16:32], torch.ones(16))  # unit forget bias
+    r = cell["recurrent"].double()
+    torch.testing.assert_close(r @ r.T, torch.eye(16, dtype=torch.float64), atol=1e-5, rtol=0)
+    again = trnn.init_lstm_cell(torch.Generator().manual_seed(0), 5, 16)
+    assert all(torch.equal(cell[k], again[k]) for k in cell)
