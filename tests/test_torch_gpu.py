@@ -18,6 +18,7 @@ from ravvent_tpu_torch.models.rnn import init_encoder, stacked_weights
 from ravvent_tpu_torch.ops import beam_step_cuda, cuda_lib, rnn_cuda
 
 pytestmark = pytest.mark.gpu
+torch.set_num_threads(1)
 
 
 @pytest.fixture
