@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the basecalling CLI's read path
-(ravvent_tpu_torch/tools/basecall.py:basecall_read) at the flagship's full
-width (joint raw+event input, 2-layer BiLSTM encoder of 128 units, 1-layer
-LSTM decoder with Luong attention, vocab 7, beam 5) on seeded random
-weights — and holds each hand-written kernel against its plain PyTorch
-version on the card:
+Drives the port's paths — the basecalling CLI's read path
+(ravvent_tpu_torch/tools/basecall.py:basecall_read) with --beam-impl step
+and with --beam-impl loop, and fused greedy decode
+(ops/decode_step_cuda.py:fused_greedy_decode) — at the flagship's full width
+(joint raw+event input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM
+decoder with Luong attention, vocab 7, beam 5) on seeded random weights, and
+holds each hand-written kernel against its plain PyTorch version on the card:
 
   0. device: the card, torch, CUDA and nvcc versions; TF32 off;
   1. build: nvcc builds the kernels from csrc/ (registers and shared memory
@@ -16,7 +17,18 @@ version on the card:
      W=5, bf16 memory, 40 steps, each step fed the plain version's state;
   4. end to end: 4 simulated reads through the CLI's read path, with each
      kernel's launch count, then a check against the CPU (plain) engine on
-     the first 64 snippets of the first read.
+     the first 64 snippets of the first read;
+  5. the beam-loop kernel against its plain version at B=4096, S=232, W=5,
+     bf16 memory, 39 live steps (one launch), timed beside the beam-step
+     kernel's 39-step loop on the same memory; then f32 memory at B=256;
+  6. the decode-step kernel against its plain version at B=4096, S=232,
+     E=256, f32 memory, 40 chained steps, each fed the plain version's state;
+  7. end to end: the same 4 reads through the read path with
+     beam_impl="loop" (one beam-loop launch per chunk, no beam-step launch),
+     checked against the step path and the CPU on 64 snippets;
+  8. end to end: the first read's snippets encoded by the BiLSTM kernel, as
+     un-projected f32 memory, decoded by fused_greedy_decode on the card,
+     checked against plain greedy_decode on the CPU on 64 snippets.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -32,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -177,6 +190,18 @@ def beam_step_bounds(B: int, S: int, U: int, W: int, V: int, mem_bytes: int) -> 
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
+def encoder_like_memory(gen: torch.Generator, B: int, S: int, E: int, dev) -> tuple:
+    """Memory [B, S, E] and mask [B, S] shaped like the encoder's: a valid raw
+    prefix of 120-200 samples, 15-30 events, 2 positions of padding to a
+    multiple of 8."""
+    memory = torch.tanh(torch.randn(B, S, E, generator=gen)).to(dev)
+    pos = torch.arange(S)
+    n_raw = torch.randint(120, 201, (B, 1), generator=gen)
+    n_ev = torch.randint(15, 31, (B, 1), generator=gen)
+    mask = ((pos < n_raw) | ((pos >= 200) & (pos < 200 + n_ev))).to(dev)
+    return memory, mask
+
+
 def phase_beam_step() -> dict:
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
@@ -188,13 +213,7 @@ def phase_beam_step() -> dict:
     gen = torch.Generator().manual_seed(SEED + 1)
     B, S, U, W, V, E, steps = 4096, 232, 128, 5, 7, 256, 40
     dec_p = init_decoder(gen, V, 1, U, E, dev)
-    # encoder-like memory: valid raw prefix of 120-200 samples, 15-30 events,
-    # 2 positions of padding to a multiple of 8
-    memory = torch.tanh(torch.randn(B, S, E, generator=gen)).to(dev)
-    pos = torch.arange(S)
-    n_raw = torch.randint(120, 201, (B, 1), generator=gen)
-    n_ev = torch.randint(15, 31, (B, 1), generator=gen)
-    mask = ((pos < n_raw) | ((pos >= 200) & (pos < 200 + n_ev))).to(dev)
+    memory, mask = encoder_like_memory(gen, B, S, E, dev)
     mem = attn.setup_memory(dec_p["attention"], memory, mask, torch.bfloat16,
                             attention_layer=dec_p["attention_layer"])
     w = pack_decoder_weights(dec_p, mem)
@@ -233,20 +252,10 @@ def phase_beam_step() -> dict:
             "library_ms": None}
 
 
-def phase_end_to_end() -> dict:
-    from ravvent_tpu_torch.assembly.merger import Merger
-    from ravvent_tpu_torch.config import ModelConfig
+def simulated_reads() -> list:
+    """4 simulated reads of 12-18 kb from a 60 kb random genome (seeded)."""
     from ravvent_tpu_torch.data import simulator
-    from ravvent_tpu_torch.data.snippets import prepare_compact
-    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
-    from ravvent_tpu_torch.models.basecaller import init_basecaller
-    from ravvent_tpu_torch.ops import cuda_lib
-    from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN, basecall_read
 
-    cfg = ModelConfig()  # the flagship: joint, 2 x BiLSTM(128), LSTM(128) + Luong, vocab 7
-    params = init_basecaller(cfg, torch.Generator().manual_seed(SEED))
-    engine = BasecallEngine(params, cfg, chunk_size=4096)  # the CLI's settings, on cuda
-    merger = Merger()
     rng = np.random.default_rng(SEED)
     genome = simulator.random_genome(60_000, rng)
     pore = simulator.PoreModel()
@@ -255,6 +264,28 @@ def phase_end_to_end() -> dict:
         n = int(rng.integers(12_000, 18_001))
         s = int(rng.integers(0, len(genome) - n))
         reads.append(simulator.simulate_read(genome[s:s + n], rng, pore))
+    return reads
+
+
+def flagship_params():
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.models.basecaller import init_basecaller
+
+    cfg = ModelConfig()  # the flagship: joint, 2 x BiLSTM(128), LSTM(128) + Luong, vocab 7
+    return cfg, init_basecaller(cfg, torch.Generator().manual_seed(SEED))
+
+
+def phase_end_to_end() -> dict:
+    from ravvent_tpu_torch.assembly.merger import Merger
+    from ravvent_tpu_torch.data.snippets import prepare_compact
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN, basecall_read
+
+    cfg, params = flagship_params()
+    engine = BasecallEngine(params, cfg, chunk_size=4096)  # the CLI's settings, on cuda
+    merger = Merger()
+    reads = simulated_reads()
 
     # warm-up on a short read (first-use costs: native g++ build, cuBLAS)
     basecall_read(engine, merger, reads[0][0][:3000], reads[0][1][reads[0][1][:, 1] <= 3000])
@@ -297,7 +328,276 @@ def phase_end_to_end() -> dict:
     require(t_gpu.shape == (64, 40) and np.isfinite(p_gpu).all(), "bad result shape or probs")
     require(((t_gpu >= 0) & (t_gpu < cfg.vocab_size)).all(), "token out of the vocabulary")
     require(agree >= 0.99, "card and CPU disagree on the end-to-end tokens")
-    print('kernels: ["bilstm", "beam_step"]')
+    return counts
+
+
+def beam_loop_bounds(B: int, S: int, U: int, W: int, V: int, mem_bytes: int,
+                     steps: int) -> tuple:
+    """The whole loop's bound: ``steps`` beam steps of operations, the memory,
+    mask and weights read once, the live steps' tokens, parents and scores
+    written once."""
+    hyps = B * W
+    f32_flops = steps * hyps * (2 * (V + 2 * U) * 4 * U + 2 * U * U + 2 * U * V)
+    mem_flops = steps * hyps * 2 * 2 * S * U  # scores and context on the memory
+    nbytes = (2 * B * S * U * mem_bytes + B * S
+              + 4 * ((V + 2 * U) * 4 * U + 4 * U + U * U + U * V + V)
+              + steps * hyps * 12)
+    mem_peak = H100_BF16_FLOPS if mem_bytes == 2 else H100_F32_FLOPS
+    t_ops = f32_flops / H100_F32_FLOPS + mem_flops / mem_peak
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def compare_loops(got, ref, eff: int, end_token: int = 1) -> tuple:
+    """(top-beam token agreement after the backtrack, share of live
+    (step, row) pairs on an agreeing prefix, max score error there) of two
+    whole-loop results [T, B, W]. A row's trajectories agree until its first
+    flipped near-tie; scores are compared on each row's agreeing prefix."""
+    from ravvent_tpu_torch.ops.beam_step_cuda import backtrack
+
+    tok, par, sc = got
+    rtok, rpar, rsc = ref
+    top = backtrack(tok, par, sc, eff, end_token).tokens[:, :, 0]
+    rtop = backtrack(rtok, rpar, rsc, eff, end_token).tokens[:, :, 0]
+    same = ((tok == rtok) & (par == rpar)).all(dim=2)[:eff]  # [eff, B]
+    prefix = torch.cumprod(same.int(), dim=0).bool()
+    err = (sc[:eff] - rsc[:eff]).abs()[prefix].max().item() if prefix.any() else float("inf")
+    return (top == rtop).float().mean().item(), prefix.float().mean().item(), err
+
+
+def phase_beam_loop() -> dict:
+    from ravvent_tpu_torch.models import attention as attn
+    from ravvent_tpu_torch.models.decoder import init_decoder
+    from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop, beam_loop_plain
+    from ravvent_tpu_torch.ops.beam_step_cuda import beam_step, pack_decoder_weights, step_loop
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    U, W, V, E, T, eff = 128, 5, 7, 256, 47, 39  # the CLI: 47 steps, 39 live
+    dec_p = init_decoder(gen, V, 1, U, E, dev)
+    tol = 1e-2  # cumulative log-prob; h and alignments round to the memory dtype in both
+    out = {}
+    # the main path's chunk in bf16 (measured), then a smaller f32 check
+    for first, (B, S, dtype) in zip((True, False), ((4096, 232, torch.bfloat16),
+                                                    (256, 232, torch.float32))):
+        memory, mask = encoder_like_memory(gen, B, S, E, dev)
+        mem = attn.setup_memory(dec_p["attention"], memory, mask, dtype,
+                                attention_layer=dec_p["attention_layer"])
+        del memory
+        w = pack_decoder_weights(dec_p, mem)
+        keys, values = mem.keys.contiguous(), mem.values.contiguous()
+        got = beam_loop(keys, values, mask, w, W, T, eff, 2, 1)
+        ref = beam_loop_plain(keys, values, mask, w, W, T, eff, 2, 1)
+        torch.cuda.synchronize()
+        agree, prefix, err = compare_loops(got, ref, eff)
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        line = (f"  beam_loop B={B} S={S} W={W} {name}, {eff} live steps: top-beam tokens agree "
+                f"{agree:.5f} (need >= 0.998), live (step, row) pairs on an agreeing prefix "
+                f"{prefix:.5f}; score max_abs_err there {err:.3e} (tol {tol:g})")
+        require(agree >= 0.998, f"beam_loop {name}: top-beam token agreement {agree:.5f} < 0.998")
+        require(err <= tol, f"beam_loop {name}: score error {err:.3e} > {tol}")
+        if first:
+            ms = time_ms(lambda: beam_loop(keys, values, mask, w, W, T, eff, 2, 1), reps=5)
+            plain_ms = time_ms(lambda: beam_loop_plain(keys, values, mask, w, W, T, eff, 2, 1),
+                               reps=1)
+            step_ms = time_ms(lambda: step_loop(beam_step, keys, values, mask, w, W, T, eff, 2, 1),
+                              reps=2)
+            bound, by = beam_loop_bounds(B, S, U, W, V, 2, eff)
+            line += (f"; kernel {ms:.3f} ms/chunk, plain {plain_ms:.3f} ms/chunk, beam_step "
+                     f"kernel x {eff} {step_ms:.3f} ms/chunk, bound {bound:.3f} ms/chunk ({by})")
+            out = {"name": "beam_loop", "route": "cuda",
+                   "source": "ravvent_tpu_torch/csrc/beam_loop.cu",
+                   "replaces": "ravvent_tpu/ops/beam_loop_pallas.py:42", "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": None}
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        print(line, flush=True)
+        del mem, keys, values, got, ref
+    return out
+
+
+def decode_step_bounds(B: int, S: int, U: int, E: int, V: int) -> tuple:
+    f32_flops = B * (2 * (V + 2 * U) * 4 * U + 2 * S * U + 2 * S * E + 2 * (U + E) * U
+                     + 2 * U * V)
+    nbytes = (4 * B * S * (U + E) + B * S  # keys, values, mask
+              + 4 * B * (1 + 3 * U) + 4 * B * (3 * U + V)  # state in, state and logits out
+              + 4 * ((V + 2 * U) * 4 * U + 4 * U + (U + E) * U + U * V + V))  # weights
+    t_ops, t_bytes = f32_flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_decode_step() -> dict:
+    from ravvent_tpu_torch.models import attention as attn
+    from ravvent_tpu_torch.models.decoder import init_decoder
+    from ravvent_tpu_torch.ops.decode_step_cuda import (
+        fused_decode_step, fused_decode_step_plain, pack_decoder_weights,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    B, S, U, V, E, steps = 4096, 232, 128, 7, 256, 40
+    dec_p = init_decoder(gen, V, 1, U, E, dev)
+    memory, mask = encoder_like_memory(gen, B, S, E, dev)
+    mem = attn.setup_memory(dec_p["attention"], memory, mask, torch.float32)  # un-projected
+    del memory
+    w = pack_decoder_weights(dec_p)
+    keys, values = mem.keys.contiguous(), mem.values.contiguous()
+    tok = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    h, c, att = (torch.zeros(B, U, device=dev) for _ in range(3))
+    tol = 1e-4  # f32 throughout, another summation order
+    err = 0.0
+    agree = n = 0
+    for _ in range(steps):
+        got = fused_decode_step(w, tok, att, h, c, keys, values, mask)
+        ref = fused_decode_step_plain(w, tok, att, h, c, keys, values, mask)
+        err = max([err] + [(g - r).abs().max().item() for g, r in zip(got, ref)])
+        agree += (got[3].argmax(dim=1) == ref[3].argmax(dim=1)).sum().item()
+        n += B
+        h, c, att, logits = ref
+        tok = logits.argmax(dim=1).to(torch.int32)
+    torch.cuda.synchronize()
+    share = agree / n
+    h0, c0, a0 = (torch.zeros(B, U, device=dev) for _ in range(3))
+    t0 = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: fused_decode_step(w, t0, a0, h0, c0, keys, values, mask), reps=20)
+    plain_ms = time_ms(lambda: fused_decode_step_plain(w, t0, a0, h0, c0, keys, values, mask),
+                       reps=3)
+    bound, by = decode_step_bounds(B, S, U, E, V)
+    print(f"  decode_step B={B} S={S} E={E} f32, {steps} chained steps: argmax agree "
+          f"{share:.5f} (need >= 0.998); h/c/att/logits max_abs_err {err:.3e} (tol {tol:g}); "
+          f"kernel {ms:.4f} ms/step, plain {plain_ms:.4f} ms/step, bound {bound:.4f} ms/step "
+          f"({by})")
+    require(share >= 0.998, f"decode_step: argmax agreement {share:.5f} < 0.998")
+    require(err <= tol, f"decode_step: error {err:.3e} > {tol}")
+    return {"name": "decode_step", "route": "cuda",
+            "source": "ravvent_tpu_torch/csrc/decode_step.cu",
+            "replaces": "ravvent_tpu/ops/decode_step_pallas.py:41", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def phase_end_to_end_loop() -> dict:
+    from ravvent_tpu_torch.assembly.merger import Merger
+    from ravvent_tpu_torch.data.snippets import prepare_compact
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN, basecall_read
+
+    cfg, params = flagship_params()
+    engine = BasecallEngine(params, cfg, chunk_size=4096, beam_impl="loop")  # --beam-impl loop
+    merger = Merger()
+    reads = simulated_reads()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    n_snip = n_bases = chunks = 0
+    decode_s = 0.0
+    for raw, ranges in reads:
+        call = basecall_read(engine, merger, raw, ranges)
+        require(call is not None, "a simulated read gave no snippets")
+        n_snip += call.n_snippets
+        n_bases += len(call.merged.seq)
+        chunks += -(-call.n_snippets // engine.chunk_size)
+        decode_s += call.seconds["decode"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    print(f"  beam_impl=loop: reads {len(reads)}, snippets {n_snip}, chunks {chunks}, "
+          f"bases {n_bases}, wall {wall:.3f} s (decode {decode_s:.3f} s), "
+          f"{n_bases / wall:.1f} bases/s")
+    print(f"  launches: bilstm {counts['bilstm']}, beam_loop {counts['beam_loop']}, "
+          f"beam_step {counts['beam_step']}")
+    require(counts["bilstm"] > 0 and counts["beam_loop"] == chunks,
+            "beam_impl=loop: the beam-loop kernel was not launched once per chunk")
+    require(counts["beam_step"] == 0, "beam_impl=loop launched the beam-step kernel")
+
+    raw, ranges = reads[0]
+    sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
+    rr, er = rr[:64], er[:64]
+    t_loop, p_loop = engine.predict_beam_compact(sig, rr, ev, er, MAX_OUTPUT_LEN, 5)
+    step = BasecallEngine(params, cfg, chunk_size=4096)
+    t_step, _ = step.predict_beam_compact(sig, rr, ev, er, MAX_OUTPUT_LEN, 5)
+    cpu = BasecallEngine(params, cfg, chunk_size=4096, device="cpu", beam_impl="loop")
+    t_cpu, _ = cpu.predict_beam_compact(sig, rr, ev, er, MAX_OUTPUT_LEN, 5)
+    vs_step, vs_cpu = float((t_loop == t_step).mean()), float((t_loop == t_cpu).mean())
+    print(f"  loop on the card vs step on the card / vs the CPU on 64 snippets: tokens agree "
+          f"{vs_step:.5f} / {vs_cpu:.5f} (need >= 0.99)")
+    require(t_loop.shape == (64, 40) and np.isfinite(p_loop).all(), "bad result shape or probs")
+    require(vs_step >= 0.99 and vs_cpu >= 0.99, "beam_impl=loop disagrees end to end")
+    return counts
+
+
+def compact_snippets(raw: np.ndarray, ranges: np.ndarray, n: Optional[int] = None) -> tuple:
+    """A read's snippets as the engine builds them (compact form, f16 wire,
+    gathered): raw [N, 200, 1], event [N, 30, 5] CPU tensors."""
+    from ravvent_tpu_torch.data.snippets import prepare_compact
+    from ravvent_tpu_torch.ops.gather_rows import gather_rows
+
+    sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
+    rr, er = rr[:n], er[:n]
+    rr, er = np.minimum(rr, sig.shape[0]), np.minimum(er, ev.shape[0])
+    sig_t = torch.from_numpy(sig.astype(np.float16).astype(np.float32))
+    ev_t = torch.from_numpy(ev.astype(np.float16).astype(np.float32))
+    rr_t, er_t = torch.from_numpy(rr.astype(np.int64)), torch.from_numpy(er.astype(np.int64))
+    raw_s = gather_rows(sig_t, rr_t[:, 0], rr_t[:, 1] - rr_t[:, 0], 200)[..., None]
+    event = gather_rows(ev_t.reshape(-1), er_t[:, 0] * 5, (er_t[:, 1] - er_t[:, 0]) * 5,
+                        150).reshape(-1, 30, 5)
+    return raw_s, event
+
+
+def greedy_snippets(params, cfg, raw: torch.Tensor, event: torch.Tensor, fused: bool) -> tuple:
+    """Encode snippets, set them up as un-projected f32 memory (S padded to
+    a multiple of 8) and greedy-decode them: fused_greedy_decode when
+    ``fused``, else the plain greedy_decode."""
+    from ravvent_tpu_torch.decode.greedy import greedy_decode
+    from ravvent_tpu_torch.models import attention as attn
+    from ravvent_tpu_torch.models.basecaller import encode_input
+    from ravvent_tpu_torch.ops.decode_step_cuda import fused_greedy_decode
+
+    dec = params["decoder"]
+    enc, mask = encode_input(params, raw, event, cfg)
+    pad = (-enc.shape[1]) % 8
+    enc = torch.nn.functional.pad(enc, (0, 0, 0, pad))
+    mask = torch.nn.functional.pad(mask, (0, pad))
+    mem = attn.setup_memory(dec["attention"], enc, mask, torch.float32)
+    decode = fused_greedy_decode if fused else greedy_decode
+    return decode(dec, mem, cfg.vocab_size, 47, 39, start_token=2, end_token=1)
+
+
+def phase_greedy() -> dict:
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.weights import to_device
+
+    cfg, params = flagship_params()
+    dev = torch.device("cuda")
+    params_c = to_device(params, dev)
+    raw, ranges = simulated_reads()[0]
+    raw_s, event = compact_snippets(raw, ranges)
+    raw_c, event_c = raw_s.to(dev), event.to(dev)
+    with torch.inference_mode():
+        greedy_snippets(params_c, cfg, raw_c[:256], event_c[:256], True)  # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        tok, logits = greedy_snippets(params_c, cfg, raw_c, event_c, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda_lib.launches)
+        n = raw_s.shape[0]
+        print(f"  fused greedy on one read: snippets {n}, wall {wall:.3f} s; launches: bilstm "
+              f"{counts['bilstm']}, decode_step {counts['decode_step']}")
+        require(counts["bilstm"] > 0 and counts["decode_step"] > 0,
+                "fused greedy decode did not launch its kernels")
+        require(tuple(tok.shape) == (n, 47) and bool(torch.isfinite(logits).all()),
+                "bad greedy result shape or logits")
+        # all_done couples a batch's rows: card and CPU decode the same 64 rows
+        t_card, _ = greedy_snippets(params_c, cfg, raw_c[:64], event_c[:64], True)
+        t_cpu, _ = greedy_snippets(params, cfg, raw_s[:64], event[:64], False)
+    agree = (t_card.cpu() == t_cpu).float().mean().item()
+    print(f"  fused greedy on the card vs plain greedy_decode on the CPU, 64 snippets: "
+          f"tokens agree {agree:.5f} (need >= 0.99)")
+    require(agree >= 0.99, "fused greedy decode on the card disagrees with the CPU")
     return counts
 
 
@@ -320,12 +620,30 @@ def main() -> int:
     phase("3 beam_step kernel", t0)
     t0 = time.perf_counter()
     counts = phase_end_to_end()
+    require(counts["beam_loop"] == 0 and counts["decode_step"] == 0,
+            "the step path launched a kernel of another path")
     phase("4 end to end", t0)
+    t0 = time.perf_counter()
+    k_loop = phase_beam_loop()
+    phase("5 beam_loop kernel", t0)
+    t0 = time.perf_counter()
+    k_dstep = phase_decode_step()
+    phase("6 decode_step kernel", t0)
+    t0 = time.perf_counter()
+    counts_loop = phase_end_to_end_loop()
+    phase("7 end to end, beam_impl=loop", t0)
+    t0 = time.perf_counter()
+    counts_greedy = phase_greedy()
+    phase("8 end to end, fused greedy", t0)
+    # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_beam["launches"] = counts["beam_step"]
+    k_loop["launches"] = counts_loop["beam_loop"]
+    k_dstep["launches"] = counts_greedy["decode_step"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (k_bilstm, k_beam)]}))
+    print(json.dumps({"kernels": [{k: kd[k] for k in keys}
+                                  for kd in (k_bilstm, k_beam, k_loop, k_dstep)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

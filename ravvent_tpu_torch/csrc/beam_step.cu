@@ -25,9 +25,7 @@
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -36,49 +34,6 @@ constexpr int kG = 4 * kU;
 constexpr int kRows = 4;        // batch rows per CTA
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr float kNegMax = -3.4028234663852886e38f;  // finfo(float32).min
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
-
-// Rounding of an f32 operand to the memory's precision: the reference casts
-// h and the alignments to the memory dtype before each dot, accumulating in f32.
-template <typename M> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Four consecutive memory elements starting at p (16 B aligned for f32, 8 B for bf16).
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
-}
-__device__ __forceinline__ void load2(const float* p, float v[2]) {
-  const float2 q = __ldg(reinterpret_cast<const float2*>(p));
-  v[0] = q.x; v[1] = q.y;
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float v[2]) {
-  const unsigned int q = __ldg(reinterpret_cast<const unsigned int*>(p));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 struct Smem {
   // offsets into the dynamic shared buffer, in floats
@@ -227,20 +182,7 @@ beam_step_kernel(int B, int S, int V, int VP, int end_token,
 
     // masked softmax: one warp per hypothesis; alignments rounded to the
     // memory's precision for the context product
-    for (int w = warp; w < W; w += kWarps) {
-      float* srow = sc + w * S;
-      float m = kNegMax;
-      for (int s = lane; s < S; s += 32) m = fmaxf(m, srow[s]);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int s = lane; s < S; s += 32) {
-        const float e = expf(srow[s] - m);
-        srow[s] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int s = lane; s < S; s += 32) srow[s] = round_to<M>(srow[s] / sum);
-    }
+    for (int w = warp; w < W; w += kWarps) warp_softmax<M>(sc + w * S, S, lane);
     __syncthreads();
 
     // context: thread = (unit pair, quarter of the positions)
@@ -335,18 +277,9 @@ beam_step_kernel(int B, int S, int V, int VP, int end_token,
     float* f = flat + r * W * VP;
     const int n = W * VP;
     for (int k = 0; k < W; ++k) {
-      float best = __int_as_float(0xff800000);  // -inf
-      int bi = n;
-      for (int i = lane; i < n; i += 32) {
-        const float x = f[i];
-        if (x > best || bi == n) { best = x; bi = i; }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
-      }
+      float best;
+      int bi;
+      warp_argmax(f, n, lane, best, bi);
       if (lane == 0) {
         const size_t bw = (size_t)(row0 + r) * W + k;
         const int parent = bi / VP, token = bi - parent * VP;

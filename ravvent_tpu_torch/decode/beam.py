@@ -51,6 +51,12 @@ def top_w(flat: torch.Tensor, W: int):
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
 
 
+def effective_steps(total_steps: int, max_steps: Optional[int]) -> int:
+    """The steps a decode loop executes: ``min(max_steps, total_steps)``;
+    outputs from there on are dead (zero in the port's loops)."""
+    return total_steps if max_steps is None else max(0, min(int(max_steps), total_steps))
+
+
 def initial_cum(B: int, W: int, device=None) -> torch.Tensor:
     cum = torch.full((B, W), NEG_INF, device=device)
     cum[:, 0] = 0.0

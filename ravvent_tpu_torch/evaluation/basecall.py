@@ -3,16 +3,18 @@
 Counterpart of ravvent_tpu/evaluation/basecall.py's ``BasecallEngine`` on
 the settings of the basecalling CLI (tools/basecall.py): f32 encoder,
 attention memory pre-projected and stored in bf16 (or f32), beam search by
-one fused CUDA step kernel per decode step, the compact per-read input
+one fused CUDA step kernel per decode step (``beam_impl="step"``) or by one
+whole-loop kernel launch per chunk (``beam_impl="loop"``), the compact per-read input
 gathered into snippets on the device, signal and event features sent as
 f16 (the JAX engine's default wire), and the result packed into one u8
 buffer per chunk (tokens as nibbles, step probabilities quantized to u8).
 
 On a CUDA device the encoder runs the BiLSTM kernel (ops/rnn_cuda.py) and
-the decoder the beam-step kernel (ops/beam_step_cuda.py); on the CPU both
-run their plain versions. The JAX engine pads each slab to a small ladder of
-row counts to bound recompilation; PyTorch does not recompile, and rows are
-independent, so this engine runs each chunk at its own row count.
+the decoder the beam-step kernel (ops/beam_step_cuda.py) or the beam-loop
+kernel (ops/beam_loop_cuda.py); on the CPU each runs its plain version. The
+JAX engine pads each slab to a small ladder of row counts to bound
+recompilation; PyTorch does not recompile, and rows are independent, so
+this engine runs each chunk at its own row count.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ravvent_tpu_torch.config import MAX_TARGET_LEN, ModelConfig
 from ravvent_tpu_torch.decode.beam import beam_scores_to_step_probs
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import check_config, encode_input
+from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop_decode
 from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_decode
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
@@ -61,16 +64,22 @@ class BasecallEngine:
         memory_dtype: Optional[torch.dtype] = torch.bfloat16,
         pack_u8: bool = True,
         device: Union[str, torch.device, None] = None,
+        beam_impl: str = "step",
     ) -> None:
         """``params``: the JAX tree's layout with tensor leaves (see
         weights.py). ``memory_dtype``: bf16 or None (f32) attention memory.
         ``pack_u8``: tokens as nibbles and step probabilities as u8 in the
-        result buffer (else int8 tokens and f16 probabilities)."""
+        result buffer (else int8 tokens and f16 probabilities).
+        ``beam_impl``: "step" (one kernel launch per decode step) or "loop"
+        (one launch per chunk for the whole loop); both give the same beams."""
         check_config(cfg)
         if cfg.decoder_depth != 1:
-            raise NotImplementedError("the fused beam step supports decoder_depth=1")
+            raise NotImplementedError("the fused beam kernels support decoder_depth=1")
         if memory_dtype not in (None, torch.bfloat16, torch.float32):
             raise ValueError("memory_dtype must be torch.bfloat16, torch.float32 or None")
+        if beam_impl not in ("step", "loop"):
+            raise ValueError(f"beam_impl must be 'step' or 'loop', got {beam_impl!r}")
+        self.beam_impl = beam_impl
         self.device = resolve_device(device)
         self.params = to_device(params, self.device)
         self.cfg = cfg
@@ -94,9 +103,9 @@ class BasecallEngine:
         mask = torch.nn.functional.pad(mask, (0, pad))
         mem = attn.setup_memory(dec["attention"], enc_out, mask, self.memory_dtype,
                                 attention_layer=dec["attention_layer"])
-        res = beam_step_decode(dec, mem, self.cfg.vocab_size, beam_width, TOTAL_STEPS,
-                               max_steps, start_token=NUC_TOKENIZER.start_id,
-                               end_token=NUC_TOKENIZER.end_id)
+        decode = beam_loop_decode if self.beam_impl == "loop" else beam_step_decode
+        res = decode(dec, mem, self.cfg.vocab_size, beam_width, TOTAL_STEPS, max_steps,
+                     start_token=NUC_TOKENIZER.start_id, end_token=NUC_TOKENIZER.end_id)
         return res.tokens[:, :, 0], beam_scores_to_step_probs(res.scores[:, :, 0])
 
     def _fetch_width(self, max_output_len: int) -> int:

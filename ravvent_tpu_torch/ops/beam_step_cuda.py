@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ravvent_tpu_torch.decode.beam import (
-    NEG_INF, BeamResult, gather_tree, initial_cum, reconstruct_lengths, top_w,
+    NEG_INF, BeamResult, effective_steps, gather_tree, initial_cum, reconstruct_lengths, top_w,
 )
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.ops import cuda_lib
@@ -67,16 +67,24 @@ class StepState(NamedTuple):
     fin: torch.Tensor
 
 
+def lstm_cell_plain(tok, att, h, c, wx, wh, b):
+    """The decoder's LSTM cell on [one-hot(tok) | att]: ids >= V embed to
+    zeros. Returns (h', c')."""
+    U = wh.shape[0]
+    V = wx.shape[0] - U
+    emb = (tok[:, None] == torch.arange(V, device=tok.device)).to(torch.float32)
+    z = torch.cat([emb, att], dim=1) @ wx + h @ wh + b
+    i, f, g, o = z.split(U, dim=1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
 def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
     """Plain PyTorch version of one step. Returns (next state, parents)."""
     B, S, U = keys.shape
     W = st.cum.shape[1]
     V = w.wfc.shape[1]
-    emb = (st.tok[:, None] == torch.arange(V, device=st.tok.device)).to(torch.float32)
-    z = torch.cat([emb, st.att], dim=1) @ w.wx + st.h @ w.wh + w.b
-    i, f, g, o = z.split(U, dim=1)
-    c_new = torch.sigmoid(f) * st.c + torch.sigmoid(i) * torch.tanh(g)
-    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    h_new, c_new = lstm_cell_plain(st.tok, st.att, st.h, st.c, w.wx, w.wh, w.b)
 
     mem = attn.AttnMemory(keys=keys, values=values, mask=mask)
     context, _ = attn.attend_beams(h_new.reshape(B, W, U), mem)
@@ -103,6 +111,32 @@ def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_to
     return nxt, parent.to(torch.int32)
 
 
+def check_kernel_inputs(name: str, keys, values, mask, w: DecoderWeights, W: int,
+                        end_token: int, state=()) -> None:
+    """What the beam kernels (step and loop) take: U = 128, a compiled beam
+    width, bf16 or f32 memory, contiguous tensors on the memory's device,
+    16-byte aligned keys and values. Raises ValueError otherwise."""
+    B, S, U = keys.shape
+    V = w.wfc.shape[1]
+    if U != UNITS:
+        raise ValueError(f"{name} kernel is compiled for {UNITS} units, got {U}")
+    if W not in KERNEL_BEAMS:
+        raise ValueError(f"{name} kernel is compiled for beam widths {KERNEL_BEAMS}, got {W}")
+    if keys.dtype not in (torch.bfloat16, torch.float32) or values.dtype != keys.dtype:
+        raise ValueError(f"{name}: keys and values must both be bf16 or both f32")
+    if not 0 <= end_token < V <= VP:
+        raise ValueError(f"{name}: need 0 <= end_token < V <= {VP}")
+    f32 = torch.float32
+    cuda_lib.check_tensors(name, keys.device, list(state) + [
+        ("keys", keys, keys.dtype, (B, S, U)), ("values", values, keys.dtype, (B, S, U)),
+        ("mask", mask, torch.bool, (B, S)), ("wx", w.wx, f32, (V + U, 4 * U)),
+        ("wh", w.wh, f32, (U, 4 * U)), ("b", w.b, f32, (4 * U,)),
+        ("watt_h", w.watt_h, f32, (U, U)), ("wfc", w.wfc, f32, (U, V)), ("bfc", w.bfc, f32, (V,)),
+    ])
+    if keys.data_ptr() % 16 or values.data_ptr() % 16:
+        raise ValueError(f"{name}: keys and values must be 16-byte aligned")
+
+
 def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
     """One beam step: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Returns (next state, parents [B, W])."""
@@ -111,30 +145,11 @@ def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: i
     B, S, U = keys.shape
     W = st.cum.shape[1]
     V = w.wfc.shape[1]
-    if U != UNITS:
-        raise ValueError(f"beam_step kernel is compiled for {UNITS} units, got {U}")
-    if W not in KERNEL_BEAMS:
-        raise ValueError(f"beam_step kernel is compiled for beam widths {KERNEL_BEAMS}, got {W}")
-    if keys.dtype not in (torch.bfloat16, torch.float32) or values.dtype != keys.dtype:
-        raise ValueError("beam_step: keys and values must both be bf16 or both f32")
-    if not 0 <= end_token < V <= VP:
-        raise ValueError(f"beam_step: need 0 <= end_token < V <= {VP}")
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    expect = [
+    check_kernel_inputs("beam_step", keys, values, mask, w, W, end_token, [
         ("tok", st.tok, i32, (B * W,)), ("h", st.h, f32, (B * W, U)), ("c", st.c, f32, (B * W, U)),
         ("att", st.att, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)), ("fin", st.fin, b8, (B, W)),
-        ("keys", keys, keys.dtype, (B, S, U)), ("values", values, keys.dtype, (B, S, U)),
-        ("mask", mask, b8, (B, S)), ("wx", w.wx, f32, (V + U, 4 * U)), ("wh", w.wh, f32, (U, 4 * U)),
-        ("b", w.b, f32, (4 * U,)), ("watt_h", w.watt_h, f32, (U, U)), ("wfc", w.wfc, f32, (U, V)),
-        ("bfc", w.bfc, f32, (V,)),
-    ]
-    for name, t, dt, shape in expect:
-        if t.device != keys.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"beam_step: {name} must be a contiguous {dt} tensor on {keys.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"beam_step: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if keys.data_ptr() % 16 or values.data_ptr() % 16:
-        raise ValueError("beam_step: keys and values must be 16-byte aligned")
+    ])
     dev = keys.device
     nxt = StepState(torch.empty(B * W, dtype=i32, device=dev), torch.empty_like(st.h),
                     torch.empty_like(st.c), torch.empty_like(st.att), torch.empty_like(st.cum),
@@ -172,23 +187,37 @@ def beam_step_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_wid
     Luong attention."""
     if vocab_size > VP:
         raise ValueError(f"vocab_size must be <= {VP}")
-    B, S = mem.mask.shape
-    W = beam_width
-    dev = mem.keys.device
     w = pack_decoder_weights(dec_params, mem)
-    U = w.wh.shape[0]
     keys, values = mem.keys.contiguous(), mem.values.contiguous()
     mask = mem.mask.contiguous()
-    eff = total_steps if max_steps is None else min(int(max_steps), total_steps)
+    eff = effective_steps(total_steps, max_steps)
+    tokens, parents, scores = step_loop(beam_step, keys, values, mask, w, beam_width,
+                                        total_steps, eff, start_token, end_token)
+    return backtrack(tokens, parents, scores, eff, end_token)
+
+
+def step_loop(step, keys, values, mask, w: DecoderWeights, W: int, total_steps: int, eff: int,
+              start_token: int, end_token: int):
+    """``eff`` beam steps of ``step`` (beam_step or beam_step_plain) from the
+    initial state. Returns tokens, parents [T, B, W] int32 and scores
+    [T, B, W] f32, zero at steps >= eff."""
+    B = keys.shape[0]
+    dev = keys.device
     tokens = torch.zeros(total_steps, B, W, dtype=torch.int32, device=dev)
     parents = torch.zeros_like(tokens)
     scores = torch.zeros(total_steps, B, W, device=dev)
-    st = initial_state(B, W, U, start_token, dev)
+    st = initial_state(B, W, w.wh.shape[0], start_token, dev)
     for t in range(eff):
-        st, parent = beam_step(st, keys, values, mask, w, end_token)
+        st, parent = step(st, keys, values, mask, w, end_token)
         tokens[t] = st.tok.reshape(B, W)
         parents[t] = parent
         scores[t] = st.cum
+    return tokens, parents, scores
+
+
+def backtrack(tokens, parents, scores, eff: int, end_token: int) -> BeamResult:
+    """Lengths, then gather_tree from step eff - 1, of [T, B, W] trajectories;
+    the result is batch-major [B, T, W]."""
     lengths = reconstruct_lengths(tokens, parents, end_token)
     final = gather_tree(tokens, parents, lengths, eff, end_token)
     return BeamResult(tokens=final.permute(1, 0, 2), scores=scores.permute(1, 0, 2))

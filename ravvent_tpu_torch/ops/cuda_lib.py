@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` source has a plain ``extern "C"`` interface and includes
-no PyTorch header, so it compiles in seconds. On first use each source is
+no PyTorch header (only the ``csrc/*.cuh`` helpers), so it compiles in
+seconds. On first use each source is
 compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
 the objects are linked into one shared library in the gitignored
 ``ravvent_tpu_torch/build/`` directory, and the library is loaded with
@@ -27,7 +28,7 @@ BUILD = PKG / "build"
 LIB_PATH = BUILD / "libravvent_kernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-launches: Dict[str, int] = {"bilstm": 0, "beam_step": 0}
+launches: Dict[str, int] = {"bilstm": 0, "beam_step": 0, "beam_loop": 0, "decode_step": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -53,6 +54,10 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build(force: bool = False) -> str:
     """Compile every source (one nvcc each, in parallel) and link the shared
     library. Returns the compilers' output, which includes ``-Xptxas -v``'s
@@ -60,7 +65,7 @@ def build(force: bool = False) -> str:
     global _build_log
     srcs = sources()
     if (not force and LIB_PATH.exists()
-            and all(LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in srcs)):
+            and all(LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in srcs + headers())):
         return _build_log
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -109,8 +114,24 @@ def lib() -> ctypes.CDLL:
             handle.rv_bilstm_layer.argtypes = [P, I, I, I] + [P] * 8 + [P]
             handle.rv_beam_step.restype = I
             handle.rv_beam_step.argtypes = [I] * 7 + [P] * 23
+            handle.rv_beam_loop.restype = I
+            handle.rv_beam_loop.argtypes = [I] * 9 + [P] * 13
+            handle.rv_beam_loop_smem.restype = I
+            handle.rv_beam_loop_smem.argtypes = [I] * 4
+            handle.rv_decode_step.restype = I
+            handle.rv_decode_step.argtypes = [I] * 3 + [P] * 18
             _lib = handle
         return _lib
+
+
+def check_tensors(name: str, device, expect) -> None:
+    """Raise ValueError unless every ``(label, tensor, dtype, shape)`` of
+    ``expect`` is a contiguous tensor of that dtype and shape on ``device``."""
+    for label, t, dt, shape in expect:
+        if t.device != device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous {dt} tensor on {device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
 def check(rc: int, name: str) -> None:

@@ -52,14 +52,11 @@ def bilstm_layer(xs, wx, wh, b, h0, c0) -> Tuple[torch.Tensor, torch.Tensor, tor
     U = wh.shape[1]
     if U != UNITS:
         raise ValueError(f"bilstm kernel is compiled for {UNITS} units, got {U}")
-    expect = {"xs": (B, T, F), "wx": (2, F, 4 * U), "wh": (2, U, 4 * U), "b": (2, 4 * U),
-              "h0": (2, B, U), "c0": (2, B, U)}
-    args = {"xs": xs, "wx": wx, "wh": wh, "b": b, "h0": h0, "c0": c0}
-    for name, t in args.items():
-        if t.device != xs.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"bilstm: {name} must be a contiguous f32 tensor on {xs.device}")
-        if tuple(t.shape) != expect[name]:
-            raise ValueError(f"bilstm: {name} has shape {tuple(t.shape)}, expected {expect[name]}")
+    f32 = torch.float32
+    cuda_lib.check_tensors("bilstm", xs.device, [
+        ("xs", xs, f32, (B, T, F)), ("wx", wx, f32, (2, F, 4 * U)), ("wh", wh, f32, (2, U, 4 * U)),
+        ("b", b, f32, (2, 4 * U)), ("h0", h0, f32, (2, B, U)), ("c0", c0, f32, (2, B, U)),
+    ])
     out = torch.empty(B, T, 2 * U, device=xs.device, dtype=torch.float32)
     hN = torch.empty(2, B, U, device=xs.device, dtype=torch.float32)
     cN = torch.empty_like(hN)

@@ -9,7 +9,8 @@ widths. Runs on the first CUDA device unless ``--cpu`` is given.
 
 Usage:
   python -m ravvent_tpu_torch.tools.basecall --weights flagship.npz \
-      --input datasets/sim_lambda/eval --out basecalls.fasta [--beam 5]
+      --input datasets/sim_lambda/eval --out basecalls.fasta [--beam 5] \
+      [--beam-impl step|loop]
 """
 
 from __future__ import annotations
@@ -90,6 +91,8 @@ def main(argv=None) -> None:
     ap.add_argument("--dec-units", type=int, default=128)
     ap.add_argument("--encoder-depth", type=int, default=2)
     ap.add_argument("--chunk", type=int, default=4096)
+    ap.add_argument("--beam-impl", default="step", choices=["step", "loop"],
+                    help="beam kernel: one launch per decode step, or one per chunk")
     ap.add_argument("--pack-u8", action=argparse.BooleanOptionalAction, default=True,
                     help="nibble-pack tokens + u8-quantize step probs in the result buffer")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
@@ -109,7 +112,7 @@ def main(argv=None) -> None:
         print(f"WARNING: no --weights — using random weights from seed {args.seed}",
               file=sys.stderr)
     engine = BasecallEngine(params, cfg, chunk_size=args.chunk, pack_u8=args.pack_u8,
-                            device=device)
+                            device=device, beam_impl=args.beam_impl)
     merger = Merger()
 
     signals = sorted(Path(args.input).glob("*.signal"))

@@ -12,10 +12,14 @@ lacks; this file needs neither.)
 import pytest
 import torch
 
+from ravvent_tpu_torch.decode.greedy import greedy_decode
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.decoder import init_decoder
 from ravvent_tpu_torch.models.rnn import init_encoder, stacked_weights
-from ravvent_tpu_torch.ops import beam_step_cuda, cuda_lib, rnn_cuda
+from ravvent_tpu_torch.ops import (
+    beam_loop_cuda, beam_step_cuda, cuda_lib, decode_step_cuda, rnn_cuda,
+)
+from ravvent_tpu_torch.weights import to_device
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -96,3 +100,100 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                               torch.zeros(2, U, 4 * U, device=cuda),
                               torch.zeros(2, 4 * U, device=cuda),
                               torch.zeros(2, B, U, device=cuda), torch.zeros(2, B, U, device=cuda))
+
+
+def _decoder_and_memory(seed, B, S, mem_dtype, projected, device):
+    gen = torch.Generator().manual_seed(seed)
+    dec_p = init_decoder(gen, 7, 1, 128, 256, device)
+    memory = torch.tanh(torch.randn(B, S, 256, generator=gen)).to(device)
+    mask = (torch.rand(B, S, generator=gen) > 0.2).to(device)
+    mask[3] = False  # all padding: uniform alignments
+    mem = attn.setup_memory(dec_p["attention"], memory, mask, mem_dtype,
+                            attention_layer=dec_p["attention_layer"] if projected else None)
+    return dec_p, mem
+
+
+@pytest.mark.parametrize("mem_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("W", [1, 5])
+def test_beam_loop_kernel_matches_plain(cuda, mem_dtype, W):
+    B, S, T, eff = 9, 232, 14, 12
+    dec_p, mem = _decoder_and_memory(W, B, S, mem_dtype, True, cuda)
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    before = cuda_lib.launches["beam_loop"]
+    tok, par, sc = beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, W, T, eff, 2, 1)
+    assert cuda_lib.launches["beam_loop"] == before + 1
+    rtok, rpar, rsc = beam_loop_cuda.beam_loop_plain(mem.keys, mem.values, mem.mask, w, W, T,
+                                                     eff, 2, 1)
+    assert not tok[eff:].any() and not par[eff:].any() and not sc[eff:].any()
+    # a row's trajectories agree up to its first flipped near-tie; scores are
+    # compared over each row's agreeing prefix
+    same = ((tok == rtok) & (par == rpar)).all(dim=2)  # [T, B]
+    prefix = torch.cumprod(same.int(), dim=0).bool()
+    assert prefix[:eff].float().mean().item() >= 0.95
+    torch.testing.assert_close(sc[prefix], rsc[prefix], rtol=0, atol=1e-2)
+
+
+def test_beam_loop_decode_on_card_matches_cpu(cuda):
+    B, S = 16, 56
+    dec_p, mem = _decoder_and_memory(0, B, S, None, True, "cpu")
+    cpu = beam_loop_cuda.beam_loop_decode(dec_p, mem, 7, 5, 47, 20)
+    mem_c = attn.AttnMemory(*(t.to(cuda) for t in mem))
+    card = beam_loop_cuda.beam_loop_decode(to_device(dec_p, cuda), mem_c, 7, 5, 47, 20)
+    assert (card.tokens.cpu() == cpu.tokens).float().mean().item() >= 0.99
+
+
+def test_decode_step_kernel_matches_plain(cuda):
+    B, S = 37, 232  # a ragged last tile
+    dec_p, mem = _decoder_and_memory(7, B, S, None, False, cuda)
+    w = decode_step_cuda.pack_decoder_weights(dec_p)
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, 9, (B,), generator=gen, dtype=torch.int32).to(cuda)  # ids >= 7 too
+    att, h, c = ((0.5 * torch.randn(B, 128, generator=gen)).to(cuda) for _ in range(3))
+    keys, values = mem.keys.contiguous(), mem.values.contiguous()
+    for _ in range(5):  # chained, each step fed the plain version's state
+        before = cuda_lib.launches["decode_step"]
+        got = decode_step_cuda.fused_decode_step(w, tok, att, h, c, keys, values, mem.mask)
+        assert cuda_lib.launches["decode_step"] == before + 1
+        ref = decode_step_cuda.fused_decode_step_plain(w, tok, att, h, c, keys, values, mem.mask)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+        h, c, att, logits = ref
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def test_fused_greedy_decode_on_card_matches_cpu(cuda):
+    B, S = 24, 64
+    dec_p, mem = _decoder_and_memory(3, B, S, None, False, "cpu")
+    cpu_tok, _ = greedy_decode(dec_p, mem, 7, 47, 39)
+    mem_c = attn.AttnMemory(*(t.to(cuda) for t in mem[:3]))
+    card_tok, card_logits = decode_step_cuda.fused_greedy_decode(to_device(dec_p, cuda), mem_c,
+                                                                 7, 47, 39)
+    assert torch.isfinite(card_logits).all()
+    assert (card_tok.cpu() == cpu_tok).float().mean().item() >= 0.99
+
+
+def test_loop_and_decode_step_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    dec_p, mem = _decoder_and_memory(0, 4, 16, torch.bfloat16, True, cuda)
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    with pytest.raises(ValueError, match="beam widths"):
+        beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, 6, 5, 5, 2, 1)
+    with pytest.raises(ValueError, match="both be bf16 or both f32"):
+        beam_loop_cuda.beam_loop(mem.keys, mem.values.float(), mem.mask, w, 5, 5, 5, 2, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 1024, 128, dtype=torch.bfloat16, device=cuda)
+        beam_loop_cuda.beam_loop(big, big, torch.ones(1, 1024, dtype=torch.bool, device=cuda),
+                                 w, 5, 5, 5, 2, 1)
+    dec_f, mem_f = _decoder_and_memory(0, 4, 16, None, False, cuda)
+    wf = decode_step_cuda.pack_decoder_weights(dec_f)
+    z = torch.zeros(4, 128, device=cuda)
+    tok = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="E=256"):
+        decode_step_cuda.fused_decode_step(wf, tok, z, z, z, mem_f.keys, mem_f.values[..., :128],
+                                           mem_f.mask)
+    with pytest.raises(ValueError, match="keys must be a contiguous"):
+        decode_step_cuda.fused_decode_step(wf, tok, z, z, z, mem_f.keys.bfloat16(),
+                                           mem_f.values, mem_f.mask)
+    with pytest.raises(ValueError, match="tok must be a contiguous"):
+        decode_step_cuda.fused_decode_step(wf, tok.long(), z, z, z, mem_f.keys, mem_f.values,
+                                           mem_f.mask)
+
