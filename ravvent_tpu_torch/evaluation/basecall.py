@@ -28,8 +28,8 @@ from ravvent_tpu_torch.config import MAX_TARGET_LEN, ModelConfig
 from ravvent_tpu_torch.decode.beam import beam_scores_to_step_probs
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import check_config, encode_input
-from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop_decode
-from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_decode
+from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
+from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
 from ravvent_tpu_torch.weights import to_device
@@ -90,22 +90,34 @@ class BasecallEngine:
     # ------------------------------------------------------------------ model
 
     @torch.inference_mode()
+    def memory(self, raw: torch.Tensor, event: torch.Tensor,
+               project: bool = True) -> attn.AttnMemory:
+        """Encode device snippets raw [N, 200, 1], event [N, 30, 5] and set
+        up the attention memory, S padded to a multiple of 8 as the
+        reference pads it. ``project``: keys and pre-projected values in the
+        engine's memory dtype, as the beam kernels take them; else
+        un-projected f32 keys and values, as fused greedy decode takes them."""
+        dec = self.params["decoder"]
+        enc_out, mask = encode_input(self.params, raw, event, self.cfg)
+        pad = (-enc_out.shape[1]) % 8
+        enc_out = torch.nn.functional.pad(enc_out, (0, 0, 0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+        if not project:
+            return attn.setup_memory(dec["attention"], enc_out, mask, torch.float32)
+        return attn.setup_memory(dec["attention"], enc_out, mask, self.memory_dtype,
+                                 attention_layer=dec["attention_layer"])
+
+    @torch.inference_mode()
     def beam(self, raw: torch.Tensor, event: torch.Tensor, max_steps: int,
              beam_width: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Encode + beam decode device snippets raw [N, 200, 1], event
         [N, 30, 5]. Returns the top beam's (tokens [N, T] int32, step probs
         [N, T] f32) with T = TOTAL_STEPS."""
-        dec = self.params["decoder"]
-        enc_out, mask = encode_input(self.params, raw, event, self.cfg)
-        S = enc_out.shape[1]
-        pad = (-S) % 8  # the reference pads the memory to a multiple of 8
-        enc_out = torch.nn.functional.pad(enc_out, (0, 0, 0, pad))
-        mask = torch.nn.functional.pad(mask, (0, pad))
-        mem = attn.setup_memory(dec["attention"], enc_out, mask, self.memory_dtype,
-                                attention_layer=dec["attention_layer"])
-        decode = beam_loop_decode if self.beam_impl == "loop" else beam_step_decode
-        res = decode(dec, mem, self.cfg.vocab_size, beam_width, TOTAL_STEPS, max_steps,
-                     start_token=NUC_TOKENIZER.start_id, end_token=NUC_TOKENIZER.end_id)
+        loop = beam_loop if self.beam_impl == "loop" else beam_step_loop
+        res = fused_beam_decode(self.params["decoder"], self.memory(raw, event),
+                                self.cfg.vocab_size, beam_width, TOTAL_STEPS, max_steps,
+                                start_token=NUC_TOKENIZER.start_id,
+                                end_token=NUC_TOKENIZER.end_id, loop=loop)
         return res.tokens[:, :, 0], beam_scores_to_step_probs(res.scores[:, :, 0])
 
     def _fetch_width(self, max_output_len: int) -> int:
@@ -137,13 +149,33 @@ class BasecallEngine:
             signal, raw_ranges, events, event_ranges, max_output_len, beam_width))
 
     @torch.inference_mode()
-    def _compact_chunk(self, sig, rr, ev, er, max_steps: int, beam_width: int,
-                       T_fetch: int) -> torch.Tensor:
-        """One chunk on the device: gather the snippets, decode, pack."""
-        raw = gather_rows(sig, rr[:, 0], rr[:, 1] - rr[:, 0], 200)[..., None]
-        event = gather_rows(ev.reshape(-1), er[:, 0] * 5, (er[:, 1] - er[:, 0]) * 5,
-                            150).reshape(-1, 30, 5)
-        tokens, probs = self.beam(raw, event, max_steps, beam_width)
+    def compact_snippets(self, signal: np.ndarray, raw_ranges: np.ndarray, events: np.ndarray,
+                         event_ranges: np.ndarray):
+        """Per chunk of a read in compact form: upload its signal and event
+        slices over the f16 wire, gather its snippets on the device and
+        yield them as raw [n, 200, 1], event [n, 30, 5]."""
+        # ranges may extend past the arrays; slicing clips them, as the
+        # materialized path does
+        raw_ranges = np.minimum(raw_ranges, signal.shape[0])
+        event_ranges = np.minimum(event_ranges, events.shape[0])
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
+        for s in range(0, raw_ranges.shape[0], self.chunk_size):
+            rr = raw_ranges[s:s + self.chunk_size].astype(np.int64)
+            er = event_ranges[s:s + self.chunk_size].astype(np.int64)
+            lo_s, hi_s = int(rr[0, 0]), int(rr[:, 1].max())
+            lo_e, hi_e = int(er[0, 0]), int(er[:, 1].max())
+            sig = up(signal[lo_s:hi_s].astype(np.float16)).float()
+            ev = up(events[lo_e:hi_e].astype(np.float16)).float()
+            rr, er = up((rr - lo_s).astype(np.int32)), up((er - lo_e).astype(np.int32))
+            raw = gather_rows(sig, rr[:, 0], rr[:, 1] - rr[:, 0], 200)[..., None]
+            event = gather_rows(ev.reshape(-1), er[:, 0] * 5, (er[:, 1] - er[:, 0]) * 5,
+                                150).reshape(-1, 30, 5)
+            yield raw, event
+
+    @torch.inference_mode()
+    def _pack(self, tokens: torch.Tensor, probs: torch.Tensor, T_fetch: int) -> torch.Tensor:
+        """The result bytes of one chunk: tokens as nibbles and step
+        probabilities as u8 (pack_u8), else int8 tokens and f16 probs."""
         tokens, probs = tokens[:, :T_fetch], probs[:, :T_fetch]
         if not self.pack_u8:
             return torch.cat([tokens.to(torch.int8).view(torch.uint8),
@@ -161,34 +193,18 @@ class BasecallEngine:
         """Upload and enqueue all of a read's chunks, starting each result's
         copy to (pinned) host memory without waiting for it; pair with
         :meth:`collect_beam_compact`."""
-        N = raw_ranges.shape[0]
         T_fetch = self._fetch_width(max_output_len)
-        if N == 0:
-            return PendingBeamCompact([], T_fetch)
-        # ranges may extend past the arrays; slicing clips them, as the
-        # materialized path does
-        raw_ranges = np.minimum(raw_ranges, signal.shape[0])
-        event_ranges = np.minimum(event_ranges, events.shape[0])
         cuda = self.device.type == "cuda"
         pending = []
-        for s in range(0, N, self.chunk_size):
-            rr = raw_ranges[s:s + self.chunk_size].astype(np.int64)
-            er = event_ranges[s:s + self.chunk_size].astype(np.int64)
-            lo_s, hi_s = int(rr[0, 0]), int(rr[:, 1].max())
-            lo_e, hi_e = int(er[0, 0]), int(er[:, 1].max())
-            up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
-            sig = up(signal[lo_s:hi_s].astype(np.float16)).float()
-            ev = up(events[lo_e:hi_e].astype(np.float16)).float()
-            packed = self._compact_chunk(sig, up((rr - lo_s).astype(np.int32)), ev,
-                                         up((er - lo_e).astype(np.int32)),
-                                         max_output_len - 1, beam_width, T_fetch)
+        for raw, event in self.compact_snippets(signal, raw_ranges, events, event_ranges):
+            packed = self._pack(*self.beam(raw, event, max_output_len - 1, beam_width), T_fetch)
             host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=cuda)
             host.copy_(packed, non_blocking=cuda)
             done = None
             if cuda:
                 done = torch.cuda.Event()
                 done.record()
-            pending.append((host, done, rr.shape[0]))
+            pending.append((host, done, raw.shape[0]))
         return PendingBeamCompact(pending, T_fetch)
 
     def collect_beam_compact(self, handle: PendingBeamCompact) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,5 +1,6 @@
 """The whole beam-search loop in one kernel launch: the CUDA kernel, its plain
-version, and the decode entry point.
+version, the decode entry point, and a replay that holds a loop's result
+against the plain step.
 
 Counterpart of ravvent_tpu/ops/beam_loop_pallas.py (the TPU kernel
 ``_beam_loop_kernel``, its call ``_beam_loop_call`` and the entry
@@ -20,16 +21,16 @@ those dead steps from frozen state; the backtracked tokens do not read them.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple
 
 import torch
 
-from ravvent_tpu_torch.decode.beam import BeamResult, effective_steps
-from ravvent_tpu_torch.models import attention as attn
+from ravvent_tpu_torch.decode.beam import top_w
 from ravvent_tpu_torch.ops import cuda_lib
 from ravvent_tpu_torch.ops.beam_step_cuda import (
-    VP, DecoderWeights, backtrack, beam_step_plain, check_kernel_inputs, pack_decoder_weights,
-    step_loop,
+    VP, DecoderWeights, advance, beam_step_plain, check_kernel_inputs, fused_beam_decode,
+    initial_state, step_candidates, step_loop,
 )
 
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (227 KB)
@@ -80,17 +81,42 @@ def beam_loop(keys, values, mask, w: DecoderWeights, W: int, total_steps: int, e
     return tokens, parents, scores
 
 
-def beam_loop_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_width: int,
-                     total_steps: int, max_steps: Optional[int] = None, start_token: int = 2,
-                     end_token: int = 1) -> BeamResult:
-    """Whole-loop beam search: one launch for all ``eff`` steps, then the
-    lengths and gather_tree. Requires pre-projected, non-quantized memory
-    (bf16 or f32), a depth-1 LSTM decoder and Luong attention."""
-    if vocab_size > VP:
-        raise ValueError(f"vocab_size must be <= {VP}")
-    w = pack_decoder_weights(dec_params, mem)
-    eff = effective_steps(total_steps, max_steps)
-    tokens, parents, scores = beam_loop(mem.keys.contiguous(), mem.values.contiguous(),
-                                        mem.mask.contiguous(), w, beam_width, total_steps, eff,
-                                        start_token, end_token)
-    return backtrack(tokens, parents, scores, eff, end_token)
+# counterpart of beam_loop_pallas.py:beam_loop_decode: pre-projected,
+# non-quantized memory (bf16 or f32), a depth-1 LSTM decoder, Luong attention
+beam_loop_decode = functools.partial(fused_beam_decode, loop=beam_loop)
+
+
+class Replay(NamedTuple):
+    """A whole-loop result held against the plain step at each live step."""
+
+    exact: float  # share of live picks equal to the plain top-W pick
+    rank_err: float  # max |picks' plain scores, sorted - plain top-W scores|
+    score_err: float  # max |the result's score - its cum before + the plain step log-prob|
+    distinct: bool  # no candidate picked twice in a row's step
+
+
+def replay_plain(tokens, parents, scores, keys, values, mask, w: DecoderWeights, eff: int,
+                 start_token: int, end_token: int) -> Replay:
+    """Replay the live steps of a whole-loop result (tokens, parents,
+    scores [T, B, W]) through the plain step. Each step starts from the
+    result's own cumulative scores and the plain state of its own earlier
+    picks; the plain step scores every candidate, and the result's picks
+    and scores are held against them. So every live step of every row is
+    checked, also after a near-tie that the result broke the other way
+    (which lowers ``exact`` but not the two errors), and an error shows at
+    the step that makes it rather than summed over the steps before."""
+    _, B, W = tokens.shape
+    st = initial_state(B, W, w.wh.shape[0], start_token, keys.device)
+    same = lambda a, b: torch.where(a == b, 0.0, (a - b).abs()).max().item()  # noqa: E731
+    exact, rank_err, score_err, distinct = 0, 0.0, 0.0, True
+    for t in range(eff):
+        h, c, att, total = step_candidates(st, keys, values, mask, w, end_token)
+        ref_cum, ref_idx = top_w(total, W)
+        idx = parents[t].long() * VP + tokens[t].long()
+        picked = torch.gather(total, 1, idx)
+        exact += (idx == ref_idx).sum().item()
+        rank_err = max(rank_err, same(picked.sort(dim=1, descending=True).values, ref_cum))
+        score_err = max(score_err, same(scores[t], picked))
+        distinct &= bool((idx.sort(dim=1).values.diff(dim=1) != 0).all())
+        st, _ = advance(st, h, c, att, scores[t], idx, end_token)
+    return Replay(exact / max(1, eff * B * W), rank_err, score_err, distinct)

@@ -1,5 +1,6 @@
 """One fused beam-search step: the CUDA kernel, its plain version, and the
-decode loop that launches it once per step.
+decode entry point that runs it once per step or runs the whole-loop
+kernel (ops/beam_loop_cuda.py).
 
 Counterpart of ravvent_tpu/ops/beam_loop_pallas.py (the TPU kernel
 ``_beam_step_kernel`` and its loop ``beam_step_decode``, bf16 or f32
@@ -20,6 +21,7 @@ tokens ``idx % VP`` exactly as in the reference.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -79,8 +81,11 @@ def lstm_cell_plain(tok, att, h, c, wx, wh, b):
     return torch.sigmoid(o) * torch.tanh(c_new), c_new
 
 
-def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
-    """Plain PyTorch version of one step. Returns (next state, parents)."""
+def step_candidates(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
+    """The plain step up to its choice: the cell, attention and logits of
+    every hypothesis, and the flattened candidate row. Returns h', c', att'
+    [B*W, U] and total [B, W*VP], the cumulative log-prob of each (beam,
+    token) candidate, padding columns at cum + finfo.min."""
     B, S, U = keys.shape
     W = st.cum.shape[1]
     V = w.wfc.shape[1]
@@ -101,14 +106,26 @@ def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_to
     # finfo.min, finished or not
     total = torch.full((B, W, VP), NEG_INF, device=keys.device) + st.cum[..., None]
     total[..., :V] = st.cum[..., None] + step_lp
-    new_cum, idx = top_w(total.reshape(B, W * VP), W)
-    parent, token = idx // VP, idx % VP
+    return h_new, c_new, att_new, total.reshape(B, W * VP)
 
-    flat_parent = (parent + (torch.arange(B, device=keys.device) * W)[:, None]).reshape(-1)
+
+def advance(st: StepState, h_new, c_new, att_new, new_cum, idx, end_token: int):
+    """The step's beam permutation for the chosen candidates ``idx`` [B, W]
+    of the flattened row. Returns (next state, parents [B, W] int32)."""
+    B, W = new_cum.shape
+    parent, token = idx // VP, idx % VP
+    flat_parent = (parent + (torch.arange(B, device=idx.device) * W)[:, None]).reshape(-1)
     new_fin = torch.gather(st.fin, 1, parent) | (token == end_token)
     nxt = StepState(token.reshape(-1).to(torch.int32), h_new[flat_parent], c_new[flat_parent],
                     att_new[flat_parent], new_cum, new_fin)
     return nxt, parent.to(torch.int32)
+
+
+def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
+    """Plain PyTorch version of one step. Returns (next state, parents)."""
+    h_new, c_new, att_new, total = step_candidates(st, keys, values, mask, w, end_token)
+    new_cum, idx = top_w(total, st.cum.shape[1])
+    return advance(st, h_new, c_new, att_new, new_cum, idx, end_token)
 
 
 def check_kernel_inputs(name: str, keys, values, mask, w: DecoderWeights, W: int,
@@ -177,25 +194,6 @@ def initial_state(B: int, W: int, U: int, start_token: int, device) -> StepState
                      torch.zeros(B, W, dtype=torch.bool, device=device))
 
 
-def beam_step_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_width: int,
-                     total_steps: int, max_steps: Optional[int] = None, start_token: int = 2,
-                     end_token: int = 1) -> BeamResult:
-    """Beam search with one fused step per iteration. Runs
-    ``eff = min(max_steps, total_steps)`` steps (the tail is never computed:
-    tokens, parents and scores stay 0 there), then rebuilds the lengths and
-    backtracks. Requires pre-projected memory, a depth-1 LSTM decoder and
-    Luong attention."""
-    if vocab_size > VP:
-        raise ValueError(f"vocab_size must be <= {VP}")
-    w = pack_decoder_weights(dec_params, mem)
-    keys, values = mem.keys.contiguous(), mem.values.contiguous()
-    mask = mem.mask.contiguous()
-    eff = effective_steps(total_steps, max_steps)
-    tokens, parents, scores = step_loop(beam_step, keys, values, mask, w, beam_width,
-                                        total_steps, eff, start_token, end_token)
-    return backtrack(tokens, parents, scores, eff, end_token)
-
-
 def step_loop(step, keys, values, mask, w: DecoderWeights, W: int, total_steps: int, eff: int,
               start_token: int, end_token: int):
     """``eff`` beam steps of ``step`` (beam_step or beam_step_plain) from the
@@ -221,3 +219,30 @@ def backtrack(tokens, parents, scores, eff: int, end_token: int) -> BeamResult:
     lengths = reconstruct_lengths(tokens, parents, end_token)
     final = gather_tree(tokens, parents, lengths, eff, end_token)
     return BeamResult(tokens=final.permute(1, 0, 2), scores=scores.permute(1, 0, 2))
+
+
+beam_step_loop = functools.partial(step_loop, beam_step)  # one beam-step launch per step
+
+
+def fused_beam_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_width: int,
+                      total_steps: int, max_steps: Optional[int] = None, start_token: int = 2,
+                      end_token: int = 1, *, loop) -> BeamResult:
+    """Beam search through a fused kernel's loop: ``loop`` is
+    :data:`beam_step_loop` (one launch per step) or
+    ops/beam_loop_cuda.py:beam_loop (one launch for the whole loop). Runs
+    ``eff = min(max_steps, total_steps)`` steps (the tail is never computed:
+    tokens, parents and scores stay 0 there), then rebuilds the lengths and
+    backtracks. Requires pre-projected memory, a depth-1 LSTM decoder and
+    Luong attention."""
+    if vocab_size > VP:
+        raise ValueError(f"vocab_size must be <= {VP}")
+    w = pack_decoder_weights(dec_params, mem)
+    eff = effective_steps(total_steps, max_steps)
+    tokens, parents, scores = loop(mem.keys.contiguous(), mem.values.contiguous(),
+                                   mem.mask.contiguous(), w, beam_width, total_steps, eff,
+                                   start_token, end_token)
+    return backtrack(tokens, parents, scores, eff, end_token)
+
+
+# counterpart of beam_loop_pallas.py:beam_step_decode
+beam_step_decode = functools.partial(fused_beam_decode, loop=beam_step_loop)

@@ -114,6 +114,29 @@ def test_beam_loop_wrapper_uses_plain_version_on_cpu(memories):
     assert all(torch.equal(x, y) for x, y in zip(got, ref))
 
 
+@pytest.mark.parametrize("fault", [None, "token", "score"])
+def test_replay_holds_a_loop_result_to_the_plain_step(memories, fault):
+    """replay_plain passes the plain loop's own result and catches a pick or
+    a score that the plain step does not give."""
+    _, _, td, tm = memories["f32"]
+    w = tstep.pack_decoder_weights(td, tm)
+    tok, par, sc = tloop.beam_loop_plain(tm.keys, tm.values, tm.mask, w, W, TOTAL, 9, 2, 1)
+    if fault == "token":
+        tok = tok.clone()
+        tok[4, 2, 0] = (tok[4, 2, 0] + 3) % V
+    elif fault == "score":
+        sc = sc.clone()
+        sc[6, 5, 1] += 0.05
+    rep = tloop.replay_plain(tok, par, sc, tm.keys, tm.values, tm.mask, w, 9, 2, 1)
+    assert rep.distinct
+    if fault is None:
+        assert rep == (1.0, 0.0, 0.0, True)
+    elif fault == "token":
+        assert rep.exact < 1.0 and rep.rank_err > 1e-2 and rep.score_err > 1e-2
+    else:  # the step that adds 0.05, and the steps after it from that cum
+        assert rep.score_err == pytest.approx(0.05, abs=1e-5)
+
+
 def test_engine_rejects_unknown_beam_impl(flagship):
     _, params = flagship
     with pytest.raises(ValueError, match="beam_impl"):

@@ -118,19 +118,30 @@ def _decoder_and_memory(seed, B, S, mem_dtype, projected, device):
 def test_beam_loop_kernel_matches_plain(cuda, mem_dtype, W):
     B, S, T, eff = 9, 232, 14, 12
     dec_p, mem = _decoder_and_memory(W, B, S, mem_dtype, True, cuda)
-    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
-    before = cuda_lib.launches["beam_loop"]
-    tok, par, sc = beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, W, T, eff, 2, 1)
-    assert cuda_lib.launches["beam_loop"] == before + 1
-    rtok, rpar, rsc = beam_loop_cuda.beam_loop_plain(mem.keys, mem.values, mem.mask, w, W, T,
-                                                     eff, 2, 1)
-    assert not tok[eff:].any() and not par[eff:].any() and not sc[eff:].any()
-    # a row's trajectories agree up to its first flipped near-tie; scores are
-    # compared over each row's agreeing prefix
-    same = ((tok == rtok) & (par == rpar)).all(dim=2)  # [T, B]
-    prefix = torch.cumprod(same.int(), dim=0).bool()
-    assert prefix[:eff].float().mean().item() >= 0.95
-    torch.testing.assert_close(sc[prefix], rsc[prefix], rtol=0, atol=1e-2)
+    # as drawn, most beams end within a few steps; with the end token's logit
+    # pushed down every live step runs the whole cell and attention
+    live_p = dict(dec_p, fc=dict(dec_p["fc"], bias=dec_p["fc"]["bias"].clone()))
+    live_p["fc"]["bias"][1] -= 20.0
+    for dec in (dec_p, live_p):
+        w = beam_step_cuda.pack_decoder_weights(dec, mem)
+        before = cuda_lib.launches["beam_loop"]
+        tok, par, sc = beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, W, T, eff,
+                                                2, 1)
+        assert cuda_lib.launches["beam_loop"] == before + 1
+        rtok, rpar, rsc = beam_loop_cuda.beam_loop_plain(mem.keys, mem.values, mem.mask, w, W,
+                                                         T, eff, 2, 1)
+        assert not tok[eff:].any() and not par[eff:].any() and not sc[eff:].any()
+        # every live step, replayed through the plain step on the kernel's picks
+        rep = beam_loop_cuda.replay_plain(tok, par, sc, mem.keys, mem.values, mem.mask, w, eff,
+                                          2, 1)
+        assert rep.distinct and rep.exact >= 0.99
+        assert rep.rank_err <= 1e-2 and rep.score_err <= 1e-2
+        # free-running: a row's trajectories agree up to its first flipped
+        # near-tie; scores are compared over each row's agreeing prefix
+        same = ((tok == rtok) & (par == rpar)).all(dim=2)  # [T, B]
+        prefix = torch.cumprod(same.int(), dim=0).bool()
+        assert prefix[:eff].float().mean().item() >= 0.95
+        torch.testing.assert_close(sc[prefix], rsc[prefix], rtol=0, atol=1e-2)
 
 
 def test_beam_loop_decode_on_card_matches_cpu(cuda):

@@ -155,6 +155,34 @@ def test_fused_greedy_decode_equals_plain_greedy(trained):
     torch.testing.assert_close(a[1], b[1], rtol=1e-5, atol=1e-5)
 
 
+def test_engine_memory_for_fused_greedy_matches_jax(flagship, read):  # noqa: F811
+    """The engine's compact gather (several chunks) and un-projected memory,
+    decoded by fused_greedy_decode, against JAX's greedy decode of the same
+    snippets."""
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+
+    tree, params = flagship
+    sigc, rr, ev, er, _ = read
+    engine = BasecallEngine(params, ModelConfig(), chunk_size=7, device="cpu")
+    chunks = list(engine.compact_snippets(sigc, rr, ev, er))
+    assert len(chunks) > 1
+    raw, event = (torch.cat(x) for x in zip(*chunks))
+    raw_np, event_np = _snippets(sigc, rr, ev, er)
+    np.testing.assert_array_equal(raw.numpy(), raw_np)
+    np.testing.assert_array_equal(event.numpy(), event_np)
+    mem = engine.memory(raw, event, project=False)
+    assert not mem.projected and mem.keys.dtype == torch.float32 and mem.keys.shape[1] == 232
+    enc, mask = j_encode(tree, jnp.asarray(raw_np), jnp.asarray(event_np), JConfig())
+    jm = jattn.setup_memory(tree["decoder"]["attention"], jnp.pad(enc, ((0, 0), (0, 2), (0, 0))),
+                            jnp.pad(mask, ((0, 0), (0, 2))))
+    np.testing.assert_array_equal(mem.mask.numpy(), np.asarray(jm.mask))
+    np.testing.assert_allclose(mem.values.numpy(), np.asarray(jm.values), rtol=1e-4, atol=1e-4)
+    jt, _ = j_greedy(tree["decoder"], jm, V, TOTAL, 39)
+    tt, _ = tstep.fused_greedy_decode(engine.params["decoder"], mem, V, TOTAL, 39)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
 def test_fused_decode_step_wrapper_uses_plain_version_on_cpu(small):
     _, td, mems = small
     tm = mems["raw"][1]
