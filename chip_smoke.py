@@ -2,8 +2,10 @@
 
 Drives the port's paths — the basecalling CLI's read path
 (ravvent_tpu_torch/tools/basecall.py:basecall_read) with --beam-impl step
-and with --beam-impl loop, and fused greedy decode
-(ops/decode_step_cuda.py:fused_greedy_decode) — at the flagship's full width
+and with --beam-impl loop, fused greedy decode
+(ops/decode_step_cuda.py:fused_greedy_decode), and bench.py's main path
+(evaluation/performance.py:PerformanceEvaluator on the bench's engine
+settings) — at the flagship's full width
 (joint raw+event input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM
 decoder with Luong attention, vocab 7, beam 5) on seeded random weights, and
 holds each hand-written kernel against its plain PyTorch version on the card:
@@ -32,7 +34,16 @@ holds each hand-written kernel against its plain PyTorch version on the card:
      checked against the step path and the CPU on 64 snippets;
   8. end to end: the first read's snippets encoded by the BiLSTM kernel, as
      un-projected f32 memory, decoded by fused_greedy_decode on the card,
-     checked against plain greedy_decode on the CPU on 64 snippets.
+     checked against plain greedy_decode on the CPU on 64 snippets;
+  9. the bf16-stream BiLSTM kernel against its plain version at B=4096 for
+     the four layer shapes of one chunk, timed beside torch.nn.LSTM in bf16;
+ 10. end to end, bench.py's main path: PerformanceEvaluator (evaluate_files,
+     then run_pipelined with 8 reads in flight and 4 finishers) over the
+     engine with the bench's settings (i8dev wire, bf16 encoder stream on
+     the bf16 BiLSTM kernel, bf16 memory on the beam-step kernel, 4-bit
+     probabilities) on the same 4 reads; the i8dev snippet ranges on the
+     card bit-equal to the host's, the card's event features within the
+     host bars, and card and CPU tokens on 64 snippets.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -110,7 +121,8 @@ def phase_build() -> None:
 
     log = cuda_lib.build(force=True)
     for line in log.splitlines():
-        if line.startswith("==") or "Compiling entry" in line or "Used" in line:
+        spills = "spill stores" in line and " 0 bytes spill stores" not in line
+        if line.startswith("==") or "Compiling entry" in line or "Used" in line or spills:
             print("  " + line.strip())
     cuda_lib.lib()
 
@@ -146,18 +158,10 @@ def phase_bilstm() -> dict:
         err = max((g - r).abs().max().item() for g, r in zip(got, ref))
         rel = max(((g - r).abs() / r.abs().clamp(min=1.0)).max().item() for g, r in zip(got, ref))
 
-        lib_lstm = torch.nn.LSTM(F, U, batch_first=True, bidirectional=True).to(dev)
-        with torch.no_grad():
-            for d, sfx in ((0, ""), (1, "_reverse")):
-                getattr(lib_lstm, f"weight_ih_l0{sfx}").copy_(wx[d].T)
-                getattr(lib_lstm, f"weight_hh_l0{sfx}").copy_(wh[d].T)
-                getattr(lib_lstm, f"bias_ih_l0{sfx}").copy_(b[d])
-                getattr(lib_lstm, f"bias_hh_l0{sfx}").zero_()
-            lib_out = lib_lstm(xs, (h0, c0))[0]
-            lib_err = (lib_out - ref[0]).abs().max().item()
-            ms = time_ms(lambda: bilstm_layer(xs, wx, wh, b, h0, c0), reps=5)
-            plain_ms = time_ms(lambda: bilstm_layer_plain(xs, wx, wh, b, h0, c0), reps=2)
-            lib_ms = time_ms(lambda: lib_lstm(xs, (h0, c0)), reps=5)
+        ms = time_ms(lambda: bilstm_layer(xs, wx, wh, b, h0, c0), reps=5)
+        plain_ms = time_ms(lambda: bilstm_layer_plain(xs, wx, wh, b, h0, c0), reps=2)
+        lib_ms, lib_out = cudnn_lstm_ms(F, U, torch.float32, wx, wh, b, xs, h0, c0, reps=5)
+        lib_err = (lib_out - ref[0]).abs().max().item()
         bound, by = bilstm_bounds(B, T, F, U)
         bound_by.add(by)
         print(f"  bilstm B={B} T={T} F={F}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
@@ -170,10 +174,88 @@ def phase_bilstm() -> dict:
         tot["library_ms"] += lib_ms
         tot["bound_ms"] += bound
         tot["err"] = max(tot["err"], err)
-        del lib_lstm
     print(f"  bilstm, one chunk's four layers: kernel {tot['ms']:.3f} ms, "
           f"bound {tot['bound_ms']:.3f} ms")
     return {"name": "bilstm", "route": "cuda", "source": "ravvent_tpu_torch/csrc/bilstm.cu",
+            "replaces": "ravvent_tpu/ops/rnn_pallas.py:33", "max_abs_err": tot["err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "operations" if "operations" in bound_by else "bytes",
+            "library_ms": tot["library_ms"]}
+
+
+def bilstm_bf16_bounds(B: int, T: int, F: int, U: int) -> tuple:
+    flops = 2 * B * T * 2 * (F + U) * 4 * U  # both directions, x.Wx + bf16(h).Wh
+    nbytes = (2 * (B * T * F + 2 * (F + U) * 4 * U + B * T * 2 * U)  # bf16 x, weights, out
+              + 4 * (2 * 4 * U + 4 * 2 * B * U))  # f32 bias, h0, c0, hN, cN
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def cudnn_lstm_ms(F: int, U: int, dtype, wx, wh, b, xs, h0, c0, reps: int) -> tuple:
+    """(mean ms, output) of torch.nn.LSTM (cuDNN) in ``dtype`` with the
+    layer's weights and states: the library call timed beside the kernel,
+    never used by the port."""
+    lstm = torch.nn.LSTM(F, U, batch_first=True, bidirectional=True).to(xs.device, dtype)
+    with torch.no_grad():
+        for d, sfx in ((0, ""), (1, "_reverse")):
+            getattr(lstm, f"weight_ih_l0{sfx}").copy_(wx[d].T)
+            getattr(lstm, f"weight_hh_l0{sfx}").copy_(wh[d].T)
+            getattr(lstm, f"bias_ih_l0{sfx}").copy_(b[d])
+            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+        lstm.flatten_parameters()
+        state = (h0.to(dtype), c0.to(dtype))
+        out = lstm(xs, state)[0]
+        ms = time_ms(lambda: lstm(xs, state), reps=reps)
+    return ms, out
+
+
+def phase_bilstm_bf16() -> dict:
+    """The bf16-stream BiLSTM kernel against its plain version for the four
+    layer shapes of one 4096-row chunk, timed beside torch.nn.LSTM in bf16."""
+    from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
+    from ravvent_tpu_torch.ops.rnn_cuda import bilstm_layer, bilstm_layer_plain
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 4)
+    B, U = 4096, 128
+    # outputs are bf16(h): about two bf16 ulps at |h| <= 1, where a summation
+    # order flips a rounding and the recurrence carries it; f32 final states
+    tol_out, tol_state = 1e-2, 1e-3
+    shapes = [(1, 200, False), (256, 200, True), (5, 30, False), (256, 30, True)]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    bound_by = set()
+    for F, T, seeded in shapes:
+        wx, wh, b = stream_weights(init_encoder(gen, U, 1, F, dev), bf16)[0]
+        xs = torch.randn(B, T, F, generator=gen).to(dev, bf16)
+        h0 = (0.5 * torch.randn(2, B, U, generator=gen) if seeded else torch.zeros(2, B, U)).to(dev)
+        c0 = (0.5 * torch.randn(2, B, U, generator=gen) if seeded else torch.zeros(2, B, U)).to(dev)
+        got = bilstm_layer(xs, wx, wh, b, h0, c0)
+        ref = bilstm_layer_plain(xs, wx, wh, b, h0, c0)
+        torch.cuda.synchronize()
+        require(got[0].dtype == bf16 and got[1].dtype == torch.float32, "bilstm_bf16: bad dtypes")
+        err_out = (got[0].float() - ref[0].float()).abs().max().item()
+        err_state = max((g - r).abs().max().item() for g, r in zip(got[1:], ref[1:]))
+        ms = time_ms(lambda: bilstm_layer(xs, wx, wh, b, h0, c0), reps=5)
+        plain_ms = time_ms(lambda: bilstm_layer_plain(xs, wx, wh, b, h0, c0), reps=2)
+        lib_ms, lib_out = cudnn_lstm_ms(F, U, bf16, wx, wh, b, xs, h0, c0, reps=5)
+        lib_err = (lib_out.float() - ref[0].float()).abs().max().item()
+        bound, by = bilstm_bf16_bounds(B, T, F, U)
+        bound_by.add(by)
+        print(f"  bilstm_bf16 B={B} T={T} F={F}: out max_abs_err {err_out:.3e} (tol {tol_out:g}), "
+              f"final states {err_state:.3e} (tol {tol_state:g}); kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, torch.nn.LSTM bf16 {lib_ms:.3f} ms (its out err vs plain "
+              f"{lib_err:.3e}), bound {bound:.3f} ms ({by})", flush=True)
+        require(err_out <= tol_out and err_state <= tol_state,
+                f"bilstm_bf16 F={F} T={T}: errors {err_out:.3e} / {err_state:.3e}")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["library_ms"] += lib_ms
+        tot["bound_ms"] += bound
+        tot["err"] = max(tot["err"], err_out, err_state)
+    print(f"  bilstm_bf16, one chunk's four layers: kernel {tot['ms']:.3f} ms, "
+          f"bound {tot['bound_ms']:.3f} ms")
+    return {"name": "bilstm_bf16", "route": "cuda",
+            "source": "ravvent_tpu_torch/csrc/bilstm_bf16.cu",
             "replaces": "ravvent_tpu/ops/rnn_pallas.py:33", "max_abs_err": tot["err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if "operations" in bound_by else "bytes",
@@ -263,7 +345,8 @@ def phase_beam_step() -> dict:
 
 
 def simulated_reads() -> list:
-    """4 simulated reads of 12-18 kb from a 60 kb random genome (seeded)."""
+    """4 simulated reads of 12-18 kb from a 60 kb random genome (seeded):
+    (raw signal, base ranges, bases) each."""
     from ravvent_tpu_torch.data import simulator
 
     rng = np.random.default_rng(SEED)
@@ -273,7 +356,7 @@ def simulated_reads() -> list:
     for _ in range(4):
         n = int(rng.integers(12_000, 18_001))
         s = int(rng.integers(0, len(genome) - n))
-        reads.append(simulator.simulate_read(genome[s:s + n], rng, pore))
+        reads.append(simulator.simulate_read(genome[s:s + n], rng, pore) + (genome[s:s + n],))
     return reads
 
 
@@ -304,7 +387,7 @@ def phase_end_to_end() -> dict:
     t0 = time.perf_counter()
     stages = {"prepare": 0.0, "decode": 0.0, "merge": 0.0}
     n_snip = n_bases = 0
-    for raw, ranges in reads:
+    for raw, ranges, _ in reads:
         call = basecall_read(engine, merger, raw, ranges)
         require(call is not None, "a simulated read gave no snippets")
         n_snip += call.n_snippets
@@ -322,7 +405,7 @@ def phase_end_to_end() -> dict:
     require(n_bases > 0, "the reads merged to no bases")
 
     # the card against the CPU (plain versions) on one read's first 64 snippets
-    raw, ranges = reads[0]
+    raw, ranges, _ = reads[0]
     sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
     rr, er = rr[:64], er[:64]
     t_gpu, p_gpu = engine.predict_beam_compact(sig, rr, ev, er, MAX_OUTPUT_LEN, 5)
@@ -535,7 +618,7 @@ def phase_end_to_end_loop() -> dict:
     t0 = time.perf_counter()
     n_snip = n_bases = chunks = 0
     decode_s = 0.0
-    for raw, ranges in reads:
+    for raw, ranges, _ in reads:
         call = basecall_read(engine, merger, raw, ranges)
         require(call is not None, "a simulated read gave no snippets")
         n_snip += call.n_snippets
@@ -554,7 +637,7 @@ def phase_end_to_end_loop() -> dict:
             "beam_impl=loop: the beam-loop kernel was not launched once per chunk")
     require(counts["beam_step"] == 0, "beam_impl=loop launched the beam-step kernel")
 
-    raw, ranges = reads[0]
+    raw, ranges, _ = reads[0]
     sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
     rr, er = rr[:64], er[:64]
     t_loop, p_loop = engine.predict_beam_compact(sig, rr, ev, er, MAX_OUTPUT_LEN, 5)
@@ -589,7 +672,7 @@ def phase_greedy() -> dict:
                       cfg.vocab_size, TOTAL_STEPS, MAX_OUTPUT_LEN - 1,
                       start_token=NUC_TOKENIZER.start_id, end_token=NUC_TOKENIZER.end_id)
 
-    raw, ranges = simulated_reads()[0]
+    raw, ranges, _ = simulated_reads()[0]
     sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
     with torch.inference_mode():
         # the read's snippets as the engine gathers them on the card
@@ -617,6 +700,99 @@ def phase_greedy() -> dict:
     print(f"  fused greedy on the card vs plain greedy_decode on the CPU, 64 snippets: "
           f"tokens agree {agree:.5f} (need >= 0.99)")
     require(agree >= 0.99, "fused greedy decode on the card disagrees with the CPU")
+    return counts
+
+
+def phase_bench_path(smi: str) -> dict:
+    """bench.py's main path: PerformanceEvaluator over the engine with the
+    bench's settings (i8dev wire, bf16 encoder stream, bf16 pre-projected
+    memory, beam_impl="step", 4-bit probabilities) on the 4 simulated reads
+    as chiron files, per read (evaluate_files) and pipelined."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.data import chiron
+    from ravvent_tpu_torch.data.snippets import load_read_compact_ex
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
+    from ravvent_tpu_torch.ops import cuda_lib
+
+    cfg, params = flagship_params()
+    bench = dict(chunk_size=4096, memory_dtype=torch.bfloat16, beam_impl="step",
+                 encoder_dtype=torch.bfloat16, pack_u8=True, transport_dtype="i8dev", prob_bits=4)
+    engine = BasecallEngine(params, cfg, **bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        paths = []
+        for i, (raw, ranges, seq) in enumerate(simulated_reads()):
+            chiron.write_read(d / f"r{i}.signal", d / f"r{i}.label", raw, ranges, seq)
+            paths.append(str(d / f"r{i}.signal"))
+        (d / "files_info.json").write_text(json.dumps([{"signal_path": p} for p in paths]))
+        pe = PerformanceEvaluator(engine, beam_width=5, cache_dir=str(d / "cache"))
+        pe.run(paths[0])  # warm-up; fills the read cache, as the bench's repeats do
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        per_read = pe.evaluate_files(d / "files_info.json", d / "results.json", verbose=False)
+        totals = PerformanceEvaluator.compute_total_results(d / "results.json")
+        rec = pe.run_pipelined(paths, inflight=8, finishers=4)
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.launches)
+        bases = sum(r["bases_num"] for r in per_read)
+        proc = sum(r["total_processing"] for r in per_read)
+        print(f"  evaluate_files, {len(per_read)} reads, {bases} bases: {bases / proc:.1f} bases/s "
+              f"over total_processing {proc:.3f} s (predict "
+              f"{sum(r['t_predicting'] for r in per_read):.3f} s, merge "
+              f"{sum(r['t_merge'] for r in per_read):.3f} s); compute_total_results "
+              f"{totals[0]:.1f} bases/s [{smi}]")
+        print(f"  run_pipelined inflight 8, finishers 4: {rec['bases_per_s']:.1f} bases/s, wall "
+              f"{rec['wall_s']:.3f} s, stages {rec['stages_s']} [{smi}]")
+        print(f"  launches: bilstm_bf16 {counts['bilstm_bf16']}, beam_step {counts['beam_step']}, "
+              f"bilstm {counts['bilstm']}, beam_loop {counts['beam_loop']}, "
+              f"decode_step {counts['decode_step']}")
+        require(counts["bilstm_bf16"] > 0 and counts["beam_step"] > 0,
+                "the bench path did not launch its kernels")
+        require(counts["bilstm"] == counts["beam_loop"] == counts["decode_step"] == 0,
+                "the bench path launched a kernel of another path")
+        require(rec["bases_num"] == bases and bases > 0, "the pipelined run counted other bases")
+
+        # the wire on the card against the host: ranges bit-equal, features
+        # within the reference's bars (tests/test_compact_path.py:146-149)
+        worst, mean_err, n_rows = 0.0, [], 0
+        for p in paths:
+            sig, rr, ev, er, nuc, aux = load_read_compact_ex(p, Path(p).with_suffix(".label"), 6,
+                                                              cache_dir=str(d / "cache"))
+            for s in range(0, rr.shape[0], engine.chunk_size):
+                rr_c, er_c = rr[s:s + engine.chunk_size], er[s:s + engine.chunk_size]
+                _, ev_d, rr_d, er_d = engine.upload_chunk(sig, ev, rr_c, er_c, aux)
+                lo_e, hi_e = int(er_c[0, 0]), int(er_c[:, 1].max())
+                require(np.array_equal(rr_d.cpu().numpy(), rr_c - rr_c[0, 0])
+                        and np.array_equal(er_d.cpu().numpy(), er_c - lo_e),
+                        "i8dev snippet ranges on the card differ from the host's")
+                err = np.abs(ev_d.cpu().numpy() - ev[lo_e:hi_e])
+                worst = max(worst, float(err.max()))
+                mean_err.append(float(err.mean()))
+                n_rows += rr_c.shape[0]
+        print(f"  i8dev on the card: snippet ranges of {n_rows} rows bit-equal to the host's; "
+              f"event features against the host's: max abs err {worst:.3e} (need < 5e-2), "
+              f"worst chunk mean {max(mean_err):.3e} (need < 5e-3)")
+        require(worst < 5e-2 and max(mean_err) < 5e-3, "i8dev event features miss the host bars")
+
+        # the card against the CPU (plain versions) on 64 snippets, same settings
+        sig, rr, ev, er, nuc, aux = load_read_compact_ex(paths[0], Path(paths[0]).with_suffix(
+            ".label"), 6, cache_dir=str(d / "cache"))
+    max_len = int((nuc != 0).sum(axis=1).max())
+    rr, er = rr[:64], er[:64]
+    t_gpu, p_gpu = engine.predict_beam_compact(sig, rr, ev, er, max_len, 5, aux=aux)
+    cpu = BasecallEngine(params, cfg, device="cpu", **bench)
+    t_cpu, p_cpu = cpu.predict_beam_compact(sig, rr, ev, er, max_len, 5, aux=aux)
+    agree = float((t_gpu == t_cpu).mean())
+    print(f"  bench settings, card vs CPU on 64 snippets: tokens agree {agree:.5f} (need >= 0.998), "
+          f"rows identical {float((t_gpu == t_cpu).all(axis=1).mean()):.4f}; 4-bit probs on "
+          f"the 16 levels {bool(np.isin(np.round(p_gpu * 15, 4), np.arange(16)).all())}")
+    require(t_gpu.shape == (64, engine._fetch_width(max_len)) and np.isfinite(p_gpu).all(),
+            "bad result shape or probs")
+    require(np.isin(np.round(p_gpu * 15, 4), np.arange(16)).all(), "probs off the 4-bit levels")
+    require(agree >= 0.998, "card and CPU disagree on the bench path's tokens")
     return counts
 
 
@@ -654,15 +830,22 @@ def main() -> int:
     t0 = time.perf_counter()
     counts_greedy = phase_greedy()
     phase("8 end to end, fused greedy", t0)
+    t0 = time.perf_counter()
+    k_bf16 = phase_bilstm_bf16()
+    phase("9 bilstm_bf16 kernel", t0)
+    t0 = time.perf_counter()
+    counts_bench = phase_bench_path(smi)
+    phase("10 end to end, the bench's path", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_beam["launches"] = counts["beam_step"]
     k_loop["launches"] = counts_loop["beam_loop"]
     k_dstep["launches"] = counts_greedy["decode_step"]
+    k_bf16["launches"] = counts_bench["bilstm_bf16"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kd[k] for k in keys}
-                                  for kd in (k_bilstm, k_beam, k_loop, k_dstep)]}))
+                                  for kd in (k_bilstm, k_beam, k_loop, k_dstep, k_bf16)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,248 @@
+"""Throughput evaluation with the reference's 4-way timing partition.
+
+Counterpart of ravvent_tpu/evaluation/performance.py on the compact wire:
+per read, wall-clock timers partition the pipeline into ``t_data_loading``
+/ ``t_predicting`` / ``t_postprocessing`` / ``t_merge``; throughput is bases
+(or samples) over ``total_processing`` (prediction + postprocessing +
+merge, without data loading). :meth:`PerformanceEvaluator.run_pipelined`
+overlaps reads (the main thread loads and dispatches, a pool collects and
+merges) and gives one aggregate record, the bench's throughput number.
+``compute_total_results`` keeps the reference's running cumulative means.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from timeit import default_timer as timer
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ravvent_tpu_torch.assembly.merger import (
+    CONF_GATE_DEFAULT, Merger, confidence_keep_mask, drop_snippet_rows,
+    expected_overlaps_from_ranges,
+)
+from ravvent_tpu_torch.data import chiron
+from ravvent_tpu_torch.data.snippets import load_read_compact_ex
+from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
+
+
+def _max_output_len(rr: np.ndarray, nuc: np.ndarray) -> int:
+    return int((nuc != 0).sum(axis=1).max()) if rr.shape[0] else 2
+
+
+class PerformanceEvaluator:
+    def __init__(
+        self,
+        engine: BasecallEngine,
+        merger_scores_id: int = 0,
+        stride: int = 6,
+        beam_width: int = 5,
+        cache_dir: Optional[str] = None,
+        wire: str = "compact",
+        conf_gate="default",
+    ) -> None:
+        """``conf_gate``: the confidence gate's parameters (see
+        assembly/merger.py:confidence_keep_mask), "default" or None (off).
+        ``wire``: "compact" only; the JAX package's signal-only wires
+        ("sigdev", "sigdev8") are not ported yet."""
+        if wire in ("sigdev", "sigdev8"):
+            raise NotImplementedError(
+                f"wire={wire!r}: the signal-only wire is not ported yet (ROADMAP.md A3)")
+        if wire != "compact":
+            raise ValueError(f"wire must be 'compact', got {wire!r}")
+        self.merger = Merger(scores_id=merger_scores_id)
+        # drop derailed low-confidence snippets before the fold, as the
+        # identity path does, so the timed work is what production merges
+        self.conf_gate = CONF_GATE_DEFAULT if conf_gate == "default" else conf_gate
+        self.stride = stride
+        self.engine = engine
+        self.beam_width = beam_width
+        self.cache_dir = cache_dir
+        self.wire = wire
+
+    def _load(self, path):
+        return load_read_compact_ex(path, Path(path).with_suffix(".label"), self.stride,
+                                    cache_dir=self.cache_dir)
+
+    def run(self, signal_data_source, chunk_size: int = 1024) -> Dict:
+        """One read, timed stage by stage (``chunk_size`` is the reference's
+        argument and unused: the engine has its own)."""
+        ranges, syms = chiron.load_label(Path(signal_data_source).with_suffix(".label"))
+        samples_num = int(ranges[-1, 1] - ranges[0, 0])
+
+        start = timer()
+        sig, rr, ev, er, nuc, aux = self._load(signal_data_source)
+        t_data_loading = timer() - start
+
+        t_predicting = t_postprocessing = 0.0
+        if rr.shape[0]:
+            start = timer()
+            tokens, probs = self.engine.predict_beam_compact(
+                sig, rr, ev, er, _max_output_len(rr, nuc), self.beam_width, aux=aux)
+            t_predicting = timer() - start
+
+            start = timer()
+            blob, offsets, flat_probs = self._postprocess(tokens, probs)
+            t_postprocessing = timer() - start
+
+        start = timer()
+        if rr.shape[0]:
+            blob, offsets, flat_probs, rr = self._gate(blob, offsets, flat_probs, rr)
+            eo = (expected_overlaps_from_ranges(rr, np.diff(offsets))
+                  if rr.shape[0] > 1 else None)
+            self.merger.merge_flat(blob, offsets, flat_probs, expected_overlaps=eo)
+        t_merge = timer() - start
+
+        return {
+            "bases_num": len("".join(syms)),
+            "samples_num": samples_num,
+            "t_data_loading": t_data_loading,
+            "t_predicting": t_predicting,
+            "t_postprocessing": t_postprocessing,
+            "t_merge": t_merge,
+            "total": t_data_loading + t_predicting + t_postprocessing + t_merge,
+            "total_processing": t_predicting + t_postprocessing + t_merge,
+        }
+
+    def _gate(self, blob, offsets, flat_probs, rr):
+        """The confidence gate over the flat snippet layout; a no-op when it
+        is off or nothing trips it."""
+        if self.conf_gate is None or offsets.size <= 2:
+            return blob, offsets, flat_probs, rr
+        keep = confidence_keep_mask(flat_probs, offsets, *self.conf_gate)
+        if not keep.all():
+            blob, offsets, flat_probs = drop_snippet_rows(blob, offsets, flat_probs, keep)
+            if rr is not None and rr.shape[0] == keep.shape[0]:
+                rr = rr[keep]
+        return blob, offsets, flat_probs, rr
+
+    @staticmethod
+    def _postprocess(tokens, probs):
+        """The whole read's tokens to one ASCII blob; each snippet's scores
+        are the first len(seq) probabilities of its row."""
+        _, blob, offsets = NUC_TOKENIZER.sequences_to_texts_flat(tokens)
+        probs = np.asarray(probs, dtype=np.float64)
+        counts = np.diff(offsets)
+        prefix = np.arange(probs.shape[1])[None, :] < counts[:, None]
+        return blob, offsets, probs[prefix]
+
+    def run_pipelined(self, signal_paths, chunk_size: int = 1024, inflight: int = 8,
+                      finishers: int = 4) -> Dict:
+        """The reads as a pipeline: the main thread loads and dispatches read
+        k+1 while read k runs on the device and a pool of ``finishers``
+        threads waits on finished reads' copies, postprocesses and merges
+        them (the copy wait and the native merge release the GIL).
+        ``inflight`` bounds the dispatched reads not yet finished. Returns
+        one aggregate record: wall time over all reads, and each stage's
+        seconds summed over threads (``collect_wait`` is time blocked on the
+        device)."""
+        bases_num = samples_num = 0
+        stages = {"load": 0.0, "dispatch": 0.0, "collect_wait": 0.0, "postproc": 0.0,
+                  "merge": 0.0}
+        lock = threading.Lock()
+
+        def add_stage(key, dt):
+            with lock:
+                stages[key] += dt
+
+        def finish(handle, rr):
+            # inference mode is per thread: the collect unpacks host bytes
+            # only, but keep it off autograd like the dispatching thread
+            with torch.inference_mode():
+                t0 = timer()
+                tokens, probs = self.engine.collect_beam_compact(handle)
+                t1 = timer()
+                add_stage("collect_wait", t1 - t0)
+                if not tokens.shape[0]:
+                    return
+                blob, offsets, flat_probs = self._postprocess(tokens, probs)
+                t2 = timer()
+                add_stage("postproc", t2 - t1)
+                blob, offsets, flat_probs, rr = self._gate(blob, offsets, flat_probs, rr)
+                eo = expected_overlaps_from_ranges(rr, np.diff(offsets)) if rr.shape[0] > 1 else None
+                self.merger.merge_flat(blob, offsets, flat_probs, expected_overlaps=eo)
+                add_stage("merge", timer() - t2)
+
+        start_all = timer()
+        pending = deque()
+        with ThreadPoolExecutor(max_workers=max(1, finishers)) as pool:
+            for path in signal_paths:
+                t0 = timer()
+                sig, rr, ev, er, nuc, aux = self._load(path)
+                bases_num += aux["n_bases"]
+                samples_num += aux["n_samples"]
+                t1 = timer()
+                stages["load"] += t1 - t0
+                handle = self.engine.dispatch_beam_compact(
+                    sig, rr, ev, er, _max_output_len(rr, nuc), self.beam_width, aux=aux)
+                stages["dispatch"] += timer() - t1
+                pending.append(pool.submit(finish, handle, rr))
+                while len(pending) >= inflight:
+                    pending.popleft().result()
+            while pending:
+                pending.popleft().result()
+        wall = timer() - start_all
+        return {
+            "pipelined": True,
+            "wire": self.wire,
+            "reads": len(signal_paths),
+            "inflight": inflight,
+            "finishers": finishers,
+            "bases_num": bases_num,
+            "samples_num": samples_num,
+            "wall_s": wall,
+            "bases_per_s": bases_num / wall if wall else 0.0,
+            "samples_per_s": samples_num / wall if wall else 0.0,
+            "stages_s": {k: round(v, 5) for k, v in stages.items()},
+        }
+
+    @staticmethod
+    def compute_total_results(results_path) -> tuple:
+        """The reference's aggregation (ravvent_performance_evaluator.py:109-131),
+        running cumulative means and its std of the signal speeds in the
+        second place included."""
+        with open(results_path, "rt") as f:
+            results = json.load(f)
+        bases_num = samples_num = 0
+        t_processing = 0.0
+        bases_speeds, signals_speeds = [], []
+        for res in results:
+            bases_num += res["bases_num"]
+            samples_num += res["samples_num"]
+            t_processing += res["total_processing"]
+            bases_speeds.append(bases_num / t_processing)
+            signals_speeds.append(samples_num / t_processing)
+        return (
+            float(np.mean(bases_speeds)),
+            float(np.std(signals_speeds)),
+            float(np.mean(signals_speeds)),
+            float(np.std(signals_speeds)),
+        )
+
+    def evaluate_files(self, files_info_path, results_path, verbose: bool = True,
+                       repeats: int = 1) -> List[Dict]:
+        """Per-read timing over a files-info JSON, the results written to
+        ``results_path`` after every read. ``repeats`` runs each read that
+        many times and keeps the fastest."""
+        with open(files_info_path, "rt") as f:
+            val_files = [v["signal_path"] for v in json.load(f)]
+        os.makedirs(os.path.dirname(str(results_path)) or ".", exist_ok=True)
+        results: List[Dict] = []
+        for v in val_files:
+            if verbose:
+                print(f"Running {v}", flush=True)
+            res = min((self.run(v) for _ in range(max(1, repeats))),
+                      key=lambda r: r["total_processing"])
+            res["path"] = v
+            results.append(res)
+            with open(results_path, "wt") as f:
+                json.dump(results, f, indent=2)
+        return results

@@ -41,9 +41,11 @@ def init_attention(gen: torch.Generator, units: int, memory_dim: int, device=Non
 
 def setup_memory(params: Params, memory: torch.Tensor, mask: torch.Tensor, dtype=None,
                  attention_layer: Optional[Params] = None) -> AttnMemory:
-    """memory [B, S, E], mask [B, S] bool."""
-    values = torch.where(mask[..., None], memory, torch.zeros((), dtype=memory.dtype,
-                                                              device=memory.device))
+    """memory [B, S, E] (f32, or a bf16 encoder stream), mask [B, S] bool. A
+    bf16 memory is upcast before the products, which is what the reference's
+    ``bf16 @ f32`` promotes to (ravvent_tpu/models/attention.py:99-105)."""
+    memory = memory.float()
+    values = torch.where(mask[..., None], memory, torch.zeros((), device=memory.device))
     keys = values @ params["memory_kernel"]
     watt_h = None
     if attention_layer is not None:

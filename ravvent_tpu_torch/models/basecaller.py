@@ -6,7 +6,7 @@ outputs and masks along time (200 raw + 30 event = 230 memory positions).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -39,14 +39,24 @@ def init_basecaller(cfg: ModelConfig, gen: torch.Generator, device=None) -> Para
 
 
 def encode_input(params: Params, raw: torch.Tensor, event: torch.Tensor,
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (enc_output [B, S, enc_out_dim], input_mask [B, S])."""
+                 cfg: ModelConfig, weights: Optional[Dict[str, list]] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (enc_output [B, S, enc_out_dim], input_mask [B, S]). The
+    encoders run on the inputs' dtype (f32, or the bf16 stream); the caller
+    casts raw and event first, so the masks come from the cast inputs.
+    ``weights``: per encoder key, its layers' ``stream_weights`` in that
+    dtype (made here when None)."""
+    weights = weights or {}
+
+    def enc(key, xs):
+        return encoder_apply(params[key], xs, weights.get(key))[0]
+
     if cfg.data_type == "raw":
-        return encoder_apply(params["encoder_raw"], raw)[0], input_mask(raw)
+        return enc("encoder_raw", raw), input_mask(raw)
     if cfg.data_type == "event":
-        return encoder_apply(params["encoder_event"], event)[0], input_mask(event)
-    out_raw, _ = encoder_apply(params["encoder_raw"], raw)
-    out_event, _ = encoder_apply(params["encoder_event"], event)
+        return enc("encoder_event", event), input_mask(event)
+    out_raw = enc("encoder_raw", raw)
+    out_event = enc("encoder_event", event)
     out = torch.cat([out_raw, out_event], dim=1)
     mask = torch.cat([input_mask(raw), input_mask(event)], dim=-1)
     return out, mask

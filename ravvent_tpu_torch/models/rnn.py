@@ -97,6 +97,13 @@ def stacked_weights(layer: Params):
             torch.stack([pf["bias"], pb["bias"]]))
 
 
+def stream_weights(layers: List[Params], dtype=torch.float32) -> List[Tuple[torch.Tensor, ...]]:
+    """Per layer (wx, wh, b) as the BiLSTM kernels take them: wx and wh in
+    the stream dtype (the TPU kernel casts its weights to the stream dtype,
+    ravvent_tpu/ops/rnn_pallas.py:166-172), b f32."""
+    return [(wx.to(dtype), wh.to(dtype), b) for wx, wh, b in map(stacked_weights, layers)]
+
+
 def _zero_state(xs: torch.Tensor, units: int):
     z = torch.zeros(2, xs.shape[0], units, device=xs.device, dtype=torch.float32)
     return z, z.clone()
@@ -111,15 +118,22 @@ def run_bidi_layer(layer: Params, xs: torch.Tensor, initial_state=None):
     return out, (h, c)
 
 
-def encoder_apply(layers: List[Params], xs: torch.Tensor) -> Tuple[torch.Tensor, Any]:
-    """Stacked bidirectional encoder. Every layer of a CUDA tensor runs the
-    BiLSTM kernel (ops/rnn_cuda.py); a CPU tensor runs its plain version.
+def encoder_apply(layers: List[Params], xs: torch.Tensor,
+                  weights: Optional[List[Tuple[torch.Tensor, ...]]] = None,
+                  ) -> Tuple[torch.Tensor, Any]:
+    """Stacked bidirectional encoder on the stream dtype of ``xs`` (f32 or
+    bf16; the JAX package's bf16 stream, models/rnn.py:314-347): every layer
+    takes and returns that dtype, with f32 state. Every layer of a CUDA
+    tensor runs the BiLSTM kernel (ops/rnn_cuda.py); a CPU tensor runs its
+    plain version. ``weights``: :func:`stream_weights` of ``layers`` in the
+    stream dtype, made once by the caller; made here when None.
     Returns (outputs [B, T, 2U], final (h, c) of the last layer)."""
     out = xs.contiguous()
+    if weights is None:
+        weights = stream_weights(layers, xs.dtype)
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-    for layer in layers:
-        U = layer["fwd"]["recurrent"].shape[0]
-        h0, c0 = state if state is not None else _zero_state(out, U)
-        out, h, c = bilstm_layer(out, *stacked_weights(layer), h0.contiguous(), c0.contiguous())
+    for wx, wh, b in weights:
+        h0, c0 = state if state is not None else _zero_state(out, wh.shape[1])
+        out, h, c = bilstm_layer(out, wx, wh, b, h0.contiguous(), c0.contiguous())
         state = (h, c)
     return out, state

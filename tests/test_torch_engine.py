@@ -5,6 +5,7 @@ f32 memory: equal tokens, step probabilities within 1e-5 relative (live
 steps; the step past max_steps is a dead output). bf16 memory: token
 agreement >= 99.8% and the merged read's identity within 0.3 points."""
 
+import functools
 from pathlib import Path
 
 import jax
@@ -38,10 +39,10 @@ def flagship():
     return tree, from_jax_params(tree)
 
 
-@pytest.fixture(scope="module")
-def read():
-    """First N_SNIP snippets of one simulated read, compact form, plus the
-    bases those snippets cover."""
+@functools.lru_cache(maxsize=1)
+def _read_compact():
+    """First N_SNIP snippets of one simulated read, compact form, the bases
+    those snippets cover, and the read's aux dict (the "i8dev" wire's)."""
     # in-distribution read: the bench's genome recipe and the flagship's
     # noisy training profile (bench.py:ensure_dataset)
     rng = np.random.default_rng(7)
@@ -49,11 +50,21 @@ def read():
     profile = simulator.PROFILES["noisy"]
     pore = simulator.PoreModel(kmer_noise_sigma=profile.kmer_noise_sigma)
     sig, ranges = simulator.simulate_read(seq, rng, pore, profile=profile)
-    sigc, rr, ev, er, _, _ = prepare_compact(sig, ranges, np.array(["a"] * len(ranges)), 6)
+    sigc, rr, ev, er, _, aux = prepare_compact(sig, ranges, np.array(["a"] * len(ranges)), 6)
     rr, er = rr[:N_SNIP], er[:N_SNIP]
     lo, hi = rr[0, 0], rr[:, 1].max()
     truth = "".join(b for b, (s, e) in zip(seq, ranges) if s >= lo and e <= hi)
-    return sigc, rr, ev, er, truth
+    return sigc, rr, ev, er, truth, aux
+
+
+@pytest.fixture(scope="module")
+def read():
+    return _read_compact()[:5]
+
+
+@pytest.fixture(scope="module")
+def read_aux():
+    return _read_compact()
 
 
 def test_from_jax_params_on_flagship(flagship, tmp_path):
@@ -169,3 +180,32 @@ def test_cli_writes_one_record_per_read(tmp_path):
     lines = out.read_text().splitlines()
     assert [lines[0], lines[4]] == ["@r0", "@r1"]
     assert len(lines) == 8 and len(lines[1]) == len(lines[3]) and set(lines[1]) <= set("ACGT")
+
+
+def test_bench_settings_close_to_jax_engine(flagship, read_aux):
+    """bench.py's main path: the i8dev wire, a bf16 encoder stream, bf16
+    pre-projected memory, beam 5, 4-bit probabilities; the JAX engine with
+    the same settings decodes with XLA on the CPU."""
+    tree, params = flagship
+    sigc, rr, ev, er, truth, aux = read_aux
+    jeng = JEngine(tree, JConfig(), chunk_size=16, memory_dtype=jnp.bfloat16,
+                   project_values=True, beam_impl="xla", encoder_dtype=jnp.bfloat16,
+                   pack_u8=True, transport_dtype="i8dev", prob_bits=4)
+    teng = BasecallEngine(params, ModelConfig(), chunk_size=16, memory_dtype=torch.bfloat16,
+                          encoder_dtype=torch.bfloat16, transport_dtype="i8dev", prob_bits=4,
+                          device="cpu")
+    jt, jp = jeng.predict_beam_compact(sigc, rr, ev, er, MAX_OUT, 5, aux=aux)
+    tt, tp = teng.predict_beam_compact(sigc, rr, ev, er, MAX_OUT, 5, aux=aux)
+    assert tt.shape == jt.shape == (N_SNIP, MAX_OUT)
+    id_jax = _merged_identity(JMerger(), JEngine, jt, jp, rr, truth)
+    id_port = _merged_identity(Merger(), BasecallEngine, tt, tp, rr, truth)
+    print(f"bench settings: tokens agree {(tt == jt).mean():.5f}, identity port {id_port:.3f} "
+          f"JAX {id_jax:.3f}")
+    assert (tt == jt).mean() >= 0.998
+    assert abs(id_port - id_jax) <= 0.3
+    # 4-bit probabilities: 16 levels, one level apart at most where the
+    # rows decode alike
+    same = (tt == jt).all(axis=1)
+    live = MAX_OUT - 1
+    assert np.abs(tp[same, :live] - jp[same, :live]).max() <= 1 / 15 + 1e-6
+    assert set(np.unique(np.round(tp * 15, 4))) <= set(range(16))

@@ -15,7 +15,7 @@ import torch
 from ravvent_tpu_torch.decode.greedy import greedy_decode
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.decoder import init_decoder
-from ravvent_tpu_torch.models.rnn import init_encoder, stacked_weights
+from ravvent_tpu_torch.models.rnn import init_encoder, stacked_weights, stream_weights
 from ravvent_tpu_torch.ops import (
     beam_loop_cuda, beam_step_cuda, cuda_lib, decode_step_cuda, rnn_cuda,
 )
@@ -48,6 +48,41 @@ def test_bilstm_kernel_matches_plain(cuda, F, T, seeded):
     ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [37, 130], ids=["one ragged tile", "three tiles"])
+@pytest.mark.parametrize("F,T,seeded", [(1, 200, False), (5, 30, False), (256, 40, True)])
+def test_bilstm_bf16_kernel_matches_plain(cuda, F, T, seeded, B):
+    """The bf16 stream: outputs within two bf16 ulps, f32 final states 1e-3
+    (chip_smoke.py phase 9's bars)."""
+    gen = torch.Generator().manual_seed(100 + F)
+    U = 128
+    wx, wh, b = stream_weights([init_encoder(gen, U, 1, F, cuda)[0]], torch.bfloat16)[0]
+    xs = torch.randn(B, T, F, generator=gen).to(cuda, torch.bfloat16)
+    h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)).to(cuda) if seeded
+              else torch.zeros(2, B, U, device=cuda) for _ in range(2))
+    before = cuda_lib.launches["bilstm_bf16"]
+    out, h, c = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0)
+    assert cuda_lib.launches["bilstm_bf16"] == before + 1
+    assert out.dtype == torch.bfloat16 and h.dtype == c.dtype == torch.float32
+    ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)
+    assert (out.float() - ref[0].float()).abs().max().item() <= 1e-2
+    for g, r in zip((h, c), ref[1:]):
+        assert (g - r).abs().max().item() <= 1e-3
+
+
+def test_bilstm_bf16_wrapper_rejects_mixed_dtypes(cuda):
+    B, T, F, U = 2, 3, 5, 128
+    xs = torch.zeros(B, T, F, device=cuda, dtype=torch.bfloat16)
+    z = torch.zeros(2, B, U, device=cuda)
+    with pytest.raises(ValueError, match="wx"):  # f32 weights on a bf16 stream
+        rnn_cuda.bilstm_layer(xs, torch.zeros(2, F, 4 * U, device=cuda),
+                              torch.zeros(2, U, 4 * U, device=cuda),
+                              torch.zeros(2, 4 * U, device=cuda), z, z)
+    with pytest.raises(ValueError, match="stream"):
+        rnn_cuda.bilstm_layer(xs.half(), torch.zeros(2, F, 4 * U, device=cuda).half(),
+                              torch.zeros(2, U, 4 * U, device=cuda).half(),
+                              torch.zeros(2, 4 * U, device=cuda), z, z)
 
 
 @pytest.mark.parametrize("mem_dtype", [torch.bfloat16, torch.float32])

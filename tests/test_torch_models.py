@@ -119,3 +119,41 @@ def test_decoder_step_matches_jax(models, project):
     np.testing.assert_allclose(tn.cells[0][1].numpy(), np.asarray(jn.cells[0][1]), **TOL)
     assert np.isfinite(ta.numpy()).all()
     np.testing.assert_allclose(ta[3, 0].numpy(), np.full(S, 1.0 / S), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+def test_setup_memory_on_a_bf16_stream_matches_jax(models, dtype):
+    """A bf16 encoder output: the reference's ``bf16 @ f32`` promotes to f32,
+    the port upcasts first; the same numbers."""
+    jp, tp = models
+    rng = np.random.default_rng(5)
+    memory = jnp.asarray(rng.normal(size=(3, 24, 32)).astype(np.float32)).astype(jnp.bfloat16)
+    mask = rng.random((3, 24)) > 0.3
+    jd, td = jp["decoder"], tp["decoder"]
+    jm = jattn.setup_memory(jd["attention"], memory, jnp.asarray(mask),
+                            jnp.bfloat16 if dtype else None,
+                            attention_layer=jd["attention_layer"])
+    tmem = torch.from_numpy(np.asarray(memory, np.float32)).to(torch.bfloat16)
+    tm = tattn.setup_memory(td["attention"], tmem, torch.from_numpy(mask),
+                            torch.bfloat16 if dtype else None,
+                            attention_layer=td["attention_layer"])
+    for j, t in ((jm.keys, tm.keys), (jm.values, tm.values)):
+        assert t.dtype == (torch.bfloat16 if dtype else torch.float32)
+        tol = dict(rtol=2 ** -7, atol=1e-6) if dtype else TOL
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), **tol)
+
+
+def test_encode_input_on_a_bf16_stream_matches_jax(models):
+    """Inputs cast to bf16 before the encoders, masks from the cast inputs,
+    the joint output in bf16 (the JAX engine's _cast, basecall.py:366-370)."""
+    jp, tp = models
+    raw, ev = _snippets(6, seed=1)
+    raw[0, :5, 0] = 1e-41  # nonzero in f32, zero in bf16: padding once cast
+    jo, jm = j_encode(jp, jnp.asarray(raw).astype(jnp.bfloat16),
+                      jnp.asarray(ev).astype(jnp.bfloat16), JConfig(**CFG))
+    to, tm = t_encode(tp, torch.from_numpy(raw).to(torch.bfloat16),
+                      torch.from_numpy(ev).to(torch.bfloat16), ModelConfig(**CFG))
+    assert to.dtype == torch.bfloat16 and jo.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    assert not tm[0, :5].any()
+    assert np.abs(to.float().numpy() - np.asarray(jo, np.float32)).max() <= 1e-2

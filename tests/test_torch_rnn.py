@@ -93,3 +93,69 @@ def test_seeded_init_shapes_and_keras_conventions():
     torch.testing.assert_close(r @ r.T, torch.eye(16, dtype=torch.float64), atol=1e-5, rtol=0)
     again = trnn.init_lstm_cell(torch.Generator().manual_seed(0), 5, 16)
     assert all(torch.equal(cell[k], again[k]) for k in cell)
+
+
+# bf16 stream: outputs are bf16(h), so a summation order that flips one
+# rounding shows as one bf16 ulp (2**-8 at |h| in [0.5, 1)) and the
+# recurrence carries it: about two ulps. Final states stay f32.
+BF16_OUT, BF16_STATE = 1e-2, 1e-3
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero_state", "initial_state"])
+@pytest.mark.parametrize("F", [1, 5, 256])
+def test_bf16_layer_matches_pallas_interpret(F, seeded):
+    """The plain version on a bf16 stream against the TPU kernel run on the
+    same bf16 input (weights cast to bf16 inside it, f32 state)."""
+    U, B, T = 128, 8, 12
+    rng = np.random.default_rng(100 + F)
+    jl, tl = _layer(F, U, F)
+    xs = jnp.asarray(rng.normal(size=(B, T, F)).astype(np.float32)).astype(jnp.bfloat16)
+    state = None
+    if seeded:
+        state = tuple((0.5 * rng.normal(size=(2, B, U))).astype(np.float32) for _ in range(2))
+    jout, (jh, jc) = run_bidi_lstm_pallas(
+        jl, xs, None if state is None else tuple(map(jnp.asarray, state)), interpret=True)
+    wx, wh, b = trnn.stream_weights([tl], torch.bfloat16)[0]
+    h0, c0 = (torch.zeros(2, B, U), torch.zeros(2, B, U)) if state is None else map(
+        torch.from_numpy, state)
+    xt = torch.from_numpy(np.asarray(xs, dtype=np.float32)).to(torch.bfloat16)
+    tout, th, tc = rnn_cuda.bilstm_layer_plain(xt, wx, wh, b, h0, c0)
+    assert tout.dtype == torch.bfloat16 and th.dtype == tc.dtype == torch.float32
+    err_out = np.abs(tout.float().numpy() - np.asarray(jout, dtype=np.float32)).max()
+    err_state = max(np.abs(th.numpy() - np.asarray(jh)).max(),
+                    np.abs(tc.numpy() - np.asarray(jc)).max())
+    print(f"bf16 layer F={F} {'seeded' if seeded else 'zero state'}: out {err_out:.3e}, "
+          f"final states {err_state:.3e}")
+    assert err_out <= BF16_OUT and err_state <= BF16_STATE
+
+
+def test_bf16_encoder_matches_jax_stream():
+    """Two stacked layers on a bf16 stream: bf16 between the layers, layer
+    0's f32 final states seeding layer 1, against the JAX encoder's bf16
+    stream (its scan path, models/rnn.py:_stream_mm)."""
+    B, T, F, U = 4, 10, 5, 16
+    jls = jrnn.init_encoder(jax.random.PRNGKey(4), U, 2, F)
+    tls = from_jax_params(jax.tree_util.tree_map(np.asarray, jls))
+    xs = jnp.asarray(np.random.default_rng(2).normal(size=(B, T, F)).astype(np.float32))
+    jout, (jh, jc) = jrnn.encoder_apply(jls, xs.astype(jnp.bfloat16))
+    xt = torch.from_numpy(np.array(xs)).to(torch.bfloat16)
+    tout, (th, tc) = trnn.encoder_apply(tls, xt)
+    assert tout.dtype == torch.bfloat16 and jout.dtype == jnp.bfloat16
+    assert np.abs(tout.float().numpy() - np.asarray(jout, dtype=np.float32)).max() <= BF16_OUT
+    assert np.abs(th.numpy() - np.asarray(jh)).max() <= BF16_STATE
+    assert np.abs(tc.numpy() - np.asarray(jc)).max() <= BF16_STATE
+    # weights cast once and passed in give the same result
+    again, _ = trnn.encoder_apply(tls, xt, trnn.stream_weights(tls, torch.bfloat16))
+    assert torch.equal(again, tout)
+
+
+def test_bf16_wrapper_uses_plain_version_on_cpu():
+    U, B, T, F = 128, 3, 5, 256
+    _, tl = _layer(F, U, 9)
+    xs = torch.randn(B, T, F, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    z = torch.zeros(2, B, U)
+    wx, wh, b = trnn.stream_weights([tl], torch.bfloat16)[0]
+    got = rnn_cuda.bilstm_layer(xs, wx, wh, b, z, z)
+    ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, z, z)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
