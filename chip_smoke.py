@@ -5,7 +5,8 @@ Drives the port's paths — the basecalling CLI's read path
 and with --beam-impl loop, fused greedy decode
 (ops/decode_step_cuda.py:fused_greedy_decode), and bench.py's main path
 (evaluation/performance.py:PerformanceEvaluator on the bench's engine
-settings) — at the flagship's full width
+settings), and the bench's path on int8 memory through PerformanceEvaluator
+and MappingEvaluator (evaluation/mapping.py) — at the flagship's full width
 (joint raw+event input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM
 decoder with Luong attention, vocab 7, beam 5) on seeded random weights, and
 holds each hand-written kernel against its plain PyTorch version on the card:
@@ -43,7 +44,16 @@ holds each hand-written kernel against its plain PyTorch version on the card:
      the bf16 BiLSTM kernel, bf16 memory on the beam-step kernel, 4-bit
      probabilities) on the same 4 reads; the i8dev snippet ranges on the
      card bit-equal to the host's, the card's event features within the
-     host bars, and card and CPU tokens on 64 snippets.
+     host bars, and card and CPU tokens on 64 snippets;
+ 11. the beam-step kernel's int8 variants (quant, quant_mxu) against their
+     plain versions at phase 3's shape and seed on setup_memory(..., "i8")
+     memory, 40 steps each, timed beside the bf16 step, with the
+     quantization's time per chunk;
+ 12. end to end, bench.py's path on int8 memory (--memory i8, then i8mxu):
+     PerformanceEvaluator.evaluate_files and MappingEvaluator.evaluate_files
+     over the same 4 reads; only the int8 step kernel of the mode and the
+     bf16 BiLSTM kernel launch; card and CPU tokens on 64 snippets, decoding
+     the card's int8 memory and end to end.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -65,6 +75,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores
+H100_INT8_OPS = 1979e12  # dense int8 tensor cores
 SEED = 0
 
 
@@ -270,14 +281,19 @@ def cell_flops(U: int, V: int, att_rows: int) -> int:
     return 2 * 2 * U * 4 * U + 2 * att_rows * U + 2 * U * V
 
 
-def beam_step_bounds(B: int, S: int, U: int, W: int, V: int, mem_bytes: int) -> tuple:
+def beam_step_bounds(B: int, S: int, U: int, W: int, V: int, mem_bytes: int,
+                     scale_bytes: int = 0, mem_peak: float = H100_BF16_FLOPS) -> tuple:
+    """One step's bound: the memory's dots at ``mem_peak`` (bf16 for bf16
+    memory and for int8 memory's dequantized dots, int8 for its integer
+    dots), the cell's f32 work, and the bytes: keys, values, ``scale_bytes``
+    of scales per position, mask, state in and out, weights."""
     hyps = B * W
     f32_flops = hyps * cell_flops(U, V, U)
-    bf16_flops = hyps * 2 * 2 * S * U  # scores and context on bf16 memory
-    nbytes = (2 * B * S * U * mem_bytes + B * S  # keys, values, mask
+    mem_flops = hyps * 2 * 2 * S * U  # scores and context on the memory
+    nbytes = (2 * B * S * U * mem_bytes + B * S * (1 + scale_bytes)  # keys, values, mask, scales
               + 2 * (hyps * (3 * U * 4 + 4) + B * W * 5)  # state in and out
               + 4 * ((V + 2 * U) * 4 * U + 4 * U + U * U + U * V + V))  # weights
-    t_ops = f32_flops / H100_F32_FLOPS + bf16_flops / H100_BF16_FLOPS
+    t_ops = f32_flops / H100_F32_FLOPS + mem_flops / mem_peak
     t_bytes = nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
@@ -796,6 +812,197 @@ def phase_bench_path(smi: str) -> dict:
     return counts
 
 
+def phase_beam_step_i8() -> list:
+    """The beam-step kernel's int8 variants against their plain versions at
+    phase 3's shape and seed, on int8 memory from setup_memory(..., "i8"):
+    40 steps each, every step fed the plain version's state; timed beside
+    the bf16 step on the same decoder, with the quantization's time per
+    4096-row chunk."""
+    from ravvent_tpu_torch.models import attention as attn
+    from ravvent_tpu_torch.models.decoder import init_decoder
+    from ravvent_tpu_torch.ops.beam_step_cuda import (
+        beam_step, beam_step_plain, initial_state, pack_decoder_weights,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)  # phase 3's decoder and memory
+    B, S, U, W, V, E, steps = 4096, 232, 128, 5, 7, 256, 40
+    dec_p = init_decoder(gen, V, 1, U, E, dev)
+    memory, mask = encoder_like_memory(gen, B, S, E, dev)
+    layer = dec_p["attention_layer"]
+    mem = attn.setup_memory(dec_p["attention"], memory, mask, "i8", attention_layer=layer)
+    quant_ms = time_ms(lambda: (attn.quantize_rows(mem.keys.float()),
+                                attn.quantize_rows(mem.values.float())), reps=5)
+    setup_i8_ms = time_ms(lambda: attn.setup_memory(dec_p["attention"], memory, mask, "i8",
+                                                    attention_layer=layer), reps=5)
+    setup_bf16_ms = time_ms(lambda: attn.setup_memory(dec_p["attention"], memory, mask,
+                                                      torch.bfloat16, attention_layer=layer), reps=5)
+    bf16 = attn.setup_memory(dec_p["attention"], memory, mask, torch.bfloat16, attention_layer=layer)
+    del memory
+    w = pack_decoder_weights(dec_p, mem)
+    keys, values = mem.keys.contiguous(), mem.values.contiguous()
+    scales = (mem.kscale.contiguous(), mem.vscale.contiguous())
+    st0 = initial_state(B, W, U, 2, dev)
+    bf16_ms = time_ms(lambda: beam_step(st0, bf16.keys, bf16.values, mask, w, 1), reps=40)
+    del bf16
+    print(f"  int8 memory per chunk of {B} rows: the quantization {quant_ms:.4f} ms (two "
+          f"quantize_rows on f32 keys and values); setup_memory i8 {setup_i8_ms:.4f} ms, "
+          f"bf16 {setup_bf16_ms:.4f} ms")
+    tol = 1e-2  # cumulative log-prob; phase 3's bar
+    out = []
+    for name, mxu in (("beam_step_i8", False), ("beam_step_i8mxu", True)):
+        st = st0
+        agree_tok = agree_par = n = 0
+        err = 0.0
+        for _ in range(steps):
+            got, gpar = beam_step(st, keys, values, mask, w, 1, scales, mxu)
+            ref, rpar = beam_step_plain(st, keys, values, mask, w, 1, scales, mxu)
+            tok_eq = got.tok.reshape(B, W) == ref.tok.reshape(B, W)
+            par_eq = gpar == rpar
+            agree_tok += tok_eq.sum().item()
+            agree_par += par_eq.sum().item()
+            n += B * W
+            both = tok_eq & par_eq
+            if both.any():
+                err = max(err, (got.cum - ref.cum).abs()[both].max().item())
+            st = ref
+        torch.cuda.synchronize()
+        tok_share, par_share = agree_tok / n, agree_par / n
+        ms = time_ms(lambda: beam_step(st0, keys, values, mask, w, 1, scales, mxu), reps=40)
+        plain_ms = time_ms(lambda: beam_step_plain(st0, keys, values, mask, w, 1, scales, mxu),
+                           reps=3)
+        bound, by = beam_step_bounds(B, S, U, W, V, 1, scale_bytes=8,
+                                     mem_peak=H100_INT8_OPS if mxu else H100_BF16_FLOPS)
+        print(f"  {name} B={B} S={S} W={W} int8, {steps} steps: tokens agree {tok_share:.5f}, "
+              f"parents agree {par_share:.5f} (need >= 0.998); score max_abs_err {err:.3e} "
+              f"(tol {tol:g}); kernel {ms:.4f} ms/step, plain {plain_ms:.4f} ms/step, bound "
+              f"{bound:.4f} ms/step ({by}); the bf16 step in this run {bf16_ms:.4f} ms/step",
+              flush=True)
+        require(tok_share >= 0.998 and par_share >= 0.998,
+                f"{name}: token/parent agreement < 0.998")
+        require(err <= tol, f"{name}: score error {err:.3e} > {tol}")
+        variant = "quant_mxu" if mxu else "quant"
+        out.append({"name": name, "route": "cuda", "source": "ravvent_tpu_torch/csrc/beam_step.cu",
+                    "replaces": f"ravvent_tpu/ops/beam_loop_pallas.py:333 ({variant})",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": None})
+    return out
+
+
+def phase_bench_path_i8(smi: str) -> dict:
+    """bench.py's path on int8 memory (--memory i8, then i8mxu): the 4
+    simulated reads as chiron files through PerformanceEvaluator and
+    MappingEvaluator on the bench's other settings. Returns each memory
+    mode's launch counts."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.data import chiron
+    from ravvent_tpu_torch.data.snippets import load_read_compact_ex
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.evaluation.mapping import MappingEvaluator
+    from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
+    from ravvent_tpu_torch.ops import cuda_lib
+
+    cfg, params = flagship_params()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        paths = []
+        for i, (raw, ranges, seq) in enumerate(simulated_reads()):
+            chiron.write_read(d / f"r{i}.signal", d / f"r{i}.label", raw, ranges, seq)
+            paths.append(str(d / f"r{i}.signal"))
+        info = d / "files_info.json"
+        info.write_text(json.dumps([{"signal_path": p} for p in paths]))
+        cache = str(d / "cache")
+        sig, rr, ev, er, nuc, aux = load_read_compact_ex(paths[0], Path(paths[0]).with_suffix(
+            ".label"), 6, cache_dir=cache)
+        max_len = int((nuc != 0).sum(axis=1).max())
+        for memory in ("i8", "i8mxu"):
+            kernel = "beam_step_i8mxu" if memory == "i8mxu" else "beam_step_i8"
+            bench = dict(chunk_size=4096, memory_dtype=memory, beam_impl="step",
+                         encoder_dtype=torch.bfloat16, pack_u8=True, transport_dtype="i8dev",
+                         prob_bits=4)
+            engine = BasecallEngine(params, cfg, **bench)
+            pe = PerformanceEvaluator(engine, beam_width=5, cache_dir=cache)
+            me = MappingEvaluator(engine, beam_width=5, cache_dir=cache)
+            pe.run(paths[0])  # warm-up; fills the read cache
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            per_read = pe.evaluate_files(info, d / "perf.json", verbose=False)
+            t1 = time.perf_counter()
+            records = me.evaluate_files(info, d / "map.json", verbose=False)
+            totals = MappingEvaluator.compute_total_results(d / "map.json")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            counts[memory] = dict(cuda_lib.launches)
+            c = counts[memory]
+            bases = sum(r["bases_num"] for r in per_read)
+            proc = sum(r["total_processing"] for r in per_read)
+            print(f"  --memory {memory}: PerformanceEvaluator.evaluate_files, {len(per_read)} "
+                  f"reads, {bases} bases: {bases / proc:.1f} bases/s over total_processing "
+                  f"{proc:.3f} s (predict {sum(r['t_predicting'] for r in per_read):.3f} s, merge "
+                  f"{sum(r['t_merge'] for r in per_read):.3f} s; evaluator {t1 - t0:.3f} s) "
+                  f"[{smi}]")
+            print(f"  --memory {memory}: MappingEvaluator.evaluate_files {t2 - t1:.3f} s, "
+                  f"mapper {sorted({r['mapper'] for r in records})}; compute_total_results "
+                  f"(identity total, valid, invalid %) {totals} (seeded weights: not held)")
+            print(f"  launches: {kernel} {c[kernel]}, beam_step {c['beam_step']}, bilstm_bf16 "
+                  f"{c['bilstm_bf16']}, bilstm {c['bilstm']}, beam_loop {c['beam_loop']}, "
+                  f"decode_step {c['decode_step']}")
+            require(c[kernel] > 0 and c["bilstm_bf16"] > 0,
+                    f"--memory {memory}: the path did not launch its kernels")
+            others = [k for k in c if k not in (kernel, "bilstm_bf16")]
+            require(all(c[k] == 0 for k in others),
+                    f"--memory {memory}: launched a kernel of another path")
+            require(len(records) == len(paths) and bases > 0, "the evaluators missed a read")
+
+            # the card against the CPU (plain versions) on 64 snippets: the
+            # decode of the card's int8 memory, and end to end
+            cpu = BasecallEngine(params, cfg, device="cpu", **bench)
+            with torch.inference_mode():
+                (raw_c, event_c), = engine.compact_snippets(sig, rr[:64], ev, er[:64], aux)
+                mem = engine.memory(raw_c, event_c)
+                mem_cpu = mem.to("cpu")
+                same_mem = float((top_beam_tokens(engine, mem, max_len)
+                                  == top_beam_tokens(cpu, mem_cpu, max_len)).float().mean())
+                mem_host = cpu.memory(raw_c.cpu(), event_c.cpu())
+                flips = float((mem_host.keys != mem_cpu.keys).float().mean())
+            t_gpu, p_gpu = engine.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5,
+                                                       aux=aux)
+            t_cpu, _ = cpu.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5, aux=aux)
+            agree = float((t_gpu == t_cpu).mean())
+            print(f"  --memory {memory}, card vs CPU on 64 snippets: decoding the card's int8 "
+                  f"memory, tokens agree {same_mem:.5f} (need >= 0.998); end to end, tokens agree "
+                  f"{agree:.5f} (need >= 0.99), rows identical "
+                  f"{float((t_gpu == t_cpu).all(axis=1).mean()):.4f}; the two encoders' int8 keys "
+                  f"differ on {flips:.5f} of the codes")
+            require(t_gpu.shape == (64, engine._fetch_width(max_len)) and np.isfinite(p_gpu).all(),
+                    "bad result shape or probs")
+            require(same_mem >= 0.998,
+                    f"--memory {memory}: card and CPU decode the same memory differently")
+            # as phase 4: seeded weights give flat, near-tied beams, and the
+            # bf16 encoder kernel's last-bit differences from its plain version
+            # (phase 9's bars) flip int8 codes, which can flip a tie
+            require(agree >= 0.99, f"--memory {memory}: card and CPU disagree end to end")
+    return counts
+
+
+def top_beam_tokens(engine, mem, max_len: int) -> torch.Tensor:
+    """The engine's beam decode of ``mem`` (beam 5, ``max_len - 1`` live
+    steps): the top beam's tokens over the live steps, on the host."""
+    from ravvent_tpu_torch.evaluation.basecall import TOTAL_STEPS
+    from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
+    from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
+
+    res = fused_beam_decode(engine.params["decoder"], mem, engine.cfg.vocab_size, 5, TOTAL_STEPS,
+                            max_len - 1, start_token=NUC_TOKENIZER.start_id,
+                            end_token=NUC_TOKENIZER.end_id, loop=beam_step_loop,
+                            quant_mxu=engine.quant_mxu)
+    return res.tokens[:, :max_len - 1, 0].cpu()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -836,16 +1043,24 @@ def main() -> int:
     t0 = time.perf_counter()
     counts_bench = phase_bench_path(smi)
     phase("10 end to end, the bench's path", t0)
+    t0 = time.perf_counter()
+    k_i8, k_i8mxu = phase_beam_step_i8()
+    phase("11 beam_step int8 kernels", t0)
+    t0 = time.perf_counter()
+    counts_i8 = phase_bench_path_i8(smi)
+    phase("12 end to end, the bench's path on int8 memory", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_beam["launches"] = counts["beam_step"]
     k_loop["launches"] = counts_loop["beam_loop"]
     k_dstep["launches"] = counts_greedy["decode_step"]
     k_bf16["launches"] = counts_bench["bilstm_bf16"]
+    k_i8["launches"] = counts_i8["i8"]["beam_step_i8"]
+    k_i8mxu["launches"] = counts_i8["i8mxu"]["beam_step_i8mxu"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: kd[k] for k in keys}
-                                  for kd in (k_bilstm, k_beam, k_loop, k_dstep, k_bf16)]}))
+    print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (
+        k_bilstm, k_beam, k_loop, k_dstep, k_bf16, k_i8, k_i8mxu)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

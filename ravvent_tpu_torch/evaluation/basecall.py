@@ -3,7 +3,8 @@
 Counterpart of ravvent_tpu/evaluation/basecall.py's ``BasecallEngine``, beam
 decode on the compact path. The encoder runs in f32 or on a bf16 stream
 (``encoder_dtype``); the attention memory is pre-projected and stored in
-bf16 (or f32); beam search runs one fused CUDA step kernel per decode step
+bf16, f32 or int8 (``memory_dtype="i8"|"i8mxu"``, the step kernel's int8
+variants); beam search runs one fused CUDA step kernel per decode step
 (``beam_impl="step"``) or one whole-loop kernel launch per chunk
 (``beam_impl="loop"``). A read in compact form travels to the device once
 per chunk, as one u8 buffer in the wire format ``transport_dtype`` (the JAX
@@ -152,7 +153,7 @@ class BasecallEngine:
         params,
         cfg: ModelConfig,
         chunk_size: int = 4096,
-        memory_dtype: Optional[torch.dtype] = torch.bfloat16,
+        memory_dtype: Union[torch.dtype, str, None] = torch.bfloat16,
         pack_u8: bool = True,
         device: Union[str, torch.device, None] = None,
         beam_impl: str = "step",
@@ -161,7 +162,10 @@ class BasecallEngine:
         prob_bits: int = 8,
     ) -> None:
         """``params``: the JAX tree's layout with tensor leaves (see
-        weights.py). ``memory_dtype``: bf16 or None (f32) attention memory.
+        weights.py). ``memory_dtype``: bf16 or None (f32) attention memory,
+        or int8 codes with per-(row, position) scales: "i8" (the step's
+        dequantized dots) or "i8mxu" (its s8 x s8 -> s32 dots), with
+        ``beam_impl="step"`` only (basecall.py:322-328 of the JAX package).
         ``pack_u8``: tokens as nibbles and step probabilities as u8 in the
         result buffer (else int8 tokens and f16 probabilities); with
         ``prob_bits=4`` the probabilities are nibbles too.
@@ -178,10 +182,13 @@ class BasecallEngine:
         check_config(cfg)
         if cfg.decoder_depth != 1:
             raise NotImplementedError("the fused beam kernels support decoder_depth=1")
-        if memory_dtype not in (None, torch.bfloat16, torch.float32):
-            raise ValueError("memory_dtype must be torch.bfloat16, torch.float32 or None")
+        if memory_dtype not in (None, torch.bfloat16, torch.float32, "i8", "i8mxu"):
+            raise ValueError("memory_dtype must be torch.bfloat16, torch.float32, None, "
+                             "'i8' or 'i8mxu'")
         if beam_impl not in ("step", "loop"):
             raise ValueError(f"beam_impl must be 'step' or 'loop', got {beam_impl!r}")
+        if isinstance(memory_dtype, str) and beam_impl != "step":
+            raise ValueError("int8 memory requires beam_impl='step'")
         if encoder_dtype not in (None, torch.bfloat16):
             raise ValueError("encoder_dtype must be None (f32) or torch.bfloat16")
         if transport_dtype not in WIRES:
@@ -193,7 +200,8 @@ class BasecallEngine:
         self.params = to_device(params, self.device)
         self.cfg = cfg
         self.chunk_size = chunk_size
-        self.memory_dtype = memory_dtype
+        self.quant_mxu = memory_dtype == "i8mxu"
+        self.memory_dtype = "i8" if self.quant_mxu else memory_dtype
         self.pack_u8 = pack_u8
         self.encoder_dtype = encoder_dtype
         self.transport_dtype = transport_dtype
@@ -210,7 +218,8 @@ class BasecallEngine:
         """Encode device snippets raw [N, 200, 1], event [N, 30, 5] and set
         up the attention memory, S padded to a multiple of 8 as the
         reference pads it. ``project``: keys and pre-projected values in the
-        engine's memory dtype, as the beam kernels take them; else
+        engine's memory dtype (int8 with scales for "i8"/"i8mxu"), as the
+        beam kernels take them; else
         un-projected f32 keys and values, as fused greedy decode takes them."""
         dec = self.params["decoder"]
         if self.encoder_dtype is not None:  # the masks come from the cast inputs
@@ -234,7 +243,8 @@ class BasecallEngine:
         res = fused_beam_decode(self.params["decoder"], self.memory(raw, event),
                                 self.cfg.vocab_size, beam_width, TOTAL_STEPS, max_steps,
                                 start_token=NUC_TOKENIZER.start_id,
-                                end_token=NUC_TOKENIZER.end_id, loop=loop)
+                                end_token=NUC_TOKENIZER.end_id, loop=loop,
+                                quant_mxu=self.quant_mxu)
         return res.tokens[:, :, 0], beam_scores_to_step_probs(res.scores[:, :, 0])
 
     def _fetch_width(self, max_output_len: int) -> int:

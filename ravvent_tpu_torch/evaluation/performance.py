@@ -38,6 +38,39 @@ def _max_output_len(rr: np.ndarray, nuc: np.ndarray) -> int:
     return int((nuc != 0).sum(axis=1).max()) if rr.shape[0] else 2
 
 
+def flatten_calls(tokens, probs):
+    """A read's snippet tokens [N, T] to one ASCII blob with row offsets;
+    each snippet's scores are the first len(seq) probabilities of its row.
+    Returns (blob, offsets, flat scores f64)."""
+    _, blob, offsets = NUC_TOKENIZER.sequences_to_texts_flat(tokens)
+    probs = np.asarray(probs, dtype=np.float64)
+    counts = np.diff(offsets)
+    prefix = np.arange(probs.shape[1])[None, :] < counts[:, None]
+    return blob, offsets, probs[prefix]
+
+
+def gate_snippets(conf_gate, blob, offsets, flat_probs, rr):
+    """The confidence gate (assembly/merger.py:confidence_keep_mask) over the
+    flat snippet layout: derailed low-confidence snippets leave before the
+    merge fold, with their raw ranges. A no-op when ``conf_gate`` is None
+    or nothing trips it."""
+    if conf_gate is None or offsets.size <= 2:
+        return blob, offsets, flat_probs, rr
+    keep = confidence_keep_mask(flat_probs, offsets, *conf_gate)
+    if not keep.all():
+        blob, offsets, flat_probs = drop_snippet_rows(blob, offsets, flat_probs, keep)
+        if rr is not None and rr.shape[0] == keep.shape[0]:
+            rr = rr[keep]
+    return blob, offsets, flat_probs, rr
+
+
+def merge_snippets(merger: Merger, blob, offsets, flat_probs, rr):
+    """The merge fold, with the positional prior from the snippets' raw
+    ranges."""
+    eo = expected_overlaps_from_ranges(rr, np.diff(offsets)) if rr.shape[0] > 1 else None
+    return merger.merge_flat(blob, offsets, flat_probs, expected_overlaps=eo)
+
+
 class PerformanceEvaluator:
     def __init__(
         self,
@@ -90,15 +123,13 @@ class PerformanceEvaluator:
             t_predicting = timer() - start
 
             start = timer()
-            blob, offsets, flat_probs = self._postprocess(tokens, probs)
+            blob, offsets, flat_probs = flatten_calls(tokens, probs)
             t_postprocessing = timer() - start
 
         start = timer()
         if rr.shape[0]:
-            blob, offsets, flat_probs, rr = self._gate(blob, offsets, flat_probs, rr)
-            eo = (expected_overlaps_from_ranges(rr, np.diff(offsets))
-                  if rr.shape[0] > 1 else None)
-            self.merger.merge_flat(blob, offsets, flat_probs, expected_overlaps=eo)
+            merge_snippets(self.merger, *gate_snippets(self.conf_gate, blob, offsets, flat_probs,
+                                                       rr))
         t_merge = timer() - start
 
         return {
@@ -111,28 +142,6 @@ class PerformanceEvaluator:
             "total": t_data_loading + t_predicting + t_postprocessing + t_merge,
             "total_processing": t_predicting + t_postprocessing + t_merge,
         }
-
-    def _gate(self, blob, offsets, flat_probs, rr):
-        """The confidence gate over the flat snippet layout; a no-op when it
-        is off or nothing trips it."""
-        if self.conf_gate is None or offsets.size <= 2:
-            return blob, offsets, flat_probs, rr
-        keep = confidence_keep_mask(flat_probs, offsets, *self.conf_gate)
-        if not keep.all():
-            blob, offsets, flat_probs = drop_snippet_rows(blob, offsets, flat_probs, keep)
-            if rr is not None and rr.shape[0] == keep.shape[0]:
-                rr = rr[keep]
-        return blob, offsets, flat_probs, rr
-
-    @staticmethod
-    def _postprocess(tokens, probs):
-        """The whole read's tokens to one ASCII blob; each snippet's scores
-        are the first len(seq) probabilities of its row."""
-        _, blob, offsets = NUC_TOKENIZER.sequences_to_texts_flat(tokens)
-        probs = np.asarray(probs, dtype=np.float64)
-        counts = np.diff(offsets)
-        prefix = np.arange(probs.shape[1])[None, :] < counts[:, None]
-        return blob, offsets, probs[prefix]
 
     def run_pipelined(self, signal_paths, chunk_size: int = 1024, inflight: int = 8,
                       finishers: int = 4) -> Dict:
@@ -163,12 +172,11 @@ class PerformanceEvaluator:
                 add_stage("collect_wait", t1 - t0)
                 if not tokens.shape[0]:
                     return
-                blob, offsets, flat_probs = self._postprocess(tokens, probs)
+                blob, offsets, flat_probs = flatten_calls(tokens, probs)
                 t2 = timer()
                 add_stage("postproc", t2 - t1)
-                blob, offsets, flat_probs, rr = self._gate(blob, offsets, flat_probs, rr)
-                eo = expected_overlaps_from_ranges(rr, np.diff(offsets)) if rr.shape[0] > 1 else None
-                self.merger.merge_flat(blob, offsets, flat_probs, expected_overlaps=eo)
+                merge_snippets(self.merger, *gate_snippets(self.conf_gate, blob, offsets,
+                                                           flat_probs, rr))
                 add_stage("merge", timer() - t2)
 
         start_all = timer()

@@ -5,9 +5,11 @@
 pre-projects the values through its context half ``kernel[U:]`` (the
 attention vector is then ``att = query @ watt_h + align @ values`` with
 ``watt_h = kernel[:U]``). ``dtype=torch.bfloat16`` stores keys and values in
-bf16; the dots that read them accumulate in f32. Scores are masked with
-``finfo(float32).min``, not ``-inf``, so an all-masked row softmaxes to a
-uniform row, as in the reference.
+bf16; the dots that read them accumulate in f32. ``dtype="i8"`` stores int8
+codes with per-(row, position) max-abs scales (``kscale``, ``vscale``),
+which only the beam step consumes (ops/beam_step_cuda.py). Scores are
+masked with ``finfo(float32).min``, not ``-inf``, so an all-masked row
+softmaxes to a uniform row, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,10 +30,21 @@ class AttnMemory(NamedTuple):
     values: torch.Tensor  # [B, S, E], or pre-projected [B, S, U]
     mask: torch.Tensor  # [B, S] bool
     watt_h: Optional[torch.Tensor] = None  # [U, U] when the values are pre-projected
+    # int8 memory: keys[b, s] * kscale[b, s] dequantizes a key row (values
+    # alike); the consumer folds the scales into the scores and alignments
+    kscale: Optional[torch.Tensor] = None  # [B, S] f32
+    vscale: Optional[torch.Tensor] = None  # [B, S] f32
 
     @property
     def projected(self) -> bool:
         return self.watt_h is not None
+
+    @property
+    def quantized(self) -> bool:
+        return self.kscale is not None
+
+    def to(self, device) -> "AttnMemory":
+        return AttnMemory(*(None if t is None else t.to(device) for t in self))
 
 
 def init_attention(gen: torch.Generator, units: int, memory_dim: int, device=None) -> Params:
@@ -39,11 +52,26 @@ def init_attention(gen: torch.Generator, units: int, memory_dim: int, device=Non
     return {"memory_kernel": glorot_uniform(gen, (memory_dim, units), device)}
 
 
+def quantize_rows(x: torch.Tensor):
+    """int8 codes and f32 scales [..., S] of x [..., S, U], per (row,
+    position) max-abs, as the reference quantizes (attention.py:107-117), in
+    x's dtype: scale = max(max|x|, 1e-12) / 127, codes = clip(round(x /
+    scale)), true divisions (not products with a reciprocal, which torch
+    takes for a Python-scalar divisor on the card) and rounding half to
+    even."""
+    div = torch.full((), 127.0, device=x.device)  # a 0-dim tensor keeps x's dtype
+    scale = torch.clamp(x.abs().amax(dim=-1), min=1e-12) / div
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
 def setup_memory(params: Params, memory: torch.Tensor, mask: torch.Tensor, dtype=None,
                  attention_layer: Optional[Params] = None) -> AttnMemory:
     """memory [B, S, E] (f32, or a bf16 encoder stream), mask [B, S] bool. A
     bf16 memory is upcast before the products, which is what the reference's
-    ``bf16 @ f32`` promotes to (ravvent_tpu/models/attention.py:99-105)."""
+    ``bf16 @ f32`` promotes to (ravvent_tpu/models/attention.py:99-105).
+    ``dtype``: None (f32), a torch dtype, or "i8" (int8 codes and scales)."""
+    in_dtype = memory.dtype
     memory = memory.float()
     values = torch.where(mask[..., None], memory, torch.zeros((), device=memory.device))
     keys = values @ params["memory_kernel"]
@@ -53,6 +81,15 @@ def setup_memory(params: Params, memory: torch.Tensor, mask: torch.Tensor, dtype
         kernel = attention_layer["kernel"]  # [U + E, U]
         watt_h = kernel[:U]
         values = values @ kernel[U:]
+    if isinstance(dtype, str):
+        if dtype != "i8":
+            raise ValueError(f"dtype must be a torch dtype, None or 'i8', got {dtype!r}")
+        keys, kscale = quantize_rows(keys)
+        # un-projected values keep the memory's dtype in the reference, which
+        # quantizes them in it (bf16 arithmetic for a bf16 stream)
+        values, vscale = quantize_rows(values if watt_h is not None else values.to(in_dtype))
+        return AttnMemory(keys=keys, values=values, mask=mask, watt_h=watt_h, kscale=kscale,
+                          vscale=vscale)
     if dtype is not None:
         keys = keys.to(dtype)
         values = values.to(dtype)
@@ -63,7 +100,9 @@ def attend_beams(query: torch.Tensor, mem: AttnMemory):
     """Beam-batched Luong attention: query [B, W, U] against untiled memory.
     The query and the alignments are rounded to the memory's dtype before
     each dot, which accumulates in f32. Returns (context [B, W, E],
-    alignments [B, W, S])."""
+    alignments [B, W, S]). Quantized memory is the beam step's alone."""
+    if mem.quantized:
+        raise ValueError("int8 memory is consumed only by the beam step (beam_step_decode)")
     q = query.to(mem.keys.dtype).float()
     scores = torch.bmm(q, mem.keys.float().transpose(1, 2))
     scores = torch.where(mem.mask[:, None, :], scores, torch.full((), NEG_INF, device=q.device))

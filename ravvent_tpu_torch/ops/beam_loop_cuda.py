@@ -46,10 +46,14 @@ def beam_loop_plain(keys, values, mask, w: DecoderWeights, W: int, total_steps: 
 
 
 def beam_loop(keys, values, mask, w: DecoderWeights, W: int, total_steps: int, eff: int,
-              start_token: int, end_token: int):
+              start_token: int, end_token: int, scales=None, mxu: bool = False):
     """The whole loop: the CUDA kernel (one launch) for CUDA tensors, the
     plain version for CPU tensors. Returns tokens, parents, scores
-    [T, B, W]."""
+    [T, B, W]. int8 memory (``scales`` given) raises ValueError: the
+    reference has no int8 loop (beam_loop_pallas.py:297)."""
+    if scales is not None or keys.dtype == torch.int8:
+        raise ValueError("beam_loop: int8 memory runs only on the beam step "
+                         "(beam_step_decode, beam_impl='step')")
     if not keys.is_cuda:
         return beam_loop_plain(keys, values, mask, w, W, total_steps, eff, start_token, end_token)
     B, S, _ = keys.shape

@@ -3,10 +3,16 @@ decode entry point that runs it once per step or runs the whole-loop
 kernel (ops/beam_loop_cuda.py).
 
 Counterpart of ravvent_tpu/ops/beam_loop_pallas.py (the TPU kernel
-``_beam_step_kernel`` and its loop ``beam_step_decode``, bf16 or f32
+``_beam_step_kernel`` and its loop ``beam_step_decode``, bf16, f32 or int8
 memory) and of ``pack_decoder_weights`` (ops/decode_step_pallas.py). The
 kernel is ``csrc/beam_step.cu``; :func:`beam_step` launches it for CUDA
 tensors and runs :func:`beam_step_plain` for CPU tensors only.
+
+int8 memory (``setup_memory(dtype="i8")``) comes with its per-(row,
+position) scales ``scales = (kscale, vscale)`` and runs one of the
+reference's two int8 branches (beam_loop_pallas.py:374-420): ``mxu=False``
+("quant") or ``mxu=True`` ("quant_mxu"); :func:`attend_quantized` says what
+each computes.
 
 The step state, per batch row b and beam w (hypothesis ``b * W + w``):
   tok [B*W] int32 (the token fed to this step), h, c, att [B*W, U] f32,
@@ -81,18 +87,54 @@ def lstm_cell_plain(tok, att, h, c, wx, wh, b):
     return torch.sigmoid(o) * torch.tanh(c_new), c_new
 
 
-def step_candidates(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
+def attend_quantized(query, keys, values, mask, kscale, vscale, mxu: bool):
+    """Luong attention of query [B, W, U] (f32) on int8 keys and values
+    [B, S, U] with f32 scales [B, S], as the reference's int8 branches
+    compute it. quant (``mxu=False``): scores = (bf16(q) . codes) * kscale,
+    then the mask; context = bf16(align * vscale) . codes. quant_mxu:
+    scores = (rn(q * 127) . codes) * (1/127) * kscale, then the mask;
+    af = align * vscale, amax = max(max_s af, 1e-30), context =
+    (rn(af * (127 / amax)) . codes) * (amax / 127). Every product of two
+    codes is at most 127^2 and a sum over U = 128 or S = 232 of them stays
+    below 2^24, so the f32 products of integer codes here are exact in any
+    order, as the kernel's integer dots are. Returns context [B, W, U]."""
+    f32 = torch.float32
+    kt = keys.to(f32).transpose(1, 2)
+    if mxu:
+        scores = torch.bmm(torch.round(query * 127.0), kt) * (1.0 / 127.0)
+    else:
+        scores = torch.bmm(query.to(torch.bfloat16).to(f32), kt)
+    scores = scores * kscale[:, None, :]
+    scores = torch.where(mask[:, None, :], scores, torch.full((), NEG_INF, device=keys.device))
+    m = scores.max(dim=2, keepdim=True).values
+    e = torch.exp(scores - m)
+    af = e / e.sum(dim=2, keepdim=True) * vscale[:, None, :]
+    if not mxu:
+        return torch.bmm(af.to(torch.bfloat16).to(f32), values.to(f32))
+    amax = torch.clamp(af.amax(dim=2, keepdim=True), min=1e-30)
+    aq = torch.round(af * (127.0 / amax))
+    # amax / 127 as a true division: on the card torch multiplies by the
+    # reciprocal of a Python-scalar divisor
+    return torch.bmm(aq, values.to(f32)) * (amax / torch.full((), 127.0, device=amax.device))
+
+
+def step_candidates(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
+                    scales=None, mxu: bool = False):
     """The plain step up to its choice: the cell, attention and logits of
     every hypothesis, and the flattened candidate row. Returns h', c', att'
     [B*W, U] and total [B, W*VP], the cumulative log-prob of each (beam,
-    token) candidate, padding columns at cum + finfo.min."""
+    token) candidate, padding columns at cum + finfo.min. ``scales``:
+    (kscale, vscale) of int8 memory, else None."""
     B, S, U = keys.shape
     W = st.cum.shape[1]
     V = w.wfc.shape[1]
     h_new, c_new = lstm_cell_plain(st.tok, st.att, st.h, st.c, w.wx, w.wh, w.b)
 
-    mem = attn.AttnMemory(keys=keys, values=values, mask=mask)
-    context, _ = attn.attend_beams(h_new.reshape(B, W, U), mem)
+    if scales is None:
+        mem = attn.AttnMemory(keys=keys, values=values, mask=mask)
+        context, _ = attn.attend_beams(h_new.reshape(B, W, U), mem)
+    else:
+        context = attend_quantized(h_new.reshape(B, W, U), keys, values, mask, *scales, mxu)
     att_new = h_new @ w.watt_h + context.reshape(B * W, U)
     logits = att_new @ w.wfc + w.bfc  # [B*W, V]
 
@@ -121,29 +163,37 @@ def advance(st: StepState, h_new, c_new, att_new, new_cum, idx, end_token: int):
     return nxt, parent.to(torch.int32)
 
 
-def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
+def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
+                    scales=None, mxu: bool = False):
     """Plain PyTorch version of one step. Returns (next state, parents)."""
-    h_new, c_new, att_new, total = step_candidates(st, keys, values, mask, w, end_token)
+    h_new, c_new, att_new, total = step_candidates(st, keys, values, mask, w, end_token,
+                                                   scales, mxu)
     new_cum, idx = top_w(total, st.cum.shape[1])
     return advance(st, h_new, c_new, att_new, new_cum, idx, end_token)
 
 
 def check_kernel_inputs(name: str, keys, values, mask, w: DecoderWeights, W: int,
-                        end_token: int, state=()) -> None:
+                        end_token: int, state=(), scales=None) -> None:
     """What the beam kernels (step and loop) take: U = 128, a compiled beam
-    width, bf16 or f32 memory, contiguous tensors on the memory's device,
-    16-byte aligned keys and values. Raises ValueError otherwise."""
+    width, bf16 or f32 memory, or int8 memory with f32 [B, S] ``scales``
+    (kscale, vscale), contiguous tensors on the memory's device, 16-byte
+    aligned keys and values. Raises ValueError otherwise."""
     B, S, U = keys.shape
     V = w.wfc.shape[1]
     if U != UNITS:
         raise ValueError(f"{name} kernel is compiled for {UNITS} units, got {U}")
     if W not in KERNEL_BEAMS:
         raise ValueError(f"{name} kernel is compiled for beam widths {KERNEL_BEAMS}, got {W}")
-    if keys.dtype not in (torch.bfloat16, torch.float32) or values.dtype != keys.dtype:
-        raise ValueError(f"{name}: keys and values must both be bf16 or both f32")
+    mem_dtypes = (torch.int8,) if scales is not None else (torch.bfloat16, torch.float32)
+    if keys.dtype not in mem_dtypes or values.dtype != keys.dtype:
+        raise ValueError(f"{name}: keys and values must both be bf16 or both f32, or both int8 "
+                         f"with their scales")
     if not 0 <= end_token < V <= VP:
         raise ValueError(f"{name}: need 0 <= end_token < V <= {VP}")
     f32 = torch.float32
+    if scales is not None:
+        state = list(state) + [("kscale", scales[0], f32, (B, S)),
+                               ("vscale", scales[1], f32, (B, S))]
     cuda_lib.check_tensors(name, keys.device, list(state) + [
         ("keys", keys, keys.dtype, (B, S, U)), ("values", values, keys.dtype, (B, S, U)),
         ("mask", mask, torch.bool, (B, S)), ("wx", w.wx, f32, (V + U, 4 * U)),
@@ -154,11 +204,14 @@ def check_kernel_inputs(name: str, keys, values, mask, w: DecoderWeights, W: int
         raise ValueError(f"{name}: keys and values must be 16-byte aligned")
 
 
-def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int):
+def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
+              scales=None, mxu: bool = False):
     """One beam step: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Returns (next state, parents [B, W])."""
+    CPU tensors. ``scales``: (kscale, vscale) of int8 memory, whose step
+    runs the quant_mxu variant when ``mxu``. Returns (next state, parents
+    [B, W])."""
     if not keys.is_cuda:
-        return beam_step_plain(st, keys, values, mask, w, end_token)
+        return beam_step_plain(st, keys, values, mask, w, end_token, scales, mxu)
     B, S, U = keys.shape
     W = st.cum.shape[1]
     V = w.wfc.shape[1]
@@ -166,24 +219,30 @@ def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: i
     check_kernel_inputs("beam_step", keys, values, mask, w, W, end_token, [
         ("tok", st.tok, i32, (B * W,)), ("h", st.h, f32, (B * W, U)), ("c", st.c, f32, (B * W, U)),
         ("att", st.att, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)), ("fin", st.fin, b8, (B, W)),
-    ])
+    ], scales)
     dev = keys.device
     nxt = StepState(torch.empty(B * W, dtype=i32, device=dev), torch.empty_like(st.h),
                     torch.empty_like(st.c), torch.empty_like(st.att), torch.empty_like(st.cum),
                     torch.empty_like(st.fin))
     parent = torch.empty(B, W, dtype=i32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = cuda_lib.lib().rv_beam_step(
-        int(keys.dtype == torch.bfloat16), W, B, S, V, VP, end_token,
-        st.tok.data_ptr(), st.h.data_ptr(), st.c.data_ptr(), st.att.data_ptr(),
-        st.cum.data_ptr(), st.fin.data_ptr(), keys.data_ptr(), values.data_ptr(),
-        mask.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
-        w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
-        nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
-        nxt.fin.data_ptr(), stream,
-    )
-    cuda_lib.check(rc, "beam_step")
-    cuda_lib.launches["beam_step"] += 1
+    state_in = (st.tok.data_ptr(), st.h.data_ptr(), st.c.data_ptr(), st.att.data_ptr(),
+                st.cum.data_ptr(), st.fin.data_ptr())
+    memory = (keys.data_ptr(), values.data_ptr())
+    if scales is not None:
+        memory += (scales[0].data_ptr(), scales[1].data_ptr())
+    rest = (mask.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+            w.watt_h.data_ptr(), w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(),
+            parent.data_ptr(), nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(),
+            nxt.cum.data_ptr(), nxt.fin.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    lib = cuda_lib.lib()
+    if scales is None:
+        name, entry, mode = "beam_step", lib.rv_beam_step, int(keys.dtype == torch.bfloat16)
+    else:
+        name = "beam_step_i8mxu" if mxu else "beam_step_i8"
+        entry, mode = lib.rv_beam_step_i8, int(mxu)
+    rc = entry(mode, W, B, S, V, VP, end_token, *state_in, *memory, *rest)
+    cuda_lib.check(rc, name)
+    cuda_lib.launches[name] += 1
     return nxt, parent
 
 
@@ -195,10 +254,11 @@ def initial_state(B: int, W: int, U: int, start_token: int, device) -> StepState
 
 
 def step_loop(step, keys, values, mask, w: DecoderWeights, W: int, total_steps: int, eff: int,
-              start_token: int, end_token: int):
+              start_token: int, end_token: int, scales=None, mxu: bool = False):
     """``eff`` beam steps of ``step`` (beam_step or beam_step_plain) from the
-    initial state. Returns tokens, parents [T, B, W] int32 and scores
-    [T, B, W] f32, zero at steps >= eff."""
+    initial state; ``scales`` and ``mxu`` as :func:`beam_step` takes them.
+    Returns tokens, parents [T, B, W] int32 and scores [T, B, W] f32, zero
+    at steps >= eff."""
     B = keys.shape[0]
     dev = keys.device
     tokens = torch.zeros(total_steps, B, W, dtype=torch.int32, device=dev)
@@ -206,7 +266,7 @@ def step_loop(step, keys, values, mask, w: DecoderWeights, W: int, total_steps: 
     scores = torch.zeros(total_steps, B, W, device=dev)
     st = initial_state(B, W, w.wh.shape[0], start_token, dev)
     for t in range(eff):
-        st, parent = step(st, keys, values, mask, w, end_token)
+        st, parent = step(st, keys, values, mask, w, end_token, scales, mxu)
         tokens[t] = st.tok.reshape(B, W)
         parents[t] = parent
         scores[t] = st.cum
@@ -226,21 +286,24 @@ beam_step_loop = functools.partial(step_loop, beam_step)  # one beam-step launch
 
 def fused_beam_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_width: int,
                       total_steps: int, max_steps: Optional[int] = None, start_token: int = 2,
-                      end_token: int = 1, *, loop) -> BeamResult:
+                      end_token: int = 1, *, loop, quant_mxu: bool = False) -> BeamResult:
     """Beam search through a fused kernel's loop: ``loop`` is
     :data:`beam_step_loop` (one launch per step) or
     ops/beam_loop_cuda.py:beam_loop (one launch for the whole loop). Runs
     ``eff = min(max_steps, total_steps)`` steps (the tail is never computed:
     tokens, parents and scores stay 0 there), then rebuilds the lengths and
     backtracks. Requires pre-projected memory, a depth-1 LSTM decoder and
-    Luong attention."""
+    Luong attention. On int8 memory ``quant_mxu`` picks the step's integer
+    dots, as the reference's ``beam_step_decode(..., quant_mxu=)``; it is
+    ignored otherwise."""
     if vocab_size > VP:
         raise ValueError(f"vocab_size must be <= {VP}")
     w = pack_decoder_weights(dec_params, mem)
     eff = effective_steps(total_steps, max_steps)
+    scales = (mem.kscale.contiguous(), mem.vscale.contiguous()) if mem.quantized else None
     tokens, parents, scores = loop(mem.keys.contiguous(), mem.values.contiguous(),
                                    mem.mask.contiguous(), w, beam_width, total_steps, eff,
-                                   start_token, end_token)
+                                   start_token, end_token, scales, quant_mxu and mem.quantized)
     return backtrack(tokens, parents, scores, eff, end_token)
 
 

@@ -28,8 +28,8 @@ BUILD = PKG / "build"
 LIB_PATH = BUILD / "libravvent_kernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-launches: Dict[str, int] = {"bilstm": 0, "bilstm_bf16": 0, "beam_step": 0, "beam_loop": 0,
-                             "decode_step": 0}
+launches: Dict[str, int] = {"bilstm": 0, "bilstm_bf16": 0, "beam_step": 0, "beam_step_i8": 0,
+                             "beam_step_i8mxu": 0, "beam_loop": 0, "decode_step": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -117,6 +117,8 @@ def lib() -> ctypes.CDLL:
             handle.rv_bilstm_layer_bf16.argtypes = [P, I, I, I, I] + [P] * 8 + [P]
             handle.rv_beam_step.restype = I
             handle.rv_beam_step.argtypes = [I] * 7 + [P] * 23
+            handle.rv_beam_step_i8.restype = I
+            handle.rv_beam_step_i8.argtypes = [I] * 7 + [P] * 25
             handle.rv_beam_loop.restype = I
             handle.rv_beam_loop.argtypes = [I] * 9 + [P] * 13
             handle.rv_beam_loop_smem.restype = I

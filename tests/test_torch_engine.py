@@ -2,8 +2,8 @@
 trained flagship checkpoint; weights carried across; the snippet gather.
 
 f32 memory: equal tokens, step probabilities within 1e-5 relative (live
-steps; the step past max_steps is a dead output). bf16 memory: token
-agreement >= 99.8% and the merged read's identity within 0.3 points."""
+steps; the step past max_steps is a dead output). bf16 and int8 memory:
+token agreement >= 99.8% and the merged read's identity within 0.3 points."""
 
 import functools
 from pathlib import Path
@@ -182,16 +182,40 @@ def test_cli_writes_one_record_per_read(tmp_path):
     assert len(lines) == 8 and len(lines[1]) == len(lines[3]) and set(lines[1]) <= set("ACGT")
 
 
-def test_bench_settings_close_to_jax_engine(flagship, read_aux):
-    """bench.py's main path: the i8dev wire, a bf16 encoder stream, bf16
-    pre-projected memory, beam 5, 4-bit probabilities; the JAX engine with
-    the same settings decodes with XLA on the CPU."""
+def interpret_jax_beam_step(monkeypatch):
+    """The JAX engine's "step" path calls the Pallas beam-step kernel without
+    interpret mode, which has no CPU lowering; it imports beam_step_decode
+    at trace time, so the module attribute is patched to interpret mode."""
+    from ravvent_tpu.ops import beam_loop_pallas
+
+    monkeypatch.setattr(beam_loop_pallas, "beam_step_decode",
+                        functools.partial(beam_loop_pallas.beam_step_decode, interpret=True))
+
+
+# the bench's --memory choices: JAX engine memory and beam_impl, the port's memory
+BENCH_MEMORY = {
+    "bf16": (jnp.bfloat16, "xla", torch.bfloat16),
+    "i8": ("i8", "step", "i8"),
+    "i8mxu": ("i8mxu", "step", "i8mxu"),
+}
+
+
+@pytest.mark.parametrize("memory", list(BENCH_MEMORY))
+def test_bench_settings_close_to_jax_engine(flagship, read_aux, memory, monkeypatch):
+    """bench.py's main path: the i8dev wire, a bf16 encoder stream,
+    pre-projected memory in bf16 or int8 (bench.py --memory i8|i8mxu), beam
+    5, 4-bit probabilities. The JAX engine with the same settings decodes
+    bf16 memory with XLA on the CPU, int8 memory with its beam-step kernel
+    in interpret mode."""
     tree, params = flagship
     sigc, rr, ev, er, truth, aux = read_aux
-    jeng = JEngine(tree, JConfig(), chunk_size=16, memory_dtype=jnp.bfloat16,
-                   project_values=True, beam_impl="xla", encoder_dtype=jnp.bfloat16,
+    j_mem, j_impl, t_mem = BENCH_MEMORY[memory]
+    if j_impl == "step":
+        interpret_jax_beam_step(monkeypatch)
+    jeng = JEngine(tree, JConfig(), chunk_size=16, memory_dtype=j_mem,
+                   project_values=True, beam_impl=j_impl, encoder_dtype=jnp.bfloat16,
                    pack_u8=True, transport_dtype="i8dev", prob_bits=4)
-    teng = BasecallEngine(params, ModelConfig(), chunk_size=16, memory_dtype=torch.bfloat16,
+    teng = BasecallEngine(params, ModelConfig(), chunk_size=16, memory_dtype=t_mem,
                           encoder_dtype=torch.bfloat16, transport_dtype="i8dev", prob_bits=4,
                           device="cpu")
     jt, jp = jeng.predict_beam_compact(sigc, rr, ev, er, MAX_OUT, 5, aux=aux)
@@ -199,13 +223,19 @@ def test_bench_settings_close_to_jax_engine(flagship, read_aux):
     assert tt.shape == jt.shape == (N_SNIP, MAX_OUT)
     id_jax = _merged_identity(JMerger(), JEngine, jt, jp, rr, truth)
     id_port = _merged_identity(Merger(), BasecallEngine, tt, tp, rr, truth)
-    print(f"bench settings: tokens agree {(tt == jt).mean():.5f}, identity port {id_port:.3f} "
-          f"JAX {id_jax:.3f}")
+    print(f"bench settings, {memory} memory: tokens agree {(tt == jt).mean():.5f}, identity "
+          f"port {id_port:.3f} JAX {id_jax:.3f}")
     assert (tt == jt).mean() >= 0.998
     assert abs(id_port - id_jax) <= 0.3
-    # 4-bit probabilities: 16 levels, one level apart at most where the
-    # rows decode alike
-    same = (tt == jt).all(axis=1)
-    live = MAX_OUT - 1
-    assert np.abs(tp[same, :live] - jp[same, :live]).max() <= 1 / 15 + 1e-6
+    # 4-bit probabilities: 16 levels, and with bf16 memory one level apart
+    # at most where the rows decode alike. A step's probability is read off
+    # beam slot 0's cumulative score, which int8 memory lets follow another
+    # near-tied hypothesis where one code of the two engines' memories
+    # differs (their bf16 encoders differ in the last bit), with the same
+    # decoded tokens; on the same int8 memory the two steps agree on tokens,
+    # parents and scores (tests/test_torch_quant.py).
+    if memory == "bf16":
+        same = (tt == jt).all(axis=1)
+        live = MAX_OUT - 1
+        assert np.abs(tp[same, :live] - jp[same, :live]).max() <= 1 / 15 + 1e-6
     assert set(np.unique(np.round(tp * 15, 4))) <= set(range(16))

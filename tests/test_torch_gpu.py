@@ -9,6 +9,8 @@ its reason. Run them on the machine with the card:
 lacks; this file needs neither.)
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -119,7 +121,7 @@ def test_beam_step_decode_on_card_matches_cpu(cuda):
     mem = attn.setup_memory(dec_p["attention"], memory, mask, None,
                             attention_layer=dec_p["attention_layer"])
     cpu = beam_step_cuda.beam_step_decode(dec_p, mem, 7, 5, 47, 20)
-    mem_c = attn.AttnMemory(*(t.to(cuda) for t in mem))
+    mem_c = mem.to(cuda)
     dec_c = {k: v for k, v in dec_p.items()}
     dec_c["cells"] = [{k: v.to(cuda) for k, v in dec_p["cells"][0].items()}]
     dec_c["fc"] = {k: v.to(cuda) for k, v in dec_p["fc"].items()}
@@ -183,7 +185,7 @@ def test_beam_loop_decode_on_card_matches_cpu(cuda):
     B, S = 16, 56
     dec_p, mem = _decoder_and_memory(0, B, S, None, True, "cpu")
     cpu = beam_loop_cuda.beam_loop_decode(dec_p, mem, 7, 5, 47, 20)
-    mem_c = attn.AttnMemory(*(t.to(cuda) for t in mem))
+    mem_c = mem.to(cuda)
     card = beam_loop_cuda.beam_loop_decode(to_device(dec_p, cuda), mem_c, 7, 5, 47, 20)
     assert (card.tokens.cpu() == cpu.tokens).float().mean().item() >= 0.99
 
@@ -243,3 +245,80 @@ def test_loop_and_decode_step_wrappers_reject_what_the_kernels_do_not_take(cuda)
         decode_step_cuda.fused_decode_step(wf, tok.long(), z, z, z, mem_f.keys, mem_f.values,
                                            mem_f.mask)
 
+
+
+@pytest.mark.parametrize("mxu", [False, True], ids=["quant", "quant_mxu"])
+@pytest.mark.parametrize("B", [37, 130], ids=["one ragged tile", "33 tiles"])
+def test_beam_step_int8_kernels_match_plain(cuda, B, mxu):
+    """Both int8 variants against their plain versions over 5 chained steps,
+    each fed the plain version's state (chip_smoke.py phase 11's bars)."""
+    dec_p, mem = _decoder_and_memory(11, B, 232, "i8", True, cuda)
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    scales = (mem.kscale, mem.vscale)
+    name = "beam_step_i8mxu" if mxu else "beam_step_i8"
+    st = beam_step_cuda.initial_state(B, 5, 128, 2, cuda)
+    agree = n = 0
+    for _ in range(5):
+        before = dict(cuda_lib.launches)
+        got, gpar = beam_step_cuda.beam_step(st, mem.keys, mem.values, mem.mask, w, 1, scales, mxu)
+        assert cuda_lib.launches[name] == before[name] + 1
+        assert cuda_lib.launches["beam_step"] == before["beam_step"]
+        ref, rpar = beam_step_cuda.beam_step_plain(st, mem.keys, mem.values, mem.mask, w, 1,
+                                                   scales, mxu)
+        same = (got.tok.reshape(B, 5) == ref.tok.reshape(B, 5)) & (gpar == rpar)
+        agree += same.sum().item()
+        n += B * 5
+        torch.testing.assert_close(got.cum[same], ref.cum[same], rtol=0, atol=1e-2)
+        st = ref
+    assert agree / n >= 0.998
+
+
+@pytest.mark.parametrize("memory", ["i8", "i8mxu"])
+def test_int8_engine_on_card_matches_cpu(cuda, memory):
+    import numpy as np
+
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.data import simulator
+    from ravvent_tpu_torch.data.snippets import prepare_compact
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.models.basecaller import init_basecaller
+
+    cfg = ModelConfig()
+    params = init_basecaller(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    seq = simulator.random_genome(1500, rng)
+    sig, ranges = simulator.simulate_read(seq, rng, simulator.PoreModel())
+    sigc, rr, ev, er, _, _ = prepare_compact(sig, ranges, np.array(["a"] * len(ranges)), 6)
+    rr, er = rr[:64], er[:64]
+    name = "beam_step_i8mxu" if memory == "i8mxu" else "beam_step_i8"
+    card = BasecallEngine(params, cfg, memory_dtype=memory)
+    before = dict(cuda_lib.launches)
+    t_card, p_card = card.predict_beam_compact(sigc, rr, ev, er, 40, 5)
+    assert cuda_lib.launches[name] > before[name]
+    assert cuda_lib.launches["beam_step"] == before["beam_step"]
+    t_cpu, _ = BasecallEngine(params, cfg, memory_dtype=memory,
+                              device="cpu").predict_beam_compact(sigc, rr, ev, er, 40, 5)
+    assert np.isfinite(p_card).all()
+    assert (t_card == t_cpu).mean() >= 0.998
+    with pytest.raises(ValueError, match="beam_impl='step'"):
+        BasecallEngine(params, cfg, memory_dtype=memory, beam_impl="loop")
+
+
+def test_int8_step_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    B = 4
+    dec_p, mem = _decoder_and_memory(0, B, 16, "i8", True, cuda)
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    ks, vs = mem.kscale, mem.vscale
+    step = functools.partial(beam_step_cuda.beam_step, keys=mem.keys, values=mem.values,
+                             mask=mem.mask, w=w, end_token=1)
+    st = beam_step_cuda.initial_state(B, 5, 128, 2, cuda)
+    with pytest.raises(ValueError, match="kscale has shape"):
+        step(st, scales=(ks[:, :8].contiguous(), vs))
+    with pytest.raises(ValueError, match="vscale must be a contiguous"):
+        step(st, scales=(ks, vs.double()))
+    with pytest.raises(ValueError, match="both int8"):
+        step(st)  # int8 memory without its scales
+    with pytest.raises(ValueError, match="beam widths"):
+        step(beam_step_cuda.initial_state(B, 6, 128, 2, cuda), scales=(ks, vs))
+    with pytest.raises(ValueError, match="int8 memory"):
+        beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, 5, 5, 5, 2, 1, (ks, vs))
