@@ -16,8 +16,12 @@ holds each hand-written kernel against its plain PyTorch version on the card:
      per kernel from -Xptxas -v);
   2. the BiLSTM-layer kernel against its plain version at B=4096 for the four
      layer shapes of one chunk, timed beside torch.nn.LSTM;
-  3. the beam-step kernel against its plain version at B=4096, S=232, U=128,
-     W=5, bf16 memory, 40 steps, each step fed the plain version's state;
+  3. the bf16/f32 beam step, two kernels (beam_cell, then beam_attend),
+     against its plain version at B=4096, S=232, U=128, W=5: bf16 memory
+     over 40 steps, each kernel also against its own plain version on the
+     same inputs, then f32 memory over 10 steps, each step fed the plain
+     version's state; the pair and each kernel timed beside its bound, and
+     the step at S=8 beside S=232;
   4. end to end: 4 simulated reads through the CLI's read path, with each
      kernel's launch count, then a check against the CPU (plain) engine on
      the first 64 snippets of the first read;
@@ -310,29 +314,43 @@ def encoder_like_memory(gen: torch.Generator, B: int, S: int, E: int, dev) -> tu
     return memory, mask
 
 
-def phase_beam_step() -> dict:
-    from ravvent_tpu_torch.models import attention as attn
-    from ravvent_tpu_torch.models.decoder import init_decoder
-    from ravvent_tpu_torch.ops.beam_step_cuda import (
-        beam_step, beam_step_plain, initial_state, pack_decoder_weights,
-    )
+def beam_cell_bounds(N: int, U: int, V: int) -> tuple:
+    """The cell kernel's bound for N hypotheses: the cell's products over the
+    U attention and U recurrent rows and h'.watt_h in f32; bytes: the state
+    in (token, att, h, c), h', c', att_h out, the cell's weights."""
+    flops = N * (2 * 2 * U * 4 * U + 2 * U * U)
+    nbytes = N * (4 + 3 * U * 4) + N * 3 * U * 4 + 4 * ((V + 2 * U) * 4 * U + 4 * U + U * U)
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED + 1)
-    B, S, U, W, V, E, steps = 4096, 232, 128, 5, 7, 256, 40
-    dec_p = init_decoder(gen, V, 1, U, E, dev)
-    memory, mask = encoder_like_memory(gen, B, S, E, dev)
-    mem = attn.setup_memory(dec_p["attention"], memory, mask, torch.bfloat16,
-                            attention_layer=dec_p["attention_layer"])
-    w = pack_decoder_weights(dec_p, mem)
-    keys, values = mem.keys.contiguous(), mem.values.contiguous()
-    st = initial_state(B, W, U, 2, dev)
+
+def beam_attend_bounds(B: int, S: int, U: int, W: int, V: int, mem_bytes: int) -> tuple:
+    """The attend kernel's bound: the memory's dots at the bf16 peak (as
+    beam_step_bounds counts them) and the logits in f32; bytes: keys,
+    values, mask, the cell's scratch in (h', c', att_h), cum and fin in,
+    the next state and the parents out, wfc and bfc."""
+    hyps = B * W
+    flops_mem = hyps * 2 * 2 * S * U
+    flops_f32 = hyps * 2 * U * V
+    nbytes = (2 * B * S * U * mem_bytes + B * S + hyps * 3 * U * 4 + hyps * 5
+              + hyps * (3 * U * 4 + 4 + 4 + 1) + hyps * 4 + 4 * (U * V + V))
+    t_ops = flops_mem / H100_BF16_FLOPS + flops_f32 / H100_F32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_steps(name: str, step, plain, st, steps: int, B: int, W: int, tol: float,
+                extra=None) -> tuple:
+    """``steps`` steps of ``step`` against ``plain``, each fed the plain
+    state; ``extra(st, ref)`` runs beside each. Returns (token share, parent
+    share, max score error where token and parent agree, last plain state)."""
     agree_tok = agree_par = n = 0
     err = 0.0
-    tol = 1e-2  # cumulative log-prob; h and alignments round to bf16 in both versions
     for _ in range(steps):
-        got, gpar = beam_step(st, keys, values, mask, w, 1)
-        ref, rpar = beam_step_plain(st, keys, values, mask, w, 1)
+        got, gpar = step(st)
+        ref, rpar = plain(st)
+        if extra is not None:
+            extra(st, ref, rpar)
         tok_eq = got.tok.reshape(B, W) == ref.tok.reshape(B, W)
         par_eq = gpar == rpar
         agree_tok += tok_eq.sum().item()
@@ -344,20 +362,121 @@ def phase_beam_step() -> dict:
         st = ref
     torch.cuda.synchronize()
     tok_share, par_share = agree_tok / n, agree_par / n
+    require(tok_share >= 0.998 and par_share >= 0.998, f"{name}: token/parent agreement < 0.998")
+    require(err <= tol, f"{name}: score error {err:.3e} > {tol}")
+    return tok_share, par_share, err, st
+
+
+def phase_beam_step() -> list:
+    """The bf16/f32 beam step (beam_cell, then beam_attend) against
+    beam_step_plain at B=4096, S=232, W=5: bf16 memory over 40 steps, with
+    each kernel against its own plain version on the same inputs, then f32
+    memory over 10 steps; each step fed the plain version's state. Times
+    the pair and each kernel beside its bound, and the step at S=8."""
+    from ravvent_tpu_torch.models import attention as attn
+    from ravvent_tpu_torch.models.decoder import init_decoder
+    from ravvent_tpu_torch.ops.beam_step_cuda import (
+        attend_plain, beam_attend, beam_cell, beam_step, beam_step_plain, cell_plain,
+        initial_state, pack_decoder_weights,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    B, S, U, W, V, E, steps = 4096, 232, 128, 5, 7, 256, 40
+    dec_p = init_decoder(gen, V, 1, U, E, dev)
+    memory, mask = encoder_like_memory(gen, B, S, E, dev)
+    mem = attn.setup_memory(dec_p["attention"], memory, mask, torch.bfloat16,
+                            attention_layer=dec_p["attention_layer"])
+    del memory
+    w = pack_decoder_weights(dec_p, mem)
+    keys, values = mem.keys.contiguous(), mem.values.contiguous()
+    tol = 1e-2  # cumulative log-prob; h and alignments round to bf16 in both versions
+    tol_cell = 1e-4  # h', c', att_h: f32 sums of 256 and 128 terms in another order
+    cell_err = [0.0]
+    attend = {"tok": 0, "par": 0, "n": 0, "err": 0.0}
+
+    def kernels_alone(st, ref, rpar):
+        """Each kernel against its plain version on the same inputs."""
+        plain_cell = cell_plain(st, w)
+        got_cell = beam_cell(st, w)
+        cell_err[0] = max([cell_err[0]] + [(g - r).abs().max().item()
+                                           for g, r in zip(got_cell, plain_cell)])
+        got, gpar = beam_attend(st, *plain_cell, keys, values, mask, w, 1)
+        tok_eq = got.tok.reshape(B, W) == ref.tok.reshape(B, W)
+        both = tok_eq & (gpar == rpar)
+        attend["tok"] += tok_eq.sum().item()
+        attend["par"] += (gpar == rpar).sum().item()
+        attend["n"] += B * W
+        if both.any():
+            attend["err"] = max(attend["err"], (got.cum - ref.cum).abs()[both].max().item())
+
+    def step_on(k, v, m):
+        return lambda st: beam_step(st, k, v, m, w, 1)
+
+    def plain_on(k, v, m):
+        return lambda st: beam_step_plain(st, k, v, m, w, 1)
+
     st0 = initial_state(B, W, U, 2, dev)
-    ms = time_ms(lambda: beam_step(st0, keys, values, mask, w, 1), reps=40)
-    plain_ms = time_ms(lambda: beam_step_plain(st0, keys, values, mask, w, 1), reps=3)
-    bound, by = beam_step_bounds(B, S, U, W, V, 2)
+    tok_share, par_share, err, st_mid = check_steps(
+        "beam_step bf16", step_on(keys, values, mask), plain_on(keys, values, mask), st0, steps,
+        B, W, tol, extra=kernels_alone)
+    a_tok, a_par = attend["tok"] / attend["n"], attend["par"] / attend["n"]
     print(f"  beam_step B={B} S={S} W={W} bf16, {steps} steps: tokens agree {tok_share:.5f}, "
           f"parents agree {par_share:.5f} (need >= 0.998); score max_abs_err {err:.3e} "
-          f"(tol {tol:g}); kernel {ms:.4f} ms/step, plain {plain_ms:.4f} ms/step, "
-          f"bound {bound:.4f} ms/step ({by})")
-    require(tok_share >= 0.998 and par_share >= 0.998, "beam_step: token/parent agreement < 0.998")
-    require(err <= tol, f"beam_step: score error {err:.3e} > {tol}")
-    return {"name": "beam_step", "route": "cuda", "source": "ravvent_tpu_torch/csrc/beam_step.cu",
-            "replaces": "ravvent_tpu/ops/beam_loop_pallas.py:333", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+          f"(tol {tol:g})")
+    print(f"  beam_cell alone: h', c', att_h max_abs_err {cell_err[0]:.3e} (tol {tol_cell:g}); "
+          f"beam_attend alone, fed the plain cell: tokens agree {a_tok:.5f}, parents agree "
+          f"{a_par:.5f} (need >= 0.998), score max_abs_err {attend['err']:.3e} (tol {tol:g})")
+    require(cell_err[0] <= tol_cell, f"beam_cell: error {cell_err[0]:.3e} > {tol_cell}")
+    require(a_tok >= 0.998 and a_par >= 0.998, "beam_attend: token/parent agreement < 0.998")
+    require(attend["err"] <= tol, f"beam_attend: score error {attend['err']:.3e} > {tol}")
+
+    kf, vf = keys.float(), values.float()
+    f_tok, f_par, f_err, _ = check_steps("beam_step f32", step_on(kf, vf, mask),
+                                         plain_on(kf, vf, mask), st0, 10, B, W, tol)
+    print(f"  beam_step B={B} S={S} W={W} f32, 10 steps: tokens agree {f_tok:.5f}, parents agree "
+          f"{f_par:.5f} (need >= 0.998); score max_abs_err {f_err:.3e} (tol {tol:g})")
+
+    # times on a mid-decode state
+    st = st_mid
+    ms = time_ms(lambda: beam_step(st, keys, values, mask, w, 1), reps=40)
+    plain_ms = time_ms(lambda: beam_step_plain(st, keys, values, mask, w, 1), reps=3)
+    cell_ms = time_ms(lambda: beam_cell(st, w), reps=40)
+    cell_plain_ms = time_ms(lambda: cell_plain(st, w), reps=10)
+    hn, cn, ah = beam_cell(st, w)
+    att_ms = time_ms(lambda: beam_attend(st, hn, cn, ah, keys, values, mask, w, 1), reps=40)
+    att_plain_ms = time_ms(lambda: attend_plain(st, hn, cn, ah, keys, values, mask, w, 1), reps=3)
+    f32_ms = time_ms(lambda: beam_step(st, kf, vf, mask, w, 1), reps=40)
+    f32_att_ms = time_ms(lambda: beam_attend(st, hn, cn, ah, kf, vf, mask, w, 1), reps=40)
+    f32_plain_ms = time_ms(lambda: beam_step_plain(st, kf, vf, mask, w, 1), reps=3)
+    del kf, vf
+    k8, v8, m8 = keys[:, :8].contiguous(), values[:, :8].contiguous(), mask[:, :8].contiguous()
+    ms8 = time_ms(lambda: beam_step(st, k8, v8, m8, w, 1), reps=40)
+    bound, by = beam_step_bounds(B, S, U, W, V, 2)
+    bound8, _ = beam_step_bounds(B, 8, U, W, V, 2)
+    f32_bound, f32_by = beam_step_bounds(B, S, U, W, V, 4, mem_peak=H100_F32_FLOPS)
+    cell_bound, cell_by = beam_cell_bounds(B * W, U, V)
+    att_bound, att_by = beam_attend_bounds(B, S, U, W, V, 2)
+    f32_att_bound, _ = beam_attend_bounds(B, S, U, W, V, 4)
+    print(f"  the step (beam_cell + beam_attend), bf16: {ms:.4f} ms/step, plain {plain_ms:.4f} "
+          f"ms/step, bound {bound:.4f} ms/step ({by}); at S=8 {ms8:.4f} ms/step (bound "
+          f"{bound8:.4f}) beside S={S} {ms:.4f}")
+    print(f"  beam_cell B*W={B * W}: {cell_ms:.4f} ms, plain {cell_plain_ms:.4f} ms, bound "
+          f"{cell_bound:.4f} ms ({cell_by})")
+    print(f"  beam_attend bf16: {att_ms:.4f} ms, plain {att_plain_ms:.4f} ms, bound "
+          f"{att_bound:.4f} ms ({att_by}); the two kernels' bounds sum to "
+          f"{cell_bound + att_bound:.4f} ms against the step's {bound:.4f}")
+    print(f"  f32 memory: the step {f32_ms:.4f} ms/step, plain {f32_plain_ms:.4f} ms/step, bound "
+          f"{f32_bound:.4f} ms/step ({f32_by}); beam_attend {f32_att_ms:.4f} ms, bound "
+          f"{f32_att_bound:.4f} ms")
+    src = "ravvent_tpu_torch/csrc/beam_step_f.cu"
+    replaces = "ravvent_tpu/ops/beam_loop_pallas.py:333"
+    return [{"name": "beam_cell", "route": "cuda", "source": src, "replaces": replaces,
+             "max_abs_err": cell_err[0], "ms": cell_ms, "plain_ms": cell_plain_ms,
+             "bound_ms": cell_bound, "bound_by": cell_by, "library_ms": None},
+            {"name": "beam_attend", "route": "cuda", "source": src, "replaces": replaces,
+             "max_abs_err": attend["err"], "ms": att_ms, "plain_ms": att_plain_ms,
+             "bound_ms": att_bound, "bound_by": att_by, "library_ms": None}]
 
 
 def simulated_reads() -> list:
@@ -416,8 +535,11 @@ def phase_end_to_end() -> dict:
     print(f"  reads {len(reads)}, snippets {n_snip}, bases {n_bases}, wall {wall:.3f} s, "
           f"{n_bases / wall:.1f} bases/s")
     print("  stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    print(f"  launches: bilstm {counts['bilstm']}, beam_step {counts['beam_step']}")
+    print(f"  launches: bilstm {counts['bilstm']}, beam_step {counts['beam_step']} (beam_cell "
+          f"{counts['beam_cell']}, beam_attend {counts['beam_attend']})")
     require(counts["bilstm"] > 0 and counts["beam_step"] > 0, "a kernel was not launched")
+    require(counts["beam_cell"] == counts["beam_attend"] == counts["beam_step"],
+            "a bf16 step did not launch beam_cell and beam_attend once each")
     require(n_bases > 0, "the reads merged to no bases")
 
     # the card against the CPU (plain versions) on one read's first 64 snippets
@@ -651,7 +773,8 @@ def phase_end_to_end_loop() -> dict:
           f"beam_step {counts['beam_step']}")
     require(counts["bilstm"] > 0 and counts["beam_loop"] == chunks,
             "beam_impl=loop: the beam-loop kernel was not launched once per chunk")
-    require(counts["beam_step"] == 0, "beam_impl=loop launched the beam-step kernel")
+    require(counts["beam_step"] == counts["beam_cell"] == counts["beam_attend"] == 0,
+            "beam_impl=loop launched the beam-step kernels")
 
     raw, ranges, _ = reads[0]
     sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
@@ -762,11 +885,14 @@ def phase_bench_path(smi: str) -> dict:
               f"{totals[0]:.1f} bases/s [{smi}]")
         print(f"  run_pipelined inflight 8, finishers 4: {rec['bases_per_s']:.1f} bases/s, wall "
               f"{rec['wall_s']:.3f} s, stages {rec['stages_s']} [{smi}]")
-        print(f"  launches: bilstm_bf16 {counts['bilstm_bf16']}, beam_step {counts['beam_step']}, "
+        print(f"  launches: bilstm_bf16 {counts['bilstm_bf16']}, beam_step {counts['beam_step']} "
+              f"(beam_cell {counts['beam_cell']}, beam_attend {counts['beam_attend']}), "
               f"bilstm {counts['bilstm']}, beam_loop {counts['beam_loop']}, "
               f"decode_step {counts['decode_step']}")
         require(counts["bilstm_bf16"] > 0 and counts["beam_step"] > 0,
                 "the bench path did not launch its kernels")
+        require(counts["beam_cell"] == counts["beam_attend"] == counts["beam_step"],
+                "a bf16 step did not launch beam_cell and beam_attend once each")
         require(counts["bilstm"] == counts["beam_loop"] == counts["decode_step"] == 0,
                 "the bench path launched a kernel of another path")
         require(rec["bases_num"] == bases and bases > 0, "the pipelined run counted other bases")
@@ -1018,8 +1144,8 @@ def main() -> int:
     k_bilstm = phase_bilstm()
     phase("2 bilstm kernel", t0)
     t0 = time.perf_counter()
-    k_beam = phase_beam_step()
-    phase("3 beam_step kernel", t0)
+    k_cell, k_attend = phase_beam_step()
+    phase("3 beam_step: beam_cell + beam_attend", t0)
     t0 = time.perf_counter()
     counts = phase_end_to_end()
     require(counts["beam_loop"] == 0 and counts["decode_step"] == 0,
@@ -1051,7 +1177,8 @@ def main() -> int:
     phase("12 end to end, the bench's path on int8 memory", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
-    k_beam["launches"] = counts["beam_step"]
+    k_cell["launches"] = counts["beam_cell"]
+    k_attend["launches"] = counts["beam_attend"]
     k_loop["launches"] = counts_loop["beam_loop"]
     k_dstep["launches"] = counts_greedy["decode_step"]
     k_bf16["launches"] = counts_bench["bilstm_bf16"]
@@ -1060,7 +1187,7 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (
-        k_bilstm, k_beam, k_loop, k_dstep, k_bf16, k_i8, k_i8mxu)]}))
+        k_bilstm, k_cell, k_attend, k_loop, k_dstep, k_bf16, k_i8, k_i8mxu)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,12 @@
-// One beam-search decode step for every hypothesis of a batch.
+// One beam-search decode step for every hypothesis of a batch, on int8
+// memory.
 //
 // Replaces the TPU kernel ravvent_tpu/ops/beam_loop_pallas.py::_beam_step_kernel
-// (entry point beam_step_decode) in its three memory modes: bf16 or f32
-// memory (quant=False, rv_beam_step), and int8 memory with per-(row,
-// position) scales (rv_beam_step_i8): "quant", the scales folded into the
-// dequantized dots, and "quant_mxu", s8 x s8 -> s32 dots. Per hypothesis:
+// (entry point beam_step_decode) in its two int8 modes, memory with
+// per-(row, position) scales (rv_beam_step_i8): "quant", the scales folded
+// into the dequantized dots, and "quant_mxu", s8 x s8 -> s32 dots. bf16 and
+// f32 memory (quant=False) run the two kernels of beam_step_f.cu. Per
+// hypothesis:
 // LSTM cell on [one-hot token | previous attention vector],
 // Luong scores of h against the keys, softmax masked with finfo(f32).min
 // (an all-masked row becomes uniform, as in the reference), context from the
@@ -14,16 +16,15 @@
 // rule; vocabulary columns >= V are padding whose logit is finfo.min), and
 // the beam permutation of h, c, att and the finished flags.
 //
-// What bounds it on the H100: memory bytes. Each step reads every row's keys
-// and values once (B x S x U x 2 tensors; 487 MB per step at B=4096, S=232,
-// U=128 in bf16: ~145 us at 3.35 TB/s; int8 halves it and adds 8 bytes of
-// scales a position), against ~0.3 GFLOP of f32 work per
-// row-step. Design: one CTA per kRows batch rows (all W hypotheses of each).
-// The TPU kernel pipelined batch tiles through VMEM; here each CTA streams
-// its rows' keys and values from HBM exactly once, with coalesced loads (a
-// warp reads one key row per position; for bf16/f32 a thread pair of units
-// reads one value row, for int8 a warp reads four value rows, 4 codes a
-// 32-bit word), and keeps every intermediate in shared memory. The decoder
+// What bounds it on the H100: memory bytes. Each step reads every row's int8
+// keys and values once (B x S x U x 2 codes and 8 bytes of scales a
+// position; 243 MB of codes per step at B=4096, S=232, U=128), against ~0.3
+// GFLOP of f32 work per row-step. Design: one CTA per kRows batch rows (all
+// W hypotheses of each). The TPU kernel pipelined batch tiles through VMEM;
+// here each CTA streams its rows' keys and values from HBM exactly once,
+// with coalesced loads (a warp reads one key row per position and four value
+// rows, 4 codes a 32-bit word), and keeps every intermediate in shared
+// memory. The decoder
 // weights (~0.6 MB f32) are read through L2 once per CTA, shared by the
 // kRows x W hypotheses of the CTA.
 //
@@ -53,14 +54,13 @@ constexpr int kRows = 4;        // batch rows per CTA
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// memory modes: bf16/f32 memory, int8 "quant" (dequantized dots), int8
-// "quant_mxu" (integer dots)
-constexpr int kFloat = 0, kQuant = 1, kQuantMxu = 2;
+// memory modes: int8 "quant" (dequantized dots), int8 "quant_mxu" (integer
+// dots)
+constexpr int kQuant = 1, kQuantMxu = 2;
 
-// Groups of positions the context product is split over: for bf16/f32 a
-// thread owns a unit pair (64 pairs x 4 groups), for int8 a unit quad (32
-// quads x 8 groups).
-__host__ __device__ constexpr int ctx_groups(int q) { return q == kFloat ? 4 : 8; }
+// Groups of positions the context product is split over: a thread owns a
+// unit quad (32 quads x 8 groups).
+__host__ __device__ constexpr int ctx_groups(int) { return 8; }
 
 // Positions of one quantized alignment row, padded to whole 32-bit words.
 __host__ __device__ constexpr int aq_stride(int S) { return (S + 3) & ~3; }
@@ -353,71 +353,10 @@ beam_step_kernel(int B, int S, int V, int VP, int end_token,
     const M* K = keys + brow * S * kU;
     const M* Vv = values + brow * S * kU;
     const uint8_t* mrow = mask + brow * S;
-    if constexpr (Q != kFloat) {
-      attend_row_i8<W, Q == kQuantMxu>(hn + r * W * kU, K, Vv, kscale + brow * S,
-                                        vscale + brow * S, mrow, S, sc, ctxp,
-                                        reinterpret_cast<int8_t*>(smem + L.aq), s_amax,
-                                        att + r * W * kU);
-      continue;
-    } else {
-
-    // scores: one warp per position, each lane 4 units
-    float q[W][4];
-#pragma unroll
-    for (int w = 0; w < W; ++w)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) q[w][i] = round_to<M>(hn[(r * W + w) * kU + 4 * lane + i]);
-    for (int s = warp; s < S; s += kWarps) {
-      float kv[4];
-      load4(K + (size_t)s * kU + 4 * lane, kv);
-      const bool m = mrow[s] != 0;
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        float p = q[w][0] * kv[0];
-        p = fmaf(q[w][1], kv[1], p);
-        p = fmaf(q[w][2], kv[2], p);
-        p = fmaf(q[w][3], kv[3], p);
-        p = warp_sum(p);
-        if (lane == 0) sc[w * S + s] = m ? p : kNegMax;
-      }
-    }
-    __syncthreads();
-
-    // masked softmax: one warp per hypothesis; alignments rounded to the
-    // memory's precision for the context product
-    for (int w = warp; w < W; w += kWarps) warp_softmax<M>(sc + w * S, S, lane);
-    __syncthreads();
-
-    // context: thread = (unit pair, quarter of the positions)
-    {
-      const int up = tid & 63, quarter = tid >> 6;
-      float acc[W][2];
-#pragma unroll
-      for (int w = 0; w < W; ++w) acc[w][0] = acc[w][1] = 0.f;
-      for (int s = quarter; s < S; s += 4) {
-        float v[2];
-        load2(Vv + (size_t)s * kU + 2 * up, v);
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          const float a = sc[w * S + s];
-          acc[w][0] = fmaf(a, v[0], acc[w][0]);
-          acc[w][1] = fmaf(a, v[1], acc[w][1]);
-        }
-      }
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        ctxp[(quarter * W + w) * kU + 2 * up] = acc[w][0];
-        ctxp[(quarter * W + w) * kU + 2 * up + 1] = acc[w][1];
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < W * kU; i += kThreads) {
-      const int w = i / kU, u = i - w * kU;
-      att[(r * W + w) * kU + u] = ctxp[(0 * W + w) * kU + u] + ctxp[(1 * W + w) * kU + u] +
-                                  ctxp[(2 * W + w) * kU + u] + ctxp[(3 * W + w) * kU + u];
-    }
-    __syncthreads();
-    }
+    attend_row_i8<W, Q == kQuantMxu>(hn + r * W * kU, K, Vv, kscale + brow * S,
+                                      vscale + brow * S, mrow, S, sc, ctxp,
+                                      reinterpret_cast<int8_t*>(smem + L.aq), s_amax,
+                                      att + r * W * kU);
   }
 
   // ---- attention vector: att = h.watt_h + context (in place over the context)
@@ -557,25 +496,6 @@ bool bad_shape(int B, int S, int V, int VP, int end_token) {
 }
 
 }  // namespace
-
-// mem_bf16: 1 when keys/values are bf16, 0 when f32. Beam widths 1-5 and 8.
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
-extern "C" int rv_beam_step(int mem_bf16, int W, int B, int S, int V, int VP, int end_token,
-                            const void* tok_in, const void* h_in, const void* c_in,
-                            const void* att_in, const void* cum_in, const void* fin_in,
-                            const void* keys, const void* values, const void* mask,
-                            const void* wx, const void* wh, const void* bias, const void* watt_h,
-                            const void* wfc, const void* bfc, void* tok_out, void* par_out,
-                            void* h_out, void* c_out, void* att_out, void* cum_out, void* fin_out,
-                            void* stream) {
-  if (bad_shape(B, S, V, VP, end_token)) return (int)cudaErrorInvalidValue;
-  const StepArgs a{B, S, V, VP, end_token, tok_in, h_in, c_in, att_in, cum_in, fin_in, keys,
-                   values, nullptr, nullptr, mask, wx, wh, bias, watt_h, wfc, bfc, tok_out,
-                   par_out, h_out, c_out, att_out, cum_out, fin_out};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (mem_bf16) return dispatch_w<__nv_bfloat16, kFloat>(W, a, st);
-  return dispatch_w<float, kFloat>(W, a, st);
-}
 
 // int8 keys/values [B, S, U] with f32 scales kscale, vscale [B, S]; mxu: 1
 // for quant_mxu (integer dots), 0 for quant (dequantized dots). Beam widths

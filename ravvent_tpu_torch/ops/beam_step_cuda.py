@@ -1,12 +1,18 @@
-"""One fused beam-search step: the CUDA kernel, its plain version, and the
-decode entry point that runs it once per step or runs the whole-loop
+"""One beam-search step: the CUDA kernels, their plain versions, and the
+decode entry point that runs the step once per step or runs the whole-loop
 kernel (ops/beam_loop_cuda.py).
 
 Counterpart of ravvent_tpu/ops/beam_loop_pallas.py (the TPU kernel
 ``_beam_step_kernel`` and its loop ``beam_step_decode``, bf16, f32 or int8
-memory) and of ``pack_decoder_weights`` (ops/decode_step_pallas.py). The
-kernel is ``csrc/beam_step.cu``; :func:`beam_step` launches it for CUDA
-tensors and runs :func:`beam_step_plain` for CPU tensors only.
+memory) and of ``pack_decoder_weights`` (ops/decode_step_pallas.py). On
+bf16 or f32 memory a step is two kernels of ``csrc/beam_step_f.cu``:
+:func:`beam_cell` (the LSTM cell and ``h'.watt_h`` of every hypothesis,
+plain version :func:`cell_plain`) and then :func:`beam_attend` (attention,
+logits, top-W and the permutation of each batch row, plain version
+:func:`attend_plain`). On int8 memory a step is one kernel of
+``csrc/beam_step.cu``. :func:`beam_step` launches them for CUDA tensors
+and runs :func:`beam_step_plain`, the composition of the two plain
+versions, for CPU tensors only.
 
 int8 memory (``setup_memory(dtype="i8")``) comes with its per-(row,
 position) scales ``scales = (kscale, vscale)`` and runs one of the
@@ -118,24 +124,30 @@ def attend_quantized(query, keys, values, mask, kscale, vscale, mxu: bool):
     return torch.bmm(aq, values.to(f32)) * (amax / torch.full((), 127.0, device=amax.device))
 
 
-def step_candidates(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
-                    scales=None, mxu: bool = False):
-    """The plain step up to its choice: the cell, attention and logits of
-    every hypothesis, and the flattened candidate row. Returns h', c', att'
-    [B*W, U] and total [B, W*VP], the cumulative log-prob of each (beam,
-    token) candidate, padding columns at cum + finfo.min. ``scales``:
-    (kscale, vscale) of int8 memory, else None."""
+def cell_plain(st: StepState, w: DecoderWeights):
+    """Plain version of the cell kernel: the LSTM cell of every hypothesis
+    and the cell-output half of the attention layer. Returns h', c' and
+    att_h = h'.watt_h, each [B*W, U] f32."""
+    h_new, c_new = lstm_cell_plain(st.tok, st.att, st.h, st.c, w.wx, w.wh, w.b)
+    return h_new, c_new, h_new @ w.watt_h
+
+
+def candidates(st: StepState, h_new, att_h, keys, values, mask, w: DecoderWeights,
+               end_token: int, scales=None, mxu: bool = False):
+    """The step after the cell, up to its choice: attention and logits of
+    every hypothesis, and the flattened candidate row. Returns att' [B*W, U]
+    and total [B, W*VP], the cumulative log-prob of each (beam, token)
+    candidate, padding columns at cum + finfo.min. ``scales``: (kscale,
+    vscale) of int8 memory, else None."""
     B, S, U = keys.shape
     W = st.cum.shape[1]
     V = w.wfc.shape[1]
-    h_new, c_new = lstm_cell_plain(st.tok, st.att, st.h, st.c, w.wx, w.wh, w.b)
-
     if scales is None:
         mem = attn.AttnMemory(keys=keys, values=values, mask=mask)
         context, _ = attn.attend_beams(h_new.reshape(B, W, U), mem)
     else:
         context = attend_quantized(h_new.reshape(B, W, U), keys, values, mask, *scales, mxu)
-    att_new = h_new @ w.watt_h + context.reshape(B * W, U)
+    att_new = att_h + context.reshape(B * W, U)
     logits = att_new @ w.wfc + w.bfc  # [B*W, V]
 
     lmax = logits.max(dim=1, keepdim=True).values
@@ -148,7 +160,16 @@ def step_candidates(st: StepState, keys, values, mask, w: DecoderWeights, end_to
     # finfo.min, finished or not
     total = torch.full((B, W, VP), NEG_INF, device=keys.device) + st.cum[..., None]
     total[..., :V] = st.cum[..., None] + step_lp
-    return h_new, c_new, att_new, total.reshape(B, W * VP)
+    return att_new, total.reshape(B, W * VP)
+
+
+def step_candidates(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
+                    scales=None, mxu: bool = False):
+    """The plain step up to its choice: :func:`cell_plain`, then
+    :func:`candidates`. Returns h', c', att' [B*W, U] and total [B, W*VP]."""
+    h_new, c_new, att_h = cell_plain(st, w)
+    att_new, total = candidates(st, h_new, att_h, keys, values, mask, w, end_token, scales, mxu)
+    return h_new, c_new, att_new, total
 
 
 def advance(st: StepState, h_new, c_new, att_new, new_cum, idx, end_token: int):
@@ -163,13 +184,20 @@ def advance(st: StepState, h_new, c_new, att_new, new_cum, idx, end_token: int):
     return nxt, parent.to(torch.int32)
 
 
-def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
-                    scales=None, mxu: bool = False):
-    """Plain PyTorch version of one step. Returns (next state, parents)."""
-    h_new, c_new, att_new, total = step_candidates(st, keys, values, mask, w, end_token,
-                                                   scales, mxu)
+def attend_plain(st: StepState, h_new, c_new, att_h, keys, values, mask, w: DecoderWeights,
+                 end_token: int, scales=None, mxu: bool = False):
+    """Plain version of the attend kernel: the step after the cell, from
+    the cell's h', c', att_h. Returns (next state, parents [B, W])."""
+    att_new, total = candidates(st, h_new, att_h, keys, values, mask, w, end_token, scales, mxu)
     new_cum, idx = top_w(total, st.cum.shape[1])
     return advance(st, h_new, c_new, att_new, new_cum, idx, end_token)
+
+
+def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
+                    scales=None, mxu: bool = False):
+    """Plain PyTorch version of one step: :func:`cell_plain`, then
+    :func:`attend_plain`. Returns (next state, parents)."""
+    return attend_plain(st, *cell_plain(st, w), keys, values, mask, w, end_token, scales, mxu)
 
 
 def check_kernel_inputs(name: str, keys, values, mask, w: DecoderWeights, W: int,
@@ -204,12 +232,94 @@ def check_kernel_inputs(name: str, keys, values, mask, w: DecoderWeights, W: int
         raise ValueError(f"{name}: keys and values must be 16-byte aligned")
 
 
+def check_aligned(name: str, *tensors) -> None:
+    """csrc/beam_step_f.cu reads the weights and the [B*W, U] state 16 bytes
+    at a time. Raises ValueError unless each tensor is 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the weights and the [B*W, U] state must be 16-byte aligned")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_cell(st: StepState, w: DecoderWeights):
+    h_new, c_new, att_h = (torch.empty_like(st.h) for _ in range(3))
+    rc = cuda_lib.lib().rv_beam_cell(
+        st.h.shape[0], w.wfc.shape[1], st.tok.data_ptr(), st.att.data_ptr(), st.h.data_ptr(),
+        st.c.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
+        h_new.data_ptr(), c_new.data_ptr(), att_h.data_ptr(), _stream(st.h.device))
+    cuda_lib.check(rc, "beam_cell")
+    cuda_lib.launches["beam_cell"] += 1
+    return h_new, c_new, att_h
+
+
+def _launch_attend(st: StepState, h_new, c_new, att_h, keys, values, mask, w: DecoderWeights,
+                   end_token: int):
+    B, S, _ = keys.shape
+    W = st.cum.shape[1]
+    dev = keys.device
+    nxt = StepState(torch.empty(B * W, dtype=torch.int32, device=dev), torch.empty_like(h_new),
+                    torch.empty_like(c_new), torch.empty_like(att_h), torch.empty_like(st.cum),
+                    torch.empty_like(st.fin))
+    parent = torch.empty(B, W, dtype=torch.int32, device=dev)
+    rc = cuda_lib.lib().rv_beam_attend(
+        int(keys.dtype == torch.bfloat16), W, B, S, w.wfc.shape[1], VP, end_token,
+        h_new.data_ptr(), c_new.data_ptr(), att_h.data_ptr(), st.cum.data_ptr(),
+        st.fin.data_ptr(), keys.data_ptr(), values.data_ptr(), mask.data_ptr(),
+        w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
+        nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
+        nxt.fin.data_ptr(), _stream(keys.device))
+    cuda_lib.check(rc, "beam_attend")
+    cuda_lib.launches["beam_attend"] += 1
+    return nxt, parent
+
+
+def beam_cell(st: StepState, w: DecoderWeights):
+    """The cell kernel for CUDA tensors, :func:`cell_plain` for CPU tensors.
+    Returns h', c', att_h [B*W, U] f32 (the kernel's scratch)."""
+    if not st.h.is_cuda:
+        return cell_plain(st, w)
+    N, U = st.h.shape
+    V = w.wfc.shape[1]
+    f32 = torch.float32
+    if U != UNITS:
+        raise ValueError(f"beam_cell kernel is compiled for {UNITS} units, got {U}")
+    cuda_lib.check_tensors("beam_cell", st.h.device, [
+        ("tok", st.tok, torch.int32, (N,)), ("h", st.h, f32, (N, U)), ("c", st.c, f32, (N, U)),
+        ("att", st.att, f32, (N, U)), ("wx", w.wx, f32, (V + U, 4 * U)),
+        ("wh", w.wh, f32, (U, 4 * U)), ("b", w.b, f32, (4 * U,)),
+        ("watt_h", w.watt_h, f32, (U, U)),
+    ])
+    check_aligned("beam_cell", st.h, st.c, st.att, w.wx, w.wh, w.b, w.watt_h)
+    return _launch_cell(st, w)
+
+
+def beam_attend(st: StepState, h_new, c_new, att_h, keys, values, mask, w: DecoderWeights,
+                end_token: int):
+    """The attend kernel on bf16 or f32 memory for CUDA tensors,
+    :func:`attend_plain` for CPU tensors, from the cell's h', c', att_h.
+    Returns (next state, parents [B, W])."""
+    if not keys.is_cuda:
+        return attend_plain(st, h_new, c_new, att_h, keys, values, mask, w, end_token)
+    B, S, U = keys.shape
+    W = st.cum.shape[1]
+    f32 = torch.float32
+    check_kernel_inputs("beam_attend", keys, values, mask, w, W, end_token, [
+        ("h_new", h_new, f32, (B * W, U)), ("c_new", c_new, f32, (B * W, U)),
+        ("att_h", att_h, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)),
+        ("fin", st.fin, torch.bool, (B, W))])
+    check_aligned("beam_attend", h_new, c_new, att_h)
+    return _launch_attend(st, h_new, c_new, att_h, keys, values, mask, w, end_token)
+
+
 def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
               scales=None, mxu: bool = False):
-    """One beam step: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. ``scales``: (kscale, vscale) of int8 memory, whose step
-    runs the quant_mxu variant when ``mxu``. Returns (next state, parents
-    [B, W])."""
+    """One beam step: the CUDA kernels for CUDA tensors (bf16/f32 memory:
+    beam_cell, then beam_attend; int8 memory: the int8 step kernel), the
+    plain version for CPU tensors. ``scales``: (kscale, vscale) of int8
+    memory, whose step runs the quant_mxu variant when ``mxu``. Returns
+    (next state, parents [B, W])."""
     if not keys.is_cuda:
         return beam_step_plain(st, keys, values, mask, w, end_token, scales, mxu)
     B, S, U = keys.shape
@@ -220,27 +330,24 @@ def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: i
         ("tok", st.tok, i32, (B * W,)), ("h", st.h, f32, (B * W, U)), ("c", st.c, f32, (B * W, U)),
         ("att", st.att, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)), ("fin", st.fin, b8, (B, W)),
     ], scales)
-    dev = keys.device
-    nxt = StepState(torch.empty(B * W, dtype=i32, device=dev), torch.empty_like(st.h),
-                    torch.empty_like(st.c), torch.empty_like(st.att), torch.empty_like(st.cum),
-                    torch.empty_like(st.fin))
-    parent = torch.empty(B, W, dtype=i32, device=dev)
-    state_in = (st.tok.data_ptr(), st.h.data_ptr(), st.c.data_ptr(), st.att.data_ptr(),
-                st.cum.data_ptr(), st.fin.data_ptr())
-    memory = (keys.data_ptr(), values.data_ptr())
-    if scales is not None:
-        memory += (scales[0].data_ptr(), scales[1].data_ptr())
-    rest = (mask.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
-            w.watt_h.data_ptr(), w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(),
-            parent.data_ptr(), nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(),
-            nxt.cum.data_ptr(), nxt.fin.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    lib = cuda_lib.lib()
     if scales is None:
-        name, entry, mode = "beam_step", lib.rv_beam_step, int(keys.dtype == torch.bfloat16)
-    else:
-        name = "beam_step_i8mxu" if mxu else "beam_step_i8"
-        entry, mode = lib.rv_beam_step_i8, int(mxu)
-    rc = entry(mode, W, B, S, V, VP, end_token, *state_in, *memory, *rest)
+        check_aligned("beam_step", st.h, st.c, st.att, w.wx, w.wh, w.b, w.watt_h)
+        nxt, parent = _launch_attend(st, *_launch_cell(st, w), keys, values, mask, w, end_token)
+        cuda_lib.launches["beam_step"] += 1
+        return nxt, parent
+    dev = keys.device
+    nxt = StepState(torch.empty_like(st.tok), torch.empty_like(st.h), torch.empty_like(st.c),
+                    torch.empty_like(st.att), torch.empty_like(st.cum), torch.empty_like(st.fin))
+    parent = torch.empty(B, W, dtype=torch.int32, device=dev)
+    name = "beam_step_i8mxu" if mxu else "beam_step_i8"
+    rc = cuda_lib.lib().rv_beam_step_i8(
+        int(mxu), W, B, S, V, VP, end_token, st.tok.data_ptr(), st.h.data_ptr(),
+        st.c.data_ptr(), st.att.data_ptr(), st.cum.data_ptr(), st.fin.data_ptr(),
+        keys.data_ptr(), values.data_ptr(), scales[0].data_ptr(), scales[1].data_ptr(),
+        mask.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
+        w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
+        nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
+        nxt.fin.data_ptr(), _stream(dev))
     cuda_lib.check(rc, name)
     cuda_lib.launches[name] += 1
     return nxt, parent

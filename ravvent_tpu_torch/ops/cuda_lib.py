@@ -10,6 +10,8 @@ the objects are linked into one shared library in the gitignored
 
 ``launches`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel, so a run can show that it went through the kernels.
+``beam_step`` counts the steps on bf16/f32 memory, each one ``beam_cell``
+and one ``beam_attend`` launch.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ BUILD = PKG / "build"
 LIB_PATH = BUILD / "libravvent_kernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-launches: Dict[str, int] = {"bilstm": 0, "bilstm_bf16": 0, "beam_step": 0, "beam_step_i8": 0,
-                             "beam_step_i8mxu": 0, "beam_loop": 0, "decode_step": 0}
+launches: Dict[str, int] = {"bilstm": 0, "bilstm_bf16": 0, "beam_step": 0, "beam_cell": 0,
+                             "beam_attend": 0, "beam_step_i8": 0, "beam_step_i8mxu": 0,
+                             "beam_loop": 0, "decode_step": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -115,8 +118,10 @@ def lib() -> ctypes.CDLL:
             handle.rv_bilstm_layer.argtypes = [P, I, I, I] + [P] * 8 + [P]
             handle.rv_bilstm_layer_bf16.restype = I
             handle.rv_bilstm_layer_bf16.argtypes = [P, I, I, I, I] + [P] * 8 + [P]
-            handle.rv_beam_step.restype = I
-            handle.rv_beam_step.argtypes = [I] * 7 + [P] * 23
+            handle.rv_beam_cell.restype = I
+            handle.rv_beam_cell.argtypes = [I] * 2 + [P] * 12
+            handle.rv_beam_attend.restype = I
+            handle.rv_beam_attend.argtypes = [I] * 7 + [P] * 18
             handle.rv_beam_step_i8.restype = I
             handle.rv_beam_step_i8.argtypes = [I] * 7 + [P] * 25
             handle.rv_beam_loop.restype = I

@@ -322,3 +322,112 @@ def test_int8_step_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         step(beam_step_cuda.initial_state(B, 6, 128, 2, cuda), scales=(ks, vs))
     with pytest.raises(ValueError, match="int8 memory"):
         beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, 5, 5, 5, 2, 1, (ks, vs))
+
+
+def _mid_decode_state(gen, B: int, W: int, V: int, device) -> beam_step_cuda.StepState:
+    """A state in the middle of a decode: tokens in [0, V + 2) (ids >= V embed
+    to zeros), spread h, c, att and cumulative scores, a fifth of the beams
+    finished."""
+    U = 128
+    st = beam_step_cuda.StepState(
+        torch.randint(0, V + 2, (B * W,), generator=gen, dtype=torch.int32),
+        torch.tanh(torch.randn(B * W, U, generator=gen)), torch.randn(B * W, U, generator=gen),
+        torch.randn(B * W, U, generator=gen), -5.0 * torch.rand(B, W, generator=gen),
+        torch.rand(B, W, generator=gen) < 0.2)
+    return beam_step_cuda.StepState(*(t.to(device) for t in st))
+
+
+@pytest.mark.parametrize("W", [1, 5, 8])
+@pytest.mark.parametrize("B", [9, 37, 130])
+def test_beam_cell_kernel_matches_plain(cuda, B, W):
+    """h', c' and att_h against cell_plain: f32 sums of 256 (cell) and 128
+    (att_h) terms in another order, within 1e-5; the last tile is ragged."""
+    gen = torch.Generator().manual_seed(10 * B + W)
+    dec_p, mem = _decoder_and_memory(B, B, 8, torch.float32, True, cuda)
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    st = _mid_decode_state(gen, B, W, 7, cuda)
+    before = dict(cuda_lib.launches)
+    got = beam_step_cuda.beam_cell(st, w)
+    assert cuda_lib.launches["beam_cell"] == before["beam_cell"] + 1
+    assert cuda_lib.launches["beam_step"] == before["beam_step"]
+    ref = beam_step_cuda.cell_plain(st, w)
+    for g, r in zip(got, ref):  # the kernel's scratch
+        assert g.shape == (B * W, 128) and g.dtype == torch.float32 and g.is_contiguous()
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [8, 232, 300], ids=["S8", "S232", "S300 (position loop)"])
+@pytest.mark.parametrize("mem_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("W", [1, 5, 8])
+@pytest.mark.parametrize("B", [9, 37, 130])
+def test_beam_attend_kernel_matches_plain(cuda, B, W, mem_dtype, S):
+    """beam_attend against attend_plain on the same cell outputs. Picks may
+    part on a near-tie, at most one in a hundred (and one at least); where
+    the parents agree the state rows are copied exactly and att within
+    1e-4 (f32 memory) or 1e-3 (bf16: an alignment may round the other way
+    after sums in another order); where the picks agree the scores within
+    the same bars. Row 3 is all padding."""
+    gen = torch.Generator().manual_seed(1000 + 10 * B + W)
+    dec_p = init_decoder(gen, 7, 1, 128, 256, cuda)
+    memory = torch.tanh(torch.randn(B, S, 256, generator=gen)).to(cuda)
+    mask = (torch.rand(B, S, generator=gen) > 0.2).to(cuda)
+    mask[3] = False
+    mem = attn.setup_memory(dec_p["attention"], memory, mask, mem_dtype,
+                            attention_layer=dec_p["attention_layer"])
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    st = _mid_decode_state(gen, B, W, 7, cuda)
+    cell = beam_step_cuda.cell_plain(st, w)
+    before = dict(cuda_lib.launches)
+    got, gpar = beam_step_cuda.beam_attend(st, *cell, mem.keys, mem.values, mask, w, 1)
+    assert cuda_lib.launches["beam_attend"] == before["beam_attend"] + 1
+    ref, rpar = beam_step_cuda.attend_plain(st, *cell, mem.keys, mem.values, mask, w, 1)
+    par_eq = gpar == rpar
+    same = (got.tok.reshape(B, W) == ref.tok.reshape(B, W)) & par_eq
+    assert (~same).sum().item() <= max(1, B * W // 100)
+    rows = lambda t: t.reshape(B, W, 128)[par_eq]  # noqa: E731
+    assert torch.equal(rows(got.h), rows(ref.h)) and torch.equal(rows(got.c), rows(ref.c))
+    tol = 1e-3 if mem_dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(rows(got.att), rows(ref.att), rtol=0, atol=tol)
+    torch.testing.assert_close(got.cum[same], ref.cum[same], rtol=0, atol=tol)
+    assert torch.equal(got.fin[same], ref.fin[same])
+
+
+def test_beam_step_launches_cell_then_attend(cuda):
+    """On bf16/f32 memory a step is one beam_cell and one beam_attend launch
+    and counts one beam_step."""
+    B = 9
+    dec_p, mem = _decoder_and_memory(3, B, 56, torch.bfloat16, True, cuda)
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    st = beam_step_cuda.initial_state(B, 5, 128, 2, cuda)
+    before = dict(cuda_lib.launches)
+    beam_step_cuda.beam_step(st, mem.keys, mem.values, mem.mask, w, 1)
+    for name in ("beam_step", "beam_cell", "beam_attend"):
+        assert cuda_lib.launches[name] == before[name] + 1
+    assert cuda_lib.launches["beam_step_i8"] == before["beam_step_i8"]
+
+
+def test_beam_cell_and_attend_launch_failures_raise(cuda):
+    """The C entry points refuse what they do not take, and cuda_lib.check
+    raises on their return code; the wrappers refuse it before launching."""
+    lib = cuda_lib.lib()
+    with pytest.raises(RuntimeError, match="beam_cell"):
+        cuda_lib.check(lib.rv_beam_cell(0, 7, *[None] * 12), "beam_cell")
+    with pytest.raises(RuntimeError, match="beam_attend"):  # no beam width 6
+        cuda_lib.check(lib.rv_beam_attend(1, 6, 2, 8, 7, 128, 1, *[None] * 18), "beam_attend")
+    with pytest.raises(RuntimeError, match="beam_attend"):  # end token outside the vocabulary
+        cuda_lib.check(lib.rv_beam_attend(1, 5, 2, 8, 7, 128, 7, *[None] * 18), "beam_attend")
+    B = 4
+    dec_p, mem = _decoder_and_memory(0, B, 16, torch.bfloat16, True, cuda)
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    st = beam_step_cuda.initial_state(B, 5, 128, 2, cuda)
+    cell = beam_step_cuda.beam_cell(st, w)
+    with pytest.raises(ValueError, match="h_new has shape"):
+        beam_step_cuda.beam_attend(st, cell[0][:-1], *cell[1:], mem.keys, mem.values, mem.mask,
+                                   w, 1)
+    with pytest.raises(ValueError, match="both be bf16"):
+        beam_step_cuda.beam_attend(st, *cell, mem.keys, mem.values.float(), mem.mask, w, 1)
+    with pytest.raises(ValueError, match="128 units"):
+        beam_step_cuda.beam_cell(st._replace(h=st.h[:, :64].contiguous()), w)
+    shifted = torch.zeros(st.h.numel() + 1, device=cuda)[1:].view_as(st.h)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        beam_step_cuda.beam_cell(st._replace(h=shifted), w)
