@@ -49,15 +49,18 @@ holds each hand-written kernel against its plain PyTorch version on the card:
      probabilities) on the same 4 reads; the i8dev snippet ranges on the
      card bit-equal to the host's, the card's event features within the
      host bars, and card and CPU tokens on 64 snippets;
- 11. the beam-step kernel's int8 variants (quant, quant_mxu) against their
-     plain versions at phase 3's shape and seed on setup_memory(..., "i8")
-     memory, 40 steps each, timed beside the bf16 step, with the
+ 11. the int8 beam step, beam_cell then the int8 attend kernel
+     (beam_attend_i8 for quant, beam_attend_i8mxu for quant_mxu), against
+     its plain version at phase 3's shape and seed on setup_memory(...,
+     "i8") memory, 40 steps each, the attend kernel also against its own
+     plain version fed the plain cell; the step and the attend kernel timed
+     at S=232 and S=8 beside their bounds, the bf16 step and the
      quantization's time per chunk;
  12. end to end, bench.py's path on int8 memory (--memory i8, then i8mxu):
      PerformanceEvaluator.evaluate_files and MappingEvaluator.evaluate_files
-     over the same 4 reads; only the int8 step kernel of the mode and the
-     bf16 BiLSTM kernel launch; card and CPU tokens on 64 snippets, decoding
-     the card's int8 memory and end to end.
+     over the same 4 reads; only beam_cell and the int8 attend kernel of the
+     mode (once each a step) and the bf16 BiLSTM kernel launch; card and CPU
+     tokens on 64 snippets, decoding the card's int8 memory and end to end.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -324,17 +327,19 @@ def beam_cell_bounds(N: int, U: int, V: int) -> tuple:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def beam_attend_bounds(B: int, S: int, U: int, W: int, V: int, mem_bytes: int) -> tuple:
-    """The attend kernel's bound: the memory's dots at the bf16 peak (as
+def beam_attend_bounds(B: int, S: int, U: int, W: int, V: int, mem_bytes: int,
+                       scale_bytes: int = 0, mem_peak: float = H100_BF16_FLOPS) -> tuple:
+    """The attend kernel's bound: the memory's dots at ``mem_peak`` (as
     beam_step_bounds counts them) and the logits in f32; bytes: keys,
-    values, mask, the cell's scratch in (h', c', att_h), cum and fin in,
-    the next state and the parents out, wfc and bfc."""
+    values, ``scale_bytes`` of scales per position, mask, the cell's scratch
+    in (h', c', att_h), cum and fin in, the next state and the parents out,
+    wfc and bfc."""
     hyps = B * W
     flops_mem = hyps * 2 * 2 * S * U
     flops_f32 = hyps * 2 * U * V
-    nbytes = (2 * B * S * U * mem_bytes + B * S + hyps * 3 * U * 4 + hyps * 5
+    nbytes = (2 * B * S * U * mem_bytes + B * S * (1 + scale_bytes) + hyps * 3 * U * 4 + hyps * 5
               + hyps * (3 * U * 4 + 4 + 4 + 1) + hyps * 4 + 4 * (U * V + V))
-    t_ops = flops_mem / H100_BF16_FLOPS + flops_f32 / H100_F32_FLOPS
+    t_ops = flops_mem / mem_peak + flops_f32 / H100_F32_FLOPS
     t_bytes = nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
@@ -939,15 +944,19 @@ def phase_bench_path(smi: str) -> dict:
 
 
 def phase_beam_step_i8() -> list:
-    """The beam-step kernel's int8 variants against their plain versions at
-    phase 3's shape and seed, on int8 memory from setup_memory(..., "i8"):
-    40 steps each, every step fed the plain version's state; timed beside
-    the bf16 step on the same decoder, with the quantization's time per
-    4096-row chunk."""
+    """The int8 beam step (beam_cell, then the int8 beam_attend: quant, then
+    quant_mxu) against beam_step_plain at phase 3's shape and seed, on int8
+    memory from setup_memory(..., "i8"): 40 steps each, every step fed the
+    plain version's state, with the attend kernel also against attend_plain
+    fed the plain cell's outputs (phase 3's bars). Times the step and the
+    attend kernel at S=232 and S=8 beside their bounds and plain versions,
+    the bf16 step on the same decoder, and the quantization per 4096-row
+    chunk."""
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
     from ravvent_tpu_torch.ops.beam_step_cuda import (
-        beam_step, beam_step_plain, initial_state, pack_decoder_weights,
+        attend_plain, beam_attend, beam_cell, beam_step, beam_step_plain, cell_plain,
+        initial_state, pack_decoder_weights,
     )
 
     dev = torch.device("cuda")
@@ -968,6 +977,8 @@ def phase_beam_step_i8() -> list:
     w = pack_decoder_weights(dec_p, mem)
     keys, values = mem.keys.contiguous(), mem.values.contiguous()
     scales = (mem.kscale.contiguous(), mem.vscale.contiguous())
+    k8, v8, m8 = keys[:, :8].contiguous(), values[:, :8].contiguous(), mask[:, :8].contiguous()
+    scales8 = tuple(x[:, :8].contiguous() for x in scales)
     st0 = initial_state(B, W, U, 2, dev)
     bf16_ms = time_ms(lambda: beam_step(st0, bf16.keys, bf16.values, mask, w, 1), reps=40)
     del bf16
@@ -976,42 +987,64 @@ def phase_beam_step_i8() -> list:
           f"bf16 {setup_bf16_ms:.4f} ms")
     tol = 1e-2  # cumulative log-prob; phase 3's bar
     out = []
-    for name, mxu in (("beam_step_i8", False), ("beam_step_i8mxu", True)):
-        st = st0
-        agree_tok = agree_par = n = 0
-        err = 0.0
-        for _ in range(steps):
-            got, gpar = beam_step(st, keys, values, mask, w, 1, scales, mxu)
-            ref, rpar = beam_step_plain(st, keys, values, mask, w, 1, scales, mxu)
+    for name, mxu in (("beam_attend_i8", False), ("beam_attend_i8mxu", True)):
+        attend = {"tok": 0, "par": 0, "n": 0, "err": 0.0}
+
+        def attend_alone(st, ref, rpar):
+            """The attend kernel against attend_plain on the plain cell's outputs."""
+            got, gpar = beam_attend(st, *cell_plain(st, w), keys, values, mask, w, 1, scales, mxu)
             tok_eq = got.tok.reshape(B, W) == ref.tok.reshape(B, W)
-            par_eq = gpar == rpar
-            agree_tok += tok_eq.sum().item()
-            agree_par += par_eq.sum().item()
-            n += B * W
-            both = tok_eq & par_eq
+            both = tok_eq & (gpar == rpar)
+            attend["tok"] += tok_eq.sum().item()
+            attend["par"] += (gpar == rpar).sum().item()
+            attend["n"] += B * W
             if both.any():
-                err = max(err, (got.cum - ref.cum).abs()[both].max().item())
-            st = ref
-        torch.cuda.synchronize()
-        tok_share, par_share = agree_tok / n, agree_par / n
-        ms = time_ms(lambda: beam_step(st0, keys, values, mask, w, 1, scales, mxu), reps=40)
-        plain_ms = time_ms(lambda: beam_step_plain(st0, keys, values, mask, w, 1, scales, mxu),
-                           reps=3)
-        bound, by = beam_step_bounds(B, S, U, W, V, 1, scale_bytes=8,
-                                     mem_peak=H100_INT8_OPS if mxu else H100_BF16_FLOPS)
-        print(f"  {name} B={B} S={S} W={W} int8, {steps} steps: tokens agree {tok_share:.5f}, "
-              f"parents agree {par_share:.5f} (need >= 0.998); score max_abs_err {err:.3e} "
-              f"(tol {tol:g}); kernel {ms:.4f} ms/step, plain {plain_ms:.4f} ms/step, bound "
-              f"{bound:.4f} ms/step ({by}); the bf16 step in this run {bf16_ms:.4f} ms/step",
-              flush=True)
-        require(tok_share >= 0.998 and par_share >= 0.998,
-                f"{name}: token/parent agreement < 0.998")
-        require(err <= tol, f"{name}: score error {err:.3e} > {tol}")
+                attend["err"] = max(attend["err"], (got.cum - ref.cum).abs()[both].max().item())
+
+        tok_share, par_share, err, st = check_steps(
+            f"int8 step ({name})", lambda st: beam_step(st, keys, values, mask, w, 1, scales, mxu),
+            lambda st: beam_step_plain(st, keys, values, mask, w, 1, scales, mxu), st0, steps, B,
+            W, tol, extra=attend_alone)
+        a_tok, a_par = attend["tok"] / attend["n"], attend["par"] / attend["n"]
+        require(a_tok >= 0.998 and a_par >= 0.998, f"{name}: token/parent agreement < 0.998")
+        require(attend["err"] <= tol, f"{name}: score error {attend['err']:.3e} > {tol}")
+
+        # times on a mid-decode state, at S=232 and at S=8
+        hn, cn, ah = beam_cell(st, w)
+        t = {}
+        for tag, (k, v, m, sc) in (("232", (keys, values, mask, scales)),
+                                   ("8", (k8, v8, m8, scales8))):
+            t["step" + tag] = time_ms(lambda: beam_step(st, k, v, m, w, 1, sc, mxu), reps=40)
+            t["step_plain" + tag] = time_ms(
+                lambda: beam_step_plain(st, k, v, m, w, 1, sc, mxu), reps=3)
+            t["att" + tag] = time_ms(
+                lambda: beam_attend(st, hn, cn, ah, k, v, m, w, 1, sc, mxu), reps=40)
+            t["att_plain" + tag] = time_ms(
+                lambda: attend_plain(st, hn, cn, ah, k, v, m, w, 1, sc, mxu), reps=3)
+        peak = H100_INT8_OPS if mxu else H100_BF16_FLOPS
+        bound, by = beam_step_bounds(B, S, U, W, V, 1, scale_bytes=8, mem_peak=peak)
+        bound8, _ = beam_step_bounds(B, 8, U, W, V, 1, scale_bytes=8, mem_peak=peak)
+        att_bound, att_by = beam_attend_bounds(B, S, U, W, V, 1, scale_bytes=8, mem_peak=peak)
+        att_bound8, _ = beam_attend_bounds(B, 8, U, W, V, 1, scale_bytes=8, mem_peak=peak)
+        print(f"  int8 step (beam_cell + {name}) B={B} S={S} W={W}, {steps} steps: tokens agree "
+              f"{tok_share:.5f}, parents agree {par_share:.5f} (need >= 0.998); score "
+              f"max_abs_err {err:.3e} (tol {tol:g}); {name} alone, fed the plain cell: tokens "
+              f"agree {a_tok:.5f}, parents agree {a_par:.5f} (need >= 0.998), score max_abs_err "
+              f"{attend['err']:.3e} (tol {tol:g})")
+        print(f"  int8 step ({name}): S={S} {t['step232']:.4f} ms/step, plain "
+              f"{t['step_plain232']:.4f}, bound {bound:.4f} ({by}); S=8 {t['step8']:.4f} ms/step, "
+              f"plain {t['step_plain8']:.4f}, bound {bound8:.4f}; the bf16 step in this run "
+              f"{bf16_ms:.4f} ms/step")
+        print(f"  {name}: S={S} {t['att232']:.4f} ms, plain {t['att_plain232']:.4f} ms, bound "
+              f"{att_bound:.4f} ms ({att_by}); S=8 {t['att8']:.4f} ms, plain "
+              f"{t['att_plain8']:.4f} ms, bound {att_bound8:.4f} ms", flush=True)
         variant = "quant_mxu" if mxu else "quant"
-        out.append({"name": name, "route": "cuda", "source": "ravvent_tpu_torch/csrc/beam_step.cu",
+        out.append({"name": name, "route": "cuda",
+                    "source": "ravvent_tpu_torch/csrc/beam_step_f.cu",
                     "replaces": f"ravvent_tpu/ops/beam_loop_pallas.py:333 ({variant})",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "library_ms": None})
+                    "max_abs_err": attend["err"], "ms": t["att232"],
+                    "plain_ms": t["att_plain232"], "bound_ms": att_bound, "bound_by": att_by,
+                    "library_ms": None})
     return out
 
 
@@ -1045,7 +1078,8 @@ def phase_bench_path_i8(smi: str) -> dict:
             ".label"), 6, cache_dir=cache)
         max_len = int((nuc != 0).sum(axis=1).max())
         for memory in ("i8", "i8mxu"):
-            kernel = "beam_step_i8mxu" if memory == "i8mxu" else "beam_step_i8"
+            step, attend = ("beam_step_i8mxu", "beam_attend_i8mxu") if memory == "i8mxu" else (
+                "beam_step_i8", "beam_attend_i8")
             bench = dict(chunk_size=4096, memory_dtype=memory, beam_impl="step",
                          encoder_dtype=torch.bfloat16, pack_u8=True, transport_dtype="i8dev",
                          prob_bits=4)
@@ -1074,12 +1108,16 @@ def phase_bench_path_i8(smi: str) -> dict:
             print(f"  --memory {memory}: MappingEvaluator.evaluate_files {t2 - t1:.3f} s, "
                   f"mapper {sorted({r['mapper'] for r in records})}; compute_total_results "
                   f"(identity total, valid, invalid %) {totals} (seeded weights: not held)")
-            print(f"  launches: {kernel} {c[kernel]}, beam_step {c['beam_step']}, bilstm_bf16 "
-                  f"{c['bilstm_bf16']}, bilstm {c['bilstm']}, beam_loop {c['beam_loop']}, "
-                  f"decode_step {c['decode_step']}")
-            require(c[kernel] > 0 and c["bilstm_bf16"] > 0,
+            print(f"  launches: {step} {c[step]} (beam_cell {c['beam_cell']}, {attend} "
+                  f"{c[attend]}), bilstm_bf16 {c['bilstm_bf16']}; beam_step {c['beam_step']}, "
+                  f"beam_attend {c['beam_attend']}, bilstm {c['bilstm']}, beam_loop "
+                  f"{c['beam_loop']}, decode_step {c['decode_step']}")
+            require(c[step] > 0 and c["bilstm_bf16"] > 0,
                     f"--memory {memory}: the path did not launch its kernels")
-            others = [k for k in c if k not in (kernel, "bilstm_bf16")]
+            require(c["beam_cell"] == c[attend] == c[step],
+                    f"--memory {memory}: an int8 step did not launch beam_cell and {attend} once "
+                    f"each")
+            others = [k for k in c if k not in (step, attend, "beam_cell", "bilstm_bf16")]
             require(all(c[k] == 0 for k in others),
                     f"--memory {memory}: launched a kernel of another path")
             require(len(records) == len(paths) and bases > 0, "the evaluators missed a read")
@@ -1171,7 +1209,7 @@ def main() -> int:
     phase("10 end to end, the bench's path", t0)
     t0 = time.perf_counter()
     k_i8, k_i8mxu = phase_beam_step_i8()
-    phase("11 beam_step int8 kernels", t0)
+    phase("11 int8 beam step: beam_cell + beam_attend_i8 / beam_attend_i8mxu", t0)
     t0 = time.perf_counter()
     counts_i8 = phase_bench_path_i8(smi)
     phase("12 end to end, the bench's path on int8 memory", t0)
@@ -1182,8 +1220,8 @@ def main() -> int:
     k_loop["launches"] = counts_loop["beam_loop"]
     k_dstep["launches"] = counts_greedy["decode_step"]
     k_bf16["launches"] = counts_bench["bilstm_bf16"]
-    k_i8["launches"] = counts_i8["i8"]["beam_step_i8"]
-    k_i8mxu["launches"] = counts_i8["i8mxu"]["beam_step_i8mxu"]
+    k_i8["launches"] = counts_i8["i8"]["beam_attend_i8"]
+    k_i8mxu["launches"] = counts_i8["i8mxu"]["beam_attend_i8mxu"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel ravvent_tpu/ops/beam_loop_pallas.py::_beam_loop_kernel
 // (entry point beam_loop_decode; pre-projected bf16 or f32 memory, depth-1
-// LSTM, Luong). Each step has the per-step kernel's semantics (beam_step.cu):
+// LSTM, Luong). Each step has the per-step kernel's semantics (beam_step_f.cu):
 // LSTM cell on [one-hot token | previous attention vector], Luong scores of h
 // against the keys, softmax masked with finfo(f32).min, context from the
 // pre-projected values, att = h.watt_h + context, logits, log-softmax,

@@ -1,9 +1,10 @@
-// One beam-search decode step on bf16 or f32 memory, as two kernels launched
-// back to back (ops/beam_step_cuda.py:beam_step).
+// One beam-search decode step on bf16, f32 or int8 memory, as two kernels
+// launched back to back (ops/beam_step_cuda.py:beam_step).
 //
 // Replaces the TPU kernel ravvent_tpu/ops/beam_loop_pallas.py::_beam_step_kernel
-// (:333, quant=False; entry point beam_step_decode). The int8 branches stay
-// in beam_step.cu.
+// (:333, entry point beam_step_decode) in all its memory modes: quant=False
+// (bf16, f32), quant (int8 codes with per-(row, position) scales, dequantized
+// dots) and quant_mxu (s8 x s8 -> s32 dots).
 //
 // beam_cell: the LSTM cell and h'.watt_h for every hypothesis. A tiled f32
 //   product [B*W, 2U] x [2U, 4U] (rows [att_prev | h_prev], columns the
@@ -45,12 +46,35 @@
 //   top-W, and its state after them, so that the memory stream runs on
 //   while the row's serial tail computes.
 //
+// beam_attend on int8 memory (rv_beam_attend_i8): the same kernel, templated
+//   on the memory mode. Bound by bytes: 243 MB of codes a step at B = 4096,
+//   S = 232, and 8 bytes of scales a position. Blocks of 64 positions, so
+//   that a block is 8 KB as a bf16 block of 32 is (32-position int8 blocks
+//   ran slower); one thread a position in the scores; in the context a
+//   thread owns one 16-code chunk of a group of positions; the row's scales
+//   land in shared memory with its state.
+//   quant: codes become floats by a byte permute into 2^23 + code + 128 and
+//   one subtraction (exact, no I2F). quant_mxu: h' quantized once a row,
+//   scores on __dp4a against the key words; the context on value words
+//   whose bytes are transposed in registers to 4 positions of one unit.
+//
 // Numerics as the reference: the cell and att in f32; h rounded to the
 // memory's type before the score dot and the alignments before the
-// context dot, f32 sums; the parents' state copied exactly.
+// context dot, f32 sums; the parents' state copied exactly. On int8 memory
+// (beam_loop_pallas.py:374-425), in the reference's order:
+//   quant: scores = (bf16(h) . codes) * kscale, then the mask; after the
+//     softmax a = bf16(align * vscale), context = a . codes (f32 sums).
+//   quant_mxu: hq = rn(h * 127) (|h| < 1, no clip); scores = s32(hq .
+//     codes) * (1/127) * kscale, then the mask; af = align * vscale, amax =
+//     max(max_s af, 1e-30), aq = rn(af * (127 / amax)); context =
+//     s32(aq . codes) * (amax / 127). Integer sums are exact, so they equal
+//     the reference's in any order.
 //
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
+
+#include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -62,6 +86,10 @@ constexpr int kG = 4 * kU;       // gate columns
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -274,17 +302,37 @@ beam_cell_kernel(int N, int V,
 
 constexpr int kAttThreads = 64;            // a CTA works on one batch row at a time
 constexpr int kWarps = kAttThreads / 32;
-constexpr int kKB = 32;                    // positions of a key or value block
 constexpr int kVP = 128;                   // padded vocabulary width of the flattened top-W row
 
-template <typename M>
-struct Mem {
-  static constexpr int kEl = 16 / (int)sizeof(M);  // elements of a 16-byte chunk
-  static constexpr int kChunks = kU / kEl;         // 16-byte chunks of a row
-  static constexpr int kTPP = kAttThreads / kKB;   // threads a position in the scores
-  static constexpr int kBlockFloats = kKB * kU * (int)sizeof(M) / 4;  // a block
-  static constexpr int kPG = kAttThreads / kChunks;  // position groups of the context
+// A memory mode of the attend kernel: the stored element T, the positions KB
+// of a streamed key or value block, and for int8 codes with per-position
+// scales the reference's two branches: quant (Q: dequantized dots, h and
+// the folded alignments rounded to bf16) and quant_mxu (MXU: s8 x s8 -> s32
+// dots on __dp4a). The element type alone cannot say which.
+template <typename T, int KB, bool Q, bool MXU>
+struct Mode {
+  using M = T;
+  static constexpr bool kQuant = Q, kMxu = MXU;
+  static constexpr int kKB = KB;
+  static constexpr int kEl = 16 / (int)sizeof(T);         // elements of a 16-byte chunk
+  static constexpr int kChunks = kU / kEl;                // 16-byte chunks of a row
+  static constexpr int kTPP = kAttThreads / kKB;          // threads a position in the scores
+  static constexpr int kBlockFloats = kKB * kU * (int)sizeof(T) / 4;  // a block
+  static constexpr int kPG = kAttThreads / kChunks;       // position groups of the context
 };
+// an int8 block of 64 positions is 8 KB, as a bf16 block of 32
+using ModeBf16 = Mode<__nv_bfloat16, 32, false, false>;
+using ModeF32 = Mode<float, 32, false, false>;
+using ModeI8 = Mode<int8_t, 64, true, false>;
+using ModeI8Mxu = Mode<int8_t, 64, true, true>;
+
+// h' as the score dot takes it: rounded to the memory's type, or to bf16
+// against int8 codes (quant).
+template <class Md>
+__device__ __forceinline__ float round_query(float x) {
+  if constexpr (Md::kQuant) return round_to<__nv_bfloat16>(x);
+  else return round_to<typename Md::M>(x);
+}
 
 // The elements of a 16-byte chunk as floats.
 __device__ __forceinline__ void unpack(const uint4& q, float* v, const __nv_bfloat16*) {
@@ -299,23 +347,50 @@ __device__ __forceinline__ void unpack(const uint4& q, float* v, const float*) {
   v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
   v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
 }
+// int8 codes, exactly and without I2F: a code's byte with its sign bit
+// flipped is the low byte of the float 2^23 + code + 128.
+__device__ __forceinline__ void unpack(const uint4& q, float* v, const int8_t*) {
+  const unsigned w[4] = {q.x ^ 0x80808080u, q.y ^ 0x80808080u, q.z ^ 0x80808080u,
+                         q.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[4 * i + j] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540 | j)) - 8388736.f;
+}
+
+// The 4 x 4 bytes of four words transposed: t[u] holds byte u of v[0..3].
+__device__ __forceinline__ void transpose4(const unsigned v[4], int t[4]) {
+  const unsigned lo01 = __byte_perm(v[0], v[1], 0x5140);  // v0.b0 v1.b0 v0.b1 v1.b1
+  const unsigned hi01 = __byte_perm(v[0], v[1], 0x7362);  // v0.b2 v1.b2 v0.b3 v1.b3
+  const unsigned lo23 = __byte_perm(v[2], v[3], 0x5140);
+  const unsigned hi23 = __byte_perm(v[2], v[3], 0x7362);
+  t[0] = (int)__byte_perm(lo01, lo23, 0x5410);
+  t[1] = (int)__byte_perm(lo01, lo23, 0x7632);
+  t[2] = (int)__byte_perm(hi01, hi23, 0x5410);
+  t[3] = (int)__byte_perm(hi01, hi23, 0x7632);
+}
 
 struct AttSmem {
-  int kbuf, part, hq, hs, cs, att, sc, wfc, logit, total;  // offsets in floats
+  int kbuf, part, hq, hs, cs, att, sc, aq, ks, vs, wfc, logit, total;  // offsets in floats
 };
 
-template <typename M>
+template <class Md>
 __host__ __device__ inline AttSmem att_layout(int W, int S, int V) {
+  const int SP = (S + 3) & ~3;
   AttSmem s;
   int o = 0;
-  s.kbuf = o;  o += 2 * Mem<M>::kBlockFloats;  // [2][kKB][chunks] key, then value blocks
+  s.kbuf = o;  o += 2 * Md::kBlockFloats;   // [2][kKB][chunks] key, then value blocks
   s.part = 0;                               // [warps][W][U] partial contexts, over the
   if (kWarps * W * kU > o) o = kWarps * W * kU;  // blocks between the context and att
-  s.hq = o;    o += W * kU;                 // [W][U] h' rounded to the memory's type
+  s.hq = o;    o += Md::kMxu ? W * kU / 4 : W * kU;  // [W][U] h' for the scores (mxu: codes)
   s.hs = o;    o += W * kU;                 // [W][U] h'
   s.cs = o;    o += W * kU;                 // [W][U] c'
   s.att = o;   o += W * kU;                 // [W][U] h'.watt_h, then the new attention vector
-  s.sc = o;    o += W * ((S + 3) & ~3);     // [W][S] scores, then alignments
+  s.sc = o;    o += W * SP;                 // [W][S] scores, then alignments
+  s.aq = o;    o += Md::kMxu ? (W * SP / 4 + 3) & ~3 : 0;  // [W][S] quantized alignments
+  s.ks = o;    o += Md::kQuant ? SP : 0;    // [S] key scales of the row
+  s.vs = o;    o += Md::kQuant ? SP : 0;    // [S] value scales of the row
   s.wfc = o;   o += kU * V;                 // [U][V]
   s.logit = o; o += W * V;                  // [W][V]
   s.total = o;
@@ -330,36 +405,46 @@ __device__ __forceinline__ int kslot(int r, int c) { return c ^ (r & 7); }
 // cp.async of block b (positions [b * kKB, (b + 1) * kKB) of a batch row's
 // keys or values) into buffer b & 1, coalesced: consecutive threads,
 // consecutive chunks. Commits one group a call, empty past the row's end.
-template <typename M>
-__device__ __forceinline__ void fetch_block(float* kbuf, const M* K, int S, int b) {
-  using P = Mem<M>;
-  if (b * kKB < S) {
-    uint4* dst = reinterpret_cast<uint4*>(kbuf + (b & 1) * P::kBlockFloats);
-    const uint4* src = reinterpret_cast<const uint4*>(K + (size_t)b * kKB * kU);
-    const int rows = min(kKB, S - b * kKB);
-    for (int i = threadIdx.x; i < rows * P::kChunks; i += kAttThreads) {
-      const int r = i / P::kChunks, c = i - r * P::kChunks;
-      cp_async16(dst + r * P::kChunks + kslot(r, c), src + i);
+template <class Md>
+__device__ __forceinline__ void fetch_block(float* kbuf, const typename Md::M* K, int S, int b) {
+  if (b * Md::kKB < S) {
+    uint4* dst = reinterpret_cast<uint4*>(kbuf + (b & 1) * Md::kBlockFloats);
+    const uint4* src = reinterpret_cast<const uint4*>(K + (size_t)b * Md::kKB * kU);
+    const int rows = min(Md::kKB, S - b * Md::kKB);
+    for (int i = threadIdx.x; i < rows * Md::kChunks; i += kAttThreads) {
+      const int r = i / Md::kChunks, c = i - r * Md::kChunks;
+      cp_async16(dst + r * Md::kChunks + kslot(r, c), src + i);
     }
   }
   cp_async_commit();
 }
 
-// cp.async of a batch row's h', c' and h'.watt_h ([W][U] each) into hs, cs,
-// att; one group.
-template <int W>
-__device__ __forceinline__ void fetch_state(float* hs, float* cs, float* att, const float* hn,
-                                            const float* cn, const float* ath, size_t bw) {
+// cp.async of batch row b's h', c' and h'.watt_h ([W][U] each) into hs, cs,
+// att, and for int8 memory its S key and value scales (4-byte copies: a
+// row of scales is 16-byte aligned only when S % 4 == 0) into ks, vs; one
+// group.
+template <class Md, int W>
+__device__ __forceinline__ void fetch_state(float* smem, const AttSmem& L, const float* hn,
+                                            const float* cn, const float* ath,
+                                            const float* kscale, const float* vscale, size_t b,
+                                            int S) {
+  const size_t bw = b * W;
   for (int i = threadIdx.x; i < W * kU / 4; i += kAttThreads) {
-    cp_async16(hs + 4 * i, hn + bw * kU + 4 * i);
-    cp_async16(cs + 4 * i, cn + bw * kU + 4 * i);
-    cp_async16(att + 4 * i, ath + bw * kU + 4 * i);
+    cp_async16(smem + L.hs + 4 * i, hn + bw * kU + 4 * i);
+    cp_async16(smem + L.cs + 4 * i, cn + bw * kU + 4 * i);
+    cp_async16(smem + L.att + 4 * i, ath + bw * kU + 4 * i);
+  }
+  if constexpr (Md::kQuant) {
+    for (int s = threadIdx.x; s < S; s += kAttThreads) {
+      cp_async4(smem + L.ks + s, kscale + b * S + s);
+      cp_async4(smem + L.vs + s, vscale + b * S + s);
+    }
   }
   cp_async_commit();
 }
 
 // A persistent grid: CTA i takes batch rows i, i + gridDim.x, ...
-template <typename M, int W>
+template <class Md, int W>
 __global__ void __launch_bounds__(kAttThreads)
 beam_attend_kernel(int B, int S, int V, int end_token,
                    const float* __restrict__ hn,       // [B*W, U] h' (scratch)
@@ -367,8 +452,10 @@ beam_attend_kernel(int B, int S, int V, int end_token,
                    const float* __restrict__ ath,      // [B*W, U] h'.watt_h
                    const float* __restrict__ cum_in,   // [B, W]
                    const uint8_t* __restrict__ fin_in, // [B, W]
-                   const M* __restrict__ keys,         // [B, S, U]
-                   const M* __restrict__ values,       // [B, S, U] (pre-projected)
+                   const typename Md::M* __restrict__ keys,    // [B, S, U]
+                   const typename Md::M* __restrict__ values,  // [B, S, U] (pre-projected)
+                   const float* __restrict__ kscale,   // [B, S] (int8 memory only)
+                   const float* __restrict__ vscale,   // [B, S] (int8 memory only)
                    const uint8_t* __restrict__ mask,   // [B, S]
                    const float* __restrict__ wfc,      // [U, V]
                    const float* __restrict__ bfc,      // [V]
@@ -379,9 +466,10 @@ beam_attend_kernel(int B, int S, int V, int end_token,
                    float* __restrict__ att_out,
                    float* __restrict__ cum_out,        // [B, W]
                    uint8_t* __restrict__ fin_out) {    // [B, W]
-  using P = Mem<M>;
+  using M = typename Md::M;
+  using Acc = typename std::conditional<Md::kMxu, int, float>::type;  // the dots' sums
   extern __shared__ __align__(16) float smem[];
-  const AttSmem L = att_layout<M>(W, S, V);
+  const AttSmem L = att_layout<Md>(W, S, V);
   const int SP = (S + 3) & ~3;
   float* kbuf = smem + L.kbuf;
   float* part = smem + L.part;
@@ -390,22 +478,26 @@ beam_attend_kernel(int B, int S, int V, int end_token,
   float* cs = smem + L.cs;
   float* att = smem + L.att;
   float* sc = smem + L.sc;
+  unsigned* aq = reinterpret_cast<unsigned*>(smem + L.aq);  // [W][SP / 4] 4 codes a word
+  const float* ks = smem + L.ks;
+  const float* vs = smem + L.vs;
   float* wfs = smem + L.wfc;
   float* logit = smem + L.logit;
   __shared__ float s_red[kWarps][W];  // the softmax's per-warp maxima, then sums
+  __shared__ float s_amax[kWarps][W]; // quant_mxu: per-warp maxima of the folded alignments
   __shared__ float s_cum[W];
   __shared__ int s_fin[W];
   __shared__ int s_par[W];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_blocks = (S + kKB - 1) / kKB;
-  const int ug = tid % P::kChunks, pg = tid / P::kChunks;  // the context's thread layout
+  const int n_blocks = (S + Md::kKB - 1) / Md::kKB;
+  const int ug = tid % Md::kChunks, pg = tid / Md::kChunks;  // the context's thread layout
 
   size_t b = blockIdx.x;
   if (b >= (size_t)B) return;
-  fetch_block(kbuf, keys + b * S * kU, S, 0);
-  fetch_block(kbuf, keys + b * S * kU, S, 1);
-  fetch_state<W>(hs, cs, att, hn, cn, ath, b * W);
+  fetch_block<Md>(kbuf, keys + b * S * kU, S, 0);
+  fetch_block<Md>(kbuf, keys + b * S * kU, S, 1);
+  fetch_state<Md, W>(smem, L, hn, cn, ath, kscale, vscale, b, S);
   for (int i = tid; i < kU * V; i += kAttThreads) wfs[i] = __ldg(wfc + i);
 
   for (; b < (size_t)B; b += gridDim.x) {
@@ -415,20 +507,32 @@ beam_attend_kernel(int B, int S, int V, int end_token,
     const uint8_t* mrow = mask + b * S;
     const size_t nb = b + gridDim.x;  // the CTA's next row
 
-    // the row's state and first key blocks have landed: h' rounded for the
-    // scores, cum and fin
+    // the row's state and first key blocks have landed: h' for the scores
+    // (rounded, or quant_mxu's codes rn(h' * 127), 4 a word; |h'| < 1, no
+    // clip), cum and fin
     if (tid < W) {
       s_cum[tid] = cum_in[bw + tid];
       s_fin[tid] = fin_in[bw + tid];
     }
     cp_async_wait<0>();
     __syncthreads();
-    for (int i = tid; i < W * kU; i += kAttThreads) hq[i] = round_to<M>(hs[i]);
+    if constexpr (Md::kMxu) {
+      for (int i = tid; i < W * kU / 4; i += kAttThreads) {
+        unsigned word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          word |= (unsigned)(__float2int_rn(hs[4 * i + e] * 127.f) & 0xff) << (8 * e);
+        reinterpret_cast<unsigned*>(hq)[i] = word;
+      }
+    } else {
+      for (int i = tid; i < W * kU; i += kAttThreads) hq[i] = round_query<Md>(hs[i]);
+    }
     __syncthreads();
 
     // ---- scores, a block of kKB positions at a time: kTPP threads a
-    // position, each its share of the row's chunks; the thread's running
-    // max of each hypothesis's masked scores
+    // position, each its share of the row's chunks; the scale fold before
+    // the mask, as in the reference; the thread's running max of each
+    // hypothesis's masked scores
     float mx[W];
 #pragma unroll
     for (int w = 0; w < W; ++w) mx[w] = kNegMax;
@@ -437,53 +541,69 @@ beam_attend_kernel(int B, int S, int V, int end_token,
         cp_async_wait<1>();
         __syncthreads();
       }
-      const int r = tid / P::kTPP, c0 = (tid % P::kTPP) * (P::kChunks / P::kTPP);
-      const int s = k * kKB + r;
+      const int r = tid / Md::kTPP, c0 = (tid % Md::kTPP) * (Md::kChunks / Md::kTPP);
+      const int s = k * Md::kKB + r;
       const uint4* krow =
-          reinterpret_cast<const uint4*>(kbuf + (k & 1) * P::kBlockFloats) + r * P::kChunks;
-      float acc[W];
+          reinterpret_cast<const uint4*>(kbuf + (k & 1) * Md::kBlockFloats) + r * Md::kChunks;
+      Acc acc[W];
 #pragma unroll
-      for (int w = 0; w < W; ++w) acc[w] = 0.f;
+      for (int w = 0; w < W; ++w) acc[w] = 0;
       if (s < S) {
 #pragma unroll
-        for (int cc = 0; cc < P::kChunks / P::kTPP; ++cc) {
+        for (int cc = 0; cc < Md::kChunks / Md::kTPP; ++cc) {
           const int c = c0 + cc;
-          float kv[P::kEl];
-          unpack(krow[kslot(r, c)], kv, (const M*)nullptr);
-#pragma unroll
-          for (int e = 0; e < P::kEl; e += 4) {
+          const uint4 kq = krow[kslot(r, c)];
+          if constexpr (Md::kMxu) {
 #pragma unroll
             for (int w = 0; w < W; ++w) {
-              float h[4];
-              lds4(hq + w * kU + c * P::kEl + e, h);
-              acc[w] = fmaf(h[0], kv[e], acc[w]);
-              acc[w] = fmaf(h[1], kv[e + 1], acc[w]);
-              acc[w] = fmaf(h[2], kv[e + 2], acc[w]);
-              acc[w] = fmaf(h[3], kv[e + 3], acc[w]);
+              const uint4 h = reinterpret_cast<const uint4*>(hq)[w * Md::kChunks + c];
+              acc[w] = __dp4a((int)kq.x, (int)h.x, acc[w]);
+              acc[w] = __dp4a((int)kq.y, (int)h.y, acc[w]);
+              acc[w] = __dp4a((int)kq.z, (int)h.z, acc[w]);
+              acc[w] = __dp4a((int)kq.w, (int)h.w, acc[w]);
+            }
+          } else {
+            float kv[Md::kEl];
+            unpack(kq, kv, (const M*)nullptr);
+#pragma unroll
+            for (int e = 0; e < Md::kEl; e += 4) {
+#pragma unroll
+              for (int w = 0; w < W; ++w) {
+                float h[4];
+                lds4(hq + w * kU + c * Md::kEl + e, h);
+                acc[w] = fmaf(h[0], kv[e], acc[w]);
+                acc[w] = fmaf(h[1], kv[e + 1], acc[w]);
+                acc[w] = fmaf(h[2], kv[e + 2], acc[w]);
+                acc[w] = fmaf(h[3], kv[e + 3], acc[w]);
+              }
             }
           }
         }
       }
 #pragma unroll
-      for (int o = 1; o < P::kTPP; o <<= 1)
+      for (int o = 1; o < Md::kTPP; o <<= 1)
 #pragma unroll
         for (int w = 0; w < W; ++w) acc[w] += __shfl_xor_sync(0xffffffffu, acc[w], o);
-      if (s < S && tid % P::kTPP == 0) {
+      if (s < S && tid % Md::kTPP == 0) {
         const bool m = mrow[s] != 0;
 #pragma unroll
         for (int w = 0; w < W; ++w) {
-          const float x = m ? acc[w] : kNegMax;
+          float x;
+          if constexpr (Md::kMxu) x = (float)acc[w] * (1.f / 127.f) * ks[s];
+          else if constexpr (Md::kQuant) x = acc[w] * ks[s];
+          else x = acc[w];
+          x = m ? x : kNegMax;
           sc[w * SP + s] = x;
           mx[w] = fmaxf(mx[w], x);
         }
       }
       __syncthreads();  // the block's buffer is free
-      fetch_block(kbuf, K, S, k + 2);
+      fetch_block<Md>(kbuf, K, S, k + 2);
     }
 
     // the first value blocks go out before the softmax
-    fetch_block(kbuf, Vv, S, 0);
-    fetch_block(kbuf, Vv, S, 1);
+    fetch_block<Md>(kbuf, Vv, S, 0);
+    fetch_block<Md>(kbuf, Vv, S, 1);
 #pragma unroll
     for (int w = 0; w < W; ++w) {
       mx[w] = warp_max(mx[w]);
@@ -492,8 +612,9 @@ beam_attend_kernel(int B, int S, int V, int end_token,
     __syncthreads();
 
     // ---- masked softmax over the CTA (masked scores hold finfo.min, so an
-    // all-masked row becomes uniform); each thread its own positions;
-    // alignments rounded to M
+    // all-masked row becomes uniform); each thread its own positions; the
+    // alignments rounded to M, or with the value scales folded in: rounded
+    // to bf16 (quant), or kept in f32 for quant_mxu's quantization
     {
       float sum[W];
 #pragma unroll
@@ -524,68 +645,159 @@ beam_attend_kernel(int B, int S, int V, int end_token,
 #pragma unroll
         for (int g = 1; g < kWarps; ++g) sum[w] += s_red[g][w];
       }
-      for (int s = tid; s < S; s += kAttThreads) {
+      if constexpr (Md::kMxu) {
+        float amax[W];  // af >= 0
 #pragma unroll
-        for (int w = 0; w < W; ++w) sc[w * SP + s] = round_to<M>(sc[w * SP + s] / sum[w]);
+        for (int w = 0; w < W; ++w) amax[w] = 0.f;
+        for (int s = tid; s < S; s += kAttThreads) {
+          const float v = vs[s];
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            const float af = sc[w * SP + s] / sum[w] * v;
+            sc[w * SP + s] = af;
+            amax[w] = fmaxf(amax[w], af);
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          amax[w] = warp_max(amax[w]);
+          if (lane == 0) s_amax[warp][w] = amax[w];
+        }
+        __syncthreads();
+        // aq = rn(af * (127 / amax)), amax = max(max_s af, 1e-30); 4
+        // positions a word, zeros past S
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          float am = s_amax[0][w];
+#pragma unroll
+          for (int g = 1; g < kWarps; ++g) am = fmaxf(am, s_amax[g][w]);
+          const float rs = 127.f / fmaxf(am, 1e-30f);
+          for (int q = tid; q < SP / 4; q += kAttThreads) {
+            unsigned word = 0;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int s = 4 * q + e;
+              const int a = s < S ? __float2int_rn(sc[w * SP + s] * rs) : 0;
+              word |= (unsigned)(a & 0xff) << (8 * e);
+            }
+            aq[w * (SP / 4) + q] = word;
+          }
+        }
+      } else {
+        for (int s = tid; s < S; s += kAttThreads) {
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            if constexpr (Md::kQuant)
+              sc[w * SP + s] = round_to<__nv_bfloat16>(sc[w * SP + s] / sum[w] * vs[s]);
+            else
+              sc[w * SP + s] = round_to<M>(sc[w * SP + s] / sum[w]);
+          }
+        }
       }
     }
 
     // ---- context: the values stream through the two blocks as the keys
-    // did; thread = (16-byte unit chunk ug, positions pg + kPG * i of a block)
+    // did; thread = (16-byte unit chunk ug, positions pg + kPG * i of a
+    // block; quant_mxu: position quads, each chunk's 4 x 16 codes transposed
+    // to 4 positions of one unit a word for __dp4a against the quantized
+    // alignments)
     {
-      float acc[W][P::kEl];
+      Acc acc[W][Md::kEl];
 #pragma unroll
       for (int w = 0; w < W; ++w)
 #pragma unroll
-        for (int e = 0; e < P::kEl; ++e) acc[w][e] = 0.f;
+        for (int e = 0; e < Md::kEl; ++e) acc[w][e] = 0;
       for (int k = 0; k < n_blocks; ++k) {
         cp_async_wait<1>();
         __syncthreads();  // (first pass: also the alignments complete)
-        const uint4* blk = reinterpret_cast<const uint4*>(kbuf + (k & 1) * P::kBlockFloats);
-        const int rows = min(kKB, S - k * kKB);
+        const uint4* blk = reinterpret_cast<const uint4*>(kbuf + (k & 1) * Md::kBlockFloats);
+        const int rows = min(Md::kKB, S - k * Md::kKB);
+        if constexpr (Md::kMxu) {
+          // rows past S in the last quad hold stale codes; their aq is 0
+#pragma unroll 2
+          for (int q = pg; 4 * q < rows; q += Md::kPG) {
+            unsigned v[4][4];  // v[p][i]: position 4q + p, units 4i..4i+3 of the chunk
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+              const uint4 x = blk[(4 * q + p) * Md::kChunks + kslot(4 * q + p, ug)];
+              v[p][0] = x.x; v[p][1] = x.y; v[p][2] = x.z; v[p][3] = x.w;
+            }
+            int t[4][4];  // t[i][u]: unit 4i+u at the quad's 4 positions
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const unsigned col[4] = {v[0][i], v[1][i], v[2][i], v[3][i]};
+              transpose4(col, t[i]);
+            }
+            const int word = (k * Md::kKB) / 4 + q;
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+              const int a = (int)aq[w * (SP / 4) + word];
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                  acc[w][4 * i + u] = __dp4a(t[i][u], a, acc[w][4 * i + u]);
+            }
+          }
+        } else {
 #pragma unroll 4
-        for (int r = pg; r < rows; r += P::kPG) {
-          float v[P::kEl];
-          unpack(blk[r * P::kChunks + kslot(r, ug)], v, (const M*)nullptr);
-          const int s = k * kKB + r;
+          for (int r = pg; r < rows; r += Md::kPG) {
+            float v[Md::kEl];
+            unpack(blk[r * Md::kChunks + kslot(r, ug)], v, (const M*)nullptr);
+            const int s = k * Md::kKB + r;
 #pragma unroll
-          for (int w = 0; w < W; ++w) {
-            const float a = sc[w * SP + s];
+            for (int w = 0; w < W; ++w) {
+              const float a = sc[w * SP + s];
 #pragma unroll
-            for (int e = 0; e < P::kEl; ++e) acc[w][e] = fmaf(a, v[e], acc[w][e]);
+              for (int e = 0; e < Md::kEl; ++e) acc[w][e] = fmaf(a, v[e], acc[w][e]);
+            }
           }
         }
         __syncthreads();  // the block's buffer is free
-        fetch_block(kbuf, Vv, S, k + 2);
+        fetch_block<Md>(kbuf, Vv, S, k + 2);
       }
-      // the position groups of a warp first (bf16: two a warp), then the warps
+      // the position groups of a warp first, then the warps
 #pragma unroll
-      for (int o = P::kChunks; o < 32; o <<= 1)
-#pragma unroll
-        for (int w = 0; w < W; ++w)
-#pragma unroll
-          for (int e = 0; e < P::kEl; ++e) acc[w][e] += __shfl_xor_sync(0xffffffffu, acc[w][e], o);
-      if (lane < P::kChunks) {
+      for (int o = Md::kChunks; o < 32; o <<= 1)
 #pragma unroll
         for (int w = 0; w < W; ++w)
 #pragma unroll
-          for (int e = 0; e < P::kEl; ++e) part[(warp * W + w) * kU + ug * P::kEl + e] = acc[w][e];
+          for (int e = 0; e < Md::kEl; ++e) acc[w][e] += __shfl_xor_sync(0xffffffffu, acc[w][e], o);
+      if (lane < Md::kChunks) {
+        Acc* pa = reinterpret_cast<Acc*>(part);
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+#pragma unroll
+          for (int e = 0; e < Md::kEl; ++e) pa[(warp * W + w) * kU + ug * Md::kEl + e] = acc[w][e];
       }
     }
     __syncthreads();
 
-    // ---- att = h'.watt_h + context
+    // ---- att = h'.watt_h + context (quant_mxu: s32 sums * (amax / 127))
     for (int i = tid; i < W * kU; i += kAttThreads) {
-      float ctx = 0.f;
+      float ctx;
+      if constexpr (Md::kMxu) {
+        const int* pa = reinterpret_cast<const int*>(part);
+        int sum = 0;
 #pragma unroll
-      for (int g = 0; g < kWarps; ++g) ctx += part[g * W * kU + i];
+        for (int g = 0; g < kWarps; ++g) sum += pa[g * W * kU + i];
+        const int w = i / kU;
+        float am = s_amax[0][w];
+#pragma unroll
+        for (int g = 1; g < kWarps; ++g) am = fmaxf(am, s_amax[g][w]);
+        ctx = (float)sum * (fmaxf(am, 1e-30f) / 127.f);
+      } else {
+        ctx = 0.f;
+#pragma unroll
+        for (int g = 0; g < kWarps; ++g) ctx += part[g * W * kU + i];
+      }
       att[i] += ctx;
     }
     __syncthreads();
     // the next row's first key blocks go out before this row's tail
     if (nb < (size_t)B) {
-      fetch_block(kbuf, keys + nb * S * kU, S, 0);
-      fetch_block(kbuf, keys + nb * S * kU, S, 1);
+      fetch_block<Md>(kbuf, keys + nb * S * kU, S, 0);
+      fetch_block<Md>(kbuf, keys + nb * S * kU, S, 1);
     }
 
     // ---- logits [W][V]: 8 lanes a (hypothesis, token), 16 units each
@@ -688,7 +900,7 @@ beam_attend_kernel(int B, int S, int V, int end_token,
       *reinterpret_cast<float4*>(att_out + dst) = a;
     }
     __syncthreads();  // hs, cs, att are free: the next row's state goes out
-    if (nb < (size_t)B) fetch_state<W>(hs, cs, att, hn, cn, ath, nb * W);
+    if (nb < (size_t)B) fetch_state<Md, W>(smem, L, hn, cn, ath, kscale, vscale, nb, S);
   }
 }
 
@@ -707,44 +919,57 @@ int allow_smem(Fn* kernel, size_t bytes, int& allowed) {
 
 struct AttendArgs {
   int B, S, V, end_token;
-  const void *hn, *cn, *ath, *cum_in, *fin_in, *keys, *values, *mask, *wfc, *bfc;
+  const void *hn, *cn, *ath, *cum_in, *fin_in, *keys, *values, *kscale, *vscale, *mask, *wfc,
+      *bfc;
   void *tok_out, *par_out, *h_out, *c_out, *att_out, *cum_out, *fin_out;
 };
 
-template <typename M, int W>
+template <class Md, int W>
 int launch_attend(const AttendArgs& a, cudaStream_t stream) {
+  using M = typename Md::M;
   static int allowed = 0;
-  const size_t smem = (size_t)att_layout<M>(W, a.S, a.V).total * sizeof(float);
-  int rc = allow_smem(beam_attend_kernel<M, W>, smem, allowed);
+  const size_t smem = (size_t)att_layout<Md>(W, a.S, a.V).total * sizeof(float);
+  int rc = allow_smem(beam_attend_kernel<Md, W>, smem, allowed);
   if (rc) return rc;
   // the persistent grid: as many CTAs as fit on the card at once
   int device = 0, sms = 0, per_sm = 0;
   if ((rc = (int)cudaGetDevice(&device))) return rc;
   if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))) return rc;
-  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, beam_attend_kernel<M, W>,
+  if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, beam_attend_kernel<Md, W>,
                                                                kAttThreads, smem)))
     return rc;
   const int grid = min(a.B, max(1, sms * per_sm));
-  beam_attend_kernel<M, W><<<grid, kAttThreads, smem, stream>>>(
+  beam_attend_kernel<Md, W><<<grid, kAttThreads, smem, stream>>>(
       a.B, a.S, a.V, a.end_token, (const float*)a.hn, (const float*)a.cn, (const float*)a.ath,
       (const float*)a.cum_in, (const uint8_t*)a.fin_in, (const M*)a.keys, (const M*)a.values,
-      (const uint8_t*)a.mask, (const float*)a.wfc, (const float*)a.bfc, (int32_t*)a.tok_out,
-      (int32_t*)a.par_out, (float*)a.h_out, (float*)a.c_out, (float*)a.att_out,
-      (float*)a.cum_out, (uint8_t*)a.fin_out);
+      (const float*)a.kscale, (const float*)a.vscale, (const uint8_t*)a.mask,
+      (const float*)a.wfc, (const float*)a.bfc, (int32_t*)a.tok_out, (int32_t*)a.par_out,
+      (float*)a.h_out, (float*)a.c_out, (float*)a.att_out, (float*)a.cum_out,
+      (uint8_t*)a.fin_out);
   return (int)cudaGetLastError();
 }
 
-template <typename M>
+template <class Md>
 int dispatch_attend(int W, const AttendArgs& a, cudaStream_t st) {
   switch (W) {
-    case 1: return launch_attend<M, 1>(a, st);
-    case 2: return launch_attend<M, 2>(a, st);
-    case 3: return launch_attend<M, 3>(a, st);
-    case 4: return launch_attend<M, 4>(a, st);
-    case 5: return launch_attend<M, 5>(a, st);
-    case 8: return launch_attend<M, 8>(a, st);
+    case 1: return launch_attend<Md, 1>(a, st);
+    case 2: return launch_attend<Md, 2>(a, st);
+    case 3: return launch_attend<Md, 3>(a, st);
+    case 4: return launch_attend<Md, 4>(a, st);
+    case 5: return launch_attend<Md, 5>(a, st);
+    case 8: return launch_attend<Md, 8>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+bool bad_attend_shape(int B, int S, int V, int VP, int end_token) {
+  return B <= 0 || S <= 0 || V <= 0 || VP != kVP || V > VP || end_token < 0 || end_token >= V;
+}
+
+bool misaligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if ((uintptr_t)p % 16) return true;
+  return false;
 }
 
 }  // namespace
@@ -777,11 +1002,33 @@ extern "C" int rv_beam_attend(int mem_bf16, int W, int B, int S, int V, int VP, 
                               const void* bfc, void* tok_out, void* par_out, void* h_out,
                               void* c_out, void* att_out, void* cum_out, void* fin_out,
                               void* stream) {
-  if (B <= 0 || S <= 0 || V <= 0 || VP != kVP || V > VP || end_token < 0 || end_token >= V)
+  if (bad_attend_shape(B, S, V, VP, end_token)) return (int)cudaErrorInvalidValue;
+  const AttendArgs a{B, S, V, end_token, h_new, c_new, att_h, cum_in, fin_in, keys, values,
+                     nullptr, nullptr, mask, wfc, bfc, tok_out, par_out, h_out, c_out, att_out,
+                     cum_out, fin_out};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mem_bf16) return dispatch_attend<ModeBf16>(W, a, st);
+  return dispatch_attend<ModeF32>(W, a, st);
+}
+
+// The same on int8 keys/values [B, S, U] with f32 scales kscale, vscale
+// [B, S]: mxu = 1 for quant_mxu (s8 x s8 -> s32 dots), 0 for quant
+// (dequantized dots). Refuses missing scales and a [B*W, U] state or
+// memory that is not 16-byte aligned.
+extern "C" int rv_beam_attend_i8(int mxu, int W, int B, int S, int V, int VP, int end_token,
+                                 const void* h_new, const void* c_new, const void* att_h,
+                                 const void* cum_in, const void* fin_in, const void* keys,
+                                 const void* values, const void* kscale, const void* vscale,
+                                 const void* mask, const void* wfc, const void* bfc,
+                                 void* tok_out, void* par_out, void* h_out, void* c_out,
+                                 void* att_out, void* cum_out, void* fin_out, void* stream) {
+  if (bad_attend_shape(B, S, V, VP, end_token) || !kscale || !vscale ||
+      misaligned16({h_new, c_new, att_h, keys, values, h_out, c_out, att_out}))
     return (int)cudaErrorInvalidValue;
   const AttendArgs a{B, S, V, end_token, h_new, c_new, att_h, cum_in, fin_in, keys, values,
-                     mask, wfc, bfc, tok_out, par_out, h_out, c_out, att_out, cum_out, fin_out};
+                     kscale, vscale, mask, wfc, bfc, tok_out, par_out, h_out, c_out, att_out,
+                     cum_out, fin_out};
   cudaStream_t st = (cudaStream_t)stream;
-  if (mem_bf16) return dispatch_attend<__nv_bfloat16>(W, a, st);
-  return dispatch_attend<float>(W, a, st);
+  if (mxu) return dispatch_attend<ModeI8Mxu>(W, a, st);
+  return dispatch_attend<ModeI8>(W, a, st);
 }

@@ -1,4 +1,4 @@
-// Device helpers shared by the port's decoder kernels (beam_step.cu,
+// Device helpers shared by the port's decoder kernels (beam_step_f.cu,
 // beam_loop.cu, decode_step.cu). Each source includes this header and is
 // compiled on its own, so everything here is internal to each object.
 

@@ -4,19 +4,19 @@ kernel (ops/beam_loop_cuda.py).
 
 Counterpart of ravvent_tpu/ops/beam_loop_pallas.py (the TPU kernel
 ``_beam_step_kernel`` and its loop ``beam_step_decode``, bf16, f32 or int8
-memory) and of ``pack_decoder_weights`` (ops/decode_step_pallas.py). On
-bf16 or f32 memory a step is two kernels of ``csrc/beam_step_f.cu``:
-:func:`beam_cell` (the LSTM cell and ``h'.watt_h`` of every hypothesis,
-plain version :func:`cell_plain`) and then :func:`beam_attend` (attention,
-logits, top-W and the permutation of each batch row, plain version
-:func:`attend_plain`). On int8 memory a step is one kernel of
-``csrc/beam_step.cu``. :func:`beam_step` launches them for CUDA tensors
-and runs :func:`beam_step_plain`, the composition of the two plain
-versions, for CPU tensors only.
+memory) and of ``pack_decoder_weights`` (ops/decode_step_pallas.py). A step
+is two kernels of ``csrc/beam_step_f.cu`` on every memory: :func:`beam_cell`
+(the LSTM cell and ``h'.watt_h`` of every hypothesis, plain version
+:func:`cell_plain`; it never reads the memory) and then :func:`beam_attend`
+(attention, logits, top-W and the permutation of each batch row, plain
+version :func:`attend_plain`), whose kernel is templated on the memory
+mode. :func:`beam_step` launches them for CUDA tensors and runs
+:func:`beam_step_plain`, the composition of the two plain versions, for
+CPU tensors only.
 
 int8 memory (``setup_memory(dtype="i8")``) comes with its per-(row,
 position) scales ``scales = (kscale, vscale)`` and runs one of the
-reference's two int8 branches (beam_loop_pallas.py:374-420): ``mxu=False``
+reference's two int8 branches (beam_loop_pallas.py:374-425): ``mxu=False``
 ("quant") or ``mxu=True`` ("quant_mxu"); :func:`attend_quantized` says what
 each computes.
 
@@ -255,7 +255,7 @@ def _launch_cell(st: StepState, w: DecoderWeights):
 
 
 def _launch_attend(st: StepState, h_new, c_new, att_h, keys, values, mask, w: DecoderWeights,
-                   end_token: int):
+                   end_token: int, scales=None, mxu: bool = False):
     B, S, _ = keys.shape
     W = st.cum.shape[1]
     dev = keys.device
@@ -263,15 +263,23 @@ def _launch_attend(st: StepState, h_new, c_new, att_h, keys, values, mask, w: De
                     torch.empty_like(c_new), torch.empty_like(att_h), torch.empty_like(st.cum),
                     torch.empty_like(st.fin))
     parent = torch.empty(B, W, dtype=torch.int32, device=dev)
-    rc = cuda_lib.lib().rv_beam_attend(
-        int(keys.dtype == torch.bfloat16), W, B, S, w.wfc.shape[1], VP, end_token,
-        h_new.data_ptr(), c_new.data_ptr(), att_h.data_ptr(), st.cum.data_ptr(),
-        st.fin.data_ptr(), keys.data_ptr(), values.data_ptr(), mask.data_ptr(),
-        w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
-        nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
-        nxt.fin.data_ptr(), _stream(keys.device))
-    cuda_lib.check(rc, "beam_attend")
-    cuda_lib.launches["beam_attend"] += 1
+    state_in = (h_new.data_ptr(), c_new.data_ptr(), att_h.data_ptr(), st.cum.data_ptr(),
+                st.fin.data_ptr(), keys.data_ptr(), values.data_ptr())
+    out = (w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
+           nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
+           nxt.fin.data_ptr(), _stream(dev))
+    V = w.wfc.shape[1]
+    if scales is None:
+        name = "beam_attend"
+        rc = cuda_lib.lib().rv_beam_attend(int(keys.dtype == torch.bfloat16), W, B, S, V, VP,
+                                           end_token, *state_in, mask.data_ptr(), *out)
+    else:
+        name = "beam_attend_i8mxu" if mxu else "beam_attend_i8"
+        rc = cuda_lib.lib().rv_beam_attend_i8(int(mxu), W, B, S, V, VP, end_token, *state_in,
+                                              scales[0].data_ptr(), scales[1].data_ptr(),
+                                              mask.data_ptr(), *out)
+    cuda_lib.check(rc, name)
+    cuda_lib.launches[name] += 1
     return nxt, parent
 
 
@@ -296,60 +304,45 @@ def beam_cell(st: StepState, w: DecoderWeights):
 
 
 def beam_attend(st: StepState, h_new, c_new, att_h, keys, values, mask, w: DecoderWeights,
-                end_token: int):
-    """The attend kernel on bf16 or f32 memory for CUDA tensors,
-    :func:`attend_plain` for CPU tensors, from the cell's h', c', att_h.
-    Returns (next state, parents [B, W])."""
+                end_token: int, scales=None, mxu: bool = False):
+    """The attend kernel for CUDA tensors, :func:`attend_plain` for CPU
+    tensors, from the cell's h', c', att_h; ``scales`` and ``mxu`` as
+    :func:`beam_step` takes them. Returns (next state, parents [B, W])."""
     if not keys.is_cuda:
-        return attend_plain(st, h_new, c_new, att_h, keys, values, mask, w, end_token)
+        return attend_plain(st, h_new, c_new, att_h, keys, values, mask, w, end_token, scales,
+                            mxu)
     B, S, U = keys.shape
     W = st.cum.shape[1]
     f32 = torch.float32
     check_kernel_inputs("beam_attend", keys, values, mask, w, W, end_token, [
         ("h_new", h_new, f32, (B * W, U)), ("c_new", c_new, f32, (B * W, U)),
         ("att_h", att_h, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)),
-        ("fin", st.fin, torch.bool, (B, W))])
+        ("fin", st.fin, torch.bool, (B, W))], scales)
     check_aligned("beam_attend", h_new, c_new, att_h)
-    return _launch_attend(st, h_new, c_new, att_h, keys, values, mask, w, end_token)
+    return _launch_attend(st, h_new, c_new, att_h, keys, values, mask, w, end_token, scales, mxu)
 
 
 def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: int,
               scales=None, mxu: bool = False):
-    """One beam step: the CUDA kernels for CUDA tensors (bf16/f32 memory:
-    beam_cell, then beam_attend; int8 memory: the int8 step kernel), the
-    plain version for CPU tensors. ``scales``: (kscale, vscale) of int8
-    memory, whose step runs the quant_mxu variant when ``mxu``. Returns
-    (next state, parents [B, W])."""
+    """One beam step: for CUDA tensors the two kernels, beam_cell then
+    beam_attend (on int8 memory its quant or quant_mxu instance); for CPU
+    tensors the plain version. ``scales``: (kscale, vscale) of int8 memory,
+    whose step runs the quant_mxu branch when ``mxu``. Returns (next state,
+    parents [B, W])."""
     if not keys.is_cuda:
         return beam_step_plain(st, keys, values, mask, w, end_token, scales, mxu)
     B, S, U = keys.shape
     W = st.cum.shape[1]
-    V = w.wfc.shape[1]
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     check_kernel_inputs("beam_step", keys, values, mask, w, W, end_token, [
         ("tok", st.tok, i32, (B * W,)), ("h", st.h, f32, (B * W, U)), ("c", st.c, f32, (B * W, U)),
         ("att", st.att, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)), ("fin", st.fin, b8, (B, W)),
     ], scales)
-    if scales is None:
-        check_aligned("beam_step", st.h, st.c, st.att, w.wx, w.wh, w.b, w.watt_h)
-        nxt, parent = _launch_attend(st, *_launch_cell(st, w), keys, values, mask, w, end_token)
-        cuda_lib.launches["beam_step"] += 1
-        return nxt, parent
-    dev = keys.device
-    nxt = StepState(torch.empty_like(st.tok), torch.empty_like(st.h), torch.empty_like(st.c),
-                    torch.empty_like(st.att), torch.empty_like(st.cum), torch.empty_like(st.fin))
-    parent = torch.empty(B, W, dtype=torch.int32, device=dev)
-    name = "beam_step_i8mxu" if mxu else "beam_step_i8"
-    rc = cuda_lib.lib().rv_beam_step_i8(
-        int(mxu), W, B, S, V, VP, end_token, st.tok.data_ptr(), st.h.data_ptr(),
-        st.c.data_ptr(), st.att.data_ptr(), st.cum.data_ptr(), st.fin.data_ptr(),
-        keys.data_ptr(), values.data_ptr(), scales[0].data_ptr(), scales[1].data_ptr(),
-        mask.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
-        w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
-        nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
-        nxt.fin.data_ptr(), _stream(dev))
-    cuda_lib.check(rc, name)
-    cuda_lib.launches[name] += 1
+    check_aligned("beam_step", st.h, st.c, st.att, w.wx, w.wh, w.b, w.watt_h)
+    nxt, parent = _launch_attend(st, *_launch_cell(st, w), keys, values, mask, w, end_token,
+                                 scales, mxu)
+    step = "beam_step" if scales is None else "beam_step_i8mxu" if mxu else "beam_step_i8"
+    cuda_lib.launches[step] += 1
     return nxt, parent
 
 

@@ -11,7 +11,9 @@ the objects are linked into one shared library in the gitignored
 ``launches`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel, so a run can show that it went through the kernels.
 ``beam_step`` counts the steps on bf16/f32 memory, each one ``beam_cell``
-and one ``beam_attend`` launch.
+and one ``beam_attend`` launch; ``beam_step_i8`` / ``beam_step_i8mxu`` the
+steps on int8 memory, each one ``beam_cell`` and one ``beam_attend_i8`` /
+``beam_attend_i8mxu`` launch.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 launches: Dict[str, int] = {"bilstm": 0, "bilstm_bf16": 0, "beam_step": 0, "beam_cell": 0,
                              "beam_attend": 0, "beam_step_i8": 0, "beam_step_i8mxu": 0,
-                             "beam_loop": 0, "decode_step": 0}
+                             "beam_attend_i8": 0, "beam_attend_i8mxu": 0, "beam_loop": 0,
+                             "decode_step": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -106,31 +109,39 @@ def build(force: bool = False) -> str:
     return _build_log
 
 
+# argtypes of each C entry point: ctypes.c_int for an int, c_void_p for each
+# pointer and the stream (without them ctypes passes a pointer as a 32-bit
+# int and cuts it)
+_I, _P = ctypes.c_int, ctypes.c_void_p
+ENTRIES = {
+    "rv_bilstm_layer": [_P, _I, _I, _I] + [_P] * 8 + [_P],
+    "rv_bilstm_layer_bf16": [_P, _I, _I, _I, _I] + [_P] * 8 + [_P],
+    "rv_beam_cell": [_I] * 2 + [_P] * 12,
+    "rv_beam_attend": [_I] * 7 + [_P] * 18,
+    "rv_beam_attend_i8": [_I] * 7 + [_P] * 20,
+    "rv_beam_loop": [_I] * 9 + [_P] * 13,
+    "rv_beam_loop_smem": [_I] * 4,
+    "rv_decode_step": [_I] * 3 + [_P] * 18,
+}
+
+
+def bind(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of each entry point ``handle`` has."""
+    for name, argtypes in ENTRIES.items():
+        if hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.restype = _I
+            fn.argtypes = argtypes
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
             build()
-            handle = ctypes.CDLL(str(LIB_PATH))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            handle.rv_bilstm_layer.restype = I
-            handle.rv_bilstm_layer.argtypes = [P, I, I, I] + [P] * 8 + [P]
-            handle.rv_bilstm_layer_bf16.restype = I
-            handle.rv_bilstm_layer_bf16.argtypes = [P, I, I, I, I] + [P] * 8 + [P]
-            handle.rv_beam_cell.restype = I
-            handle.rv_beam_cell.argtypes = [I] * 2 + [P] * 12
-            handle.rv_beam_attend.restype = I
-            handle.rv_beam_attend.argtypes = [I] * 7 + [P] * 18
-            handle.rv_beam_step_i8.restype = I
-            handle.rv_beam_step_i8.argtypes = [I] * 7 + [P] * 25
-            handle.rv_beam_loop.restype = I
-            handle.rv_beam_loop.argtypes = [I] * 9 + [P] * 13
-            handle.rv_beam_loop_smem.restype = I
-            handle.rv_beam_loop_smem.argtypes = [I] * 4
-            handle.rv_decode_step.restype = I
-            handle.rv_decode_step.argtypes = [I] * 3 + [P] * 18
-            _lib = handle
+            _lib = bind(ctypes.CDLL(str(LIB_PATH)))
         return _lib
 
 

@@ -1,0 +1,126 @@
+// CPU emulation of the CUDA subset that the port's plain-C kernels use, for
+// rehearsing a kernel's logic against its plain version without a card
+// (ravvent_tpu_torch/tools/cuda_emu.py translates a csrc/ source against
+// this header). One CTA at a time, one std::thread per CUDA thread;
+// __syncthreads and the warp exchanges are barriers; shared memory starts
+// as NaNs, so that a read of what no thread wrote shows; the card has 2 SMs
+// that hold 2 CTAs each.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+using std::min; using std::max;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static  // one CTA at a time: a static is the CTA's
+#define __align__(n)
+#define __restrict__
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim, blockDim;
+struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct __nv_bfloat16 { unsigned short v; };
+struct __nv_bfloat162 { __nv_bfloat16 a, b; };
+inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+inline __nv_bfloat16 __float2bfloat16_rn(float x) {
+  unsigned u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(unsigned short)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1);
+  return {(unsigned short)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float((unsigned)b.v << 16); }
+inline float __low2float(__nv_bfloat162 p) { return __bfloat162float(p.a); }
+inline float __high2float(__nv_bfloat162 p) { return __bfloat162float(p.b); }
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;  // SMs
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 2;  // CTAs an SM
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class T> T __ldg(const T* p) { return *p; }
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  uint64_t v = ((uint64_t)y << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
+inline int __dp4a(int a, int b, int c) {
+  for (int i = 0; i < 4; ++i) c += (int)(int8_t)(a >> (8 * i)) * (int)(int8_t)(b >> (8 * i));
+  return c;
+}
+inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
+
+// ---- the CTA's barriers and warp exchange
+struct Cta {
+  std::unique_ptr<std::barrier<>> block;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<uint64_t> slots;  // a warp exchange's values, one a thread
+  std::vector<float> smem;      // the dynamic shared buffer
+};
+inline Cta* g_cta = nullptr;
+inline void __syncthreads() { g_cta->block->arrive_and_wait(); }
+inline void __syncwarp() { g_cta->warps[threadIdx.x / 32]->arrive_and_wait(); }
+template <class T> T shfl_impl(T v, int src_lane) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  uint64_t x = 0; memcpy(&x, &v, sizeof(T));
+  g_cta->slots[threadIdx.x] = x;
+  __syncwarp();
+  uint64_t y = g_cta->slots[w * 32 + src_lane];
+  __syncwarp();
+  T r; memcpy(&r, &y, sizeof(T));
+  return r;
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int o) {
+  return shfl_impl(v, (threadIdx.x & 31) ^ o);
+}
+template <class T> T __shfl_sync(unsigned, T v, int l) { return shfl_impl(v, l); }
+inline int __reduce_add_sync(unsigned, int v) {
+  int s = 0; for (int o = 0; o < 32; ++o) s += shfl_impl(v, o); return s;
+}
+inline float* emu_smem() { return g_cta->smem.data(); }
+
+template <class K, class... A>
+void emu_launch(K kernel, int grid, int threads, size_t smem, cudaStream_t, A... args) {
+  gridDim.x = grid; blockDim.x = threads;
+  for (int b = 0; b < grid; ++b) {
+    Cta cta;
+    cta.block = std::make_unique<std::barrier<>>(threads);
+    for (int w = 0; w < (threads + 31) / 32; ++w)
+      cta.warps.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
+    cta.slots.assign(threads, 0);
+    cta.smem.assign(smem / 4 + 64, __uint_as_float(0x7fc00001u));  // NaNs
+    g_cta = &cta;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, t] { threadIdx.x = t; blockIdx.x = b; kernel(args...); });
+    for (auto& t : ts) t.join();
+    g_cta = nullptr;
+  }
+}

@@ -4,8 +4,11 @@ kernels, on the CPU.
 ``cell_plain`` (the LSTM cell and h'.watt_h, the cell kernel's function)
 then ``attend_plain`` (the rest of the step, the attend kernel's function)
 must return what the step's plain version returned before the split, bit
-for bit; a copy of that version is kept here as the yardstick. The cell is
-also held against the JAX package's ``lstm_step`` on the same numpy inputs."""
+for bit; a copy of that version is kept here as the yardstick. On int8
+memory the same split (``attend_plain`` with the scales, quant or
+quant_mxu) and the CPU wrappers must equal ``beam_step_plain`` bit for bit.
+The cell is also held against the JAX package's ``lstm_step`` on the same
+numpy inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -93,6 +96,52 @@ def test_cell_then_attend_equal_the_step_before_the_split(W, dtype, S):
             for g, r in zip(nxt, ref[0]):
                 assert g.dtype == r.dtype and torch.equal(g, r)
         st = ref[0]
+
+
+def int8_memory(rng, B: int, S: int, E: int = 32):
+    """setup_memory(..., "i8") of a seeded encoder-like memory [B, S, E]
+    with pre-projected values; row 1 all padding."""
+    def f(*shape, s=1.0):
+        return torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32))
+
+    mask = torch.from_numpy(rng.random((B, S)) > 0.2)
+    mask[1] = False
+    return tattn.setup_memory({"memory_kernel": f(E, U, s=0.2)}, torch.tanh(f(B, S, E)), mask, "i8",
+                              attention_layer={"kernel": f(U + E, U, s=0.1)})
+
+
+@pytest.mark.parametrize("S", [8, 232])
+@pytest.mark.parametrize("mxu", [False, True], ids=["quant", "quant_mxu"])
+@pytest.mark.parametrize("W", [1, 5, 8])
+def test_int8_cell_then_attend_equal_the_plain_step(W, mxu, S):
+    """Three chained steps on int8 memory from a mid-decode state:
+    cell_plain then attend_plain with the scales, and the CPU paths of
+    beam_cell + beam_attend and of beam_step, equal beam_step_plain bit for
+    bit, and launch nothing."""
+    from ravvent_tpu_torch.ops import cuda_lib
+
+    rng = np.random.default_rng(1000 * W + 10 * S + mxu)
+    B = 6
+    mem = int8_memory(rng, B, S)
+    assert mem.keys.dtype == torch.int8 and mem.values.dtype == torch.int8
+    w = decoder_weights(rng)._replace(watt_h=mem.watt_h)
+    keys, values, mask = mem.keys, mem.values, mem.mask
+    scales = (mem.kscale, mem.vscale)
+    st = mid_decode_state(rng, B, W)
+    before = dict(cuda_lib.launches)
+    for _ in range(3):
+        ref = tstep.beam_step_plain(st, keys, values, mask, w, 1, scales, mxu)
+        split = tstep.attend_plain(st, *tstep.cell_plain(st, w), keys, values, mask, w, 1,
+                                   scales, mxu)
+        wrappers = tstep.beam_attend(st, *tstep.beam_cell(st, w), keys, values, mask, w, 1,
+                                     scales, mxu)
+        for got in (split, wrappers, tstep.beam_step(st, keys, values, mask, w, 1, scales, mxu)):
+            nxt, parent = got
+            assert torch.equal(parent, ref[1])
+            for g, r in zip(nxt, ref[0]):
+                assert g.dtype == r.dtype and torch.equal(g, r)
+        st = ref[0]
+    assert cuda_lib.launches == before
 
 
 @pytest.mark.parametrize("B,W", [(3, 1), (4, 5), (2, 8)])

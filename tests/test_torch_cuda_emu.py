@@ -1,0 +1,133 @@
+"""The beam step's CUDA kernels (csrc/beam_step_f.cu), run on the CPU by the
+emulation of tools/cuda_emu.py, against their plain versions.
+
+The emulation runs the kernels' own code (indexing, shared-memory layout,
+the persistent grid's row walk, the warp shuffles) one CTA at a time on
+host threads, so these tests hold the CUDA source's logic on a machine
+without a card. The card's arithmetic (its expf, its FMA contraction) is
+not the host's, so the card-only tests in test_torch_gpu.py stay the
+yardstick of the kernels themselves. Needs g++; the emulated library is
+built once into ravvent_tpu_torch/build/emu/."""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from ravvent_tpu_torch.models import attention as tattn
+from ravvent_tpu_torch.ops import beam_step_cuda as tstep
+
+torch.set_num_threads(1)
+U, V = 128, 7
+
+
+@pytest.fixture(scope="module")
+def emu():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the emulation")
+    from ravvent_tpu_torch.tools import cuda_emu
+
+    return cuda_emu.load("beam_step_f.cu")
+
+
+def decoder_weights(rng) -> tstep.DecoderWeights:
+    def f(*shape, s=0.1):
+        return torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32))
+
+    return tstep.DecoderWeights(f(V + U, 4 * U), f(U, 4 * U), f(4 * U), f(U, U), f(U, V, s=0.3),
+                                f(V))
+
+
+def mid_decode_state(rng, B: int, W: int) -> tstep.StepState:
+    """Tokens in [0, V + 2) (ids >= V embed to zeros), spread h, c, att and
+    scores, a fifth of the beams finished."""
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    return tstep.StepState(torch.from_numpy(rng.integers(0, V + 2, B * W).astype(np.int32)),
+                           torch.tanh(f(B * W, U)), f(B * W, U), f(B * W, U),
+                           torch.from_numpy((-5.0 * rng.random((B, W))).astype(np.float32)),
+                           torch.from_numpy(rng.random((B, W)) < 0.2))
+
+
+def memory(rng, B: int, S: int, mode: str, E: int = 32) -> tattn.AttnMemory:
+    """setup_memory of a seeded encoder-like memory [B, S, E] in the mode's
+    dtype, with pre-projected values; row 1 all padding."""
+    def f(*shape, s=1.0):
+        return torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32))
+
+    mask = torch.from_numpy(rng.random((B, S)) > 0.2)
+    mask[1] = False
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}.get(mode, "i8")
+    return tattn.setup_memory({"memory_kernel": f(E, U, s=0.2)}, torch.tanh(f(B, S, E)), mask,
+                              dtype, attention_layer={"kernel": f(U + E, U, s=0.1)})
+
+
+def emu_attend(lib, st, cell, mem, w, mode: str):
+    """The attend kernel's C entry on host tensors, as ops/beam_step_cuda.py
+    launches it. Returns (next state, parents)."""
+    B, S, _ = mem.keys.shape
+    W = st.cum.shape[1]
+    h_new, c_new, att_h = cell
+    nxt = tstep.StepState(torch.empty(B * W, dtype=torch.int32), torch.empty_like(h_new),
+                          torch.empty_like(c_new), torch.empty_like(att_h),
+                          torch.empty_like(st.cum), torch.empty_like(st.fin))
+    parent = torch.empty(B, W, dtype=torch.int32)
+    state_in = (h_new.data_ptr(), c_new.data_ptr(), att_h.data_ptr(), st.cum.data_ptr(),
+                st.fin.data_ptr(), mem.keys.data_ptr(), mem.values.data_ptr())
+    out = (w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
+           nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
+           nxt.fin.data_ptr(), None)
+    if mode in ("bf16", "f32"):
+        rc = lib.rv_beam_attend(int(mode == "bf16"), W, B, S, V, tstep.VP, 1, *state_in,
+                                mem.mask.data_ptr(), *out)
+    else:
+        rc = lib.rv_beam_attend_i8(int(mode == "quant_mxu"), W, B, S, V, tstep.VP, 1, *state_in,
+                                   mem.kscale.data_ptr(), mem.vscale.data_ptr(),
+                                   mem.mask.data_ptr(), *out)
+    assert rc == 0
+    return nxt, parent
+
+
+@pytest.mark.parametrize("B,W", [(9, 1), (7, 5), (4, 8)])
+def test_emulated_beam_cell_matches_plain(emu, B, W):
+    """h', c' and att_h of the cell kernel against cell_plain: f32 sums of
+    256 and 128 terms in another order, within 1e-5; the last 32-hypothesis
+    tile is ragged."""
+    rng = np.random.default_rng(10 * B + W)
+    w = decoder_weights(rng)
+    st = mid_decode_state(rng, B, W)
+    got = tuple(torch.full_like(st.h, float("nan")) for _ in range(3))
+    rc = emu.rv_beam_cell(B * W, V, st.tok.data_ptr(), st.att.data_ptr(), st.h.data_ptr(),
+                          st.c.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+                          w.watt_h.data_ptr(), *(g.data_ptr() for g in got), None)
+    assert rc == 0
+    for g, r in zip(got, tstep.cell_plain(st, w)):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,W,S", [(5, 5, 8), (6, 8, 70), (9, 1, 232), (5, 3, 300)],
+                         ids=["S8", "S70", "S232", "S300"])
+@pytest.mark.parametrize("mode", ["bf16", "f32", "quant", "quant_mxu"])
+def test_emulated_beam_attend_matches_plain(emu, mode, B, W, S):
+    """The attend kernel in each memory mode against attend_plain on the
+    same cell outputs (row 1 all padding; S = 70 and 300 end in a partial
+    block, 300 in more blocks than 232): the picks, parents and finished
+    flags equal, the state rows copied exactly, att and the scores within
+    1e-5 (f32 sums in another order; at these seeds no alignment crosses a
+    bf16 or int8 rounding boundary)."""
+    rng = np.random.default_rng(1000 * W + S)
+    mem = memory(rng, B, S, mode)
+    w = decoder_weights(rng)._replace(watt_h=mem.watt_h)
+    st = mid_decode_state(rng, B, W)
+    cell = tstep.cell_plain(st, w)
+    got, gpar = emu_attend(emu, st, cell, mem, w, mode)
+    scales = (mem.kscale, mem.vscale) if mem.quantized else None
+    ref, rpar = tstep.attend_plain(st, *cell, mem.keys, mem.values, mem.mask, w, 1, scales,
+                                   mode == "quant_mxu")
+    assert torch.equal(gpar, rpar) and torch.equal(got.tok, ref.tok)
+    assert torch.equal(got.fin, ref.fin)
+    assert torch.equal(got.h, ref.h) and torch.equal(got.c, ref.c)
+    torch.testing.assert_close(got.att, ref.att, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.cum, ref.cum, rtol=0, atol=1e-5)

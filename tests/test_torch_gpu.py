@@ -255,14 +255,17 @@ def test_beam_step_int8_kernels_match_plain(cuda, B, mxu):
     dec_p, mem = _decoder_and_memory(11, B, 232, "i8", True, cuda)
     w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
     scales = (mem.kscale, mem.vscale)
-    name = "beam_step_i8mxu" if mxu else "beam_step_i8"
+    step, attend = ("beam_step_i8mxu", "beam_attend_i8mxu") if mxu else ("beam_step_i8",
+                                                                         "beam_attend_i8")
     st = beam_step_cuda.initial_state(B, 5, 128, 2, cuda)
     agree = n = 0
     for _ in range(5):
         before = dict(cuda_lib.launches)
         got, gpar = beam_step_cuda.beam_step(st, mem.keys, mem.values, mem.mask, w, 1, scales, mxu)
-        assert cuda_lib.launches[name] == before[name] + 1
-        assert cuda_lib.launches["beam_step"] == before["beam_step"]
+        for name in (step, attend, "beam_cell"):  # a step: beam_cell, then the int8 attend
+            assert cuda_lib.launches[name] == before[name] + 1
+        for name in ("beam_step", "beam_attend"):
+            assert cuda_lib.launches[name] == before[name]
         ref, rpar = beam_step_cuda.beam_step_plain(st, mem.keys, mem.values, mem.mask, w, 1,
                                                    scales, mxu)
         same = (got.tok.reshape(B, 5) == ref.tok.reshape(B, 5)) & (gpar == rpar)
@@ -290,12 +293,17 @@ def test_int8_engine_on_card_matches_cpu(cuda, memory):
     sig, ranges = simulator.simulate_read(seq, rng, simulator.PoreModel())
     sigc, rr, ev, er, _, _ = prepare_compact(sig, ranges, np.array(["a"] * len(ranges)), 6)
     rr, er = rr[:64], er[:64]
-    name = "beam_step_i8mxu" if memory == "i8mxu" else "beam_step_i8"
+    step, attend = ("beam_step_i8mxu", "beam_attend_i8mxu") if memory == "i8mxu" else (
+        "beam_step_i8", "beam_attend_i8")
     card = BasecallEngine(params, cfg, memory_dtype=memory)
     before = dict(cuda_lib.launches)
     t_card, p_card = card.predict_beam_compact(sigc, rr, ev, er, 40, 5)
-    assert cuda_lib.launches[name] > before[name]
-    assert cuda_lib.launches["beam_step"] == before["beam_step"]
+    steps = cuda_lib.launches[step] - before[step]
+    assert steps > 0
+    for name in (attend, "beam_cell"):
+        assert cuda_lib.launches[name] - before[name] == steps
+    for name in ("beam_step", "beam_attend"):
+        assert cuda_lib.launches[name] == before[name]
     t_cpu, _ = BasecallEngine(params, cfg, memory_dtype=memory,
                               device="cpu").predict_beam_compact(sigc, rr, ev, er, 40, 5)
     assert np.isfinite(p_card).all()
@@ -392,6 +400,49 @@ def test_beam_attend_kernel_matches_plain(cuda, B, W, mem_dtype, S):
     assert torch.equal(got.fin[same], ref.fin[same])
 
 
+@pytest.mark.parametrize("S", [8, 232, 300], ids=["S8", "S232", "S300 (position loop)"])
+@pytest.mark.parametrize("mxu", [False, True], ids=["quant", "quant_mxu"])
+@pytest.mark.parametrize("W", [1, 5, 8])
+@pytest.mark.parametrize("B", [9, 37, 130])
+def test_beam_attend_int8_kernel_matches_plain(cuda, B, W, mxu, S):
+    """The int8 attend kernel against attend_plain with the scales, on the
+    same cell outputs. The scores are computed in the reference's order, so
+    picks part only on a near-tie, at most one in a hundred (and one at
+    least); where the parents agree the state rows are copied exactly, and
+    att and (where the picks agree) the scores are within 1e-2: summing in
+    another order can move a folded alignment across a rounding boundary (a
+    bf16 ulp for quant, one int8 code for quant_mxu), which moves a unit of
+    the context by at most the row's largest folded alignment. Row 3 is
+    all padding."""
+    gen = torch.Generator().manual_seed(2000 + 10 * B + W)
+    dec_p = init_decoder(gen, 7, 1, 128, 256, cuda)
+    memory = torch.tanh(torch.randn(B, S, 256, generator=gen)).to(cuda)
+    mask = (torch.rand(B, S, generator=gen) > 0.2).to(cuda)
+    mask[3] = False
+    mem = attn.setup_memory(dec_p["attention"], memory, mask, "i8",
+                            attention_layer=dec_p["attention_layer"])
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    scales = (mem.kscale, mem.vscale)
+    st = _mid_decode_state(gen, B, W, 7, cuda)
+    cell = beam_step_cuda.cell_plain(st, w)
+    name = "beam_attend_i8mxu" if mxu else "beam_attend_i8"
+    before = dict(cuda_lib.launches)
+    got, gpar = beam_step_cuda.beam_attend(st, *cell, mem.keys, mem.values, mask, w, 1, scales,
+                                           mxu)
+    assert cuda_lib.launches[name] == before[name] + 1
+    assert cuda_lib.launches["beam_attend"] == before["beam_attend"]
+    ref, rpar = beam_step_cuda.attend_plain(st, *cell, mem.keys, mem.values, mask, w, 1, scales,
+                                            mxu)
+    par_eq = gpar == rpar
+    same = (got.tok.reshape(B, W) == ref.tok.reshape(B, W)) & par_eq
+    assert (~same).sum().item() <= max(1, B * W // 100)
+    rows = lambda t: t.reshape(B, W, 128)[par_eq]  # noqa: E731
+    assert torch.equal(rows(got.h), rows(ref.h)) and torch.equal(rows(got.c), rows(ref.c))
+    torch.testing.assert_close(rows(got.att), rows(ref.att), rtol=0, atol=1e-2)
+    torch.testing.assert_close(got.cum[same], ref.cum[same], rtol=0, atol=1e-2)
+    assert torch.equal(got.fin[same], ref.fin[same])
+
+
 def test_beam_step_launches_cell_then_attend(cuda):
     """On bf16/f32 memory a step is one beam_cell and one beam_attend launch
     and counts one beam_step."""
@@ -403,7 +454,8 @@ def test_beam_step_launches_cell_then_attend(cuda):
     beam_step_cuda.beam_step(st, mem.keys, mem.values, mem.mask, w, 1)
     for name in ("beam_step", "beam_cell", "beam_attend"):
         assert cuda_lib.launches[name] == before[name] + 1
-    assert cuda_lib.launches["beam_step_i8"] == before["beam_step_i8"]
+    for name in ("beam_step_i8", "beam_attend_i8", "beam_attend_i8mxu"):
+        assert cuda_lib.launches[name] == before[name]
 
 
 def test_beam_cell_and_attend_launch_failures_raise(cuda):
@@ -431,3 +483,46 @@ def test_beam_cell_and_attend_launch_failures_raise(cuda):
     shifted = torch.zeros(st.h.numel() + 1, device=cuda)[1:].view_as(st.h)  # 4 bytes off
     with pytest.raises(ValueError, match="16-byte aligned"):
         beam_step_cuda.beam_cell(st._replace(h=shifted), w)
+
+
+def test_beam_attend_int8_launch_failures_raise(cuda):
+    """The int8 attend's C entry refuses beam width 6, an end token outside
+    the vocabulary, missing scales and a state that is not 16-byte aligned
+    (none of these launches); the wrapper refuses missing or misshapen
+    scales and a misaligned state before launching."""
+    B = 4
+    dec_p, mem = _decoder_and_memory(0, B, 16, "i8", True, cuda)
+    ks, vs = mem.kscale, mem.vscale
+    lib = cuda_lib.lib()
+    P = [None] * 5  # h_new, c_new, att_h, cum_in, fin_in
+
+    def entry(W, end, kscale, vscale, h_new=None):
+        # mxu, W, B, S, V, VP, end; the state, keys, values, the scales, mask,
+        # wfc, bfc, the seven outputs, the stream
+        return lib.rv_beam_attend_i8(1, W, B, 16, 7, 128, end, h_new, *P[1:], mem.keys.data_ptr(),
+                                     mem.values.data_ptr(), kscale, vscale, *[None] * 11)
+
+    scales = (ks.data_ptr(), vs.data_ptr())
+    for args, why in (((6, 1, *scales), "no beam width 6"),
+                      ((5, 7, *scales), "end token outside the vocabulary"),
+                      ((5, 1, None, vs.data_ptr()), "no key scales"),
+                      ((5, 1, ks.data_ptr(), None), "no value scales")):
+        with pytest.raises(RuntimeError, match="beam_attend_i8"):
+            cuda_lib.check(entry(*args), "beam_attend_i8")
+    shifted = torch.zeros(B * 5 * 128 + 1, device=cuda)[1:]  # 4 bytes off
+    with pytest.raises(RuntimeError, match="beam_attend_i8"):
+        cuda_lib.check(entry(5, 1, *scales, h_new=shifted.data_ptr()), "beam_attend_i8")
+
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    st = beam_step_cuda.initial_state(B, 5, 128, 2, cuda)
+    cell = beam_step_cuda.beam_cell(st, w)
+    attend = functools.partial(beam_step_cuda.beam_attend, st, keys=mem.keys, values=mem.values,
+                               mask=mem.mask, w=w, end_token=1, mxu=True)
+    with pytest.raises(ValueError, match="both int8"):
+        attend(*cell)  # int8 memory without its scales
+    with pytest.raises(ValueError, match="kscale has shape"):
+        attend(*cell, scales=(ks[:, :8].contiguous(), vs))
+    with pytest.raises(ValueError, match="vscale must be a contiguous"):
+        attend(*cell, scales=(ks, vs.double()))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attend(shifted.view(B * 5, 128), *cell[1:], scales=(ks, vs))
