@@ -7,21 +7,54 @@
 // state and accumulation, z = dot(x, Wx) + dot(bf16(h), Wh) + b, keras
 // LSTMCell (gates i, f, g, o), bf16 outputs bf16(h), f32 final states. The
 // forward direction runs t = 0..T-1, the backward direction t = T-1..0;
-// outputs are time-aligned.
+// outputs are time-aligned. On the TPU the time axis is a sequential grid
+// dimension; here it is a loop inside the CTA.
 //
 // What bounds it on the H100: the bf16 products, 2*(F+U)*4U flops per row,
 // step and direction, at 989 TFLOP/s dense; the bytes (x read once, outputs
-// written once) are below that. Design: one CTA per (direction, tile of 64
-// batch rows) loops over T itself. One direction's Wh (128 x 512 bf16,
-// 128 KiB) stays in shared memory for the whole launch, stored transposed
-// (gate column-major) so that an mma.sync B fragment is one 32-bit load.
-// Each step every warp runs mma.sync.m16n8k16 (bf16 in, f32 accumulate) on
-// the 4 row tiles of 16 against its 16 units' columns of all four gates, so
-// the i, f, g, o sums of one (row, unit) land in the same thread and the cell
-// needs no exchange; c stays in registers, bf16(h) goes to a double-buffered
-// shared tile. x_t of the tile is staged in shared memory; Wx (up to
-// 256 x 512 bf16) does not fit beside Wh and is read through L1/L2 each step,
-// transposed and zero-padded to a multiple of 16 by the wrapper.
+// written once) are below that. But a step is a chain (h_t needs all of
+// h_{t-1}), so what sets the time is each step's latency.
+//
+// What the previous design's step spent (tools/bilstm_phases.py, clock64()
+// per warp, cycles a step at B = 4096, H100): raw layer 0 (F = 1) 21.5k, of
+// which the cell 14.6k (IEEE expf, division and tanhf on 32 (row, unit)
+// pairs a thread, 2 warps a sub-partition to hide their latency), h.Wh
+// 3.6k, x.Wx 1.9k, x_t's synchronous load 1.4k; raw layer 1 (F = 256)
+// 49.3k, of which x.Wx 23.2k (16 rounds of L2 latency: Wx read by 4-byte
+// __ldg, one k-tile at a time), the cell 14.6k, x_t's load 7.7k. Its second
+// barrier cost nothing.
+//
+// Design: one CTA per (direction, tile of 16*MT batch rows), 16 warps, warp
+// w owning units [8w, 8w + 8) of all four gates, so the i, f, g, o sums of
+// a (row, unit) land in one thread and the cell needs no exchange; 4 warps
+// a sub-partition hide the cell's and the products' latencies.
+// - The grid fits the card: the C entry picks the fewest rows a CTA (16,
+//   32, 48 or 64) with which 2*ceil(B / rows) CTAs fit the SMs in one wave
+//   (2858 rows: 120 CTAs of 48).
+// - The weights come in mma-fragment order, made once per engine
+//   (ops/rnn_cuda.py:kernel_layout): for warp w, k-tile kt and gate, lane l's
+//   B fragment is one 8-byte word, a warp's 32 words 256 contiguous bytes.
+//   Wh (128 KiB) stays in shared memory; Wx stays there too for F <= 16,
+//   else is read from L2 by coalesced loads, two k-tiles in flight, the
+//   first two issued at the step's start so that they land during h.Wh.
+// - bf16(h) lives in shared memory in A-fragment order: warp w's cell output
+//   for m-tile mt is half of lane l's A fragment of k-tile w / 2, and an A
+//   fragment is one 16-byte load.
+// - x_{t+1} lands in a second buffer while step t runs (cp.async for F a
+//   multiple of 8, registers stored after the cell for F <= 16), issued
+//   after the products so that its misses do not queue ahead of Wx's loads:
+//   one block barrier a step.
+// - The cell runs on ex2.approx and rcp.approx (__expf, __fdividef) in f32,
+//   eight of them a (row, unit) where sigmoid and tanh one by one take ten
+//   (lstm_cell below): these run 16 a clock an SM and set the cell's time.
+//   PERF.md records the error this adds.
+// What bounds a step now (PERF.md): the cell at the SFU's rate, h.Wh at
+// mma.sync's, and on a wide input x.Wx at L2's rate for Wx (every CTA reads
+// all of it each step: 33.5 MB a step at 4096 rows).
+//
+// Timing build (-DRV_BILSTM_PHASES, tools/bilstm_phases.py): lane 0 of each
+// warp sums clock64() cycles per phase of the step and writes them at the
+// end; the production build compiles none of it.
 //
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
@@ -34,219 +67,397 @@ namespace {
 
 constexpr int kU = 128;            // LSTM units (the flagship's; the wrapper checks)
 constexpr int kG = 4 * kU;         // gate columns
-constexpr int kBR = 64;            // batch rows per CTA
-constexpr int kMT = kBR / 16;      // m16 row tiles per CTA
-constexpr int kWarps = 8;          // warp w owns units [16w, 16w + 16)
+constexpr int kWarps = 16;         // warp w owns units [8w, 8w + 8) of all four gates
 constexpr int kThreads = 32 * kWarps;
-constexpr int kWS = kU + 8;        // row stride (bf16) of Wh^T and h in shared memory:
-                                   // 68 words, so a fragment load is conflict-free
+constexpr int kHT = kU / 16;       // k-tiles of h.Wh; warp w's units are half of k-tile w / 2
 constexpr int kMaxK = 2 * kU;      // widest layer input
+constexpr int kSmallK = 16;        // Wx stays in shared memory for F <= 16 (one k-tile)
+constexpr int kFrag = 4 * 32;      // 8-byte words of one (warp, k-tile): 4 gates x 32 lanes
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+constexpr int kPhases = 6;
+#ifdef RV_BILSTM_PHASES
+// the phases' names, by stamp index, for tools/bilstm_phases.py
+#define RV_BILSTM_PHASE_NAMES "wx_first_loads,x_wx+x_issue,h_wh,cell,stores+x_land,barrier"
+#define RV_PHASES_ARG , long long* __restrict__ stamps
+#define RV_PHASES_PASS , stamps
+#define RV_PHASES_INIT long long ph_[kPhases] = {}; long long last_ = clock64()
+#define RV_STAMP(k) do { const long long now_ = clock64(); ph_[k] += now_ - last_; last_ = now_; } while (0)
+#define RV_PHASES_STORE                                                                   \
+  if ((threadIdx.x & 31) == 0)                                                            \
+    for (int k_ = 0; k_ < kPhases; ++k_)                                                  \
+      stamps[((blockIdx.y * gridDim.x + blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) \
+             * kPhases + k_] = ph_[k_]
+#else
+#define RV_PHASES_ARG
+#define RV_PHASES_PASS
+#define RV_PHASES_INIT
+#define RV_STAMP(k)
+#define RV_PHASES_STORE
+#endif
+
+// The cell in f32 with ex2.approx (__expf) and rcp.approx (__fdividef), five
+// exponentials and three reciprocals a (row, unit): with E(x) = e^-x,
+// sigmoid(i) * tanh(g) = (1 - E(2g)) / ((1 + E(i)) (1 + E(2g))) and
+// sigmoid(o) * tanh(c) likewise, sigmoid(f) c = c / (1 + E(f)). The
+// arguments are clamped where the factors would overflow (i, o >= -40,
+// 2g, 2c >= -30: e^40 e^30 < 2^126, where __fdividef still divides), which
+// moves no result by more than 1e-17.
+__device__ __forceinline__ float exp_neg(float x, float lo) { return __expf(-fmaxf(x, lo)); }
+__device__ __forceinline__ float sig_tanh(float s, float t) {  // sigmoid(s) * tanh(t)
+  const float es = exp_neg(s, -40.f), et = exp_neg(2.f * t, -30.f);
+  return __fdividef(1.f - et, (1.f + es) * (1.f + et));
+}
+__device__ __forceinline__ void lstm_cell(float zi, float zf, float zg, float zo, float& c,
+                                          float& h) {
+  c = __fdividef(c, 1.f + exp_neg(zf, -88.f)) + sig_tanh(zi, zg);
+  h = sig_tanh(zo, c);
+}
 
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
 // d += a . b for one m16n8k16 tile, bf16 operands, f32 accumulator
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, const uint2& b) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
 }
 
-// acc[gate][mt][j] += A[rows of mt, k-tile] . B[k-tile, gate columns of tile j].
-// A is row-major in shared memory (stride sa), B^T row-major (gate column n,
-// stride sb) in shared or global memory.
-template <bool kGlobalB>
-__device__ __forceinline__ void mma_ktile(float (&acc)[4][kMT][2][4], const bf16* A, int sa,
-                                          const bf16* Bt, int sb, int ubase, int g, int tg) {
-  uint32_t b[4][2][2];
-#pragma unroll
-  for (int gate = 0; gate < 4; ++gate) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const bf16* p = Bt + (size_t)(gate * kU + ubase + 8 * j + g) * sb + 2 * tg;
-      if (kGlobalB) {
-        b[gate][j][0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-        b[gate][j][1] = __ldg(reinterpret_cast<const unsigned int*>(p + 8));
-      } else {
-        b[gate][j][0] = lds32(p);
-        b[gate][j][1] = lds32(p + 8);
-      }
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    const bf16* pa = A + (16 * mt + g) * sa + 2 * tg;
-    const uint32_t a0 = lds32(pa), a1 = lds32(pa + 8 * sa);
-    const uint32_t a2 = lds32(pa + 8), a3 = lds32(pa + 8 * sa + 8);
-#pragma unroll
-    for (int gate = 0; gate < 4; ++gate) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) mma16816(acc[gate][mt][j], a0, a1, a2, a3, b[gate][j][0], b[gate][j][1]);
-    }
-  }
+// A fragment of m-tile mt, k-tile kt of the row-major x tile (row stride xsr).
+__device__ __forceinline__ uint4 x_frag(const bf16* x, int xsr, int mt, int kt, int g, int tg) {
+  const bf16* p = x + (16 * mt + g) * xsr + 16 * kt + 2 * tg;
+  return make_uint4(lds32(p), lds32(p + 8 * xsr), lds32(p + 8), lds32(p + 8 * xsr + 8));
 }
 
+template <int MT, bool kWxSmem>
 __global__ void __launch_bounds__(kThreads, 1)
-bilstm_bf16_kernel(const bf16* __restrict__ xs,     // [B, T, F]
+bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
                    int B, int T, int F, int Kx,
-                   const bf16* __restrict__ wxT,    // [2, 4U, Kx] Wx^T, zero past F
-                   const bf16* __restrict__ whT,    // [2, 4U, U]  Wh^T
-                   const float* __restrict__ bias,  // [2, 4U]
-                   const float* __restrict__ h0,    // [2, B, U]
-                   const float* __restrict__ c0,    // [2, B, U]
-                   bf16* __restrict__ out,          // [B, T, 2U]
-                   float* __restrict__ hN,          // [2, B, U]
-                   float* __restrict__ cN) {        // [2, B, U]
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* whs = reinterpret_cast<bf16*>(smem_raw);  // [4U][kWS]      Wh^T
-  bf16* hs = whs + kG * kWS;                        // [2][kBR][kWS]  bf16(h), double-buffered
-  bf16* xsm = hs + 2 * kBR * kWS;                   // [kBR][Kx + 8]  x_t of the tile
-  const int XS = Kx + 8;
+                   const uint2* __restrict__ wxF,    // [2][16 warps][Kx/16][4 gates][32 lanes]
+                   const uint2* __restrict__ whF,    // [2][16 warps][8][4 gates][32 lanes]
+                   const float* __restrict__ bias,   // [2, 4U]
+                   const float* __restrict__ h0,     // [2, B, U]
+                   const float* __restrict__ c0,     // [2, B, U]
+                   bf16* __restrict__ out,           // [B, T, 2U]
+                   float* __restrict__ hN,           // [2, B, U]
+                   float* __restrict__ cN            // [2, B, U]
+                   RV_PHASES_ARG) {
+  constexpr int R = 16 * MT;  // batch rows of the CTA
+  extern __shared__ __align__(16) float smem[];
+  const int Kw = kWxSmem ? kSmallK : Kx;  // a constant on the small path (the C entry checks)
+  const int KT = Kw / 16, XS = Kw + 8;    // x row stride: an A fragment's 8 rows, distinct banks
+  uint2* whs = reinterpret_cast<uint2*>(smem);              // [16][8][4][32] Wh fragments
+  uint4* hs = reinterpret_cast<uint4*>(whs + kWarps * kHT * kFrag);  // [2][MT][8][32] bf16(h)
+  uint2* wxs = reinterpret_cast<uint2*>(hs + 2 * MT * kHT * 32);    // [16][1][4][32] (kWxSmem)
+  bf16* xsm = reinterpret_cast<bf16*>(wxs + (kWxSmem ? kWarps * kFrag : 0));  // [2][R][XS]
 
   const int d = blockIdx.y;  // 0 forward, 1 backward
-  const int b0 = blockIdx.x * kBR;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int b0 = blockIdx.x * R;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;  // mma fragment row group and column pair
-  const int ubase = 16 * (tid >> 5);
-
-  const bf16* Wx = wxT + (size_t)d * kG * Kx;
-  const bf16* Wh = whT + (size_t)d * kG * kU;
+  const int ubase = 8 * w;
+  const uint2* wx_d = wxF + (size_t)d * kWarps * KT * kFrag;
+  const uint2* wx_w = (kWxSmem ? wxs : wx_d) + w * KT * kFrag + lane;  // this lane's words
+  const uint2* wh_w = whs + w * kHT * kFrag + lane;
   const float* bd = bias + d * kG;
 
-  for (int i = tid; i < kG * kU / 8; i += kThreads) {
-    const int n = i / (kU / 8), k8 = i - n * (kU / 8);
-    *reinterpret_cast<uint4*>(whs + n * kWS + 8 * k8) =
-        *reinterpret_cast<const uint4*>(Wh + (size_t)n * kU + 8 * k8);
+  {
+    const uint4* wh_d = reinterpret_cast<const uint4*>(whF + (size_t)d * kWarps * kHT * kFrag);
+    uint4* whs4 = reinterpret_cast<uint4*>(whs);
+    for (int i = tid; i < kWarps * kHT * kFrag / 2; i += kThreads) cp_async16(whs4 + i, wh_d + i);
+    if (kWxSmem)
+      for (int i = tid; i < kWarps * kFrag / 2; i += kThreads)
+        cp_async16(reinterpret_cast<uint4*>(wxs) + i, reinterpret_cast<const uint4*>(wx_d) + i);
+    cp_async_commit();
+    uint4* xz = reinterpret_cast<uint4*>(xsm);  // both x buffers zero: padding rows and columns
+    for (int i = tid; i < 2 * R * XS / 8; i += kThreads) xz[i] = make_uint4(0u, 0u, 0u, 0u);
   }
 
-  // Thread-owned (row, unit) pairs: row 16*mt + g + 8*hf, unit ubase + 8*j + 2*tg + q,
-  // element 2*hf + q of an accumulator tile.
-  float c[kMT][2][4];
+  // x_t of the tile into buffer buf: on a wide input (F a multiple of 8) by
+  // cp.async (committed here, waited for by the caller), 16-byte piece i of
+  // the tile at row i / per, piece i % per, each thread walking its pieces
+  // kThreads apart; for F <= 16 element by element through the registers xr
+  auto issue_x = [&](int buf, int t) {
+    const int per = F / 8, dr = kThreads / per, dk = kThreads - dr * per;
+    int r = tid / per, k8 = tid - r * per;
+    for (int i = tid; i < R * per; i += kThreads) {
+      const int row = b0 + r;
+      if (row < B)
+        cp_async16(xsm + (buf * R + r) * XS + 8 * k8, xs + ((size_t)row * T + t) * F + 8 * k8);
+      r += dr;
+      k8 += dk;
+      if (k8 >= per) { k8 -= per; ++r; }
+    }
+    cp_async_commit();
+  };
+  constexpr int kXR = (MT + 1) / 2;  // x elements a thread carries: 16 * MT rows x 16 columns
+  auto load_xr = [&](bf16 (&xr)[kXR], int t) {
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+    for (int i = 0; i < kXR; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / kSmallK, k = e % kSmallK;
+      const int row = b0 + r;
+      xr[i] = (r < R && row < B && k < F) ? xs[((size_t)row * T + t) * F + k]
+                                          : __float2bfloat16_rn(0.f);
+    }
+  };
+  auto store_xr = [&](const bf16 (&xr)[kXR], int buf) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int i = 0; i < kXR; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < R * kSmallK) xsm[(buf * R + e / kSmallK) * XS + e % kSmallK] = xr[i];
+    }
+  };
+  bf16 xr[kXR];
+  __syncthreads();  // the x buffers are zero
+  if (kWxSmem) {
+    load_xr(xr, d == 0 ? 0 : T - 1);
+    store_xr(xr, 0);
+  } else {
+    issue_x(0, d == 0 ? 0 : T - 1);
+  }
+
+  // Thread-owned (row, unit) pairs: row 16*mt + g + 8*hf, unit ubase + 2*tg + q,
+  // element 2*hf + q of an accumulator tile; the h tile holds them as words
+  // 2*(w & 1) + hf of the lane's A fragment of (mt, k-tile w / 2).
+  float c[MT][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 16 * mt + g + 8 * (e >> 1), u = ubase + 8 * j + 2 * tg + (e & 1);
-        const int row = b0 + r;
+  for (int mt = 0; mt < MT; ++mt) {
+    uint32_t hw[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float hv[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int row = b0 + 16 * mt + g + 8 * hf, u = ubase + 2 * tg + q;
         const size_t s = ((size_t)d * B + row) * kU + u;
-        c[mt][j][e] = row < B ? c0[s] : 0.f;
-        hs[r * kWS + u] = __float2bfloat16_rn(row < B ? h0[s] : 0.f);
+        c[mt][2 * hf + q] = row < B ? c0[s] : 0.f;
+        hv[q] = row < B ? h0[s] : 0.f;
       }
+      hw[hf] = pack_bf16(hv[0], hv[1]);
+    }
+    reinterpret_cast<uint2*>(hs + (mt * kHT + (w >> 1)) * 32 + lane)[w & 1] = make_uint2(hw[0], hw[1]);
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the weights, x_0 and bf16(h_0) are in shared memory
 
   int cur = 0;
+  RV_PHASES_INIT;
   for (int step = 0; step < T; ++step) {
     const int t = d == 0 ? step : T - 1 - step;
-    if (F == Kx) {  // F a multiple of 16: 16-byte pieces of each row
-      const int per = F / 8;
-      for (int i = tid; i < kBR * per; i += kThreads) {
-        const int r = i / per, k8 = i - r * per;
-        const int row = b0 + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (row < B) v = *reinterpret_cast<const uint4*>(xs + ((size_t)row * T + t) * F + 8 * k8);
-        *reinterpret_cast<uint4*>(xsm + r * XS + 8 * k8) = v;
-      }
-    } else {
-      for (int i = tid; i < kBR * Kx; i += kThreads) {
-        const int r = i / Kx, k = i - r * Kx;
-        const int row = b0 + r;
-        xsm[r * XS + k] = (row < B && k < F) ? xs[((size_t)row * T + t) * F + k]
-                                             : __float2bfloat16_rn(0.f);
+    const bool more = step + 1 < T;
+    uint2 bx[2][4];  // Wx k-tiles in flight (Kx > 16: at least 2 k-tiles)
+    if (!kWxSmem) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) bx[s][gate] = __ldg(wx_w + (s * 4 + gate) * 32);
+    }
+    RV_STAMP(0);
+
+    float acc[4][MT][4];
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate) {
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(bd + gate * kU + ubase + 2 * tg));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        acc[gate][mt][0] = bv.x; acc[gate][mt][1] = bv.y;
+        acc[gate][mt][2] = bv.x; acc[gate][mt][3] = bv.y;
       }
     }
-    __syncthreads();  // x_t and bf16(h_{t-1}) are in shared memory
 
-    float acc[4][kMT][2][4];
+    const uint4* hc = hs + cur * MT * kHT * 32 + lane;
+#pragma unroll 1
+    for (int kt = 0; kt < kHT; ++kt) {
+      uint2 b[4];
 #pragma unroll
-    for (int gate = 0; gate < 4; ++gate)
+      for (int gate = 0; gate < 4; ++gate) b[gate] = wh_w[(kt * 4 + gate) * 32];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float* bp = bd + gate * kU + ubase + 8 * j + 2 * tg;
-        const float bv0 = __ldg(bp), bv1 = __ldg(bp + 1);
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 a = hc[(mt * kHT + kt) * 32];
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          acc[gate][mt][j][0] = bv0; acc[gate][mt][j][1] = bv1;
-          acc[gate][mt][j][2] = bv0; acc[gate][mt][j][3] = bv1;
+        for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, b[gate]);
+      }
+    }
+    RV_STAMP(2);
+
+    const bf16* xc = xsm + cur * R * XS;
+    if (kWxSmem) {
+      uint2 b[4];
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) b[gate] = wx_w[gate * 32];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 a = x_frag(xc, XS, mt, 0, g, tg);
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, b[gate]);
+      }
+    } else {
+#pragma unroll 1
+      for (int kt = 0; kt < KT; kt += 2) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint4 a = x_frag(xc, XS, mt, kt, g, tg);
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, bx[0][gate]);
+        }
+        if (kt + 2 < KT) {
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate)
+            bx[0][gate] = __ldg(wx_w + ((kt + 2) * 4 + gate) * 32);
+        }
+        if (kt + 1 < KT) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const uint4 a = x_frag(xc, XS, mt, kt + 1, g, tg);
+#pragma unroll
+            for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, bx[1][gate]);
+          }
+          if (kt + 3 < KT) {
+#pragma unroll
+            for (int gate = 0; gate < 4; ++gate)
+              bx[1][gate] = __ldg(wx_w + ((kt + 3) * 4 + gate) * 32);
+          }
         }
       }
-#pragma unroll 1
-    for (int kt = 0; kt < Kx / 16; ++kt)
-      mma_ktile<true>(acc, xsm + 16 * kt, XS, Wx + 16 * kt, Kx, ubase, g, tg);
-    const bf16* hc = hs + cur * kBR * kWS;
-#pragma unroll 1
-    for (int kt = 0; kt < kU / 16; ++kt)
-      mma_ktile<false>(acc, hc + 16 * kt, kWS, whs + 16 * kt, kWS, ubase, g, tg);
+    }
+    // x_{t+1} into the other buffer, for the next step: issued after the
+    // products so that its misses do not queue ahead of Wx's loads, and
+    // landed by the end of the cell
+    if (more) {
+      if (kWxSmem) load_xr(xr, d == 0 ? step + 1 : T - 2 - step);
+      else issue_x(cur ^ 1, d == 0 ? step + 1 : T - 2 - step);
+    }
+    RV_STAMP(1);
 
-    bf16* hn = hs + (cur ^ 1) * kBR * kWS;
+    uint32_t hp[MT][2];  // bf16(h) pairs, [mt][hf]
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int hf = 0; hf < 2; ++hf) {
+        float hv[2];
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          float hv[2];
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int e = 2 * hf + q;
-            const float ig = sigmoid_f(acc[0][mt][j][e]);
-            const float fg = sigmoid_f(acc[1][mt][j][e]);
-            const float gg = tanhf(acc[2][mt][j][e]);
-            const float og = sigmoid_f(acc[3][mt][j][e]);
-            c[mt][j][e] = fg * c[mt][j][e] + ig * gg;
-            hv[q] = og * tanhf(c[mt][j][e]);
-          }
-          const int r = 16 * mt + g + 8 * hf, u = ubase + 8 * j + 2 * tg;
-          const __nv_bfloat162 hb = __floats2bfloat162_rn(hv[0], hv[1]);
-          *reinterpret_cast<__nv_bfloat162*>(hn + r * kWS + u) = hb;
-          const int row = b0 + r;
+        for (int q = 0; q < 2; ++q) {
+          const int e = 2 * hf + q;
+          lstm_cell(acc[0][mt][e], acc[1][mt][e], acc[2][mt][e], acc[3][mt][e], c[mt][e], hv[q]);
+        }
+        hp[mt][hf] = pack_bf16(hv[0], hv[1]);
+        if (!more) {
+          const int row = b0 + 16 * mt + g + 8 * hf;
           if (row < B) {
-            *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)row * T + t) * (2 * kU) + d * kU + u) = hb;
-            if (step == T - 1) {
-              const size_t s = ((size_t)d * B + row) * kU + u;
-              *reinterpret_cast<float2*>(hN + s) = make_float2(hv[0], hv[1]);
-              *reinterpret_cast<float2*>(cN + s) = make_float2(c[mt][j][2 * hf], c[mt][j][2 * hf + 1]);
-            }
+            const size_t s = ((size_t)d * B + row) * kU + ubase + 2 * tg;
+            *reinterpret_cast<float2*>(hN + s) = make_float2(hv[0], hv[1]);
+            *reinterpret_cast<float2*>(cN + s) = make_float2(c[mt][2 * hf], c[mt][2 * hf + 1]);
           }
         }
-    __syncthreads();  // every read of x_t and of bf16(h_{t-1}) is done
+      }
+    RV_STAMP(3);
+
+    uint4* hn = hs + (cur ^ 1) * MT * kHT * 32 + lane;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      reinterpret_cast<uint2*>(hn + (mt * kHT + (w >> 1)) * 32)[w & 1] =
+          make_uint2(hp[mt][0], hp[mt][1]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = b0 + 16 * mt + g + 8 * hf;
+        if (row < B)
+          *reinterpret_cast<uint32_t*>(out + ((size_t)row * T + t) * (2 * kU) + d * kU + ubase +
+                                       2 * tg) = hp[mt][hf];
+      }
+    }
+    if (more) {
+      if (kWxSmem) store_xr(xr, cur ^ 1);
+      else cp_async_wait_all();
+    }
+    RV_STAMP(4);
+    __syncthreads();  // bf16(h_t) and x_{t+1} are in place; this step's reads are done
+    RV_STAMP(5);
     cur ^= 1;
+  }
+  RV_PHASES_STORE;
+}
+
+// Shared memory of one CTA of 16*mt rows for an input padded to Kx columns.
+size_t smem_bytes(int mt, bool wx_smem, int Kx) {
+  return 8 * ((size_t)kWarps * kHT * kFrag + (wx_smem ? (size_t)kWarps * kFrag : 0)) +
+         16 * (size_t)2 * mt * kHT * 32 + 2 * (size_t)2 * 16 * mt * (Kx + 8);
+}
+
+template <int MT, bool kWxSmem>
+int launch(const void* xs, int B, int T, int F, int Kx, const void* wxF, const void* whF,
+           const float* bias, const float* h0, const float* c0, void* out, float* hN, float* cN
+           RV_PHASES_ARG, cudaStream_t stream) {
+  auto kern = bilstm_bf16_kernel<MT, kWxSmem>;
+  const size_t smem = smem_bytes(MT, kWxSmem, Kx);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((B + 16 * MT - 1) / (16 * MT), 2);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(xs), B, T, F, Kx, static_cast<const uint2*>(wxF),
+      static_cast<const uint2*>(whF), bias, h0, c0, static_cast<bf16*>(out), hN, cN RV_PHASES_PASS);
+  return (int)cudaGetLastError();
+}
+
+template <bool kWxSmem>
+int launch_rows(int mt, const void* xs, int B, int T, int F, int Kx, const void* wxF,
+                const void* whF, const float* bias, const float* h0, const float* c0, void* out,
+                float* hN, float* cN RV_PHASES_ARG, cudaStream_t stream) {
+  switch (mt) {
+    case 1: return launch<1, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
+    case 2: return launch<2, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
+    case 3: return launch<3, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
+    default: return launch<4, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
   }
 }
 
 }  // namespace
 
-// Shared memory of one CTA for an input padded to Kx columns.
-static size_t bilstm_bf16_smem(int Kx) {
-  return sizeof(bf16) * ((size_t)kG * kWS + 2 * kBR * kWS + (size_t)kBR * (Kx + 8));
-}
-
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
-// xs [B, T, F] bf16; wxT [2, 4U, Kx] bf16 (Kx = F rounded up to 16, zero
-// columns past F); whT [2, 4U, U] bf16; bias [2, 4U] f32; h0, c0 [2, B, U]
-// f32; out [B, T, 2U] bf16; hN, cN [2, B, U] f32.
+// Launches on `stream`; returns a cudaError_t (0 = launched). xs [B, T, F]
+// bf16 (F <= 16, or a multiple of 8 up to 256, 16-byte aligned); Kx = F
+// rounded up to 16; wxF, whF the weights in fragment order
+// (ops/rnn_cuda.py:kernel_layout); bias [2, 4U] f32; h0, c0 [2, B, U] f32;
+// out [B, T, 2U] bf16; hN, cN [2, B, U] f32.
+#ifdef RV_BILSTM_PHASES
+extern "C" const char* rv_bilstm_phase_names() { return RV_BILSTM_PHASE_NAMES; }
+extern "C" int rv_bilstm_layer_bf16_phases(const void* xs, int B, int T, int F, int Kx,
+                                           const void* wxF, const void* whF, const float* bias,
+                                           const float* h0, const float* c0, void* out,
+                                           float* hN, float* cN, long long* stamps,
+                                           void* stream) {
+#else
 extern "C" int rv_bilstm_layer_bf16(const void* xs, int B, int T, int F, int Kx,
-                                    const void* wxT, const void* whT, const float* bias,
+                                    const void* wxF, const void* whF, const float* bias,
                                     const float* h0, const float* c0,
                                     void* out, float* hN, float* cN, void* stream) {
-  if (B <= 0 || T <= 0 || F <= 0 || Kx % 16 != 0 || Kx < F || Kx > kMaxK || (Kx != F && Kx - F >= 16))
+#endif
+  if (B <= 0 || T <= 0 || F <= 0 || F > kMaxK || Kx != (F + 15) / 16 * 16 ||
+      (F > kSmallK && F % 8 != 0))  // F <= 16, or a multiple of 8
     return (int)cudaErrorInvalidValue;
-  const size_t smem = bilstm_bf16_smem(Kx);
-  cudaError_t e = cudaFuncSetAttribute(bilstm_bf16_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((B + kBR - 1) / kBR, 2);
-  bilstm_bf16_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(xs), B, T, F, Kx, static_cast<const bf16*>(wxT),
-      static_cast<const bf16*>(whT), bias, h0, c0, static_cast<bf16*>(out), hN, cN);
-  return (int)cudaGetLastError();
+  int mt = 1;  // the fewest rows a CTA with which both directions' CTAs fit the SMs at once
+  while (mt < 4 && 2 * ((B + 16 * mt - 1) / (16 * mt)) > sms) ++mt;
+  if (Kx <= kSmallK)
+    return launch_rows<true>(mt, xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN
+                             RV_PHASES_PASS, (cudaStream_t)stream);
+  return launch_rows<false>(mt, xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN
+                            RV_PHASES_PASS, (cudaStream_t)stream);
 }

@@ -36,7 +36,7 @@ from ravvent_tpu_torch.config import MAX_TARGET_LEN, ModelConfig
 from ravvent_tpu_torch.decode.beam import beam_scores_to_step_probs
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import check_config, encode_input
-from ravvent_tpu_torch.models.rnn import stream_weights
+from ravvent_tpu_torch.models.rnn import kernel_weights, stream_weights
 from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
 from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
@@ -206,9 +206,11 @@ class BasecallEngine:
         self.encoder_dtype = encoder_dtype
         self.transport_dtype = transport_dtype
         self.prob_bits = prob_bits
-        # the encoders' weights in the stream dtype, cast once
-        self._enc_weights = {k: stream_weights(self.params[k], encoder_dtype or torch.float32)
-                             for k in ("encoder_raw", "encoder_event")}
+        # the encoders' weights in the stream dtype, cast once, and on a bf16
+        # stream in the kernel's layout, laid out once
+        self._enc_weights = {
+            k: kernel_weights(stream_weights(self.params[k], encoder_dtype or torch.float32))
+            for k in ("encoder_raw", "encoder_event")}
 
     # ------------------------------------------------------------------ model
 

@@ -44,8 +44,8 @@ def encode_input(params: Params, raw: torch.Tensor, event: torch.Tensor,
     """Returns (enc_output [B, S, enc_out_dim], input_mask [B, S]). The
     encoders run on the inputs' dtype (f32, or the bf16 stream); the caller
     casts raw and event first, so the masks come from the cast inputs.
-    ``weights``: per encoder key, its layers' ``stream_weights`` in that
-    dtype (made here when None)."""
+    ``weights``: per encoder key, its layers' ``stream_weights`` (or
+    ``kernel_weights``) in that dtype (made here when None)."""
     weights = weights or {}
 
     def enc(key, xs):

@@ -19,7 +19,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ravvent_tpu_torch.ops.rnn_cuda import bilstm_layer, bilstm_layer_plain
+from ravvent_tpu_torch.ops.rnn_cuda import (
+    UNITS, bilstm_layer, bilstm_layer_plain, kernel_layout,
+)
 
 Params = Dict[str, Any]
 
@@ -104,6 +106,17 @@ def stream_weights(layers: List[Params], dtype=torch.float32) -> List[Tuple[torc
     return [(wx.to(dtype), wh.to(dtype), b) for wx, wh, b in map(stacked_weights, layers)]
 
 
+def kernel_weights(weights: List[Tuple[torch.Tensor, ...]]) -> List[Tuple[Any, ...]]:
+    """:func:`stream_weights` with, for a bf16 stream, each layer's weights in
+    the bf16 kernel's layout (ops/rnn_cuda.py:kernel_layout) as a fourth
+    item, made once so that no layer call re-lays them out. An f32 stream's
+    layers, and layers of other widths than the kernel's (which it does not
+    take), stay as they are."""
+    return [(wx, wh, b, kernel_layout(wx, wh))
+            if wx.dtype == torch.bfloat16 and wh.shape[1] == UNITS else (wx, wh, b)
+            for wx, wh, b in weights]
+
+
 def _zero_state(xs: torch.Tensor, units: int):
     z = torch.zeros(2, xs.shape[0], units, device=xs.device, dtype=torch.float32)
     return z, z.clone()
@@ -126,14 +139,15 @@ def encoder_apply(layers: List[Params], xs: torch.Tensor,
     takes and returns that dtype, with f32 state. Every layer of a CUDA
     tensor runs the BiLSTM kernel (ops/rnn_cuda.py); a CPU tensor runs its
     plain version. ``weights``: :func:`stream_weights` of ``layers`` in the
-    stream dtype, made once by the caller; made here when None.
+    stream dtype, or :func:`kernel_weights` of them, made once by the
+    caller; made here when None.
     Returns (outputs [B, T, 2U], final (h, c) of the last layer)."""
     out = xs.contiguous()
     if weights is None:
         weights = stream_weights(layers, xs.dtype)
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-    for wx, wh, b in weights:
+    for wx, wh, b, *layout in weights:
         h0, c0 = state if state is not None else _zero_state(out, wh.shape[1])
-        out, h, c = bilstm_layer(out, wx, wh, b, h0.contiguous(), c0.contiguous())
+        out, h, c = bilstm_layer(out, wx, wh, b, h0.contiguous(), c0.contiguous(), *layout)
         state = (h, c)
     return out, state

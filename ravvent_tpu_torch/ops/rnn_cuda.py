@@ -13,11 +13,14 @@ Layouts (batch-major, as the model passes them):
   stream dtype, b [2, 4U] f32 (forward, backward); h0, c0 [2, B, U] f32.
   Returns (out [B, T, 2U] in the stream dtype, time-aligned — forward units
   first —, h [2, B, U] f32, c [2, B, U] f32).
+  The bf16 kernel reads its weights in mma-fragment order
+  (:func:`kernel_layout`), which the engine makes once and passes as
+  ``layout``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,9 +57,57 @@ def bilstm_layer_plain(xs, wx, wh, b, h0, c0) -> Tuple[torch.Tensor, torch.Tenso
     return out, h, c
 
 
-def bilstm_layer(xs, wx, wh, b, h0, c0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+class KernelLayout(NamedTuple):
+    """A bf16 layer's weights as ``csrc/bilstm_bf16.cu`` reads them
+    (:func:`kernel_layout`): ``kx`` is F rounded up to 16; ``wx`` and ``wh``
+    are bf16 [2, 16 warps, k-tiles, 4 gates, 32 lanes, 4] in mma-fragment
+    order."""
+    kx: int
+    wx: torch.Tensor
+    wh: torch.Tensor
+
+
+def _fragments(w: torch.Tensor) -> torch.Tensor:
+    """[2, K, 4U] (K a multiple of 16) as mma.m16n8k16 B fragments: for warp
+    w (units [8w, 8w + 8)), k-tile kt, gate and lane (g = lane // 4,
+    tg = lane % 4), 4 bf16 = registers b0, b1; register r holds rows
+    k = 16 kt + 2 tg + 8 r + e (e = 0, 1) of column n = gate * U + 8 w + g."""
+    kt_n = w.shape[1] // 16
+    ar = lambda n, dim: torch.arange(n, device=w.device).view([n if i == dim else 1 for i in range(6)])
+    warp, kt, gate, lane, r, e = (ar(n, i) for i, n in enumerate((16, kt_n, 4, 32, 2, 2)))
+    k = 16 * kt + 2 * (lane % 4) + 8 * r + e
+    n = gate * UNITS + 8 * warp + lane // 4
+    return w[:, k, n].reshape(2, 16, kt_n, 4, 32, 4).contiguous()
+
+
+def kernel_layout(wx: torch.Tensor, wh: torch.Tensor) -> KernelLayout:
+    """The bf16 kernel's layout of plain ``wx`` [2, F, 4U] and ``wh``
+    [2, U, 4U], Wx zero-padded to a multiple of 16 rows. Made once per
+    engine (models/rnn.py:kernel_weights); the wrapper makes it on each call
+    when it is not given."""
+    F, U = wx.shape[1], wh.shape[1]
+    if U != UNITS:
+        raise ValueError(f"bilstm_bf16 kernel is compiled for {UNITS} units, got {U}")
+    kx = -(-F // 16) * 16
+    return KernelLayout(kx, _fragments(torch.nn.functional.pad(wx, (0, 0, 0, kx - F))),
+                        _fragments(wh))
+
+
+def launch_bf16(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> int:
+    """Call the bf16 kernel's C entry ``entry`` on PyTorch's current stream;
+    ``extra`` pointers go before the stream (the timing build's stamps)."""
+    B, T, F = xs.shape
+    return entry(xs.data_ptr(), B, T, F, layout.kx, layout.wx.data_ptr(), layout.wh.data_ptr(),
+                 b.data_ptr(), h0.data_ptr(), c0.data_ptr(), out.data_ptr(), hN.data_ptr(),
+                 cN.data_ptr(), *extra, torch.cuda.current_stream(xs.device).cuda_stream)
+
+
+def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One BiLSTM layer: the CUDA kernel of the stream dtype for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors. ``layout``: :func:`kernel_layout` of
+    a bf16 layer's ``wx`` and ``wh``, made once by the caller; made here when
+    None."""
     if not xs.is_cuda:
         return bilstm_layer_plain(xs, wx, wh, b, h0, c0)
     B, T, F = xs.shape
@@ -81,15 +132,20 @@ def bilstm_layer(xs, wx, wh, b, h0, c0) -> Tuple[torch.Tensor, torch.Tensor, tor
         )
         name = "bilstm"
     else:
-        # the kernel reads the weights gate-column-major (an mma B fragment
-        # is then one 32-bit load), Wx zero-padded to a multiple of 16 rows
-        Kx = -(-F // 16) * 16
-        wxT = torch.nn.functional.pad(wx.transpose(1, 2), (0, Kx - F)).contiguous()
-        whT = wh.transpose(1, 2).contiguous()
-        rc = cuda_lib.lib().rv_bilstm_layer_bf16(
-            xs.data_ptr(), B, T, F, Kx, wxT.data_ptr(), whT.data_ptr(), b.data_ptr(),
-            h0.data_ptr(), c0.data_ptr(), out.data_ptr(), hN.data_ptr(), cN.data_ptr(), stream,
-        )
+        if F > 16 and F % 8:
+            raise ValueError(f"bilstm_bf16: the kernel takes F <= 16 or a multiple of 8, got {F}")
+        if F > 16 and xs.data_ptr() % 16:  # x rows are copied 16 bytes at a time
+            raise ValueError("bilstm_bf16: xs must be 16-byte aligned")
+        if layout is None:
+            layout = kernel_layout(wx, wh)
+        kx = -(-F // 16) * 16
+        if layout.kx != kx:
+            raise ValueError(f"bilstm_bf16: the layout was made for kx {layout.kx}, F = {F} needs {kx}")
+        cuda_lib.check_tensors("bilstm_bf16", xs.device, [
+            ("layout.wx", layout.wx, dt, (2, 16, kx // 16, 4, 32, 4)),
+            ("layout.wh", layout.wh, dt, (2, 16, 8, 4, 32, 4)),
+        ])
+        rc = launch_bf16(cuda_lib.lib().rv_bilstm_layer_bf16, xs, layout, b, h0, c0, out, hN, cN)
         name = "bilstm_bf16"
     cuda_lib.check(rc, name)
     cuda_lib.launches[name] += 1

@@ -1,10 +1,12 @@
 // CPU emulation of the CUDA subset that the port's plain-C kernels use, for
 // rehearsing a kernel's logic against its plain version without a card
 // (ravvent_tpu_torch/tools/cuda_emu.py translates a csrc/ source against
-// this header). One CTA at a time, one std::thread per CUDA thread;
-// __syncthreads and the warp exchanges are barriers; shared memory starts
-// as NaNs, so that a read of what no thread wrote shows; the card has 2 SMs
-// that hold 2 CTAs each.
+// this header). One CTA at a time (1-D or 2-D grids), one std::thread per
+// CUDA thread; __syncthreads and the warp exchanges are barriers; shared
+// memory starts as NaNs, so that a read of what no thread wrote shows; the
+// card has 2 SMs that hold 2 CTAs each. mma.sync.m16n8k16 on bf16 with an
+// f32 accumulator runs through the same warp exchange as __shfl_sync, its
+// products summed in f32 in k order.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -24,11 +26,16 @@ using std::min; using std::max;
 #define __shared__ static  // one CTA at a time: a static is the CTA's
 #define __align__(n)
 #define __restrict__
-struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct dim3 {
+  unsigned x, y, z;
+  constexpr dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
 struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
@@ -44,6 +51,9 @@ inline __nv_bfloat16 __float2bfloat16_rn(float x) {
   return {(unsigned short)(u >> 16)};
 }
 inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float((unsigned)b.v << 16); }
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
+  return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
+}
 inline float __low2float(__nv_bfloat162 p) { return __bfloat162float(p.a); }
 inline float __high2float(__nv_bfloat162 p) { return __bfloat162float(p.b); }
 typedef void* cudaStream_t;
@@ -76,6 +86,8 @@ inline int __dp4a(int a, int b, int c) {
   return c;
 }
 inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
+inline float __expf(float x) { return std::exp(x); }
+inline float __fdividef(float a, float b) { return a / b; }
 
 // ---- the CTA's barriers and warp exchange
 struct Cta {
@@ -83,6 +95,7 @@ struct Cta {
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<uint64_t> slots;  // a warp exchange's values, one a thread
   std::vector<float> smem;      // the dynamic shared buffer
+  std::vector<unsigned> mma[2]; // an mma's fragments, 6 words a thread, two calls in turn
 };
 inline Cta* g_cta = nullptr;
 inline void __syncthreads() { g_cta->block->arrive_and_wait(); }
@@ -106,21 +119,62 @@ inline int __reduce_add_sync(unsigned, int v) {
 }
 inline float* emu_smem() { return g_cta->smem.data(); }
 
-template <class K, class... A>
-void emu_launch(K kernel, int grid, int threads, size_t smem, cudaStream_t, A... args) {
-  gridDim.x = grid; blockDim.x = threads;
-  for (int b = 0; b < grid; ++b) {
-    Cta cta;
-    cta.block = std::make_unique<std::barrier<>>(threads);
-    for (int w = 0; w < (threads + 31) / 32; ++w)
-      cta.warps.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
-    cta.slots.assign(threads, 0);
-    cta.smem.assign(smem / 4 + 64, __uint_as_float(0x7fc00001u));  // NaNs
-    g_cta = &cta;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, t] { threadIdx.x = t; blockIdx.x = b; kernel(args...); });
-    for (auto& t : ts) t.join();
-    g_cta = nullptr;
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {d0..d3}, {a0..a3},
+// {b0, b1}, {d0..d3}: lane (g, tg) holds A rows g, g + 8 and columns
+// 2tg + {0, 1} (+8 in a2, a3), B column g and rows 2tg + {0, 1} (+8 in b1),
+// D rows g, g + 8 and columns 2tg + {0, 1}. Fragments alternate between two
+// buffers, so one warp barrier a call orders each write after the reads of
+// two calls back.
+inline thread_local unsigned emu_mma_turn = 0;
+inline void emu_mma_m16n8k16_bf16(float& d0, float& d1, float& d2, float& d3, unsigned a0,
+                                  unsigned a1, unsigned a2, unsigned a3, unsigned b0,
+                                  unsigned b1) {
+  const int lane = threadIdx.x & 31;
+  const unsigned* warp = g_cta->mma[emu_mma_turn].data() + 6 * (threadIdx.x - lane);
+  unsigned* mine = g_cta->mma[emu_mma_turn].data() + 6 * threadIdx.x;
+  mine[0] = a0; mine[1] = a1; mine[2] = a2; mine[3] = a3; mine[4] = b0; mine[5] = b1;
+  __syncwarp();
+  auto half = [](unsigned v, int k) { return __uint_as_float((k & 1 ? v >> 16 : v & 0xffffu) << 16); };
+  const int g = lane >> 2, tg = lane & 3;
+  float* d[4] = {&d0, &d1, &d2, &d3};
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * tg + (i & 1);
+    float s = *d[i];
+    for (int k = 0; k < 16; ++k) {
+      const float a = half(warp[6 * ((row & 7) * 4 + (k & 7) / 2) + (row >> 3) + 2 * (k >> 3)], k);
+      const float b = half(warp[6 * (col * 4 + (k & 7) / 2) + 4 + (k >> 3)], k);
+      s += a * b;
+    }
+    *d[i] = s;
   }
+  emu_mma_turn ^= 1;
+}
+
+template <class K, class... A>
+void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t, A... args) {
+  gridDim = grid; blockDim.x = threads;
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      Cta cta;
+      cta.block = std::make_unique<std::barrier<>>(threads);
+      for (int w = 0; w < (threads + 31) / 32; ++w)
+        cta.warps.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
+      cta.slots.assign(threads, 0);
+      cta.mma[0].assign(6 * threads, 0u);
+      cta.mma[1].assign(6 * threads, 0u);
+      cta.smem.assign(smem / 4 + 64, __uint_as_float(0x7fc00001u));  // NaNs
+      g_cta = &cta;
+      std::vector<std::thread> ts;
+      for (int t = 0; t < threads; ++t)
+        ts.emplace_back([&, t] {
+          threadIdx.x = t; blockIdx.x = bx; blockIdx.y = by; emu_mma_turn = 0;
+          kernel(args...);
+        });
+      for (auto& t : ts) t.join();
+      g_cta = nullptr;
+    }
+}
+template <class K, class... A>
+void emu_launch(K kernel, int grid, int threads, size_t smem, cudaStream_t stream, A... args) {
+  emu_launch(kernel, dim3(grid), threads, smem, stream, args...);
 }

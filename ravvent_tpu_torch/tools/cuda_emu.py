@@ -6,11 +6,13 @@ gitignored ``ravvent_tpu_torch/build/emu/``, and loaded with ctypes. The
 library has the source's C entry points, bound as ``ops/cuda_lib.py`` binds
 them, and takes host pointers (CPU tensors' ``data_ptr()``; the stream is
 ignored). Each CTA runs as one thread per CUDA thread, one CTA at a time;
-``cp.async`` copies at once. So the emulation shows a kernel's indexing,
-shared-memory layout and control flow against its plain version, on a
-machine with no card and no nvcc. It says nothing of speed or of races
-between asynchronous copies, and it knows no inline PTX but ``cp.async``
-(no ``mma``).
+``cp.async`` copies at once; ``mma.sync.m16n8k16`` on bf16 (f32
+accumulator) exchanges the warp's fragments as ``__shfl_sync`` does. So the
+emulation shows a kernel's indexing, shared-memory and fragment layouts
+and control flow against its plain version, on a machine with no card and
+no nvcc. It says nothing of speed or of races between asynchronous copies,
+and it knows no other inline PTX (no ``ldmatrix``, ``wgmma``, TMA or
+clusters).
 
 Usage::
 
@@ -35,16 +37,29 @@ BUILD = cuda_lib.BUILD / "emu"
 # csrc/'s cp.async helpers: "cp.async.c{a,g}.shared.global [dst], [src], bytes"
 _CP_ASYNC = (r'asm volatile\("cp\.async\.c[ag]\.shared\.global \[%0\], \[%1\], (\d+);\\n"'
              r' ::"r"\(s\), "l"\(src\)\);')
+# the bf16 tensor-core tile: asm volatile("mma.sync...f32 {...};\n" : outputs : inputs);
+_MMA = re.compile(r'asm volatile\("mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16\.bf16\.f32 '
+                  r'[^"]*"\s*:(.*?);', re.S)
+
+
+def _mma_call(m: re.Match) -> str:
+    """The emulation's call for one mma asm statement: its ten operands
+    (four accumulators, four A words, two B words) in order."""
+    ops = re.findall(r'"[+=]?[frl]"\(([^()]*)\)', m.group(1))
+    if len(ops) != 10:
+        raise ValueError(f"cuda_emu: cannot read the mma operands of {m.group(0)!r}")
+    return f"emu_mma_m16n8k16_bf16({', '.join(ops)});"
 
 
 def translate(text: str) -> str:
     """A CUDA source as C++ for the emulation: no CUDA headers, cp.async as a
-    copy, other inline PTX dropped, ``k<<<grid, threads, smem, stream>>>(...)``
+    copy, mma as the emulation's call, other inline PTX dropped, ``k<<<grid, threads, smem, stream>>>(...)``
     as ``emu_launch(k, grid, threads, smem, stream, ...)``, the dynamic
     shared buffer from the emulated CTA."""
     text = text.replace("#include <cuda_bf16.h>", "").replace("#include <cuda_runtime.h>", "")
     text = text.replace('#include "common.cuh"', '#include "common_emu.cuh"')
     text = re.sub(_CP_ASYNC, r"memcpy(dst, src, \1); (void)s;", text)
+    text = _MMA.sub(_mma_call, text)
     text = re.sub(r'asm volatile\(".*?"[^;\n]*\);', ";", text)
     text = text.replace("(unsigned)__cvta_generic_to_shared(dst)", "0u")
     text = re.sub(r"([\w:]+(?:<[^<>()]*>)?)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", text,

@@ -1,8 +1,10 @@
-"""The beam step's CUDA kernels (csrc/beam_step_f.cu), run on the CPU by the
-emulation of tools/cuda_emu.py, against their plain versions.
+"""The beam step's CUDA kernels (csrc/beam_step_f.cu) and the bf16
+BiLSTM-layer kernel (csrc/bilstm_bf16.cu), run on the CPU by the emulation
+of tools/cuda_emu.py, against their plain versions.
 
 The emulation runs the kernels' own code (indexing, shared-memory layout,
-the persistent grid's row walk, the warp shuffles) one CTA at a time on
+the persistent grid's row walk, the warp shuffles, the mma fragments) one
+CTA at a time on
 host threads, so these tests hold the CUDA source's logic on a machine
 without a card. The card's arithmetic (its expf, its FMA contraction) is
 not the host's, so the card-only tests in test_torch_gpu.py stay the
@@ -16,7 +18,9 @@ import pytest
 import torch
 
 from ravvent_tpu_torch.models import attention as tattn
+from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
 from ravvent_tpu_torch.ops import beam_step_cuda as tstep
+from ravvent_tpu_torch.ops import rnn_cuda
 
 torch.set_num_threads(1)
 U, V = 128, 7
@@ -29,6 +33,15 @@ def emu():
     from ravvent_tpu_torch.tools import cuda_emu
 
     return cuda_emu.load("beam_step_f.cu")
+
+
+@pytest.fixture(scope="module")
+def emu_bilstm():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the emulation")
+    from ravvent_tpu_torch.tools import cuda_emu
+
+    return cuda_emu.load("bilstm_bf16.cu")
 
 
 def decoder_weights(rng) -> tstep.DecoderWeights:
@@ -131,3 +144,46 @@ def test_emulated_beam_attend_matches_plain(emu, mode, B, W, S):
     assert torch.equal(got.h, ref.h) and torch.equal(got.c, ref.c)
     torch.testing.assert_close(got.att, ref.att, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.cum, ref.cum, rtol=0, atol=1e-5)
+
+
+# (F, T, B, seeded state): the emulated card has 2 SMs, so B picks 16, 32, 48
+# or 64 rows a CTA (13, 20, 37, then 70 in two tiles), none a multiple of it
+BILSTM_CASES = [(1, 7, 13, False), (1, 3, 70, True), (5, 3, 37, True), (5, 7, 20, False),
+                (256, 3, 37, True), (256, 7, 20, False), (256, 3, 70, False)]
+
+
+@pytest.mark.parametrize("F,T,B,seeded", BILSTM_CASES,
+                         ids=[f"F{c[0]}-T{c[1]}-B{c[2]}-{'seeded' if c[3] else 'zero'}"
+                              for c in BILSTM_CASES])
+def test_emulated_bilstm_bf16_matches_plain(emu_bilstm, F, T, B, seeded):
+    """rv_bilstm_layer_bf16 on the weights in kernel_layout's fragment order
+    against bilstm_layer_plain, at chip_smoke.py phase 9's bars: bf16 outputs
+    within 1e-2 (two bf16 ulps at |h| <= 1), f32 final states within 1e-3.
+    Every output is written (the outputs start as NaN)."""
+    U = 128
+    gen = torch.Generator().manual_seed(10 * F + T)
+    wx, wh, b = stream_weights(init_encoder(gen, U, 1, F), torch.bfloat16)[0]
+    xs = torch.randn(B, T, F, generator=gen).to(torch.bfloat16)
+    h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)) if seeded else torch.zeros(2, B, U)
+              for _ in range(2))
+    lay = rnn_cuda.kernel_layout(wx, wh)
+    out = torch.full((B, T, 2 * U), float("nan"), dtype=torch.bfloat16)
+    hN, cN = torch.full((2, B, U), float("nan")), torch.full((2, B, U), float("nan"))
+    rc = emu_bilstm.rv_bilstm_layer_bf16(
+        xs.data_ptr(), B, T, F, lay.kx, lay.wx.data_ptr(), lay.wh.data_ptr(), b.data_ptr(),
+        h0.data_ptr(), c0.data_ptr(), out.data_ptr(), hN.data_ptr(), cN.data_ptr(), None)
+    assert rc == 0
+    ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)
+    assert (out.float() - ref[0].float()).abs().max().item() <= 1e-2
+    assert (hN - ref[1]).abs().max().item() <= 1e-3
+    assert (cN - ref[2]).abs().max().item() <= 1e-3
+
+
+def test_emulated_bilstm_bf16_refuses_what_it_does_not_take(emu_bilstm):
+    """The C entry returns cudaErrorInvalidValue (1 in the emulation) for a
+    Kx that is not F rounded up to 16, and for F > 32 not a multiple of 8."""
+    z = torch.zeros(1)
+    args = (z.data_ptr(),) * 8
+    assert emu_bilstm.rv_bilstm_layer_bf16(z.data_ptr(), 4, 3, 5, 32, *args, None) == 1
+    assert emu_bilstm.rv_bilstm_layer_bf16(z.data_ptr(), 4, 3, 36, 48, *args, None) == 1
+    assert emu_bilstm.rv_bilstm_layer_bf16(z.data_ptr(), 4, 3, 300, 304, *args, None) == 1

@@ -52,11 +52,14 @@ def test_bilstm_kernel_matches_plain(cuda, F, T, seeded):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("B", [37, 130], ids=["one ragged tile", "three tiles"])
+@pytest.mark.parametrize("B", [37, 130, 2858], ids=["one ragged tile", "three tiles", "2858 rows"])
 @pytest.mark.parametrize("F,T,seeded", [(1, 200, False), (5, 30, False), (256, 40, True)])
 def test_bilstm_bf16_kernel_matches_plain(cuda, F, T, seeded, B):
     """The bf16 stream: outputs within two bf16 ulps, f32 final states 1e-3
-    (chip_smoke.py phase 9's bars)."""
+    (chip_smoke.py phase 9's bars). 37, 130 and 2858 rows run 3, 9 and 60
+    tiles of 16, 16 and 48 rows (the ids name the 64-row tiles of an earlier design), the
+    last one ragged. The weights laid out once (kernel_layout, as the
+    engine passes them) give the same bits."""
     gen = torch.Generator().manual_seed(100 + F)
     U = 128
     wx, wh, b = stream_weights([init_encoder(gen, U, 1, F, cuda)[0]], torch.bfloat16)[0]
@@ -71,6 +74,31 @@ def test_bilstm_bf16_kernel_matches_plain(cuda, F, T, seeded, B):
     assert (out.float() - ref[0].float()).abs().max().item() <= 1e-2
     for g, r in zip((h, c), ref[1:]):
         assert (g - r).abs().max().item() <= 1e-3
+    again = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, rnn_cuda.kernel_layout(wx, wh))
+    for g, r in zip(again, (out, h, c)):
+        assert torch.equal(g, r)
+
+
+def test_bilstm_bf16_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """F past 16 that is not a multiple of 8, and a layout made for another F,
+    raise before any launch."""
+    B, T, U = 2, 3, 128
+    z = torch.zeros(2, B, U, device=cuda)
+    b = torch.zeros(2, 4 * U, device=cuda)
+    wh = torch.zeros(2, U, 4 * U, device=cuda, dtype=torch.bfloat16)
+
+    def wx(F):
+        return torch.zeros(2, F, 4 * U, device=cuda, dtype=torch.bfloat16)
+
+    def xs(F):
+        return torch.zeros(B, T, F, device=cuda, dtype=torch.bfloat16)
+
+    before = cuda_lib.launches["bilstm_bf16"]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rnn_cuda.bilstm_layer(xs(20), wx(20), wh, b, z, z)
+    with pytest.raises(ValueError, match="layout"):
+        rnn_cuda.bilstm_layer(xs(5), wx(5), wh, b, z, z, rnn_cuda.kernel_layout(wx(256), wh))
+    assert cuda_lib.launches["bilstm_bf16"] == before
 
 
 def test_bilstm_bf16_wrapper_rejects_mixed_dtypes(cuda):

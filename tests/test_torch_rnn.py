@@ -159,3 +159,53 @@ def test_bf16_wrapper_uses_plain_version_on_cpu():
     ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, z, z)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def test_engine_encoder_unchanged_with_kernel_layout():
+    """The engine lays its bf16 encoders' weights out for the kernel once
+    (models/rnn.py:kernel_weights); on the CPU the wrapper takes the layout
+    and runs the plain version, so the encoder's output is the same, bit for
+    bit, as with the plain weights."""
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.models.basecaller import encode_input, init_basecaller
+
+    cfg = ModelConfig()
+    params = init_basecaller(cfg, torch.Generator().manual_seed(3))
+    engine = BasecallEngine(params, cfg, device="cpu", encoder_dtype=torch.bfloat16)
+    for key in ("encoder_raw", "encoder_event"):
+        layers = engine._enc_weights[key]
+        assert all(isinstance(layer[3], rnn_cuda.KernelLayout) for layer in layers)
+        assert [layer[3].kx for layer in layers] == [16, 256]
+    rng = np.random.default_rng(5)
+    raw = torch.from_numpy(rng.normal(size=(6, 200, 1)).astype(np.float32)).to(torch.bfloat16)
+    event = torch.from_numpy(rng.normal(size=(6, 30, 5)).astype(np.float32)).to(torch.bfloat16)
+    plain = {k: trnn.stream_weights(params[k], torch.bfloat16)
+             for k in ("encoder_raw", "encoder_event")}
+    got, mask = encode_input(params, raw, event, cfg, engine._enc_weights)
+    ref, ref_mask = encode_input(params, raw, event, cfg, plain)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, ref) and torch.equal(mask, ref_mask)
+
+
+@pytest.mark.parametrize("F", [1, 5, 256])
+def test_kernel_layout_holds_each_weight_once_in_fragment_order(F):
+    """kernel_layout's Wx and Wh fragments: each plain weight appears once,
+    at the (warp, k-tile, gate, lane, tile, register, half) the mma.m16n8k16
+    B fragment reads it from; Wx's rows past F are zero."""
+    U = 128
+    gen = torch.Generator().manual_seed(F)
+    wx = torch.randn(2, F, 4 * U, generator=gen).to(torch.bfloat16)
+    wh = torch.randn(2, U, 4 * U, generator=gen).to(torch.bfloat16)
+    lay = rnn_cuda.kernel_layout(wx, wh)
+    kx = -(-F // 16) * 16
+    assert lay.kx == kx and lay.wx.shape == (2, 16, kx // 16, 4, 32, 4)
+    for plain, frag, K in ((wx, lay.wx, F), (wh, lay.wh, U)):
+        f = frag.reshape(2, 16, -1, 4, 8, 4, 2, 2)  # [.., g, tg, r, e]
+        for warp, kt, gate, g, tg, r, e in [(0, 0, 0, 0, 0, 0, 0), (3, 0, 2, 5, 1, 0, 1),
+                                            (15, 0, 3, 7, 3, 1, 1)]:
+            k, n = 16 * kt + 2 * tg + 8 * r + e, gate * U + 8 * warp + g
+            want = plain[:, k, n] if k < K else torch.zeros(2, dtype=torch.bfloat16)
+            assert torch.equal(f[:, warp, kt, gate, g, tg, r, e], want)
+        padded = torch.nn.functional.pad(plain, (0, 0, 0, -(-K // 16) * 16 - K))
+        assert torch.equal(torch.sort(frag.float().reshape(2, -1)).values,
+                           torch.sort(padded.float().reshape(2, -1)).values)
