@@ -14,8 +14,9 @@ holds each hand-written kernel against its plain PyTorch version on the card:
   0. device: the card, torch, CUDA and nvcc versions; TF32 off;
   1. build: nvcc builds the kernels from csrc/ (registers and shared memory
      per kernel from -Xptxas -v);
-  2. the BiLSTM-layer kernel against its plain version at B=4096 for the four
-     layer shapes of one chunk, timed beside torch.nn.LSTM;
+  2. the f32-stream BiLSTM kernel against its plain version at B=4096 and
+     at B=2858 (the first read's rows) for the four layer shapes of one
+     chunk, timed beside torch.nn.LSTM in f32;
   3. the bf16/f32 beam step, two kernels (beam_cell, then beam_attend),
      against its plain version at B=4096, S=232, U=128, W=5: bf16 memory
      over 40 steps, each kernel also against its own plain version on the
@@ -146,67 +147,18 @@ def phase_build() -> None:
     cuda_lib.lib()
 
 
-def bilstm_bounds(B: int, T: int, F: int, U: int) -> tuple:
+def bilstm_bounds(B: int, T: int, F: int, U: int, dtype) -> tuple:
+    """(ms, what bounds it) of one BiLSTM layer on a stream of ``dtype``:
+    f32 products on the FMA pipe, bf16 ones on the tensor cores."""
     flops = 2 * B * T * 2 * (F + U) * 4 * U  # both directions, x.Wx + h.Wh
-    nbytes = 4 * (B * T * F + 2 * (F + U + 1) * 4 * U + 4 * 2 * B * U + B * T * 2 * U)
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
-
-
-def phase_bilstm() -> dict:
-    from ravvent_tpu_torch.models.rnn import init_encoder, stacked_weights
-    from ravvent_tpu_torch.ops.rnn_cuda import bilstm_layer, bilstm_layer_plain
-
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED)
-    B, U = 4096, 128
-    tol = 1e-4  # f32 with another summation order over up to 200 steps
-    # the four layer calls of one chunk: raw layers 0 and 1, event layers 0 and 1
-    shapes = [(1, 200, False), (256, 200, True), (5, 30, False), (256, 30, True)]
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
-    bound_by = set()
-    for F, T, seeded in shapes:
-        layer = init_encoder(gen, U, 1, F, dev)[0]
-        wx, wh, b = stacked_weights(layer)
-        xs = torch.randn(B, T, F, generator=gen).to(dev)
-        h0 = (0.5 * torch.randn(2, B, U, generator=gen) if seeded else torch.zeros(2, B, U)).to(dev)
-        c0 = (0.5 * torch.randn(2, B, U, generator=gen) if seeded else torch.zeros(2, B, U)).to(dev)
-        got = bilstm_layer(xs, wx, wh, b, h0, c0)
-        ref = bilstm_layer_plain(xs, wx, wh, b, h0, c0)
-        torch.cuda.synchronize()
-        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
-        rel = max(((g - r).abs() / r.abs().clamp(min=1.0)).max().item() for g, r in zip(got, ref))
-
-        ms = time_ms(lambda: bilstm_layer(xs, wx, wh, b, h0, c0), reps=5)
-        plain_ms = time_ms(lambda: bilstm_layer_plain(xs, wx, wh, b, h0, c0), reps=2)
-        lib_ms, lib_out = cudnn_lstm_ms(F, U, torch.float32, wx, wh, b, xs, h0, c0, reps=5)
-        lib_err = (lib_out - ref[0]).abs().max().item()
-        bound, by = bilstm_bounds(B, T, F, U)
-        bound_by.add(by)
-        print(f"  bilstm B={B} T={T} F={F}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-              f"(tol {tol:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"torch.nn.LSTM {lib_ms:.3f} ms (its err vs plain {lib_err:.3e}), "
-              f"bound {bound:.3f} ms ({by})")
-        require(err <= tol and rel <= tol, f"bilstm F={F} T={T}: error {err:.3e} > {tol}")
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["library_ms"] += lib_ms
-        tot["bound_ms"] += bound
-        tot["err"] = max(tot["err"], err)
-    print(f"  bilstm, one chunk's four layers: kernel {tot['ms']:.3f} ms, "
-          f"bound {tot['bound_ms']:.3f} ms")
-    return {"name": "bilstm", "route": "cuda", "source": "ravvent_tpu_torch/csrc/bilstm.cu",
-            "replaces": "ravvent_tpu/ops/rnn_pallas.py:33", "max_abs_err": tot["err"],
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": "operations" if "operations" in bound_by else "bytes",
-            "library_ms": tot["library_ms"]}
-
-
-def bilstm_bf16_bounds(B: int, T: int, F: int, U: int) -> tuple:
-    flops = 2 * B * T * 2 * (F + U) * 4 * U  # both directions, x.Wx + bf16(h).Wh
-    nbytes = (2 * (B * T * F + 2 * (F + U) * 4 * U + B * T * 2 * U)  # bf16 x, weights, out
-              + 4 * (2 * 4 * U + 4 * 2 * B * U))  # f32 bias, h0, c0, hN, cN
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    if dtype == torch.float32:
+        nbytes = 4 * (B * T * F + 2 * (F + U + 1) * 4 * U + 4 * 2 * B * U + B * T * 2 * U)
+        t_ops = flops / H100_F32_FLOPS
+    else:
+        nbytes = (2 * (B * T * F + 2 * (F + U) * 4 * U + B * T * 2 * U)  # bf16 x, weights, out
+                  + 4 * (2 * 4 * U + 4 * 2 * B * U))  # f32 bias, h0, c0, hN, cN
+        t_ops = flops / H100_BF16_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -228,31 +180,36 @@ def cudnn_lstm_ms(F: int, U: int, dtype, wx, wh, b, xs, h0, c0, reps: int) -> tu
     return ms, out
 
 
-def phase_bilstm_bf16() -> dict:
-    """The bf16-stream BiLSTM kernel against its plain version for the four
+def phase_bilstm(dtype) -> dict:
+    """The BiLSTM kernel of one stream (f32: csrc/bilstm.cu, phase 2; bf16:
+    csrc/bilstm_bf16.cu, phase 9) against its plain version for the four
     layer shapes of one chunk, at 4096 rows and at 2858 (the first read's
-    row count, which the bench path runs as its own chunk), timed beside
-    torch.nn.LSTM in bf16. The weights are laid out for the kernel once, as
-    the engine lays them out. The kernels line carries the 4096-row chunk."""
+    row count, which the CLI and the bench path run as their own chunk),
+    timed beside torch.nn.LSTM in the stream's dtype. The weights are laid
+    out for the kernel once, as the engine lays them out. The kernels line
+    carries the 4096-row chunk."""
     from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
     from ravvent_tpu_torch.ops.rnn_cuda import bilstm_layer, bilstm_layer_plain, kernel_layout
 
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
-    gen = torch.Generator().manual_seed(SEED + 4)
+    dev, f32 = torch.device("cuda"), dtype == torch.float32
+    name = "bilstm" if f32 else "bilstm_bf16"
+    gen = torch.Generator().manual_seed(SEED if f32 else SEED + 4)
     U = 128
-    # outputs are bf16(h): about two bf16 ulps at |h| <= 1, where a summation
-    # order flips a rounding and the recurrence carries it; f32 final states
-    tol_out, tol_state = 1e-2, 1e-3
+    # f32: another summation order over up to 200 steps, relative to max(1, |ref|)
+    # too. bf16: outputs are bf16(h), about two bf16 ulps at |h| <= 1, where a
+    # summation order flips a rounding and the recurrence carries it; f32
+    # final states
+    tol_out, tol_state = (1e-4, 1e-4) if f32 else (1e-2, 1e-3)
     names = ["raw L0", "raw L1", "event L0", "event L1"]
     shapes = [(1, 200, False), (256, 200, True), (5, 30, False), (256, 30, True)]
-    layers = [stream_weights(init_encoder(gen, U, 1, F, dev), bf16)[0] for F, _, _ in shapes]
+    layers = [stream_weights(init_encoder(gen, U, 1, F, dev), dtype)[0] for F, _, _ in shapes]
     chunks, err = {}, 0.0
     for B in (4096, 2858):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         bound_by = set()
-        for name, (F, T, seeded), (wx, wh, b) in zip(names, shapes, layers):
+        for lname, (F, T, seeded), (wx, wh, b) in zip(names, shapes, layers):
             layout = kernel_layout(wx, wh)
-            xs = torch.randn(B, T, F, generator=gen).to(dev, bf16)
+            xs = torch.randn(B, T, F, generator=gen).to(dev, dtype)
             h0 = (0.5 * torch.randn(2, B, U, generator=gen) if seeded
                   else torch.zeros(2, B, U)).to(dev)
             c0 = (0.5 * torch.randn(2, B, U, generator=gen) if seeded
@@ -260,35 +217,36 @@ def phase_bilstm_bf16() -> dict:
             got = bilstm_layer(xs, wx, wh, b, h0, c0, layout)
             ref = bilstm_layer_plain(xs, wx, wh, b, h0, c0)
             torch.cuda.synchronize()
-            require(got[0].dtype == bf16 and got[1].dtype == torch.float32,
-                    "bilstm_bf16: bad dtypes")
+            require(got[0].dtype == dtype and got[1].dtype == torch.float32,
+                    f"{name}: bad dtypes")
             err_out = (got[0].float() - ref[0].float()).abs().max().item()
             err_state = max((g - r).abs().max().item() for g, r in zip(got[1:], ref[1:]))
+            rel = max(((g.float() - r.float()).abs() / r.float().abs().clamp(min=1.0)).max().item()
+                      for g, r in zip(got, ref))
             ms = time_ms(lambda: bilstm_layer(xs, wx, wh, b, h0, c0, layout), reps=5)
             plain_ms = time_ms(lambda: bilstm_layer_plain(xs, wx, wh, b, h0, c0), reps=2)
-            lib_ms, lib_out = cudnn_lstm_ms(F, U, bf16, wx, wh, b, xs, h0, c0, reps=5)
+            lib_ms, lib_out = cudnn_lstm_ms(F, U, dtype, wx, wh, b, xs, h0, c0, reps=5)
             lib_err = (lib_out.float() - ref[0].float()).abs().max().item()
-            bound, by = bilstm_bf16_bounds(B, T, F, U)
+            bound, by = bilstm_bounds(B, T, F, U, dtype)
             bound_by.add(by)
-            print(f"  bilstm_bf16 B={B} {name} T={T} F={F}: out max_abs_err {err_out:.3e} (tol "
-                  f"{tol_out:g}), final states {err_state:.3e} (tol {tol_state:g}); kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.nn.LSTM bf16 {lib_ms:.3f} ms (its "
-                  f"out err vs plain {lib_err:.3e}), bound {bound:.3f} ms ({by})", flush=True)
-            require(err_out <= tol_out and err_state <= tol_state,
-                    f"bilstm_bf16 B={B} F={F} T={T}: errors {err_out:.3e} / {err_state:.3e}")
+            print(f"  {name} B={B} {lname} T={T} F={F}: out max_abs_err {err_out:.3e} (tol "
+                  f"{tol_out:g}), final states {err_state:.3e} (tol {tol_state:g}), max_rel_err "
+                  f"{rel:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.nn.LSTM "
+                  f"{lib_ms:.3f} ms (its out err vs plain {lib_err:.3e}), bound {bound:.3f} ms "
+                  f"({by})", flush=True)
+            require(err_out <= tol_out and err_state <= tol_state and (rel <= tol_out or not f32),
+                    f"{name} B={B} F={F} T={T}: errors {err_out:.3e} / {err_state:.3e} / {rel:.3e}")
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
             tot["library_ms"] += lib_ms
             tot["bound_ms"] += bound
-            tot["err"] = max(tot["err"], err_out, err_state)
-        print(f"  bilstm_bf16 B={B}, one chunk's four layers: kernel {tot['ms']:.3f} ms, plain "
-              f"{tot['plain_ms']:.3f} ms, torch.nn.LSTM bf16 {tot['library_ms']:.3f} ms, bound "
+            err = max(err, err_out, err_state)
+        print(f"  {name} B={B}, one chunk's four layers: kernel {tot['ms']:.3f} ms, plain "
+              f"{tot['plain_ms']:.3f} ms, torch.nn.LSTM {tot['library_ms']:.3f} ms, bound "
               f"{tot['bound_ms']:.3f} ms", flush=True)
         chunks[B] = (tot, bound_by)
-        err = max(err, tot["err"])
     tot, bound_by = chunks[4096]
-    return {"name": "bilstm_bf16", "route": "cuda",
-            "source": "ravvent_tpu_torch/csrc/bilstm_bf16.cu",
+    return {"name": name, "route": "cuda", "source": f"ravvent_tpu_torch/csrc/{name}.cu",
             "replaces": "ravvent_tpu/ops/rnn_pallas.py:33", "max_abs_err": err,
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if "operations" in bound_by else "bytes",
@@ -1200,7 +1158,7 @@ def main() -> int:
     phase_build()
     phase("1 build", t0)
     t0 = time.perf_counter()
-    k_bilstm = phase_bilstm()
+    k_bilstm = phase_bilstm(torch.float32)
     phase("2 bilstm kernel", t0)
     t0 = time.perf_counter()
     k_cell, k_attend = phase_beam_step()
@@ -1223,7 +1181,7 @@ def main() -> int:
     counts_greedy = phase_greedy()
     phase("8 end to end, fused greedy", t0)
     t0 = time.perf_counter()
-    k_bf16 = phase_bilstm_bf16()
+    k_bf16 = phase_bilstm(torch.bfloat16)
     phase("9 bilstm_bf16 kernel", t0)
     t0 = time.perf_counter()
     counts_bench = phase_bench_path(smi)

@@ -1,22 +1,61 @@
-// One bidirectional LSTM layer, the whole time loop in one launch.
+// One bidirectional LSTM layer on an f32 stream, the whole time loop in one
+// launch.
 //
 // Replaces the TPU kernel ravvent_tpu/ops/rnn_pallas.py::_bilstm_kernel
-// (entry point run_bidi_lstm_pallas). Same math as that kernel and as the
-// scan path models/rnn.py::run_bidi_layer: keras LSTMCell, gates i,f,g,o,
-// z = x.Wx + h.Wh + b, sigmoid/tanh, f32 state. The forward direction runs
-// t = 0..T-1, the backward direction t = T-1..0; outputs are time-aligned.
+// (entry point run_bidi_lstm_pallas) with an f32 input. Same math as that
+// kernel and as the scan path models/rnn.py::run_bidi_layer: keras
+// LSTMCell, gates i,f,g,o, z = x.Wx + h.Wh + b, sigmoid/tanh, f32 state and
+// products. The forward direction runs t = 0..T-1, the backward direction
+// t = T-1..0; outputs are time-aligned. On the TPU the time axis is a
+// sequential grid dimension; here it is a loop inside the CTA.
 //
-// What bounds it on the H100: the f32 recurrent product. Per step and row it
-// does 2*(F+U)*4U flops, which is not on the tensor cores in f32 (67 TFLOP/s
-// peak); the bytes (x read once, outputs written once) are far below that.
-// Design: the TPU kernel carries (h, c) across a sequential grid axis; here
-// one CTA per (direction, tile of BT batch rows) loops over T itself and keeps
-// c in registers and h in shared memory for the whole sequence. Wx and Wh for
-// one direction are (F+U) x 512 x 4 B, up to 768 KiB: more than a block's
-// shared memory, so this first version reads them each step through L1/L2
-// (every weight is read once per step per CTA, by coalesced 128-byte rows).
-// Each thread owns one unit u and half of the tile's rows, and accumulates
-// all four gates of its (u, row) pairs, so no gate exchange is needed.
+// What bounds it on the H100: the f32 products, 2*(F+U)*4U flops per row,
+// step and direction, on the FMA pipe (67 TFLOP/s: f32 has no tensor-core
+// path of the same precision); the bytes (x read once, outputs written
+// once) are far below that. So the design aims at the FMA pipe's issue
+// rate, with every SM busy.
+//
+// What the previous design's step spent (tools/bilstm_phases.py --stream
+// f32, clock64() per warp, cycles a step at B = 4096, H100): one CTA of 16
+// rows per direction and 8 warps, each thread reading its unit's weights by
+// 4-byte __ldg for every k; the products took 87-91% of a step (52k cycles
+// for h.Wh, 114k for x.Wx on a wide input: ≈ 400 cycles a k for 32 FMAs a
+// thread), and the 512 CTAs of 4096 rows ran in two waves.
+//
+// Design: one CTA per (direction, tile of R batch rows), R = 16, 32, 48 or
+// 64, 8R threads: the C entry picks the fewest rows with which both
+// directions' CTAs fit the SMs at once (4096 rows: 128 CTAs of 64; 2858: 120
+// of 48). A step is one product z = [x_t | h_{t-1}] . [Wx; Wh] + b of R rows
+// by 4U columns:
+// - Thread (u, r0) owns units u and u + 64 of rows [r0, r0 + 8): all four
+//   gates, 64 accumulators, so the cell needs no exchange. For each k it
+//   reads 8 rows of A and the 4 gates of its two units, four float4 loads
+//   for 64 FMAs. A warp covers 8 units of 4 row octets (16 of 2 where R / 8
+//   is not a multiple of 4): its loads of A read 4 addresses, its loads of
+//   the weights 128 contiguous bytes.
+// - A = [x_t | h_{t-1}] lies k-major in shared memory, [Kx + U][R + 4]: the
+//   pad puts a warp's float4 stores of h on distinct banks. The cell state c
+//   lies there too, so that the registers go to the accumulators.
+// - The weights, (F + U) x 4U f32 a direction (768 KiB at F = 256), exceed
+//   shared memory, so they stream through a ring of two 16-row k-tiles (32
+//   KiB each): every CTA reads them from L2 once a step, one bulk copy (TMA)
+//   a k-tile, asked for by one thread and landing on the slot's mbarrier
+//   while the other k-tile is used. They come laid out once per engine
+//   (ops/rnn_cuda.py:kernel_layout): row k's 4 gates of a unit are 16
+//   adjacent bytes, and a k-tile is contiguous.
+// - A step runs the x k-tiles first, then the h k-tiles. x_{t+1} lands in A
+//   by 4-byte cp.async (a transposing copy) in one piece per h k-tile, and
+//   h_t is stored after the next step's first barrier: one block barrier a
+//   k-tile and no other.
+// - The cell runs on ex2.approx and rcp.approx in f32, as in bilstm_bf16.cu.
+// What bounds a step now (PERF.md): the FMA pipe, which the products' loop
+// (1024 FFMA and 64 LDS.128 a k-tile and warp, no other instruction to
+// speak of) keeps at about two thirds of its issue rate, with or without
+// its shared-memory loads.
+//
+// Timing build (-DRV_BILSTM_PHASES, tools/bilstm_phases.py --stream f32):
+// lane 0 of each warp sums clock64() cycles per phase of the step and
+// writes them at the end; the production build compiles none of it.
 //
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
@@ -28,131 +67,318 @@ namespace {
 
 constexpr int kU = 128;          // LSTM units (the flagship's; the wrapper checks)
 constexpr int kG = 4 * kU;       // gate columns
-constexpr int kBT = 16;          // batch rows per CTA
-constexpr int kThreads = 256;    // two row halves x kU units
-constexpr int kRH = kBT / 2;     // rows per thread
+constexpr int kKT = 16;          // weight rows of a k-tile
+constexpr int kTile = kKT * kU;  // float4s of a k-tile (32 KiB)
+constexpr int kSlots = 2;        // k-tiles in the ring
+constexpr int kHT = kU / kKT;    // h k-tiles a step; x_{t+1} lands in as many pieces
+constexpr int kMaxK = 2 * kU;    // widest layer input
 
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+constexpr int kPhases = 5;
+#ifdef RV_BILSTM_PHASES
+// the phases' names, by stamp index, for tools/bilstm_phases.py
+#define RV_BILSTM_PHASE_NAMES "wait+barrier,issue+h_store,x_wx,h_wh,cell+out"
+#define RV_PHASES_ARG , long long* __restrict__ stamps
+#define RV_PHASES_PASS , stamps
+#define RV_PHASES_INIT long long ph_[kPhases] = {}; long long last_ = clock64()
+#define RV_STAMP(k) do { const long long now_ = clock64(); ph_[k] += now_ - last_; last_ = now_; } while (0)
+#define RV_PHASES_STORE                                                                   \
+  if ((threadIdx.x & 31) == 0)                                                            \
+    for (int k_ = 0; k_ < kPhases; ++k_)                                                  \
+      stamps[((blockIdx.y * gridDim.x + blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) \
+             * kPhases + k_] = ph_[k_]
+#else
+#define RV_PHASES_ARG
+#define RV_PHASES_PASS
+#define RV_PHASES_INIT
+#define RV_STAMP(k)
+#define RV_PHASES_STORE
+#endif
 
-__global__ void __launch_bounds__(kThreads)
+// The cell in f32 with ex2.approx (__expf) and rcp.approx (__fdividef), five
+// exponentials and three reciprocals a (row, unit): with E(x) = e^-x,
+// sigmoid(i) * tanh(g) = (1 - E(2g)) / ((1 + E(i)) (1 + E(2g))) and
+// sigmoid(o) * tanh(c) likewise, sigmoid(f) c = c / (1 + E(f)). The
+// arguments are clamped where the factors would overflow (i, o >= -40,
+// 2g, 2c >= -30: e^40 e^30 < 2^126, where __fdividef still divides), which
+// moves no result by more than 1e-17.
+__device__ __forceinline__ float exp_neg(float x, float lo) { return __expf(-fmaxf(x, lo)); }
+__device__ __forceinline__ float sig_tanh(float s, float t) {  // sigmoid(s) * tanh(t)
+  const float es = exp_neg(s, -40.f), et = exp_neg(2.f * t, -30.f);
+  return __fdividef(1.f - et, (1.f + es) * (1.f + et));
+}
+__device__ __forceinline__ void lstm_cell(float zi, float zf, float zg, float zo, float& c,
+                                          float& h) {
+  c = __fdividef(c, 1.f + exp_neg(zf, -88.f)) + sig_tanh(zi, zg);
+  h = sig_tanh(zo, c);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// The weight k-tiles by the Tensor Memory Accelerator: one thread asks for a
+// whole k-tile (contiguous in global and in shared memory), and the copy
+// completes on the slot's mbarrier, which every thread waits on.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// acc[q][gate][i] += a[k][i] * w[k][unit q][gate] for the k-rows [0, K) of
+// a k-tile: a points at row 0 of A's rows for this thread (stride AS), w at
+// the thread's first unit in the k-tile, its second unit 64 float4s further
+template <int K, int AS>
+__device__ __forceinline__ void fma_rows(float (&acc)[2][4][8], const float* a, const float4* w) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float4 w0 = w[k * kU], w1 = w[k * kU + kU / 2];
+    const float4 xa = *reinterpret_cast<const float4*>(a + k * AS);
+    const float4 xb = *reinterpret_cast<const float4*>(a + k * AS + 4);
+    const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[0][0][i] = fmaf(xv[i], w0.x, acc[0][0][i]);
+      acc[0][1][i] = fmaf(xv[i], w0.y, acc[0][1][i]);
+      acc[0][2][i] = fmaf(xv[i], w0.z, acc[0][2][i]);
+      acc[0][3][i] = fmaf(xv[i], w0.w, acc[0][3][i]);
+      acc[1][0][i] = fmaf(xv[i], w1.x, acc[1][0][i]);
+      acc[1][1][i] = fmaf(xv[i], w1.y, acc[1][1][i]);
+      acc[1][2][i] = fmaf(xv[i], w1.z, acc[1][2][i]);
+      acc[1][3][i] = fmaf(xv[i], w1.w, acc[1][3][i]);
+    }
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(8 * R, 1)
 bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
-              int B, int T, int F,
-              const float* __restrict__ wx,    // [2, F, 4U]
-              const float* __restrict__ wh,    // [2, U, 4U]
+              int B, int T, int F, int Kx,     // Kx = F rounded up to 4
+              const float4* __restrict__ wxL,  // [2][Kx][U]: gates i, f, g, o of a unit
+              const float4* __restrict__ whL,  // [2][U][U]
               const float* __restrict__ bias,  // [2, 4U]
               const float* __restrict__ h0,    // [2, B, U]
               const float* __restrict__ c0,    // [2, B, U]
               float* __restrict__ out,         // [B, T, 2U]
               float* __restrict__ hN,          // [2, B, U]
-              float* __restrict__ cN) {        // [2, B, U]
-  extern __shared__ float smem[];
-  float* xT = smem;             // [F][kBT]  x_t of the tile, transposed
-  float* hT = smem + F * kBT;   // [U][kBT]  h_{t-1} of the tile, transposed
+              float* __restrict__ cN           // [2, B, U]
+              RV_PHASES_ARG) {
+  constexpr int kThreads = 8 * R;
+  constexpr int AS = R + 4;  // A's row stride
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bars[kSlots];                // k-tile landed in slot s
+  float4* ring = reinterpret_cast<float4*>(smem);  // [kSlots][kKT][U] weight k-tiles
+  float* A = smem + 4 * kSlots * kTile;            // [Kx + U][AS]: x_t, then h_{t-1}
+  float* C = A + (Kx + kU) * AS;                   // [2][8][kThreads]: each thread's c
 
-  const int d = blockIdx.y;                 // 0 forward, 1 backward
-  const int b0 = blockIdx.x * kBT;
-  const int tid = threadIdx.x;
-  const int u = tid & (kU - 1);
-  const int r0 = (tid >> 7) * kRH;          // first tile row of this thread
-
-  const float* Wx = wx + (size_t)d * F * kG;
-  const float* Wh = wh + (size_t)d * kU * kG;
+  const int d = blockIdx.y;  // 0 forward, 1 backward
+  const int b0 = blockIdx.x * R;
+  // a warp covers OW row octets of UW units: its loads of A read OW
+  // addresses, of the weights UW * 16 contiguous bytes
+  constexpr int OW = (R / 8) % 4 == 0 ? 4 : 2, UW = 32 / OW;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int u = (w % (64 / UW)) * UW + lane % UW;        // units u and u + 64
+  const int r0 = 8 * ((w / (64 / UW)) * OW + lane / UW);  // rows r0 .. r0 + 7 of the tile
+  const int nx = (Kx + kKT - 1) / kKT;      // x k-tiles a step
+  const int NT = nx + kHT;                  // k-tiles a step
+  const float4* wx_d = wxL + (size_t)d * Kx * kU;
+  const float4* wh_d = whL + (size_t)d * kU * kU;
   const float* bd = bias + d * kG;
-  const float bi = bd[u], bf = bd[kU + u], bg = bd[2 * kU + u], bo = bd[3 * kU + u];
+  auto c_at = [&](int q, int i) -> float& { return C[(q * 8 + i) * kThreads + tid]; };
 
-  float c[kRH];
-#pragma unroll
-  for (int r = 0; r < kRH; ++r) {
-    const int row = b0 + r0 + r;
-    const size_t s = ((size_t)d * B + row) * kU + u;
-    c[r] = row < B ? c0[s] : 0.f;
-    hT[u * kBT + r0 + r] = row < B ? h0[s] : 0.f;
+  // k-tile j of a step: rows [k0(j), k0(j) + rows(j)) of A and of [Wx; Wh]
+  auto rows_of = [&](int j) { return j < nx ? min(kKT, Kx - kKT * j) : kKT; };
+  auto k0_of = [&](int j) { return j < nx ? kKT * j : Kx + kKT * (j - nx); };
+  auto issue_tile = [&](int j, int slot) {  // by thread 0
+    const float4* src = j < nx ? wx_d + (size_t)kKT * j * kU : wh_d + (size_t)kKT * (j - nx) * kU;
+    bulk_copy(ring + slot * kTile, src, 16u * kU * rows_of(j), &bars[slot]);
+  };
+  // piece p of x_t into A's rows [0, F) (transposed, 4 bytes a copy): the
+  // thread's elements e = tid + m * kThreads of the row-major [R, F] tile,
+  // m in piece p's share of [0, M); (r, k) is element e's place, carried
+  // from piece to piece
+  const int M = (R * F + kThreads - 1) / kThreads;
+  const int dr = kThreads / F, dk = kThreads - dr * F;
+  auto issue_x = [&](int t, int p, int& m, int& r, int& k) {
+    for (const int end = ((p + 1) * M + kHT - 1) / kHT; m < end; ++m) {
+      if (r < R && b0 + r < B) cp_async4(A + k * AS + r, xs + ((size_t)(b0 + r) * T + t) * F + k);
+      r += dr;
+      k += dk;
+      if (k >= F) { k -= F; ++r; }
+    }
+  };
+
+  // A zero: x's columns past F and the rows past B stay zero
+  for (int i = tid; i < (Kx + kU) * AS; i += kThreads) A[i] = 0.f;
+  if (tid == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
   }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = b0 + r0 + i;
+      const size_t s = ((size_t)d * B + row) * kU + u + 64 * q;
+      c_at(q, i) = row < B ? c0[s] : 0.f;
+      A[(Kx + u + 64 * q) * AS + r0 + i] = row < B ? h0[s] : 0.f;
+    }
+  {
+    int m = 0, r = tid / F, k = tid - (tid / F) * F;
+    for (int p = 0; p < kHT; ++p) issue_x(d == 0 ? 0 : T - 1, p, m, r, k);
+    cp_async_commit();
+  }
+  if (tid == 0) issue_tile(0, 0);
 
+  float hp[2][8];  // h_t until its store into A
+  int n = 0;       // k-tiles used so far: k-tile n lies in slot n % 2, phase n / 2 of its barrier
+  RV_PHASES_INIT;
   for (int step = 0; step < T; ++step) {
     const int t = d == 0 ? step : T - 1 - step;
-    for (int i = tid; i < kBT * F; i += kThreads) {
-      const int r = i / F, k = i - r * F;
-      const int row = b0 + r;
-      xT[k * kBT + r] = row < B ? xs[((size_t)row * T + t) * F + k] : 0.f;
-    }
-    __syncthreads();
+    const bool more = step + 1 < T;
+    int xm = 0, xr = tid / F, xk = tid - (tid / F) * F;  // x_{t+1}'s next element
 
-    float acc[4][kRH];
+    float acc[2][4][8];
 #pragma unroll
-    for (int r = 0; r < kRH; ++r) {
-      acc[0][r] = bi; acc[1][r] = bf; acc[2][r] = bg; acc[3][r] = bo;
-    }
-    for (int k = 0; k < F; ++k) {
-      const float* w = Wx + (size_t)k * kG + u;
-      const float w0 = __ldg(w), w1 = __ldg(w + kU), w2 = __ldg(w + 2 * kU), w3 = __ldg(w + 3 * kU);
-      const float* xr = xT + k * kBT + r0;
+    for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int r = 0; r < kRH; ++r) {
-        const float xv = xr[r];
-        acc[0][r] = fmaf(xv, w0, acc[0][r]);
-        acc[1][r] = fmaf(xv, w1, acc[1][r]);
-        acc[2][r] = fmaf(xv, w2, acc[2][r]);
-        acc[3][r] = fmaf(xv, w3, acc[3][r]);
+      for (int gate = 0; gate < 4; ++gate) {
+        const float bv = __ldg(bd + gate * kU + u + 64 * q);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[q][gate][i] = bv;
       }
-    }
-#pragma unroll 4
-    for (int k = 0; k < kU; ++k) {
-      const float* w = Wh + (size_t)k * kG + u;
-      const float w0 = __ldg(w), w1 = __ldg(w + kU), w2 = __ldg(w + 2 * kU), w3 = __ldg(w + 3 * kU);
-      const float* hr = hT + k * kBT + r0;
+
+#pragma unroll 1
+    for (int j = 0; j < NT; ++j, ++n) {
+      mbar_wait(&bars[n & 1], (n >> 1) & 1);
+      cp_async_wait_all();
+      __syncthreads();  // k-tile j (and x_t) landed; every warp is done with k-tile j - 1
+      RV_STAMP(0);
+      if (j == 0 && step > 0) {  // every read of h_{t-1}'s predecessor is done
 #pragma unroll
-      for (int r = 0; r < kRH; ++r) {
-        const float hv = hr[r];
-        acc[0][r] = fmaf(hv, w0, acc[0][r]);
-        acc[1][r] = fmaf(hv, w1, acc[1][r]);
-        acc[2][r] = fmaf(hv, w2, acc[2][r]);
-        acc[3][r] = fmaf(hv, w3, acc[3][r]);
+        for (int q = 0; q < 2; ++q) {
+          float4* hd = reinterpret_cast<float4*>(A + (Kx + u + 64 * q) * AS + r0);
+          hd[0] = make_float4(hp[q][0], hp[q][1], hp[q][2], hp[q][3]);
+          hd[1] = make_float4(hp[q][4], hp[q][5], hp[q][6], hp[q][7]);
+        }
       }
+      if (j >= nx && more) {
+        issue_x(d == 0 ? step + 1 : T - 2 - step, j - nx, xm, xr, xk);
+        cp_async_commit();
+      }
+      if (tid == 0) {
+        if (j + 1 < NT) issue_tile(j + 1, (n + 1) & 1);
+        else if (more) issue_tile(0, (n + 1) & 1);
+      }
+      RV_STAMP(1);
+
+      const float4* wt = ring + (n & 1) * kTile + u;
+      const float* a = A + k0_of(j) * AS + r0;
+      const int rows = rows_of(j);
+      if (rows == kKT) {
+        fma_rows<kKT, AS>(acc, a, wt);
+      } else {
+#pragma unroll 1
+        for (int k = 0; k < rows; k += 4) fma_rows<4, AS>(acc, a + k * AS, wt + k * kU);
+      }
+      if (j < nx) RV_STAMP(2);
+      else RV_STAMP(3);
     }
-    __syncthreads();  // every read of hT and xT for this step is done
 
 #pragma unroll
-    for (int r = 0; r < kRH; ++r) {
-      const float ig = sigmoid_f(acc[0][r]);
-      const float fg = sigmoid_f(acc[1][r]);
-      const float gg = tanhf(acc[2][r]);
-      const float og = sigmoid_f(acc[3][r]);
-      c[r] = fg * c[r] + ig * gg;
-      const float h = og * tanhf(c[r]);
-      hT[u * kBT + r0 + r] = h;
-      const int row = b0 + r0 + r;
-      if (row < B) out[((size_t)row * T + t) * (2 * kU) + d * kU + u] = h;
-    }
-  }
-
+    for (int q = 0; q < 2; ++q)
 #pragma unroll
-  for (int r = 0; r < kRH; ++r) {
-    const int row = b0 + r0 + r;
-    if (row < B) {
-      const size_t s = ((size_t)d * B + row) * kU + u;
-      hN[s] = hT[u * kBT + r0 + r];
-      cN[s] = c[r];
-    }
+      for (int i = 0; i < 8; ++i) {
+        float& c = c_at(q, i);
+        float cv = c;
+        lstm_cell(acc[q][0][i], acc[q][1][i], acc[q][2][i], acc[q][3][i], cv, hp[q][i]);
+        c = cv;
+        const int row = b0 + r0 + i;
+        if (row < B) {
+          out[((size_t)row * T + t) * (2 * kU) + d * kU + u + 64 * q] = hp[q][i];
+          if (!more) {
+            const size_t s = ((size_t)d * B + row) * kU + u + 64 * q;
+            hN[s] = hp[q][i];
+            cN[s] = cv;
+          }
+        }
+      }
+    RV_STAMP(4);
   }
+  RV_PHASES_STORE;
+}
+
+// Shared memory of one CTA of R rows for an input padded to Kx columns: the
+// ring, A and c.
+size_t smem_bytes(int R, int Kx) {
+  return 16 * (size_t)kSlots * kTile + 4 * (size_t)(Kx + kU) * (R + 4) + 4 * (size_t)kU * R;
+}
+
+template <int R>
+int launch(const float* xs, int B, int T, int F, int Kx, const void* wxL, const void* whL,
+           const float* bias, const float* h0, const float* c0, float* out, float* hN, float* cN
+           RV_PHASES_ARG, cudaStream_t stream) {
+  auto kern = bilstm_kernel<R>;
+  const size_t smem = smem_bytes(R, Kx);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((B + R - 1) / R, 2);
+  kern<<<grid, 8 * R, smem, stream>>>(xs, B, T, F, Kx, static_cast<const float4*>(wxL),
+                                      static_cast<const float4*>(whL), bias, h0, c0, out, hN,
+                                      cN RV_PHASES_PASS);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
-extern "C" int rv_bilstm_layer(const float* xs, int B, int T, int F,
-                               const float* wx, const float* wh, const float* bias,
-                               const float* h0, const float* c0,
-                               float* out, float* hN, float* cN, void* stream) {
-  if (B <= 0 || T <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(F + kU) * kBT * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(bilstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// Launches on `stream`; returns a cudaError_t (0 = launched). xs [B, T, F]
+// f32 (F <= 256); Kx = F rounded up to 4; wxL [2, Kx, U, 4], whL [2, U, U,
+// 4] the weights with each row's gate columns grouped by unit, 16-byte
+// aligned (ops/rnn_cuda.py:kernel_layout); bias [2, 4U]; h0, c0, hN, cN
+// [2, B, U]; out [B, T, 2U].
+#ifdef RV_BILSTM_PHASES
+extern "C" const char* rv_bilstm_phase_names() { return RV_BILSTM_PHASE_NAMES; }
+extern "C" int rv_bilstm_layer_phases(const float* xs, int B, int T, int F, int Kx,
+                                      const void* wxL, const void* whL, const float* bias,
+                                      const float* h0, const float* c0, float* out, float* hN,
+                                      float* cN, long long* stamps, void* stream) {
+#else
+extern "C" int rv_bilstm_layer(const float* xs, int B, int T, int F, int Kx,
+                               const void* wxL, const void* whL, const float* bias,
+                               const float* h0, const float* c0, float* out, float* hN,
+                               float* cN, void* stream) {
+#endif
+  if (B <= 0 || T <= 0 || F <= 0 || F > kMaxK || Kx != (F + 3) / 4 * 4)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  int R = 16;  // the fewest rows a CTA with which both directions' CTAs fit the SMs at once
+  while (R < 64 && 2 * ((B + R - 1) / R) > sms) R += 16;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (R) {
+    case 16: return launch<16>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+    case 32: return launch<32>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+    case 48: return launch<48>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+    default: return launch<64>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
   }
-  dim3 grid((B + kBT - 1) / kBT, 2);
-  bilstm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(xs, B, T, F, wx, wh, bias, h0, c0,
-                                                                out, hN, cN);
-  return (int)cudaGetLastError();
 }

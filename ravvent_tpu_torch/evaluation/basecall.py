@@ -206,8 +206,8 @@ class BasecallEngine:
         self.encoder_dtype = encoder_dtype
         self.transport_dtype = transport_dtype
         self.prob_bits = prob_bits
-        # the encoders' weights in the stream dtype, cast once, and on a bf16
-        # stream in the kernel's layout, laid out once
+        # the encoders' weights in the stream dtype, cast once, and in the
+        # stream's kernel layout, laid out once
         self._enc_weights = {
             k: kernel_weights(stream_weights(self.params[k], encoder_dtype or torch.float32))
             for k in ("encoder_raw", "encoder_event")}

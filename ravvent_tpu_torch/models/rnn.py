@@ -107,13 +107,11 @@ def stream_weights(layers: List[Params], dtype=torch.float32) -> List[Tuple[torc
 
 
 def kernel_weights(weights: List[Tuple[torch.Tensor, ...]]) -> List[Tuple[Any, ...]]:
-    """:func:`stream_weights` with, for a bf16 stream, each layer's weights in
-    the bf16 kernel's layout (ops/rnn_cuda.py:kernel_layout) as a fourth
-    item, made once so that no layer call re-lays them out. An f32 stream's
-    layers, and layers of other widths than the kernel's (which it does not
-    take), stay as they are."""
-    return [(wx, wh, b, kernel_layout(wx, wh))
-            if wx.dtype == torch.bfloat16 and wh.shape[1] == UNITS else (wx, wh, b)
+    """:func:`stream_weights` with each layer's weights in its stream's
+    kernel layout (ops/rnn_cuda.py:kernel_layout) as a fourth item, made
+    once so that no layer call re-lays them out. Layers of other widths
+    than the kernels' (which they do not take) stay as they are."""
+    return [(wx, wh, b, kernel_layout(wx, wh)) if wh.shape[1] == UNITS else (wx, wh, b)
             for wx, wh, b in weights]
 
 

@@ -114,7 +114,7 @@ def build(force: bool = False) -> str:
 # int and cuts it)
 _I, _P = ctypes.c_int, ctypes.c_void_p
 ENTRIES = {
-    "rv_bilstm_layer": [_P, _I, _I, _I] + [_P] * 8 + [_P],
+    "rv_bilstm_layer": [_P, _I, _I, _I, _I] + [_P] * 8 + [_P],
     "rv_bilstm_layer_bf16": [_P, _I, _I, _I, _I] + [_P] * 8 + [_P],
     "rv_beam_cell": [_I] * 2 + [_P] * 12,
     "rv_beam_attend": [_I] * 7 + [_P] * 18,

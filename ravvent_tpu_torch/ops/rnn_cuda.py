@@ -13,9 +13,9 @@ Layouts (batch-major, as the model passes them):
   stream dtype, b [2, 4U] f32 (forward, backward); h0, c0 [2, B, U] f32.
   Returns (out [B, T, 2U] in the stream dtype, time-aligned — forward units
   first —, h [2, B, U] f32, c [2, B, U] f32).
-  The bf16 kernel reads its weights in mma-fragment order
-  (:func:`kernel_layout`), which the engine makes once and passes as
-  ``layout``.
+  Each kernel reads its weights in its own layout (:func:`kernel_layout`:
+  f32 grouped by unit, bf16 in mma-fragment order), which the engine makes
+  once and passes as ``layout``.
 """
 
 from __future__ import annotations
@@ -58,13 +58,28 @@ def bilstm_layer_plain(xs, wx, wh, b, h0, c0) -> Tuple[torch.Tensor, torch.Tenso
 
 
 class KernelLayout(NamedTuple):
-    """A bf16 layer's weights as ``csrc/bilstm_bf16.cu`` reads them
-    (:func:`kernel_layout`): ``kx`` is F rounded up to 16; ``wx`` and ``wh``
-    are bf16 [2, 16 warps, k-tiles, 4 gates, 32 lanes, 4] in mma-fragment
-    order."""
+    """A layer's weights as its stream's kernel reads them
+    (:func:`kernel_layout`). f32 (``csrc/bilstm.cu``): ``kx`` is F rounded up
+    to 4; ``wx`` [2, kx, U, 4] and ``wh`` [2, U, U, 4] f32, row k's gate
+    columns i, f, g, o grouped by unit. bf16 (``csrc/bilstm_bf16.cu``):
+    ``kx`` is F rounded up to 16; ``wx`` and ``wh`` bf16 [2, 16 warps,
+    k-tiles, 4 gates, 32 lanes, 4] in mma-fragment order. Wx's rows past F
+    are zero."""
     kx: int
     wx: torch.Tensor
     wh: torch.Tensor
+
+
+def padded_k(F: int, dtype) -> int:
+    """The kernel's Wx rows for an input of F features: F rounded up to the
+    stream's k-step (4 for f32, 16 for bf16)."""
+    step = 4 if dtype == torch.float32 else 16
+    return -(-F // step) * step
+
+
+def _by_unit(w: torch.Tensor) -> torch.Tensor:
+    """[2, K, 4U] as [2, K, U, 4]: row k's four gates of unit u adjacent."""
+    return w.reshape(2, w.shape[1], 4, UNITS).transpose(2, 3).contiguous()
 
 
 def _fragments(w: torch.Tensor) -> torch.Tensor:
@@ -81,21 +96,24 @@ def _fragments(w: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_layout(wx: torch.Tensor, wh: torch.Tensor) -> KernelLayout:
-    """The bf16 kernel's layout of plain ``wx`` [2, F, 4U] and ``wh``
-    [2, U, 4U], Wx zero-padded to a multiple of 16 rows. Made once per
-    engine (models/rnn.py:kernel_weights); the wrapper makes it on each call
-    when it is not given."""
+    """The stream's kernel's layout of plain ``wx`` [2, F, 4U] and ``wh``
+    [2, U, 4U] (the stream is their dtype), Wx zero-padded to
+    :func:`padded_k` rows. Made once per engine (models/rnn.py:kernel_weights);
+    the wrapper makes it on each call when it is not given."""
     F, U = wx.shape[1], wh.shape[1]
     if U != UNITS:
-        raise ValueError(f"bilstm_bf16 kernel is compiled for {UNITS} units, got {U}")
-    kx = -(-F // 16) * 16
-    return KernelLayout(kx, _fragments(torch.nn.functional.pad(wx, (0, 0, 0, kx - F))),
-                        _fragments(wh))
+        raise ValueError(f"bilstm kernel is compiled for {UNITS} units, got {U}")
+    kx = padded_k(F, wx.dtype)
+    wx = torch.nn.functional.pad(wx, (0, 0, 0, kx - F))
+    if wx.dtype == torch.float32:
+        return KernelLayout(kx, _by_unit(wx), _by_unit(wh))
+    return KernelLayout(kx, _fragments(wx), _fragments(wh))
 
 
-def launch_bf16(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> int:
-    """Call the bf16 kernel's C entry ``entry`` on PyTorch's current stream;
-    ``extra`` pointers go before the stream (the timing build's stamps)."""
+def launch(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> int:
+    """Call a BiLSTM kernel's C entry ``entry`` (both streams take the same
+    arguments) on PyTorch's current stream; ``extra`` pointers go before the
+    stream (the timing build's stamps)."""
     B, T, F = xs.shape
     return entry(xs.data_ptr(), B, T, F, layout.kx, layout.wx.data_ptr(), layout.wh.data_ptr(),
                  b.data_ptr(), h0.data_ptr(), c0.data_ptr(), out.data_ptr(), hN.data_ptr(),
@@ -106,7 +124,7 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One BiLSTM layer: the CUDA kernel of the stream dtype for CUDA tensors,
     the plain version for CPU tensors. ``layout``: :func:`kernel_layout` of
-    a bf16 layer's ``wx`` and ``wh``, made once by the caller; made here when
+    the layer's ``wx`` and ``wh``, made once by the caller; made here when
     None."""
     if not xs.is_cuda:
         return bilstm_layer_plain(xs, wx, wh, b, h0, c0)
@@ -121,32 +139,29 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
         ("xs", xs, dt, (B, T, F)), ("wx", wx, dt, (2, F, 4 * U)), ("wh", wh, dt, (2, U, 4 * U)),
         ("b", b, f32, (2, 4 * U)), ("h0", h0, f32, (2, B, U)), ("c0", c0, f32, (2, B, U)),
     ])
-    out = torch.empty(B, T, 2 * U, device=xs.device, dtype=dt)
-    hN = torch.empty(2, B, U, device=xs.device, dtype=f32)
-    cN = torch.empty_like(hN)
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    if dt == f32:
-        rc = cuda_lib.lib().rv_bilstm_layer(
-            xs.data_ptr(), B, T, F, wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
-            h0.data_ptr(), c0.data_ptr(), out.data_ptr(), hN.data_ptr(), cN.data_ptr(), stream,
-        )
-        name = "bilstm"
-    else:
+    if F > 2 * UNITS:
+        raise ValueError(f"bilstm: the kernels take F <= {2 * UNITS}, got {F}")
+    if dt == torch.bfloat16:
         if F > 16 and F % 8:
             raise ValueError(f"bilstm_bf16: the kernel takes F <= 16 or a multiple of 8, got {F}")
         if F > 16 and xs.data_ptr() % 16:  # x rows are copied 16 bytes at a time
             raise ValueError("bilstm_bf16: xs must be 16-byte aligned")
-        if layout is None:
-            layout = kernel_layout(wx, wh)
-        kx = -(-F // 16) * 16
-        if layout.kx != kx:
-            raise ValueError(f"bilstm_bf16: the layout was made for kx {layout.kx}, F = {F} needs {kx}")
-        cuda_lib.check_tensors("bilstm_bf16", xs.device, [
-            ("layout.wx", layout.wx, dt, (2, 16, kx // 16, 4, 32, 4)),
-            ("layout.wh", layout.wh, dt, (2, 16, 8, 4, 32, 4)),
-        ])
-        rc = launch_bf16(cuda_lib.lib().rv_bilstm_layer_bf16, xs, layout, b, h0, c0, out, hN, cN)
-        name = "bilstm_bf16"
-    cuda_lib.check(rc, name)
+    if layout is None:
+        layout = kernel_layout(wx, wh)
+    kx = padded_k(F, dt)
+    name = "bilstm" if dt == f32 else "bilstm_bf16"
+    if layout.kx != kx:
+        raise ValueError(f"{name}: the layout was made for kx {layout.kx}, F = {F} needs {kx}")
+    lay_shape = (lambda k: (2, k, U, 4)) if dt == f32 else (lambda k: (2, 16, k // 16, 4, 32, 4))
+    cuda_lib.check_tensors(name, xs.device, [
+        ("layout.wx", layout.wx, dt, lay_shape(kx)), ("layout.wh", layout.wh, dt, lay_shape(U)),
+    ])
+    if layout.wx.data_ptr() % 16 or layout.wh.data_ptr() % 16:  # read 16 bytes at a time
+        raise ValueError(f"{name}: the layout's tensors must be 16-byte aligned")
+    out = torch.empty(B, T, 2 * U, device=xs.device, dtype=dt)
+    hN = torch.empty(2, B, U, device=xs.device, dtype=f32)
+    cN = torch.empty_like(hN)
+    entry = cuda_lib.lib().rv_bilstm_layer if dt == f32 else cuda_lib.lib().rv_bilstm_layer_bf16
+    cuda_lib.check(launch(entry, xs, layout, b, h0, c0, out, hN, cN), name)
     cuda_lib.launches[name] += 1
     return out, hN, cN

@@ -1,17 +1,19 @@
-"""Where a step of the bf16 BiLSTM-layer kernel spends its cycles.
+"""Where a step of a BiLSTM-layer kernel spends its cycles.
 
-Builds ``csrc/bilstm_bf16.cu`` a second time with ``-DRV_BILSTM_PHASES``
-(into the gitignored ``ravvent_tpu_torch/build/``, beside the production
-library, which it leaves alone). In that build lane 0 of every warp sums
-``clock64()`` cycles over the phases of each time step that the source
-names (``rv_bilstm_phase_names``) and writes its sums when the loop ends.
-For each of a chunk's four layer shapes (raw layers 0 and 1 at T = 200,
-event layers 0 and 1 at T = 30) and each batch size it prints the mean
-cycles per step of each phase (mean over all warps), the production
-kernel's time and the timing build's (CUDA events), and the card's SM
-clock that the two imply. Needs a CUDA device and nvcc.
+Builds the kernel of one stream a second time with ``-DRV_BILSTM_PHASES``
+(``--stream bf16``: ``csrc/bilstm_bf16.cu``, the default; ``--stream f32``:
+``csrc/bilstm.cu``), into the gitignored ``ravvent_tpu_torch/build/``,
+beside the production library, which it leaves alone. In that build lane 0
+of every warp sums ``clock64()`` cycles over the phases of each time step
+that the source names (``rv_bilstm_phase_names``) and writes its sums when
+the loop ends. For each of a chunk's four layer shapes (raw layers 0 and 1
+at T = 200, event layers 0 and 1 at T = 30) and each batch size it prints
+the mean cycles per step of each phase (mean over all warps), the
+production kernel's time and the timing build's (CUDA events), and the
+card's SM clock that the two imply. Needs a CUDA device and nvcc.
 
-Usage: python -m ravvent_tpu_torch.tools.bilstm_phases [--batch 4096 2858] [--json out.json]
+Usage: python -m ravvent_tpu_torch.tools.bilstm_phases [--stream bf16|f32]
+       [--batch 4096 2858] [--json out.json]
 """
 
 from __future__ import annotations
@@ -28,21 +30,26 @@ from ravvent_tpu_torch.ops import cuda_lib, rnn_cuda
 
 SHAPES = (("raw L0", 1, 200, False), ("raw L1", 256, 200, True), ("event L0", 5, 30, False),
           ("event L1", 256, 30, True))
+# stream: (source, production entry, dtype)
+STREAMS = {"bf16": ("bilstm_bf16.cu", "rv_bilstm_layer_bf16", torch.bfloat16),
+           "f32": ("bilstm.cu", "rv_bilstm_layer", torch.float32)}
 
 
-def build() -> ctypes.CDLL:
-    src = cuda_lib.CSRC / "bilstm_bf16.cu"
-    lib = cuda_lib.BUILD / "libravvent_bilstm_phases.so"
+def build(stream: str):
+    """The timing build of ``stream``'s source: (its C entry, the library)."""
+    source, entry, _ = STREAMS[stream]
+    src = cuda_lib.CSRC / source
+    lib = cuda_lib.BUILD / f"lib{src.stem}_phases.so"
     cuda_lib.BUILD.mkdir(parents=True, exist_ok=True)
     subprocess.run([cuda_lib.nvcc_path(), cuda_lib.ARCH, "-std=c++17", "-O3", "-shared",
                     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-DRV_BILSTM_PHASES", str(src),
                     "-o", str(lib)], check=True, timeout=600)
     handle = ctypes.CDLL(str(lib))
-    handle.rv_bilstm_layer_bf16_phases.restype = ctypes.c_int
-    handle.rv_bilstm_layer_bf16_phases.argtypes = cuda_lib.ENTRIES["rv_bilstm_layer_bf16"][:-1] + [
-        ctypes.c_void_p, ctypes.c_void_p]
+    fn = getattr(handle, entry + "_phases")
+    fn.restype = ctypes.c_int
+    fn.argtypes = cuda_lib.ENTRIES[entry][:-1] + [ctypes.c_void_p, ctypes.c_void_p]
     handle.rv_bilstm_phase_names.restype = ctypes.c_char_p
-    return handle
+    return fn, handle
 
 
 def phase_names(handle) -> list:
@@ -61,27 +68,25 @@ def time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def split(phases_lib, B: int, F: int, T: int, seeded: bool, seed: int) -> dict:
+def split(entry, names, dtype, B: int, F: int, T: int, seeded: bool, seed: int) -> dict:
     """One layer shape at batch B: phase cycles per step, both builds' ms."""
     from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
 
     dev, U = torch.device("cuda"), rnn_cuda.UNITS
     gen = torch.Generator().manual_seed(seed)
-    wx, wh, b = stream_weights(init_encoder(gen, U, 1, F, dev), torch.bfloat16)[0]
+    wx, wh, b = stream_weights(init_encoder(gen, U, 1, F, dev), dtype)[0]
     layout = rnn_cuda.kernel_layout(wx, wh)
-    xs = torch.randn(B, T, F, generator=gen).to(dev, torch.bfloat16)
+    xs = torch.randn(B, T, F, generator=gen).to(dev, dtype)
     h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)).to(dev) if seeded
               else torch.zeros(2, B, U, device=dev) for _ in range(2))
-    out = torch.empty(B, T, 2 * U, device=dev, dtype=torch.bfloat16)
+    out = torch.empty(B, T, 2 * U, device=dev, dtype=dtype)
     hN, cN = torch.empty(2, B, U, device=dev), torch.empty(2, B, U, device=dev)
     # room for any grid of >= 16 rows a CTA and <= 32 warps
-    names = phase_names(phases_lib)
     stamps = torch.zeros(2 * -(-B // 16) * 32, len(names), dtype=torch.int64, device=dev)
 
     def timed():
-        cuda_lib.check(rnn_cuda.launch_bf16(phases_lib.rv_bilstm_layer_bf16_phases, xs, layout,
-                                            b, h0, c0, out, hN, cN, stamps.data_ptr()),
-                       "bilstm_bf16 (timing build)")
+        cuda_lib.check(rnn_cuda.launch(entry, xs, layout, b, h0, c0, out, hN, cN,
+                                       stamps.data_ptr()), "bilstm (timing build)")
 
     def production():
         rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, layout)
@@ -105,6 +110,7 @@ def split(phases_lib, B: int, F: int, T: int, seeded: bool, seed: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--stream", choices=sorted(STREAMS), default="bf16")
     ap.add_argument("--batch", type=int, nargs="+", default=[4096, 2858])
     ap.add_argument("--json", help="also write the rows to this file")
     args = ap.parse_args(argv)
@@ -112,33 +118,35 @@ def main(argv=None) -> int:
         print("bilstm_phases: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    source, _, dtype = STREAMS[args.stream]
     log = cuda_lib.build()
     cuda_lib.lib()
     for line in log.split("== ")[1:]:
-        if line.startswith("bilstm_bf16.cu"):
+        if line.startswith(source):
             print("production build:", " ".join(ln.strip() for ln in line.splitlines()
                                                   if "Used" in ln or "spill" in ln))
-    phases_lib = build()
+    entry, handle = build(args.stream)
+    names = phase_names(handle)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     rows = []
     for B in args.batch:
         for i, (name, F, T, seeded) in enumerate(SHAPES):
-            r = split(phases_lib, B, F, T, seeded, seed=i)
+            r = split(entry, names, dtype, B, F, T, seeded, seed=i)
             r["layer"] = name
             rows.append(r)
             ph = "  ".join(f"{k} {v:.0f}" for k, v in r["cycles_per_step"].items())
-            print(f"B={B} {name} (F={F}, T={T}): {r['ms']:.3f} ms (timing build "
+            print(f"{args.stream} B={B} {name} (F={F}, T={T}): {r['ms']:.3f} ms (timing build "
                   f"{r['ms_timing_build']:.3f} ms); cycles a step: {ph}; total "
                   f"{r['cycles_per_step_total']:.0f} over {r['warps']} warps, "
                   f"{r['implied_sm_ghz']:.3f} GHz implied; out err {r['timing_build_out_err']:.2e}",
                   flush=True)
         chunk = sum(r["ms"] for r in rows if r["B"] == B)
-        print(f"B={B}: the chunk's four layers {chunk:.3f} ms")
+        print(f"{args.stream} B={B}: the chunk's four layers {chunk:.3f} ms")
     print(smi)
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"card": smi, "rows": rows}, f, indent=1)
+            json.dump({"stream": args.stream, "card": smi, "rows": rows}, f, indent=1)
     return 0
 
 

@@ -6,7 +6,8 @@
 // memory starts as NaNs, so that a read of what no thread wrote shows; the
 // card has 2 SMs that hold 2 CTAs each. mma.sync.m16n8k16 on bf16 with an
 // f32 accumulator runs through the same warp exchange as __shfl_sync, its
-// products summed in f32 in k order.
+// products summed in f32 in k order. Shared-memory addresses for inline PTX
+// are all 0: cuda_emu.py replaces every asm statement that reads them.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -37,6 +38,7 @@ inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct __nv_bfloat16 { unsigned short v; };
@@ -73,6 +75,7 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline unsigned __cvta_generic_to_shared(const void*) { return 0u; }
 template <class T> T __ldg(const T* p) { return *p; }
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   uint64_t v = ((uint64_t)y << 32) | x;

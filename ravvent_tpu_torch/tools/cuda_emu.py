@@ -6,12 +6,14 @@ gitignored ``ravvent_tpu_torch/build/emu/``, and loaded with ctypes. The
 library has the source's C entry points, bound as ``ops/cuda_lib.py`` binds
 them, and takes host pointers (CPU tensors' ``data_ptr()``; the stream is
 ignored). Each CTA runs as one thread per CUDA thread, one CTA at a time;
-``cp.async`` copies at once; ``mma.sync.m16n8k16`` on bf16 (f32
-accumulator) exchanges the warp's fragments as ``__shfl_sync`` does. So the
-emulation shows a kernel's indexing, shared-memory and fragment layouts
-and control flow against its plain version, on a machine with no card and
-no nvcc. It says nothing of speed or of races between asynchronous copies,
-and it knows no other inline PTX (no ``ldmatrix``, ``wgmma``, TMA or
+``cp.async`` copies at once, and so does a 1-D bulk copy (TMA,
+``cp.async.bulk`` on an mbarrier), whose mbarrier wait returns at once;
+``mma.sync.m16n8k16`` on bf16 (f32 accumulator) exchanges the warp's
+fragments as ``__shfl_sync`` does. So the emulation shows a kernel's
+indexing, shared-memory and fragment layouts and control flow against its
+plain version, on a machine with no card and no nvcc. It says nothing of
+speed, of races between asynchronous copies or of mbarrier phases, and it
+knows no other inline PTX (no ``ldmatrix``, ``wgmma``, TMA tensor maps or
 clusters).
 
 Usage::
@@ -42,6 +44,13 @@ _MMA = re.compile(r'asm volatile\("mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.
                   r'[^"]*"\s*:(.*?);', re.S)
 
 
+# a bulk copy (TMA) into shared memory on an mbarrier: a copy here
+_BULK = re.compile(r'asm volatile\("cp\.async\.bulk\.shared::cluster\.global\.mbarrier::complete_tx::bytes '
+                   r'[^"]*"\s*::[^;]*\);')
+# an mbarrier's try_wait into its output register: done at once here
+_TRY_WAIT = re.compile(r'asm volatile\("[^"]*mbarrier\.try_wait[^"]*"\s*:\s*"=r"\((\w+)\)[^;]*\);')
+
+
 def _mma_call(m: re.Match) -> str:
     """The emulation's call for one mma asm statement: its ten operands
     (four accumulators, four A words, two B words) in order."""
@@ -52,16 +61,18 @@ def _mma_call(m: re.Match) -> str:
 
 
 def translate(text: str) -> str:
-    """A CUDA source as C++ for the emulation: no CUDA headers, cp.async as a
-    copy, mma as the emulation's call, other inline PTX dropped, ``k<<<grid, threads, smem, stream>>>(...)``
+    """A CUDA source as C++ for the emulation: no CUDA headers, cp.async and
+    the bulk copy as copies, an mbarrier's try_wait as done, mma as the
+    emulation's call, other inline PTX dropped, ``k<<<grid, threads, smem, stream>>>(...)``
     as ``emu_launch(k, grid, threads, smem, stream, ...)``, the dynamic
     shared buffer from the emulated CTA."""
     text = text.replace("#include <cuda_bf16.h>", "").replace("#include <cuda_runtime.h>", "")
     text = text.replace('#include "common.cuh"', '#include "common_emu.cuh"')
     text = re.sub(_CP_ASYNC, r"memcpy(dst, src, \1); (void)s;", text)
     text = _MMA.sub(_mma_call, text)
+    text = _BULK.sub("memcpy(dst, src, bytes);", text)
+    text = _TRY_WAIT.sub(r"\1 = 1;", text)
     text = re.sub(r'asm volatile\(".*?"[^;\n]*\);', ";", text)
-    text = text.replace("(unsigned)__cvta_generic_to_shared(dst)", "0u")
     text = re.sub(r"([\w:]+(?:<[^<>()]*>)?)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", text,
                   flags=re.S)
     for decl in ("extern __shared__ __align__(16) float smem[];",

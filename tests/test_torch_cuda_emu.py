@@ -1,6 +1,6 @@
-"""The beam step's CUDA kernels (csrc/beam_step_f.cu) and the bf16
-BiLSTM-layer kernel (csrc/bilstm_bf16.cu), run on the CPU by the emulation
-of tools/cuda_emu.py, against their plain versions.
+"""The beam step's CUDA kernels (csrc/beam_step_f.cu) and the BiLSTM-layer
+kernels (csrc/bilstm.cu, f32; csrc/bilstm_bf16.cu, bf16), run on the CPU by
+the emulation of tools/cuda_emu.py, against their plain versions.
 
 The emulation runs the kernels' own code (indexing, shared-memory layout,
 the persistent grid's row walk, the warp shuffles, the mma fragments) one
@@ -42,6 +42,15 @@ def emu_bilstm():
     from ravvent_tpu_torch.tools import cuda_emu
 
     return cuda_emu.load("bilstm_bf16.cu")
+
+
+@pytest.fixture(scope="module")
+def emu_bilstm_f32():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the emulation")
+    from ravvent_tpu_torch.tools import cuda_emu
+
+    return cuda_emu.load("bilstm.cu")
 
 
 def decoder_weights(rng) -> tstep.DecoderWeights:
@@ -187,3 +196,40 @@ def test_emulated_bilstm_bf16_refuses_what_it_does_not_take(emu_bilstm):
     assert emu_bilstm.rv_bilstm_layer_bf16(z.data_ptr(), 4, 3, 5, 32, *args, None) == 1
     assert emu_bilstm.rv_bilstm_layer_bf16(z.data_ptr(), 4, 3, 36, 48, *args, None) == 1
     assert emu_bilstm.rv_bilstm_layer_bf16(z.data_ptr(), 4, 3, 300, 304, *args, None) == 1
+
+
+@pytest.mark.parametrize("F,T,B,seeded", BILSTM_CASES,
+                         ids=[f"F{c[0]}-T{c[1]}-B{c[2]}-{'seeded' if c[3] else 'zero'}"
+                              for c in BILSTM_CASES])
+def test_emulated_bilstm_f32_matches_plain(emu_bilstm_f32, F, T, B, seeded):
+    """rv_bilstm_layer on the weights in kernel_layout's by-unit order
+    against bilstm_layer_plain, within chip_smoke.py phase 2's 1e-4 (f32
+    sums in another order). On the emulated 2-SM card B picks 16, 32, 48 or
+    64 rows a CTA, none a multiple of it; F = 1 and 5 run one partial x
+    k-tile, F = 256 sixteen. Every output is written (the outputs start as
+    NaN)."""
+    U = 128
+    gen = torch.Generator().manual_seed(10 * F + T)
+    wx, wh, b = stream_weights(init_encoder(gen, U, 1, F))[0]
+    xs = torch.randn(B, T, F, generator=gen)
+    h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)) if seeded else torch.zeros(2, B, U)
+              for _ in range(2))
+    lay = rnn_cuda.kernel_layout(wx, wh)
+    out = torch.full((B, T, 2 * U), float("nan"))
+    hN, cN = torch.full((2, B, U), float("nan")), torch.full((2, B, U), float("nan"))
+    rc = emu_bilstm_f32.rv_bilstm_layer(
+        xs.data_ptr(), B, T, F, lay.kx, lay.wx.data_ptr(), lay.wh.data_ptr(), b.data_ptr(),
+        h0.data_ptr(), c0.data_ptr(), out.data_ptr(), hN.data_ptr(), cN.data_ptr(), None)
+    assert rc == 0
+    for got, ref in zip((out, hN, cN), rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_emulated_bilstm_f32_refuses_what_it_does_not_take(emu_bilstm_f32):
+    """The C entry returns cudaErrorInvalidValue (1 in the emulation) for a
+    Kx that is not F rounded up to 4, for F past 256 and for no rows."""
+    z = torch.zeros(1)
+    args = (z.data_ptr(),) * 8
+    assert emu_bilstm_f32.rv_bilstm_layer(z.data_ptr(), 4, 3, 5, 16, *args, None) == 1
+    assert emu_bilstm_f32.rv_bilstm_layer(z.data_ptr(), 4, 3, 260, 260, *args, None) == 1
+    assert emu_bilstm_f32.rv_bilstm_layer(z.data_ptr(), 0, 3, 5, 8, *args, None) == 1

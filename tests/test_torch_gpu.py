@@ -36,10 +36,16 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("B", [37, 130, 2858], ids=["one ragged tile", "ragged tiles", "2858 rows"])
 @pytest.mark.parametrize("F,T,seeded", [(1, 200, False), (5, 30, False), (256, 40, True)])
-def test_bilstm_kernel_matches_plain(cuda, F, T, seeded):
+def test_bilstm_kernel_matches_plain(cuda, F, T, seeded, B):
+    """The f32 stream within 1e-4 (chip_smoke.py phase 2's bar). 37, 130 and
+    2858 rows run 3, 9 and 60 tiles of 16, 16 and 48 rows, the last one
+    ragged. The
+    weights laid out once (kernel_layout, as the engine does) give the same
+    result as the layout the wrapper makes."""
     gen = torch.Generator().manual_seed(F)
-    B, U = 37, 128  # a ragged last tile
+    U = 128
     wx, wh, b = stacked_weights(init_encoder(gen, U, 1, F, cuda)[0])
     xs = torch.randn(B, T, F, generator=gen).to(cuda)
     h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)).to(cuda) if seeded
@@ -50,6 +56,30 @@ def test_bilstm_kernel_matches_plain(cuda, F, T, seeded):
     ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    again = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, rnn_cuda.kernel_layout(wx, wh))
+    for g, r in zip(again, got):
+        assert torch.equal(g, r)
+
+
+def test_bilstm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """F past 256, and a layout made for another F, raise before any launch."""
+    B, T, U = 2, 3, 128
+    z = torch.zeros(2, B, U, device=cuda)
+    b = torch.zeros(2, 4 * U, device=cuda)
+    wh = torch.zeros(2, U, 4 * U, device=cuda)
+
+    def wx(F):
+        return torch.zeros(2, F, 4 * U, device=cuda)
+
+    def xs(F):
+        return torch.zeros(B, T, F, device=cuda)
+
+    before = cuda_lib.launches["bilstm"]
+    with pytest.raises(ValueError, match="F <= 256"):
+        rnn_cuda.bilstm_layer(xs(264), wx(264), wh, b, z, z)
+    with pytest.raises(ValueError, match="layout"):
+        rnn_cuda.bilstm_layer(xs(5), wx(5), wh, b, z, z, rnn_cuda.kernel_layout(wx(1), wh))
+    assert cuda_lib.launches["bilstm"] == before
 
 
 @pytest.mark.parametrize("B", [37, 130, 2858], ids=["one ragged tile", "three tiles", "2858 rows"])

@@ -209,3 +209,52 @@ def test_kernel_layout_holds_each_weight_once_in_fragment_order(F):
         padded = torch.nn.functional.pad(plain, (0, 0, 0, -(-K // 16) * 16 - K))
         assert torch.equal(torch.sort(frag.float().reshape(2, -1)).values,
                            torch.sort(padded.float().reshape(2, -1)).values)
+
+
+@pytest.mark.parametrize("F", [1, 5, 256])
+def test_f32_kernel_layout_holds_each_weight_once_by_unit(F):
+    """kernel_layout of f32 weights (csrc/bilstm.cu's order): Wx padded to F
+    rounded up to 4 rows, row k's gates i, f, g, o of unit u at [d, k, u],
+    each plain weight once; the padding rows zero."""
+    U = 128
+    gen = torch.Generator().manual_seed(F)
+    wx = torch.randn(2, F, 4 * U, generator=gen)
+    wh = torch.randn(2, U, 4 * U, generator=gen)
+    lay = rnn_cuda.kernel_layout(wx, wh)
+    kx = -(-F // 4) * 4
+    assert lay.kx == kx and lay.wx.shape == (2, kx, U, 4) and lay.wh.shape == (2, U, U, 4)
+    assert lay.wx.is_contiguous() and lay.wh.is_contiguous()
+    for plain, laid, K in ((wx, lay.wx, F), (wh, lay.wh, U)):
+        for k, u, gate in [(0, 0, 0), (K - 1, 77, 2), (K // 2, 127, 3)]:
+            assert torch.equal(laid[:, k, u, gate], plain[:, k, gate * U + u])
+        assert torch.equal(laid[:, :K], plain.reshape(2, K, 4, U).transpose(2, 3))
+        assert not laid[:, K:].any()
+        assert torch.equal(torch.sort(laid[:, :K].reshape(2, -1)).values,
+                           torch.sort(plain.reshape(2, -1)).values)
+
+
+def test_engine_lays_out_the_f32_encoder_once():
+    """An engine built without encoder_dtype (the CLI's) lays its f32
+    encoders' weights out for csrc/bilstm.cu once; on the CPU the wrapper
+    takes the layout and runs the plain version, so the encoder's output is
+    the same, bit for bit, as with the plain weights."""
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.models.basecaller import encode_input, init_basecaller
+
+    cfg = ModelConfig()
+    params = init_basecaller(cfg, torch.Generator().manual_seed(4))
+    engine = BasecallEngine(params, cfg, device="cpu")
+    kxs = {"encoder_raw": [4, 256], "encoder_event": [8, 256]}
+    for key, want in kxs.items():
+        layers = engine._enc_weights[key]
+        assert all(isinstance(layer[3], rnn_cuda.KernelLayout) for layer in layers)
+        assert [layer[3].kx for layer in layers] == want
+        assert all(layer[3].wx.dtype == torch.float32 for layer in layers)
+    rng = np.random.default_rng(6)
+    raw = torch.from_numpy(rng.normal(size=(6, 200, 1)).astype(np.float32))
+    event = torch.from_numpy(rng.normal(size=(6, 30, 5)).astype(np.float32))
+    plain = {k: trnn.stream_weights(params[k]) for k in kxs}
+    got, mask = encode_input(params, raw, event, cfg, engine._enc_weights)
+    ref, ref_mask = encode_input(params, raw, event, cfg, plain)
+    assert got.dtype == torch.float32 and torch.equal(got, ref) and torch.equal(mask, ref_mask)
