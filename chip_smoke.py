@@ -27,8 +27,10 @@ holds each hand-written kernel against its plain PyTorch version on the card:
      kernel's launch count, then a check against the CPU (plain) engine on
      the first 64 snippets of the first read;
   5. the beam-loop kernel against its plain version at B=4096, S=232, W=5,
-     bf16 memory, 39 live steps (one launch), timed beside the beam-step
-     kernel's 39-step loop on the same memory; then on a decoder whose end
+     bf16 memory, 39 live steps (one launch of clusters of 8 CTAs; the
+     cluster size and cudaOccupancyMaxActiveClusters printed), timed at 4096
+     and at 2858 rows beside the beam-step kernel's 39-step loop on the same
+     memory; then on a decoder whose end
      token is pushed down (every live step runs the whole cell), with bf16
      memory at B=4096 and f32 memory at B=256. Each live step of the
      kernel's result is replayed through the plain step
@@ -578,7 +580,9 @@ def compare_loops(got, ref, eff: int, end_token: int = 1) -> tuple:
 def phase_beam_loop() -> dict:
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
-    from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop, beam_loop_plain, replay_plain
+    from ravvent_tpu_torch.ops.beam_loop_cuda import (
+        beam_loop, beam_loop_plain, clusters, replay_plain,
+    )
     from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, pack_decoder_weights
 
     dev = torch.device("cuda")
@@ -639,6 +643,9 @@ def phase_beam_loop() -> dict:
             require(err <= tol, f"beam_loop {name}: score error {err:.3e} > {tol}")
         err = max(rep.rank_err, rep.score_err, err if free else 0.0)
         if first:
+            size, active = clusters(dtype, W, 232, V)
+            print(f"  beam_loop: clusters of {size} CTAs, {active} at once "
+                  f"(cudaOccupancyMaxActiveClusters)")
             ms = time_ms(lambda: beam_loop(keys, values, mask, w, W, T, eff, 2, end), reps=5)
             plain_ms = time_ms(lambda: beam_loop_plain(keys, values, mask, w, W, T, eff, 2, end),
                                reps=1)
@@ -648,6 +655,12 @@ def phase_beam_loop() -> dict:
             print(f"  beam_loop B={B} {name}: kernel {ms:.3f} ms/chunk, plain {plain_ms:.3f} "
                   f"ms/chunk, beam_step kernel x {eff} {step_ms:.3f} ms/chunk, bound "
                   f"{bound:.3f} ms/chunk ({by})", flush=True)
+            # a read's rows (2858, the first simulated read's): the same memory's first rows
+            k2, v2, m2 = keys[:2858], values[:2858], mask[:2858]
+            ms2 = time_ms(lambda: beam_loop(k2, v2, m2, w, W, T, eff, 2, end), reps=5)
+            step2 = time_ms(lambda: beam_step_loop(k2, v2, m2, w, W, T, eff, 2, end), reps=2)
+            print(f"  beam_loop B=2858 {name}: kernel {ms2:.3f} ms/chunk, beam_step kernel x "
+                  f"{eff} {step2:.3f} ms/chunk", flush=True)
             out = {"name": "beam_loop", "route": "cuda",
                    "source": "ravvent_tpu_torch/csrc/beam_loop.cu",
                    "replaces": "ravvent_tpu/ops/beam_loop_pallas.py:42", "max_abs_err": err,

@@ -121,6 +121,7 @@ ENTRIES = {
     "rv_beam_attend_i8": [_I] * 7 + [_P] * 20,
     "rv_beam_loop": [_I] * 9 + [_P] * 13,
     "rv_beam_loop_smem": [_I] * 4,
+    "rv_beam_loop_clusters": [_I] * 4 + [_P] * 2,
     "rv_decode_step": [_I] * 3 + [_P] * 18,
 }
 

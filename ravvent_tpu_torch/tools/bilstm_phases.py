@@ -35,25 +35,37 @@ STREAMS = {"bf16": ("bilstm_bf16.cu", "rv_bilstm_layer_bf16", torch.bfloat16),
            "f32": ("bilstm.cu", "rv_bilstm_layer", torch.float32)}
 
 
-def build(stream: str):
-    """The timing build of ``stream``'s source: (its C entry, the library)."""
-    source, entry, _ = STREAMS[stream]
+def timing_build(source: str, defines, entry: str, names: str):
+    """The timing build of ``csrc/<source>`` (compiled with ``-D`` of each
+    of ``defines``) into the build directory: (its ``<entry>_phases`` C
+    entry, which takes ``entry``'s arguments and the stamps before the
+    stream, the phase names that ``<names>()`` gives, the library)."""
     src = cuda_lib.CSRC / source
     lib = cuda_lib.BUILD / f"lib{src.stem}_phases.so"
     cuda_lib.BUILD.mkdir(parents=True, exist_ok=True)
     subprocess.run([cuda_lib.nvcc_path(), cuda_lib.ARCH, "-std=c++17", "-O3", "-shared",
-                    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-DRV_BILSTM_PHASES", str(src),
-                    "-o", str(lib)], check=True, timeout=600)
-    handle = ctypes.CDLL(str(lib))
+                    "-Xcompiler", "-fPIC", "-Xptxas", "-v"] + [f"-D{d}" for d in defines]
+                   + [str(src), "-o", str(lib)], check=True, timeout=600)
+    handle = cuda_lib.bind(ctypes.CDLL(str(lib)))
     fn = getattr(handle, entry + "_phases")
     fn.restype = ctypes.c_int
     fn.argtypes = cuda_lib.ENTRIES[entry][:-1] + [ctypes.c_void_p, ctypes.c_void_p]
-    handle.rv_bilstm_phase_names.restype = ctypes.c_char_p
-    return fn, handle
+    getattr(handle, names).restype = ctypes.c_char_p
+    return fn, getattr(handle, names)().decode().split(","), handle
 
 
-def phase_names(handle) -> list:
-    return handle.rv_bilstm_phase_names().decode().split(",")
+def production_registers(source: str) -> str:
+    """Build the production library; its ptxas lines (registers, spills) for
+    ``source``."""
+    log = cuda_lib.build()
+    cuda_lib.lib()
+    return " ".join(ln.strip() for part in log.split("== ")[1:] if part.startswith(source)
+                    for ln in part.splitlines() if "Used" in ln or "spill" in ln)
+
+
+def smi_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -118,17 +130,11 @@ def main(argv=None) -> int:
         print("bilstm_phases: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    source, _, dtype = STREAMS[args.stream]
-    log = cuda_lib.build()
-    cuda_lib.lib()
-    for line in log.split("== ")[1:]:
-        if line.startswith(source):
-            print("production build:", " ".join(ln.strip() for ln in line.splitlines()
-                                                  if "Used" in ln or "spill" in ln))
-    entry, handle = build(args.stream)
-    names = phase_names(handle)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    source, entry_name, dtype = STREAMS[args.stream]
+    print("production build:", production_registers(source))
+    entry, names, _ = timing_build(source, ["RV_BILSTM_PHASES"], entry_name,
+                                   "rv_bilstm_phase_names")
+    smi = smi_line()
     rows = []
     for B in args.batch:
         for i, (name, F, T, seeded) in enumerate(SHAPES):

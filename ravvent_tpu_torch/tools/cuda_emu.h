@@ -1,17 +1,31 @@
 // CPU emulation of the CUDA subset that the port's plain-C kernels use, for
 // rehearsing a kernel's logic against its plain version without a card
 // (ravvent_tpu_torch/tools/cuda_emu.py translates a csrc/ source against
-// this header). One CTA at a time (1-D or 2-D grids), one std::thread per
-// CUDA thread; __syncthreads and the warp exchanges are barriers; shared
-// memory starts as NaNs, so that a read of what no thread wrote shows; the
-// card has 2 SMs that hold 2 CTAs each. mma.sync.m16n8k16 on bf16 with an
-// f32 accumulator runs through the same warp exchange as __shfl_sync, its
-// products summed in f32 in k order. Shared-memory addresses for inline PTX
-// are all 0: cuda_emu.py replaces every asm statement that reads them.
+// this header). One CTA at a time (1-D or 2-D grids), or one thread-block
+// cluster at a time (cudaLaunchKernelEx with a cluster dimension), one
+// std::thread per CUDA thread; __syncthreads, the cluster barrier and the
+// warp exchanges are barriers; shared memory starts as NaNs, so that a read
+// of what no thread wrote shows; the card has 2 SMs that hold 2 CTAs each,
+// and clusters of at most 2 CTAs. mma.sync.m16n8k16 on bf16 with an f32
+// accumulator runs through the same warp exchange as __shfl_sync, its
+// products summed in f32 in k order. A shared-memory address for inline PTX
+// is the byte offset in the CTA's dynamic shared buffer; mapa.u64 moves a
+// generic pointer into it to the same place in a peer CTA's buffer, which
+// the kernel then reads and writes as distributed shared memory. The
+// beam-loop kernel's mbarriers (init, arrive.expect_tx, complete_tx,
+// try_wait.parity) keep their phase and transaction count, and a wait
+// blocks until its phase completes; a multicast bulk copy copies into every
+// CTA of its mask at once and completes its bytes on each one's mbarrier.
+// The card's 1 MiB of shared memory a block lets a cluster of 2 hold what
+// a cluster of 8 holds on the H100.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
+#include <map>
+#include <mutex>
+#include <optional>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -33,13 +47,15 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
-struct uint4 { unsigned x, y, z, w; };
+// aligned as on the card, so that the emulation's -fsanitize=alignment
+// reports a misaligned vector access as the card would fault on it
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
-struct uint2 { unsigned x, y; };
+struct alignas(8) uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
-struct float4 { float x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
-struct float2 { float x, y; };
+struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct __nv_bfloat16 { unsigned short v; };
 struct __nv_bfloat162 { __nv_bfloat16 a, b; };
@@ -60,13 +76,35 @@ inline float __low2float(__nv_bfloat162 p) { return __bfloat162float(p.a); }
 inline float __high2float(__nv_bfloat162 p) { return __bfloat162float(p.b); }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline unsigned emu_cluster_dim(const cudaLaunchConfig_t* cfg) {
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) return cfg->attrs[i].val.clusterDim.x;
+  return 1;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t* cfg) {
+  *n = emu_cluster_dim(cfg) <= 2 ? 1 : 0;  // clusters of 2 at most, one at a time
+  return cudaSuccess;
+}
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerBlockOptin };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 2;  // SMs
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? 2 : 1 << 20;  // 2 SMs; 1 MiB of shared memory a block
   return cudaSuccess;
 }
 template <class F>
@@ -75,7 +113,6 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline unsigned __cvta_generic_to_shared(const void*) { return 0u; }
 template <class T> T __ldg(const T* p) { return *p; }
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   uint64_t v = ((uint64_t)y << 32) | x;
@@ -100,7 +137,7 @@ struct Cta {
   std::vector<float> smem;      // the dynamic shared buffer
   std::vector<unsigned> mma[2]; // an mma's fragments, 6 words a thread, two calls in turn
 };
-inline Cta* g_cta = nullptr;
+inline thread_local Cta* g_cta = nullptr;
 inline void __syncthreads() { g_cta->block->arrive_and_wait(); }
 inline void __syncwarp() { g_cta->warps[threadIdx.x / 32]->arrive_and_wait(); }
 template <class T> T shfl_impl(T v, int src_lane) {
@@ -120,7 +157,83 @@ template <class T> T __shfl_sync(unsigned, T v, int l) { return shfl_impl(v, l);
 inline int __reduce_add_sync(unsigned, int v) {
   int s = 0; for (int o = 0; o < 32; ++o) s += shfl_impl(v, o); return s;
 }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  unsigned m = 0; for (int o = 0; o < 32; ++o) m = std::max(m, shfl_impl(v, o)); return m;
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  unsigned m = ~0u; for (int o = 0; o < 32; ++o) m = std::min(m, shfl_impl(v, o)); return m;
+}
 inline float* emu_smem() { return g_cta->smem.data(); }
+inline unsigned __cvta_generic_to_shared(const void* p) {
+  return (unsigned)(reinterpret_cast<const char*>(p) - reinterpret_cast<const char*>(emu_smem()));
+}
+
+// ---- thread-block clusters: the cluster barrier, mapa (distributed shared
+// memory), mbarriers and the multicast bulk copy
+struct Cluster {
+  std::vector<Cta*> ctas;
+  std::unique_ptr<std::barrier<>> bar;
+};
+inline thread_local Cluster* g_cluster = nullptr;
+inline thread_local std::optional<std::barrier<>::arrival_token> g_cluster_token;
+inline void emu_cluster_arrive() { g_cluster_token.emplace(g_cluster->bar->arrive()); }
+inline void emu_cluster_wait() {
+  g_cluster->bar->wait(std::move(*g_cluster_token));
+  g_cluster_token.reset();
+}
+// a shared-memory address of this CTA, or of the rank emu_rank names
+inline unsigned emu_rank(unsigned addr, unsigned rank) { return (addr & 0xffffffu) | ((rank + 1) << 24); }
+inline unsigned char* emu_shared(unsigned addr) {
+  Cta* c = addr >> 24 ? g_cluster->ctas.at((addr >> 24) - 1) : g_cta;
+  return reinterpret_cast<unsigned char*>(c->smem.data()) + (addr & 0xffffffu);
+}
+// mapa.u64: a generic pointer into this CTA's shared memory, moved to the
+// same place in the shared memory of CTA `rank` of the cluster
+inline uint64_t emu_mapa(const void* p, unsigned rank) {
+  const char* mine = reinterpret_cast<const char*>(emu_smem());
+  return reinterpret_cast<uint64_t>(
+      reinterpret_cast<char*>(g_cluster->ctas.at(rank)->smem.data()) +
+      (reinterpret_cast<const char*>(p) - mine));
+}
+struct EmuMbar { long long expected = 0, pending = 0, tx = 0; unsigned phase = 0; };
+inline std::mutex g_mbar_mu;
+inline std::condition_variable g_mbar_cv;
+inline std::map<const void*, EmuMbar> g_mbars;
+inline void emu_mbar_complete(EmuMbar& m) {  // with g_mbar_mu held
+  if (m.pending == 0 && m.tx == 0) {
+    m.phase ^= 1u;
+    m.pending = m.expected;
+    g_mbar_cv.notify_all();
+  }
+}
+inline void emu_mbar_init(unsigned addr, unsigned count) {
+  std::lock_guard<std::mutex> lk(g_mbar_mu);
+  g_mbars[emu_shared(addr)] = EmuMbar{count, count, 0, 0};
+}
+inline void emu_mbar_arrive_tx(unsigned addr, unsigned bytes) {
+  std::lock_guard<std::mutex> lk(g_mbar_mu);
+  EmuMbar& m = g_mbars.at(emu_shared(addr));
+  m.tx += bytes;
+  m.pending -= 1;
+  emu_mbar_complete(m);
+}
+inline unsigned emu_mbar_try_wait(unsigned addr, unsigned parity) {
+  std::unique_lock<std::mutex> lk(g_mbar_mu);
+  EmuMbar& m = g_mbars.at(emu_shared(addr));
+  g_mbar_cv.wait(lk, [&] { return (m.phase & 1u) != (parity & 1u); });
+  return 1u;
+}
+inline void emu_bulk_multicast(unsigned dst, const void* src, unsigned bytes, unsigned bar,
+                               unsigned short mask) {
+  for (unsigned r = 0; r < g_cluster->ctas.size(); ++r)
+    if (mask >> r & 1u) {
+      memcpy(emu_shared(emu_rank(dst, r)), src, bytes);
+      std::lock_guard<std::mutex> lk(g_mbar_mu);
+      EmuMbar& m = g_mbars.at(emu_shared(emu_rank(bar, r)));
+      m.tx -= bytes;
+      emu_mbar_complete(m);
+    }
+}
 
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {d0..d3}, {a0..a3},
 // {b0, b1}, {d0..d3}: lane (g, tg) holds A rows g, g + 8 and columns
@@ -153,31 +266,65 @@ inline void emu_mma_m16n8k16_bf16(float& d0, float& d1, float& d2, float& d3, un
   emu_mma_turn ^= 1;
 }
 
+inline std::unique_ptr<Cta> emu_cta(int threads, size_t smem) {
+  auto cta = std::make_unique<Cta>();
+  cta->block = std::make_unique<std::barrier<>>(threads);
+  for (int w = 0; w < (threads + 31) / 32; ++w)
+    cta->warps.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
+  cta->slots.assign(threads, 0);
+  cta->mma[0].assign(6 * threads, 0u);
+  cta->mma[1].assign(6 * threads, 0u);
+  cta->smem.assign(smem / 4 + 64, __uint_as_float(0x7fc00001u));  // NaNs
+  return cta;
+}
+
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t, A... args) {
   gridDim = grid; blockDim.x = threads;
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
-      Cta cta;
-      cta.block = std::make_unique<std::barrier<>>(threads);
-      for (int w = 0; w < (threads + 31) / 32; ++w)
-        cta.warps.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
-      cta.slots.assign(threads, 0);
-      cta.mma[0].assign(6 * threads, 0u);
-      cta.mma[1].assign(6 * threads, 0u);
-      cta.smem.assign(smem / 4 + 64, __uint_as_float(0x7fc00001u));  // NaNs
-      g_cta = &cta;
+      auto cta = emu_cta(threads, smem);
       std::vector<std::thread> ts;
       for (int t = 0; t < threads; ++t)
         ts.emplace_back([&, t] {
           threadIdx.x = t; blockIdx.x = bx; blockIdx.y = by; emu_mma_turn = 0;
+          g_cta = cta.get();
           kernel(args...);
         });
       for (auto& t : ts) t.join();
-      g_cta = nullptr;
     }
 }
 template <class K, class... A>
 void emu_launch(K kernel, int grid, int threads, size_t smem, cudaStream_t stream, A... args) {
   emu_launch(kernel, dim3(grid), threads, smem, stream, args...);
+}
+
+// A 1-D grid of clusters of emu_cluster_dim(cfg) CTAs, one cluster at a time,
+// the CTAs of a cluster together.
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...), A... args) {
+  const unsigned C = emu_cluster_dim(cfg);
+  const int threads = (int)cfg->blockDim.x;
+  if (cfg->gridDim.x % C != 0 || cfg->gridDim.y != 1) return cudaErrorInvalidValue;
+  gridDim = cfg->gridDim; blockDim.x = threads;
+  for (unsigned cl = 0; cl < cfg->gridDim.x / C; ++cl) {
+    std::vector<std::unique_ptr<Cta>> ctas;
+    Cluster cluster;
+    for (unsigned r = 0; r < C; ++r) {
+      ctas.push_back(emu_cta(threads, cfg->dynamicSmemBytes));
+      cluster.ctas.push_back(ctas.back().get());
+    }
+    cluster.bar = std::make_unique<std::barrier<>>((std::ptrdiff_t)C * threads);
+    std::vector<std::thread> ts;
+    for (unsigned r = 0; r < C; ++r)
+      for (int t = 0; t < threads; ++t)
+        ts.emplace_back([&, r, t] {
+          threadIdx.x = t; blockIdx.x = cl * C + r; blockIdx.y = 0; emu_mma_turn = 0;
+          g_cta = ctas[r].get();
+          g_cluster = &cluster;
+          kernel(args...);
+        });
+    for (auto& t : ts) t.join();
+  }
+  return cudaSuccess;
 }

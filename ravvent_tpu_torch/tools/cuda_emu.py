@@ -5,16 +5,23 @@ The source and ``csrc/common.cuh`` are translated into C++ against
 gitignored ``ravvent_tpu_torch/build/emu/``, and loaded with ctypes. The
 library has the source's C entry points, bound as ``ops/cuda_lib.py`` binds
 them, and takes host pointers (CPU tensors' ``data_ptr()``; the stream is
-ignored). Each CTA runs as one thread per CUDA thread, one CTA at a time;
-``cp.async`` copies at once, and so does a 1-D bulk copy (TMA,
-``cp.async.bulk`` on an mbarrier), whose mbarrier wait returns at once;
+ignored). Each CTA runs as one thread per CUDA thread, one CTA at a time,
+or one cluster at a time, its CTAs together (``cudaLaunchKernelEx`` with a
+cluster dimension; the emulated card holds clusters of 2 CTAs at most, and
+1 MiB of shared memory a block); ``cp.async`` copies at once, and so does a
+1-D bulk copy (TMA, ``cp.async.bulk`` on an mbarrier), whose mbarrier wait
+returns at once. The cluster kernel's PTX (csrc/beam_loop.cu: the cluster
+barrier, ``mapa.u64`` to a peer CTA's shared memory, read and written as
+distributed shared memory, the multicast bulk copy into every CTA of its
+mask) runs on mbarriers that keep their phase and transaction count, whose
+waits block until the phase completes;
 ``mma.sync.m16n8k16`` on bf16 (f32 accumulator) exchanges the warp's
 fragments as ``__shfl_sync`` does. So the emulation shows a kernel's
 indexing, shared-memory and fragment layouts and control flow against its
 plain version, on a machine with no card and no nvcc. It says nothing of
-speed, of races between asynchronous copies or of mbarrier phases, and it
-knows no other inline PTX (no ``ldmatrix``, ``wgmma``, TMA tensor maps or
-clusters).
+speed or of races between asynchronous copies (a copy lands when it is
+issued), and it knows no other inline PTX (no ``ldmatrix``, ``wgmma`` or TMA
+tensor maps).
 
 Usage::
 
@@ -50,6 +57,31 @@ _BULK = re.compile(r'asm volatile\("cp\.async\.bulk\.shared::cluster\.global\.mb
 # an mbarrier's try_wait into its output register: done at once here
 _TRY_WAIT = re.compile(r'asm volatile\("[^"]*mbarrier\.try_wait[^"]*"\s*:\s*"=r"\((\w+)\)[^;]*\);')
 
+# The cluster kernel's PTX (csrc/beam_loop.cu), each as the emulation's call
+# on the statement's operands, in order; its mbarriers keep real phases.
+_OPERAND = r'\s*"[+=]?[rlh]"\((\w+)\)'
+_CLUSTER_PTX = [
+    (r"mbarrier\.init\.shared::cta\.b64 \[%0\], %1;", "emu_mbar_init({0}, {1});"),
+    (r"mbarrier\.arrive\.expect_tx\.release\.cta\.shared::cta\.b64 _, \[%0\], %1;",
+     "emu_mbar_arrive_tx({0}, {1});"),
+    (r"mapa\.u64 %0, %1, %2;", "{0} = emu_mapa({1}, {2});"),
+    (r"[^\"]*mbarrier\.try_wait\.parity\.acquire\.cta[^\"]*", "{0} = emu_mbar_try_wait({1}, {2});"),
+    (r"cp\.async\.bulk\.shared::cluster\.global\.mbarrier::complete_tx::bytes\.multicast::cluster "
+     r"\[%0\], \[%1\], %2, \[%3\], %4;", "emu_bulk_multicast({0}, {1}, {2}, {3}, {4});"),
+    (r"barrier\.cluster\.arrive\.release\.aligned;", "emu_cluster_arrive();"),
+    (r"barrier\.cluster\.wait\.acquire\.aligned;", "emu_cluster_wait();"),
+]
+
+
+def _cluster_ptx(text: str) -> str:
+    for ptx, call in _CLUSTER_PTX:
+        pattern = re.compile(r'asm volatile\("' + ptx + r'(?:\\n)?"([^;]*?)\);', re.S)
+
+        def sub(m, call=call):
+            return call.format(*re.findall(_OPERAND, m.group(1)))
+        text = pattern.sub(sub, text)
+    return text
+
 
 def _mma_call(m: re.Match) -> str:
     """The emulation's call for one mma asm statement: its ten operands
@@ -68,6 +100,7 @@ def translate(text: str) -> str:
     shared buffer from the emulated CTA."""
     text = text.replace("#include <cuda_bf16.h>", "").replace("#include <cuda_runtime.h>", "")
     text = text.replace('#include "common.cuh"', '#include "common_emu.cuh"')
+    text = _cluster_ptx(text)
     text = re.sub(_CP_ASYNC, r"memcpy(dst, src, \1); (void)s;", text)
     text = _MMA.sub(_mma_call, text)
     text = _BULK.sub("memcpy(dst, src, bytes);", text)
@@ -78,6 +111,8 @@ def translate(text: str) -> str:
     for decl in ("extern __shared__ __align__(16) float smem[];",
                  "extern __shared__ float smem[];"):
         text = text.replace(decl, "float* smem = emu_smem();")
+    text = text.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
+                        "unsigned char* smem_raw = reinterpret_cast<unsigned char*>(emu_smem());")
     return f'#include "{HEADER}"\n' + text
 
 
@@ -100,6 +135,7 @@ def load(source: str) -> ctypes.CDLL:
         cpp.write_text(translate(src.read_text()))
         tmp = work / lib_path.name
         res = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+                              "-fsanitize=alignment", "-fno-sanitize-recover=alignment",
                               "-Wno-unknown-pragmas", f"-I{work}", "-o", str(tmp), str(cpp)],
                              capture_output=True, text=True, timeout=600)
         if res.returncode != 0:

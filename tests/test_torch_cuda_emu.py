@@ -1,6 +1,8 @@
-"""The beam step's CUDA kernels (csrc/beam_step_f.cu) and the BiLSTM-layer
-kernels (csrc/bilstm.cu, f32; csrc/bilstm_bf16.cu, bf16), run on the CPU by
-the emulation of tools/cuda_emu.py, against their plain versions.
+"""The beam step's CUDA kernels (csrc/beam_step_f.cu), the BiLSTM-layer
+kernels (csrc/bilstm.cu, f32; csrc/bilstm_bf16.cu, bf16) and the whole-loop
+beam kernel (csrc/beam_loop.cu, clusters of 2 CTAs on the emulated card),
+run on the CPU by the emulation of tools/cuda_emu.py, against their plain
+versions.
 
 The emulation runs the kernels' own code (indexing, shared-memory layout,
 the persistent grid's row walk, the warp shuffles, the mma fragments) one
@@ -19,6 +21,7 @@ import torch
 
 from ravvent_tpu_torch.models import attention as tattn
 from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
+from ravvent_tpu_torch.ops import beam_loop_cuda as tloop
 from ravvent_tpu_torch.ops import beam_step_cuda as tstep
 from ravvent_tpu_torch.ops import rnn_cuda
 
@@ -51,6 +54,15 @@ def emu_bilstm_f32():
     from ravvent_tpu_torch.tools import cuda_emu
 
     return cuda_emu.load("bilstm.cu")
+
+
+@pytest.fixture(scope="module")
+def emu_loop():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the emulation")
+    from ravvent_tpu_torch.tools import cuda_emu
+
+    return cuda_emu.load("beam_loop.cu")
 
 
 def decoder_weights(rng) -> tstep.DecoderWeights:
@@ -233,3 +245,93 @@ def test_emulated_bilstm_f32_refuses_what_it_does_not_take(emu_bilstm_f32):
     assert emu_bilstm_f32.rv_bilstm_layer(z.data_ptr(), 4, 3, 5, 16, *args, None) == 1
     assert emu_bilstm_f32.rv_bilstm_layer(z.data_ptr(), 4, 3, 260, 260, *args, None) == 1
     assert emu_bilstm_f32.rv_bilstm_layer(z.data_ptr(), 0, 3, 5, 8, *args, None) == 1
+
+
+# (memory, B, S, W, T, eff, end token pushed down): B is not a multiple of
+# the emulated card's cluster of 2 but in the f32 case; W = 8 > V puts a
+# repeated pick at finfo.min into step 1; eff < T leaves dead steps
+LOOP_CASES = [("bf16", 3, 8, 5, 6, 4, True), ("f32", 4, 40, 5, 6, 4, True),
+              ("bf16", 3, 40, 1, 6, 5, True), ("bf16", 5, 8, 8, 6, 3, True),
+              ("f32", 3, 40, 8, 7, 4, False), ("bf16", 5, 40, 5, 5, 5, False)]
+
+
+def loop_inputs(rng, B: int, S: int, mode: str, live: bool):
+    """A seeded memory (row 1 all padding) and decoder weights; with
+    ``live`` the end token's logit is pushed down, so that no beam ends."""
+    mem = memory(rng, B, S, mode)
+    w = decoder_weights(rng)._replace(watt_h=mem.watt_h)
+    if live:
+        bfc = w.bfc.clone()
+        bfc[1] -= 20.0
+        w = w._replace(bfc=bfc)
+    return mem, w
+
+
+@pytest.mark.parametrize("mode,B,S,W,T,eff,live", LOOP_CASES,
+                         ids=[f"{c[0]}-B{c[1]}-S{c[2]}-W{c[3]}-eff{c[5]}of{c[4]}"
+                              + ("-live" if c[6] else "") for c in LOOP_CASES])
+def test_emulated_beam_loop_matches_plain(emu_loop, mode, B, S, W, T, eff, live):
+    """rv_beam_loop (clusters of 2 sharing the weight ring's multicast
+    tiles) against beam_loop_plain: the same tokens and parents at every
+    live step, scores within 1e-5 relative (f32 sums in another order, over
+    cumulative log-probs); each live step replayed through the plain step
+    (replay_plain) with every pick equal and distinct; the dead steps from
+    eff on untouched (they start at a sentinel the kernel must not
+    overwrite)."""
+    rng = np.random.default_rng(100 * B + 10 * W + S)
+    mem, w = loop_inputs(rng, B, S, mode, live)
+    sentinel = -7
+    out = [torch.full((T, B, W), sentinel, dtype=torch.int32),
+           torch.full((T, B, W), sentinel, dtype=torch.int32),
+           torch.full((T, B, W), float(sentinel))]
+    rc = emu_loop.rv_beam_loop(int(mode == "bf16"), W, B, S, V, T, eff, 2, 1,
+                               mem.keys.data_ptr(), mem.values.data_ptr(), mem.mask.data_ptr(),
+                               w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+                               w.watt_h.data_ptr(), w.wfc.data_ptr(), w.bfc.data_ptr(),
+                               *(o.data_ptr() for o in out), None)
+    assert rc == 0
+    assert all((o[eff:] == sentinel).all() for o in out)
+    tok, par, sc = (o.clone() for o in out)
+    for o in (tok, par, sc):
+        o[eff:] = 0
+    rtok, rpar, rsc = tloop.beam_loop_plain(mem.keys, mem.values, mem.mask, w, W, T, eff, 2, 1)
+    assert torch.equal(tok, rtok) and torch.equal(par, rpar)
+    torch.testing.assert_close(sc, rsc, rtol=1e-5, atol=1e-5)
+    rep = tloop.replay_plain(tok, par, sc, mem.keys, mem.values, mem.mask, w, eff, 2, 1)
+    assert rep.exact == 1.0 and rep.distinct
+
+
+def test_emulated_beam_loop_refuses_what_it_does_not_take(emu_loop):
+    """The C entry returns cudaErrorInvalidValue (1 in the emulation) for a
+    beam width it has no instance of, V + W past 32, an S whose layout fits
+    no cluster's shared memory, eff past T, and weights that are not
+    16-byte aligned."""
+    rng = np.random.default_rng(0)
+    mem, w = loop_inputs(rng, 2, 8, "bf16", False)
+    out = [torch.zeros(4, 2, 8, dtype=torch.int32) for _ in range(2)] + [torch.zeros(4, 2, 8)]
+
+    def call(W=5, S=8, V=V, T=4, eff=3, wx=w.wx.data_ptr()):
+        return emu_loop.rv_beam_loop(1, W, 2, S, V, T, eff, 2, 1, mem.keys.data_ptr(),
+                                     mem.values.data_ptr(), mem.mask.data_ptr(), wx,
+                                     w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
+                                     w.wfc.data_ptr(), w.bfc.data_ptr(),
+                                     *(o.data_ptr() for o in out), None)
+
+    assert call(W=6) == 1
+    assert call(W=8, V=25) == 1
+    assert call(S=2000) == 1
+    assert call(eff=5) == 1
+    assert call(wx=w.wx.data_ptr() + 4) == 1
+    assert all(not o.any() for o in out)  # nothing launched
+
+
+def test_replay_holds_the_plain_loop_at_w8():
+    """At W = 8 > V the reference's iterated argmax picks a candidate at
+    finfo.min again at step 1; replay_plain holds the plain loop's own
+    result as exact, distinct and without error."""
+    rng = np.random.default_rng(8)
+    mem, w = loop_inputs(rng, 3, 16, "bf16", False)
+    res = tloop.beam_loop_plain(mem.keys, mem.values, mem.mask, w, 8, 6, 5, 2, 1)
+    assert (res[2][0, :, 7] == tloop.NEG_INF).all()  # the repeat at step 1
+    rep = tloop.replay_plain(*res, mem.keys, mem.values, mem.mask, w, 5, 2, 1)
+    assert rep == tloop.Replay(1.0, 0.0, 0.0, True)

@@ -209,9 +209,15 @@ def _decoder_and_memory(seed, B, S, mem_dtype, projected, device):
 
 
 @pytest.mark.parametrize("mem_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("W", [1, 5])
-def test_beam_loop_kernel_matches_plain(cuda, mem_dtype, W):
-    B, S, T, eff = 9, 232, 14, 12
+@pytest.mark.parametrize("B,W", [(9, 1), (9, 5), (130, 1), (130, 5), (130, 8)])
+def test_beam_loop_kernel_matches_plain(cuda, mem_dtype, B, W):
+    """9 and 130 rows are not whole clusters of 8: the rows past B run and
+    write nothing. At W = 8 step 1 has fewer finite candidates (V = 7) than
+    beams: the eighth pick is a repeat at finfo.min, as in the reference.
+    W = 8 runs at 130 rows: with 56 contested candidates a step one row in
+    9 can part from the plain loop at a near-tie, and at 9 rows one row is
+    1/9 of the prefix share; the replay holds every step either way."""
+    S, T, eff = 232, 14, 12
     dec_p, mem = _decoder_and_memory(W, B, S, mem_dtype, True, cuda)
     # as drawn, most beams end within a few steps; with the end token's logit
     # pushed down every live step runs the whole cell and attention
