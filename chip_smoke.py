@@ -5,8 +5,9 @@ Drives the port's paths — the basecalling CLI's read path
 and with --beam-impl loop, fused greedy decode
 (ops/decode_step_cuda.py:fused_greedy_decode), and bench.py's main path
 (evaluation/performance.py:PerformanceEvaluator on the bench's engine
-settings), and the bench's path on int8 memory through PerformanceEvaluator
-and MappingEvaluator (evaluation/mapping.py) — at the flagship's full width
+settings), the bench's path on int8 memory through PerformanceEvaluator
+and MappingEvaluator (evaluation/mapping.py), and the signal-only wire
+(sigdev, sigdev8) through both — at the flagship's full width
 (joint raw+event input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM
 decoder with Luong attention, vocab 7, beam 5) on seeded random weights, and
 holds each hand-written kernel against its plain PyTorch version on the card:
@@ -65,6 +66,17 @@ holds each hand-written kernel against its plain PyTorch version on the card:
      over the same 4 reads; only beam_cell and the int8 attend kernel of the
      mode (once each a step) and the bf16 BiLSTM kernel launch; card and CPU
      tokens on 64 snippets, decoding the card's int8 memory and end to end.
+ 13. end to end, the signal-only wire (bench.py's sigdev and sigdev8
+     pipelines): the peak-scan kernel (csrc/peak_scan.cu, the scan then the
+     check) against its plain version on the card for the 4 reads on both
+     wires and on two traces whose check fails, timed at 131072 and 196608
+     samples; the engine's segmentation on the card against the CPU engine
+     (meta and ranges bit-equal on the i16 wire, features within 1e-3);
+     card and CPU tokens on 64 snippets; PerformanceEvaluator.run_pipelined
+     over the compact wire, sigdev and sigdev8, and MappingEvaluator on
+     sigdev, with the bench's settings; no read falls back to the compact
+     wire, peak_scan launches twice a segmentation, bilstm_bf16 4 times a
+     chunk, beam_cell and beam_attend once a step.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -77,6 +89,7 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1145,6 +1158,246 @@ def phase_bench_path_i8(smi: str) -> dict:
     return counts
 
 
+def peak_scan_bounds(B: int, S: int) -> tuple:
+    """The least time of the peak scan on B reads of S samples: t1 and t2
+    read once, n_valid read, the fired mask and ok written once; against 14
+    f32 subtractions and compares a step over every block's 512 samples and
+    every warm-up but block 0's (at the f32 rate). Its real limit is
+    neither: a thread's chain of 768 dependent steps."""
+    C = -(-S // 512)
+    ops = 14 * B * (C * 512 + (C - 1) * 256)
+    nbytes = B * S * (4 + 4 + 1) + B * (4 + 1)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profiled_ms(fn, calls: int = 20) -> str:
+    """Each CUDA kernel's device time a call of fn(), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {e.key: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+             for e in prof.key_averages()}
+    times = {k: v / calls / 1e3 for k, v in times.items() if v > 0}
+    if not times:
+        return "not measured (no device time in the trace)"
+    def short(name):  # the kernel's own name, without namespace and parameters
+        return re.sub(r"\(.*", "", name.replace("(anonymous namespace)::", ""))[-48:]
+    return ", ".join(f"{short(k)} {v:.4f} ms" for k, v in sorted(times.items()))
+
+
+def failing_traces() -> list:
+    """Two t-statistic traces whose blocked check fails
+    (tests/test_torch_cuda_emu.py's): an ancient dip no warm-up sees, and a
+    slow rise that hides a valid peak from every block after the first,
+    whose sequential fire at sample 1503 the blocked scan misses."""
+    dip = np.full(4096, 1.0, np.float32)
+    dip[:50], dip[60] = 5.0, 0.1
+    rise = np.full(2048, 1.0, np.float32)
+    rise[100], rise[101] = 2.0, 1.7
+    rise[102:1500] = (2.1 + 0.001 * np.arange(1398)).astype(np.float32)
+    rise[1500:] = rise[1499] - np.float32(0.1)
+    return [dip, rise]
+
+
+def phase_signal_wire(smi: str) -> tuple:
+    """The signal-only wire: the peak-scan kernel against its plain version,
+    the engine's segmentation on the card against the CPU's, and bench.py's
+    sigdev/sigdev8 pipelines and the mapping evaluator on the 4 simulated
+    reads with the bench's settings. Returns (the kernel's line, the launch
+    counts of the wire's runs)."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.data import chiron
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.evaluation.mapping import MappingEvaluator
+    from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.ops.event_detect import compute_tstats_device, peak_scan_plain
+    from ravvent_tpu_torch.ops.peak_scan_cuda import peak_scan_cuda
+
+    dev = torch.device("cuda")
+    cfg, params = flagship_params()
+    bench = dict(chunk_size=4096, memory_dtype=torch.bfloat16, beam_impl="step",
+                 encoder_dtype=torch.bfloat16, pack_u8=True, transport_dtype="i8dev", prob_bits=4)
+    engine = BasecallEngine(params, cfg, **bench)
+    cpu = BasecallEngine(params, cfg, device="cpu", **bench)
+    reads = simulated_reads()
+    raws = [raw for raw, _, _ in reads]
+
+    # the kernel against its plain version on the card: the 4 reads in one
+    # batch on each wire (their t-statistics as the engine computes them)
+    S_b = BasecallEngine._bucket(max(r.size for r in raws), 65536)
+    err, ok_all, fires = 0, True, {}
+    for sig_wire in ("i16", "u8"):
+        buf = engine._upload({"b": engine.signal_buffer(raws, S_b, sig_wire)})["b"]
+        hdr = buf[:, :32].view(torch.float32)
+        n_s = buf[:, 8:12].view(torch.int32)[:, 0].contiguous()
+        x = (buf[:, 32:32 + S_b].float() * hdr[:, 4:5] + hdr[:, 3:4] if sig_wire == "u8"
+             else buf[:, 32:32 + 2 * S_b].view(torch.int16).float())
+        t1, t2 = (compute_tstats_device(x, w, 9, n_s) for w in (6, 9))
+        got, ok = peak_scan_cuda(t1, t2, n_s, 6, 9)
+        ref = peak_scan_plain(t1, t2, 6, 9, n_valid=n_s)
+        torch.cuda.synchronize()
+        err = max(err, int((got != ref).sum().item()))
+        ok_all = ok_all and bool(ok.all())
+        fires[sig_wire] = got.sum(dim=1).tolist()
+    for trace in failing_traces():
+        t = torch.from_numpy(trace[None]).to(dev)
+        nv = torch.tensor([t.shape[1]], dtype=torch.int32, device=dev)
+        got, ok = peak_scan_cuda(t, t, nv, 6, 9)
+        ref = peak_scan_plain(t, t, 6, 9, n_valid=nv)
+        err = max(err, int((got != ref).sum().item()))
+        require(not bool(ok.item()), "peak_scan: a failing trace passed the check")
+    print(f"  peak_scan on the 4 reads ({S_b} samples, fires i16 {fires['i16']}, u8 "
+          f"{fires['u8']}) and the 2 failing traces: {err} fired samples differ from the plain "
+          f"version (need 0); the check passed on every read {ok_all}", flush=True)
+    require(err == 0 and ok_all, "peak_scan disagrees with its plain version")
+    timing = {}
+    for S in (131072, 196608):
+        n = min(raws[0].size, S)
+        x = torch.zeros(1, S, device=dev)
+        x[0, :n] = torch.from_numpy(raws[0][:n].astype(np.float32)).to(dev)
+        nv = torch.tensor([n], dtype=torch.int32, device=dev)
+        t1, t2 = (compute_tstats_device(x, w, 9, nv) for w in (6, 9))
+        ms = time_ms(lambda: peak_scan_cuda(t1, t2, nv, 6, 9), reps=50, warmup=3)
+        plain_ms = time_ms(lambda: peak_scan_plain(t1, t2, 6, 9, n_valid=nv), reps=1)
+        bound, by = peak_scan_bounds(1, S)
+        timing[S] = (ms, plain_ms, bound, by)
+        print(f"  peak_scan, one read of {S} samples ({-(-S // 512)} blocks, a chain of 768 "
+              f"steps): kernel {ms:.4f} ms a call (the scan and the check, CUDA events over 50 "
+              f"calls), plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({by}); device time a call "
+              f"by torch.profiler: {profiled_ms(lambda: peak_scan_cuda(t1, t2, nv, 6, 9))} "
+              f"[{smi}]", flush=True)
+
+    # the engine's segmentation on the card against the CPU engine's
+    worst, meta = 0.0, {}
+    for i, raw in enumerate(raws):
+        for sig_wire in ("i16", "u8"):
+            sb = BasecallEngine._bucket(raw.size, 65536)
+            E_b, N_max = sb // 2, sb // 2 // 6 + 1 + engine.chunk_size
+            buf = engine._upload({"b": engine.signal_buffer([raw], sb, sig_wire)})["b"][0]
+            got = [x.cpu() for x in engine._segment(buf, sb, E_b, N_max, 6, sig_wire)]
+            meta[i, sig_wire] = (int(got[4][0]), int(got[4][1]), E_b)
+            if sig_wire == "u8":
+                continue
+            ref = cpu._segment(buf.cpu(), sb, E_b, N_max, 6)
+            require(torch.equal(got[4], ref[4]) and torch.equal(got[2], ref[2])
+                    and torch.equal(got[3], ref[3]),
+                    f"read {i}: segmentation meta or ranges on the card differ from the CPU's")
+            worst = max(worst, (got[1] - ref[1]).abs().max().item())
+    print(f"  segmentation, card vs CPU engine on the 4 reads (i16): meta and snippet ranges "
+          f"bit-equal; (events, snippets) {[meta[i, 'i16'][:2] for i in range(4)]}, u8 "
+          f"{[meta[i, 'u8'][:2] for i in range(4)]}; features max abs err {worst:.3e} "
+          f"(need <= 1e-3)", flush=True)
+    require(worst <= 1e-3, "segmentation features on the card miss the CPU's")
+    require(all(n_true <= E_b for n_true, _, E_b in meta.values()),
+            "a read overflowed the segmentation buffer")
+
+    # card against CPU tokens on the first read's first 64 snippets
+    seg = engine.begin_beam_signal(raws[0])
+    seg_cpu = cpu.begin_beam_signal(raws[0])
+    n_true, _ = engine._signal_meta(seg)
+    first64 = torch.tensor([[n_true, 64]], dtype=torch.int32)
+    t_gpu, p_gpu = engine.collect_beam_compact(engine.finish_beam_signal(
+        seg._replace(meta_host=first64), beam_width=5))
+    t_cpu, _ = cpu.collect_beam_compact(cpu.finish_beam_signal(
+        seg_cpu._replace(meta_host=first64), beam_width=5))
+    agree = float((t_gpu == t_cpu).mean())
+    with torch.inference_mode():  # the decode of the card's encoder memory on both
+        mem = engine.memory(*engine.signal_snippets(seg, 0, 64))
+        same_mem = float((top_beam_tokens(engine, mem, 40)
+                          == top_beam_tokens(cpu, mem.to("cpu"), 40)).float().mean())
+    print(f"  sigdev, bench settings, card vs CPU on 64 snippets: decoding the card's memory, "
+          f"tokens agree {same_mem:.5f} (need >= 0.998); end to end, tokens agree {agree:.5f} "
+          f"(need >= 0.99), rows identical {float((t_gpu == t_cpu).all(axis=1).mean()):.4f}")
+    require(t_gpu.shape == t_cpu.shape and t_gpu.shape[0] == 64 and np.isfinite(p_gpu).all(),
+            "bad result shape or probs")
+    require(same_mem >= 0.998, "card and CPU decode the signal-only wire's memory differently")
+    # as phases 4 and 12: the inputs are bit-equal (above), but seeded
+    # weights give flat, near-tied beams, and the bf16 encoder kernel's
+    # last-bit differences from its plain version (phase 9's bars) can flip
+    # a tie
+    require(agree >= 0.99, "card and CPU disagree on the signal-only wire's tokens")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        paths = []
+        for i, (raw, ranges, seq) in enumerate(reads):
+            chiron.write_read(d / f"r{i}.signal", d / f"r{i}.label", raw, ranges, seq)
+            paths.append(str(d / f"r{i}.signal"))
+        (d / "files_info.json").write_text(json.dumps([{"signal_path": p} for p in paths]))
+        cache = str(d / "cache")
+        compact = PerformanceEvaluator(engine, beam_width=5, cache_dir=cache)
+        compact.run_pipelined(paths, inflight=8, finishers=4)  # warm-up; fills the read cache
+        rec_compact = compact.run_pipelined(paths, inflight=8, finishers=4)
+        evs = {w: PerformanceEvaluator(engine, beam_width=5, cache_dir=cache, wire=w)
+               for w in ("sigdev", "sigdev8")}
+        me = MappingEvaluator(engine, beam_width=5, cache_dir=cache, wire="sigdev")
+        fallbacks = []  # reads that took the compact wire
+
+        def noting_fallback(dispatch):
+            def wrapped(path):
+                fallbacks.append(path)
+                return dispatch(path)
+            return wrapped
+
+        def noting_overflow(basecall):
+            def wrapped(path, label_path):
+                out = basecall(path, label_path)
+                if out is None:
+                    fallbacks.append(path)
+                return out
+            return wrapped
+
+        for ev in evs.values():
+            ev._dispatch_compact = noting_fallback(ev._dispatch_compact)
+        me._basecall_read_sigdev = noting_overflow(me._basecall_read_sigdev)
+        for ev in evs.values():  # warm-up, as the compact wire's
+            ev.run_pipelined(paths, inflight=8, finishers=4)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        recs = {w: ev.run_pipelined(paths, inflight=8, finishers=4) for w, ev in evs.items()}
+        t0 = time.perf_counter()
+        records = me.evaluate_files(d / "files_info.json", d / "map.json", verbose=False)
+        totals = MappingEvaluator.compute_total_results(d / "map.json")
+        torch.cuda.synchronize()
+        t_map = time.perf_counter() - t0
+        counts = dict(cuda_lib.launches)
+    for w, rec in [("compact", rec_compact)] + list(recs.items()):
+        print(f"  run_pipelined {w}, inflight 8, finishers 4: {rec['bases_per_s']:.1f} bases/s, "
+              f"wall {rec['wall_s']:.3f} s, stages {rec['stages_s']} [{smi}]")
+    print(f"  MappingEvaluator sigdev: {t_map:.3f} s, mapper {sorted({r['mapper'] for r in records})}"
+          f"; compute_total_results (identity total, valid, invalid %) {totals} (seeded weights: "
+          f"not held)")
+    # segmentation dispatches: 4 reads on each of the three runs
+    dispatches = 3 * len(paths)
+    chunks = sum(-(-meta[i, w][1] // engine.chunk_size)
+                 for i in range(len(paths)) for w in ("i16", "u8", "i16"))
+    print(f"  launches: peak_scan {counts['peak_scan']} ({dispatches} segmentations, need 2 each), "
+          f"bilstm_bf16 {counts['bilstm_bf16']} ({chunks} chunks, need 4 each), beam_step "
+          f"{counts['beam_step']} (beam_cell {counts['beam_cell']}, beam_attend "
+          f"{counts['beam_attend']}); reads on the compact wire {len(fallbacks)} (need 0)")
+    require(not fallbacks, "a read fell back to the compact wire")
+    require(counts["peak_scan"] == 2 * dispatches, "peak_scan did not launch twice a segmentation")
+    require(counts["bilstm_bf16"] == 4 * chunks, "bilstm_bf16 did not launch 4 a chunk")
+    require(counts["beam_step"] > 0 and counts["beam_cell"] == counts["beam_attend"]
+            == counts["beam_step"], "a bf16 step did not launch beam_cell and beam_attend once each")
+    require(all(rec["bases_num"] == rec_compact["bases_num"] for rec in recs.values())
+            and len(records) == len(paths), "the signal-only runs counted other reads or bases")
+    ms, plain_ms, bound, by = timing[131072]
+    return ({"name": "peak_scan", "route": "cuda", "source": "ravvent_tpu_torch/csrc/peak_scan.cu",
+             "replaces": "ravvent_tpu/ops/event_detect.py:210", "max_abs_err": float(err),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None}, counts)
+
+
 def top_beam_tokens(engine, mem, max_len: int) -> torch.Tensor:
     """The engine's beam decode of ``mem`` (beam 5, ``max_len - 1`` live
     steps): the top beam's tokens over the live steps, on the host."""
@@ -1205,6 +1458,9 @@ def main() -> int:
     t0 = time.perf_counter()
     counts_i8 = phase_bench_path_i8(smi)
     phase("12 end to end, the bench's path on int8 memory", t0)
+    t0 = time.perf_counter()
+    k_peak, counts_sig = phase_signal_wire(smi)
+    phase("13 end to end, the signal-only wire", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_cell["launches"] = counts["beam_cell"]
@@ -1214,10 +1470,11 @@ def main() -> int:
     k_bf16["launches"] = counts_bench["bilstm_bf16"]
     k_i8["launches"] = counts_i8["i8"]["beam_attend_i8"]
     k_i8mxu["launches"] = counts_i8["i8mxu"]["beam_attend_i8mxu"]
+    k_peak["launches"] = counts_sig["peak_scan"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (
-        k_bilstm, k_cell, k_attend, k_loop, k_dstep, k_bf16, k_i8, k_i8mxu)]}))
+        k_bilstm, k_cell, k_attend, k_loop, k_dstep, k_bf16, k_i8, k_i8mxu, k_peak)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,6 +15,15 @@ one u8 buffer per chunk (tokens as nibbles, step probabilities quantized to
 f16 wire, 8-bit probabilities); bench.py's main path is
 ``encoder_dtype=torch.bfloat16, transport_dtype="i8dev", prob_bits=4``.
 
+The signal-only wire (the JAX engine's "sigdev", basecall.py:653-747 and
+1062-1289) sends a read's raw samples and nothing else: one upload of a
+32-byte header and the i16 samples (or u8 window-quantized ones), then event
+detection (ops/event_detect.py, its peak scan the kernel of
+csrc/peak_scan.cu on the card), self-scaled event features, the snippet
+count and ranges, all on the device (:meth:`BasecallEngine.begin_beam_signal`);
+the snippets are then gathered from the device-resident arrays and decoded
+chunk by chunk (:meth:`BasecallEngine.finish_beam_signal`).
+
 On a CUDA device the encoder runs the BiLSTM kernel of its stream
 (ops/rnn_cuda.py) and the decoder the beam-step kernel
 (ops/beam_step_cuda.py) or the beam-loop kernel (ops/beam_loop_cuda.py); on
@@ -39,13 +48,17 @@ from ravvent_tpu_torch.models.basecaller import check_config, encode_input
 from ravvent_tpu_torch.models.rnn import kernel_weights, stream_weights
 from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
 from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
+from ravvent_tpu_torch.ops.event_detect import detect_boundaries_device, fired_to_event_lens
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
 from ravvent_tpu_torch.weights import to_device
 
 TOTAL_STEPS = MAX_TARGET_LEN - 1  # static decode length; max_steps bounds it per call
 WIRES = ("f16", "f32", "i8", "i8sig", "i8dev")
-_TORCH_DTYPES = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+SIG_WIRES = ("i16", "u8")  # the signal-only wire's sample types
+SIG_BUCKET = 65536  # the signal-only wire pads a read to a multiple of this
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
+                 np.dtype(np.int16): torch.int16,
                  np.dtype(np.int32): torch.int32, np.dtype(np.float16): torch.float16,
                  np.dtype(np.float32): torch.float32}
 
@@ -138,6 +151,83 @@ def _device_snippet_ranges(lens: torch.Tensor, n_snip: int, n_ev: int, n_rows: i
     return rr.to(torch.int32), er.to(torch.int32)
 
 
+def _device_event_features_selfscaled(x: torch.Tensor, lens: torch.Tensor, n_ev,
+                                      lo: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """The 5 event features [E, 5] f32 of the signal-only wire, with the
+    scaler fit on the device (ravvent_tpu/evaluation/basecall.py:156-206):
+    length, mean, stdv, mean^2 and delta mean of each event in raw units,
+    standardized by their column means and population stds over the read's
+    ``n_ev`` events. Rows from ``n_ev`` on are zero. Raw units matter:
+    mean^2 is not invariant under the standardization.
+
+    ``x`` [S] holds the wire's integer samples, the raw signal being
+    ``lo + step * x`` (i16 wire: the samples, lo 0, step 1; u8 wire: the
+    codes and the header's lo and step). The reference takes segment sums
+    of the z-scored f32 signal from two cumsums over the whole read, which
+    cancel (its features stray by up to ~1e-2 on a 26k-sample read,
+    tests/test_torch_sigdev.py); here the segment sums of x and x^2 come
+    from int64 cumsums, exact and the same in any order on any device, and
+    the rest is f64, so the card's features equal the CPU's."""
+    E, S = lens.shape[0], x.shape[0]
+    dev = x.device
+    rows = torch.arange(E, device=dev)
+    valid = rows < n_ev
+    lens_v = torch.where(valid, lens, torch.zeros_like(lens)).long()
+    n = lens_v.clamp(min=1)
+    cum = torch.cumsum(lens_v, 0)
+    starts = cum - lens_v
+    xi = x.long()
+    zero = xi.new_zeros(1)
+    cs = torch.cat([zero, torch.cumsum(xi, 0)])
+    cq = torch.cat([zero, torch.cumsum(xi * xi, 0)])
+    s_idx, e_idx = starts.clamp(0, S), cum.clamp(0, S)
+    ssum = cs[e_idx] - cs[s_idx]
+    sqsum = cq[e_idx] - cq[s_idx]
+    mean_x = ssum.double() / n
+    var_x = (n * sqsum - ssum * ssum).double() / (n * n).double()
+    lo, step = lo.double(), step.double()
+    mean = lo + step * mean_x
+    # the host's FLT_MIN clamp, in raw units
+    stdv = torch.sqrt(torch.clamp(step * step * var_x, min=1.1754944e-38))
+    dmean = torch.where(rows == 0, 0.0, mean - torch.cat([mean[:1], mean[:-1]]))
+    feats = torch.stack([lens_v.double(), mean, stdv, mean * mean, dmean], dim=1)
+    feats = torch.where(valid[:, None], feats, 0.0)
+    n_feat = torch.as_tensor(n_ev, device=dev).clamp(min=1).double()
+    fmean = feats.sum(dim=0) / n_feat
+    fvar = torch.where(valid[:, None], (feats - fmean) ** 2, 0.0).sum(dim=0) / n_feat
+    fstd = torch.sqrt(fvar)
+    fstd = torch.where(fstd == 0.0, 1.0, fstd)
+    return torch.where(valid[:, None], (feats - fmean) / fstd, 0.0).float()
+
+
+def _device_snippet_count(lens: torch.Tensor, n_ev, n_rows: int, stride: int,
+                          raw_max_len: int = 200, max_window: int = 256) -> torch.Tensor:
+    """The number of snippet windows (0-d int32) by the host's stopping
+    rule (data/snippets.py:compute_fitting_event_ranges;
+    ravvent_tpu/evaluation/basecall.py:209-239): a window every ``stride``
+    events until the first whose end event reaches the event count (or a
+    first window of no event); a window whose stride step passes the last
+    event is the last. The windows' cumsum values come from one strided
+    view, as in :func:`_device_snippet_ranges`; the end event is counted
+    without the ``n_ev`` cap (the host's searchsorted), since the padded
+    cumsum plateau only pushes it past ``n_ev``, which fails anyway."""
+    dev = lens.device
+    es = torch.arange(n_rows, device=dev) * stride
+    cum = torch.cumsum(lens.long(), 0)
+    W = max_window
+    need = (n_rows - 1) * stride + W + 2
+    arr = torch.cat([cum.new_zeros(2), cum, cum.new_zeros(max(need - cum.shape[0] - 2, 0))])
+    w = arr.unfold(0, W + 2, stride)[:n_rows]  # [n_rows, W + 2]: w[r, k] = cum[es + k - 2]
+    offset = w[:, 1]
+    cnt = (w[:, 2:] <= (raw_max_len + offset)[:, None]).sum(dim=1)
+    end_id = es + cnt
+    fail = (end_id >= n_ev) | (end_id == 0)
+    stop_after = (es + stride - 1 >= n_ev).long()
+    ok = torch.cumsum(fail.long(), 0) == 0
+    prev_stop = torch.cat([stop_after.new_zeros(1), torch.cumsum(stop_after, 0)[:-1]]) == 0
+    return (ok & prev_stop).sum().to(torch.int32)
+
+
 class PendingBeamCompact(NamedTuple):
     """In-flight read from :meth:`BasecallEngine.dispatch_beam_compact`: per
     chunk, the host buffer the packed result is being copied into, the CUDA
@@ -145,6 +235,25 @@ class PendingBeamCompact(NamedTuple):
 
     pending: list
     T_fetch: int
+
+
+class PendingSignal(NamedTuple):
+    """A read's segmentation on the signal-only wire, from
+    :meth:`BasecallEngine.begin_beam_signal_batch`: row ``k`` of the batch's
+    device arrays (z-scored signal [K, S_b], features [K, E_b, 5], raw and
+    event ranges [K, N_max, 2]), the (n_true, n_snip) meta [K, 2] and the
+    raw ranges on their way to (pinned) host memory, and the CUDA event that
+    marks the copies' end (None on the CPU)."""
+
+    sig: torch.Tensor
+    feats: torch.Tensor
+    rr: torch.Tensor
+    er: torch.Tensor
+    meta_host: torch.Tensor
+    rr_host: torch.Tensor
+    done: Optional[torch.cuda.Event]
+    E_b: int
+    k: int
 
 
 class BasecallEngine:
@@ -417,18 +526,23 @@ class BasecallEngine:
         if raw_ranges.shape[0] == 0:
             return PendingBeamCompact([], TOTAL_STEPS)
         T_fetch = self._fetch_width(max_output_len)
-        cuda = self.device.type == "cuda"
-        pending = []
-        for raw, event in self._chunks(signal, raw_ranges, events, event_ranges, aux):
-            packed = self._pack(*self.beam(raw, event, max_output_len - 1, beam_width), T_fetch)
-            host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=cuda)
-            host.copy_(packed, non_blocking=cuda)
-            done = None
-            if cuda:
-                done = torch.cuda.Event()
-                done.record()
-            pending.append((host, done, raw.shape[0]))
+        pending = [self._enqueue(raw, event, max_output_len - 1, beam_width, T_fetch)
+                   for raw, event in self._chunks(signal, raw_ranges, events, event_ranges, aux)]
         return PendingBeamCompact(pending, T_fetch)
+
+    def _enqueue(self, raw: torch.Tensor, event: torch.Tensor, max_steps: int, beam_width: int,
+                 T_fetch: int) -> tuple:
+        """Decode one chunk of device snippets and start its packed result's
+        copy to (pinned) host memory: (host buffer, CUDA event or None, rows)."""
+        cuda = self.device.type == "cuda"
+        packed = self._pack(*self.beam(raw, event, max_steps, beam_width), T_fetch)
+        host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=cuda)
+        host.copy_(packed, non_blocking=cuda)
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return host, done, raw.shape[0]
 
     def collect_beam_compact(self, handle: PendingBeamCompact) -> Tuple[np.ndarray, np.ndarray]:
         """Wait for a dispatched read's copies and unpack the result bytes.
@@ -459,6 +573,213 @@ class BasecallEngine:
                 toks.append(arr[:, :T].copy().view(np.int8).astype(np.int64))
                 prbs.append(arr[:, T:].copy().view(np.float16).astype(np.float32))
         return np.concatenate(toks), np.concatenate(prbs)
+
+    # ------------------------------------------------------ signal-only wire
+
+    @staticmethod
+    def _bucket(n: int, base: int) -> int:
+        return max(base, ((n + base - 1) // base) * base)
+
+    @torch.inference_mode()
+    def _segment_batch(self, buf: torch.Tensor, S_b: int, E_b: int, N_max: int, stride: int,
+                       sig_wire: str = "i16") -> tuple:
+        """The signal-only wire's device half for K reads
+        (ravvent_tpu/evaluation/basecall.py:653-747), from the uploaded
+        buffer [K, 32 + payload] u8. Each row: a header of 8 f32 (z-score
+        mean and std, [2] the sample count as i32, [3] lo and [4] step of
+        the u8 wire) and the samples, i16 or u8 (raw = u8 * step + lo).
+        Returns (z-scored signal [K, S_b] f32, zero past each read; event
+        features [K, E_b, 5]; raw and event ranges [K, N_max, 2] int32;
+        meta [K, 2] int32: the uncapped event count and the snippet
+        count). The event count is n_true, which exceeds E_b when the
+        segmentation buffer overflows."""
+        K = buf.shape[0]
+        hdr = buf[:, :32].view(torch.float32)  # [K, 8]
+        n_s = buf[:, 8:12].view(torch.int32)[:, 0]  # [K]
+        if sig_wire == "u8":
+            x = buf[:, 32:32 + S_b]
+            raw = x.float() * hdr[:, 4:5] + hdr[:, 3:4]
+            lo, step = hdr[:, 3], hdr[:, 4]
+        else:
+            x = buf[:, 32:32 + 2 * S_b].view(torch.int16)
+            raw = x.float()
+            lo, step = torch.zeros_like(hdr[:, 3]), torch.ones_like(hdr[:, 4])
+        fired = detect_boundaries_device(raw, n_valid=n_s)
+        lens, n_ev, n_true = fired_to_event_lens(fired, 6, 9, E_b)
+        sig = (raw - hdr[:, 0:1]) / hdr[:, 1:2]
+        sig = torch.where(torch.arange(S_b, device=buf.device)[None, :] < n_s[:, None], sig, 0.0)
+        feats = torch.stack([_device_event_features_selfscaled(x[k], lens[k], n_ev[k], lo[k],
+                                                               step[k])
+                             for k in range(K)])
+        n_snip = torch.stack([_device_snippet_count(lens[k], n_ev[k], N_max, stride)
+                              for k in range(K)])
+        ranges = [_device_snippet_ranges(lens[k], n_snip[k], n_ev[k], N_max, stride)
+                  for k in range(K)]
+        rr = torch.stack([r for r, _ in ranges])
+        er = torch.stack([e for _, e in ranges])
+        return sig, feats, rr, er, torch.stack([n_true, n_snip], dim=1)
+
+    def _segment(self, buf: torch.Tensor, S_b: int, E_b: int, N_max: int, stride: int,
+                 sig_wire: str = "i16") -> tuple:
+        """:meth:`_segment_batch` for one read's buffer [32 + payload]:
+        (sig [S_b], feats [E_b, 5], rr, er [N_max, 2], meta [2])."""
+        return tuple(x[0] for x in self._segment_batch(buf[None], S_b, E_b, N_max, stride,
+                                                        sig_wire))
+
+    def signal_buffer(self, raws: list, S_b: int, sig_wire: str = "i16") -> np.ndarray:
+        """The upload of K reads' raw samples: [K, 32 + payload] u8, each row
+        a header of 8 f32 and the samples padded to S_b
+        (ravvent_tpu/evaluation/basecall.py:1080-1115, 1147-1174). The
+        z-score affine is computed in float64 on the host; on the u8 wire
+        the samples are window-quantized to 255 levels over [min, max] and
+        the affine is that of the dequantized values."""
+        item = 1 if sig_wire == "u8" else 2
+        buf = np.zeros((len(raws), 32 + S_b * item), np.uint8)
+        for i, raw in enumerate(raws):
+            n_s = int(raw.size)
+            if n_s == 0:
+                continue
+            hdr = np.zeros(8, np.float32)
+            hdr[2:3].view(np.int32)[0] = n_s
+            rf = raw.astype(np.float64)
+            if sig_wire == "u8":
+                lo, hi = float(rf.min()), float(rf.max())
+                step = max((hi - lo) / 255.0, 1e-12)
+                q = np.round((rf - lo) / step)
+                rf = q * step + lo
+                hdr[3], hdr[4] = lo, step
+                buf[i, 32:32 + n_s] = q.astype(np.uint8)
+            else:
+                buf[i, 32:32 + n_s * 2] = raw.astype(np.int16).view(np.uint8).reshape(-1)
+            hdr[0] = float(rf.mean())
+            rstd = float(rf.std())
+            hdr[1] = rstd if rstd != 0.0 else 1.0
+            buf[i, :32] = hdr.view(np.uint8)
+        return buf
+
+    def begin_beam_signal(self, raw_signal: np.ndarray, stride: int = 6,
+                          sig_wire: str = "i16") -> Union[PendingSignal, PendingBeamCompact]:
+        """Upload a read's raw samples and enqueue its segmentation on the
+        device; returns at once, the (n_events, n_snippets) meta and the raw
+        ranges on their way to the host. Pair with
+        :meth:`finish_beam_signal`. An empty read gives the empty
+        :class:`PendingBeamCompact`."""
+        return self.begin_beam_signal_batch([raw_signal], stride, sig_wire)[0]
+
+    def begin_beam_signal_batch(self, raw_signals, stride: int = 6, sig_wire: str = "i16"
+                                ) -> List[Union[PendingSignal, PendingBeamCompact]]:
+        """K reads' signal-only dispatch as one upload and one segmentation,
+        every read padded to the largest read's bucket
+        (ravvent_tpu/evaluation/basecall.py:1129-1188): S_b =
+        _bucket(n_s, 65536) samples, E_b = S_b // 2 events (an event is >= 1
+        sample), N_max = E_b // stride + 1 + chunk_size snippet rows. Waits
+        on nothing: the meta and the raw ranges are copied to pinned host
+        memory behind a CUDA event. Returns one handle per read for
+        :meth:`finish_beam_signal`."""
+        if sig_wire not in SIG_WIRES:
+            raise ValueError(f"sig_wire must be one of {SIG_WIRES}, got {sig_wire!r}")
+        raws = [np.asarray(r) for r in raw_signals]
+        ns = [int(r.size) for r in raws]
+        if not raws:
+            return []
+        empty = PendingBeamCompact([], TOTAL_STEPS)
+        if max(ns) == 0:
+            return [empty] * len(raws)
+        S_b = self._bucket(max(ns), SIG_BUCKET)
+        E_b = S_b // 2
+        N_max = E_b // stride + 1 + self.chunk_size
+        buf = self._upload({"buf": self.signal_buffer(raws, S_b, sig_wire)})["buf"]
+        sig, feats, rr, er, meta = self._segment_batch(buf, S_b, E_b, N_max, stride, sig_wire)
+        done = None
+        if self.device.type == "cuda":
+            meta_host = torch.empty(meta.shape, dtype=meta.dtype, pin_memory=True)
+            meta_host.copy_(meta, non_blocking=True)
+            rr_host = torch.empty(rr.shape, dtype=rr.dtype, pin_memory=True)
+            rr_host.copy_(rr, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            meta_host, rr_host = meta, rr
+        return [PendingSignal(sig, feats, rr, er, meta_host, rr_host, done, E_b, k) if ns[k]
+                else empty for k in range(len(raws))]
+
+    @staticmethod
+    def _signal_meta(seg: PendingSignal) -> Tuple[int, int]:
+        if seg.done is not None:
+            seg.done.synchronize()
+        n_true, n_snip = (int(v) for v in seg.meta_host[seg.k])
+        return n_true, n_snip
+
+    @torch.inference_mode()
+    def finish_beam_signal(self, seg: Union[PendingSignal, PendingBeamCompact],
+                           max_output_len: Optional[int] = None, beam_width: int = 5
+                           ) -> Optional[PendingBeamCompact]:
+        """Wait for a segmentation's meta, then gather and decode its
+        snippets chunk by chunk from the device-resident signal and
+        features (rows split at multiples of ``chunk_size``, where the JAX
+        engine's slabs start), each chunk's result copied to pinned host
+        memory. Returns a handle for :meth:`collect_beam_compact`, or None
+        when the segmentation buffer overflowed (more than E_b events): the
+        caller then takes the compact wire."""
+        if isinstance(seg, PendingBeamCompact):  # an empty read
+            return seg
+        n_true, n_snip = self._signal_meta(seg)
+        if max_output_len is None:
+            max_output_len = TOTAL_STEPS + 1
+        if n_true > seg.E_b:
+            return None
+        if n_snip == 0:
+            return PendingBeamCompact([], TOTAL_STEPS)
+        T_fetch = self._fetch_width(max_output_len)
+        pending = [self._enqueue(*self.signal_snippets(seg, s, min(s + self.chunk_size, n_snip)),
+                                 max_output_len - 1, beam_width, T_fetch)
+                   for s in range(0, n_snip, self.chunk_size)]
+        return PendingBeamCompact(pending, T_fetch)
+
+    @torch.inference_mode()
+    def signal_snippets(self, seg: PendingSignal, start: int, end: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Snippet rows [start, end) of a segmented read, gathered on the
+        device from its signal and features: raw [n, 200, 1], event
+        [n, 30, 5] (f32)."""
+        rr, er = seg.rr[seg.k, start:end], seg.er[seg.k, start:end]
+        raw = gather_rows(seg.sig[seg.k], rr[:, 0], rr[:, 1] - rr[:, 0], 200)[..., None]
+        event = gather_rows(seg.feats[seg.k].reshape(-1), er[:, 0] * 5, (er[:, 1] - er[:, 0]) * 5,
+                            150).reshape(-1, 30, 5)
+        return raw, event
+
+    def signal_ranges(self, seg: Union[PendingSignal, PendingBeamCompact]) -> Optional[np.ndarray]:
+        """The device's snippet raw ranges of a segmented read, [n_snip, 2]
+        int32 sample indices on the host (None for an empty read): the merge
+        fold's positional prior."""
+        if isinstance(seg, PendingBeamCompact):
+            return None
+        _, n_snip = self._signal_meta(seg)
+        return seg.rr_host[seg.k, :n_snip].numpy().copy()
+
+    def dispatch_beam_signal(self, raw_signal: np.ndarray, max_output_len: Optional[int] = None,
+                             beam_width: int = 5, stride: int = 6, sig_wire: str = "i16"
+                             ) -> Optional[PendingBeamCompact]:
+        """:meth:`begin_beam_signal`, then :meth:`finish_beam_signal`."""
+        return self.finish_beam_signal(self.begin_beam_signal(raw_signal, stride, sig_wire),
+                                       max_output_len, beam_width)
+
+    def predict_beam_signal(self, raw_signal: np.ndarray, max_output_len: Optional[int] = None,
+                            beam_width: int = 5, stride: int = 6, sig_wire: str = "i16",
+                            return_ranges: bool = False) -> Optional[tuple]:
+        """Raw samples in, per-snippet (tokens [N, T], step probs [N, T])
+        out, segmentation, features and snippets all on the device. None
+        when the segmentation buffer overflows (take the compact wire).
+        ``return_ranges`` appends the device's snippet raw ranges
+        ([N, 2], None for an empty read)."""
+        seg = self.begin_beam_signal(raw_signal, stride, sig_wire)
+        handle = self.finish_beam_signal(seg, max_output_len, beam_width)
+        if handle is None:
+            return None
+        tokens, probs = self.collect_beam_compact(handle)
+        if not return_ranges:
+            return tokens, probs
+        return tokens, probs, self.signal_ranges(seg)
 
     @staticmethod
     def tokens_to_sequences(tokens: np.ndarray) -> List[str]:

@@ -11,8 +11,12 @@ identity. ``compute_total_results`` is the reference's aggregation
 Mapping backend: ``minimap2 -x map-ont -c`` through a subprocess when the
 binary is on PATH (the metric of record); otherwise the built-in
 seed-chain-extend mapper (assembly/sce_mapper.py), flagged in each record
-as ``mapper``. The signal-only wires ("sigdev", "sigdev8") and multi-beam
-results (an engine with ``n_beams > 1``) are not ported yet.
+as ``mapper``. With ``wire="sigdev"`` or ``"sigdev8"`` a read's raw samples
+are the only upload and the device segments it
+(BasecallEngine.predict_beam_signal); the decode bound still comes from the
+labels, and the merge's gate and positional prior from the device's snippet
+ranges. Multi-beam results (an engine with ``n_beams > 1``) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from ravvent_tpu_torch.data import chiron
 from ravvent_tpu_torch.data.snippets import load_read_compact_ex
 from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
 from ravvent_tpu_torch.evaluation.performance import (
-    flatten_calls, gate_snippets, merge_snippets,
+    EVALUATOR_WIRES, flatten_calls, gate_snippets, merge_snippets,
 )
 
 BEAM_WIDTH_DEFAULT = 5
@@ -60,12 +64,11 @@ class MappingEvaluator:
         """``geom_arbitration``: the merge fold's geometry gate, "default"
         (the Merger's) or None (the reference fold). ``conf_gate``: the
         confidence gate's parameters, "default" or None (off).
-        ``use_minimap2``: None maps with minimap2 when it is on PATH."""
-        if wire in ("sigdev", "sigdev8"):
-            raise NotImplementedError(
-                f"wire={wire!r}: the signal-only wire is not ported yet (ROADMAP.md A3)")
-        if wire != "compact":
-            raise ValueError(f"wire must be 'compact', got {wire!r}")
+        ``use_minimap2``: None maps with minimap2 when it is on PATH.
+        ``wire``: "compact", "sigdev" (i16 raw samples) or "sigdev8" (u8
+        window-quantized samples)."""
+        if wire not in EVALUATOR_WIRES:
+            raise ValueError(f"wire must be one of {EVALUATOR_WIRES}, got {wire!r}")
         if geom_arbitration == "default":
             geom_arbitration = Merger.DEFAULT_GEOM_ARBITRATION
         self.conf_gate = CONF_GATE_DEFAULT if conf_gate == "default" else conf_gate
@@ -76,13 +79,19 @@ class MappingEvaluator:
         self.cache_dir = cache_dir
         self.use_minimap2 = minimap2_available() if use_minimap2 is None else use_minimap2
         self.wire = wire
+        self.sig_wire = "u8" if wire == "sigdev8" else "i16"
 
     def basecall_read(self, signal_path, label_path=None) -> SeqLogitsPair:
         """Snippets, chunked beam decode and merge of one read; the decode
         is bounded by the ground truth's widest target, as in the
-        reference."""
+        reference. On the signal-only wire a read whose segmentation buffer
+        overflows takes the compact wire."""
         if label_path is None:
             label_path = Path(signal_path).with_suffix(".label")
+        if self.wire != "compact":
+            out = self._basecall_read_sigdev(signal_path, label_path)
+            if out is not None:
+                return out
         sig, rr, ev, er, nuc, aux = load_read_compact_ex(signal_path, label_path, self.stride,
                                                          cache_dir=self.cache_dir)
         if rr.shape[0] == 0:
@@ -90,11 +99,36 @@ class MappingEvaluator:
         max_output_len = int((nuc != 0).sum(axis=1).max())
         tokens, probs = self.engine.predict_beam_compact(sig, rr, ev, er, max_output_len,
                                                          self.beam_width, aux=aux)
+        return self._merge(tokens, probs, rr)
+
+    def _merge(self, tokens, probs, rr) -> SeqLogitsPair:
         if tokens.ndim == 3:
             raise NotImplementedError(
                 "multi-beam results (n_beams > 1) are not ported yet (ROADMAP.md A4)")
         return merge_snippets(self.merger,
                               *gate_snippets(self.conf_gate, *flatten_calls(tokens, probs), rr))
+
+    def _basecall_read_sigdev(self, signal_path, label_path) -> Optional[SeqLogitsPair]:
+        """The signal-only wire (ravvent_tpu/evaluation/mapping.py:178-227):
+        the raw samples are the only upload; the decode bound comes from the
+        labels when they exist. None when the segmentation buffer
+        overflows."""
+        raw = chiron.load_signal(signal_path)
+        max_output_len = None
+        if Path(label_path).exists():
+            nuc = load_read_compact_ex(signal_path, label_path, self.stride,
+                                       cache_dir=self.cache_dir)[4]
+            if nuc.shape[0]:
+                max_output_len = int((nuc != 0).sum(axis=1).max())
+        out = self.engine.predict_beam_signal(raw, max_output_len=max_output_len,
+                                              beam_width=self.beam_width, stride=self.stride,
+                                              sig_wire=self.sig_wire, return_ranges=True)
+        if out is None:
+            return None
+        tokens, probs, rr = out
+        if tokens.shape[0] == 0:
+            return SeqLogitsPair("", [])
+        return self._merge(tokens, probs, rr)
 
     def run(self, signal_data_source, chunk_size: int = 1024) -> Dict:
         """Per-read identity record (``chunk_size`` is the reference's

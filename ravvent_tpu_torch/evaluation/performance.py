@@ -1,12 +1,15 @@
 """Throughput evaluation with the reference's 4-way timing partition.
 
-Counterpart of ravvent_tpu/evaluation/performance.py on the compact wire:
-per read, wall-clock timers partition the pipeline into ``t_data_loading``
-/ ``t_predicting`` / ``t_postprocessing`` / ``t_merge``; throughput is bases
-(or samples) over ``total_processing`` (prediction + postprocessing +
-merge, without data loading). :meth:`PerformanceEvaluator.run_pipelined`
-overlaps reads (the main thread loads and dispatches, a pool collects and
-merges) and gives one aggregate record, the bench's throughput number.
+Counterpart of ravvent_tpu/evaluation/performance.py: per read, wall-clock
+timers partition the pipeline into ``t_data_loading`` / ``t_predicting`` /
+``t_postprocessing`` / ``t_merge``; throughput is bases (or samples) over
+``total_processing`` (prediction + postprocessing + merge, without data
+loading). :meth:`PerformanceEvaluator.run_pipelined` overlaps reads (the
+main thread loads and dispatches, a pool collects and merges) and gives one
+aggregate record, the bench's throughput number; with ``wire="sigdev"`` or
+``"sigdev8"`` it sends each read's raw samples only and the device segments
+it (BasecallEngine.begin_beam_signal_batch / finish_beam_signal), as the JAX
+evaluator does. ``run`` and ``evaluate_files`` stay on the compact wire.
 ``compute_total_results`` keeps the reference's running cumulative means.
 """
 
@@ -32,6 +35,9 @@ from ravvent_tpu_torch.data import chiron
 from ravvent_tpu_torch.data.snippets import load_read_compact_ex
 from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
+
+
+EVALUATOR_WIRES = ("compact", "sigdev", "sigdev8")
 
 
 def _max_output_len(rr: np.ndarray, nuc: np.ndarray) -> int:
@@ -66,8 +72,9 @@ def gate_snippets(conf_gate, blob, offsets, flat_probs, rr):
 
 def merge_snippets(merger: Merger, blob, offsets, flat_probs, rr):
     """The merge fold, with the positional prior from the snippets' raw
-    ranges."""
-    eo = expected_overlaps_from_ranges(rr, np.diff(offsets)) if rr.shape[0] > 1 else None
+    ranges (none when ``rr`` is None)."""
+    eo = (expected_overlaps_from_ranges(rr, np.diff(offsets))
+          if rr is not None and rr.shape[0] > 1 else None)
     return merger.merge_flat(blob, offsets, flat_probs, expected_overlaps=eo)
 
 
@@ -84,13 +91,12 @@ class PerformanceEvaluator:
     ) -> None:
         """``conf_gate``: the confidence gate's parameters (see
         assembly/merger.py:confidence_keep_mask), "default" or None (off).
-        ``wire``: "compact" only; the JAX package's signal-only wires
-        ("sigdev", "sigdev8") are not ported yet."""
-        if wire in ("sigdev", "sigdev8"):
-            raise NotImplementedError(
-                f"wire={wire!r}: the signal-only wire is not ported yet (ROADMAP.md A3)")
-        if wire != "compact":
-            raise ValueError(f"wire must be 'compact', got {wire!r}")
+        ``wire``: "compact", or the signal-only wire for
+        :meth:`run_pipelined`: "sigdev" (i16 samples) or "sigdev8" (u8
+        window-quantized samples, half the upload, not bit-equal
+        boundaries)."""
+        if wire not in EVALUATOR_WIRES:
+            raise ValueError(f"wire must be one of {EVALUATOR_WIRES}, got {wire!r}")
         self.merger = Merger(scores_id=merger_scores_id)
         # drop derailed low-confidence snippets before the fold, as the
         # identity path does, so the timed work is what production merges
@@ -100,6 +106,7 @@ class PerformanceEvaluator:
         self.beam_width = beam_width
         self.cache_dir = cache_dir
         self.wire = wire
+        self.sig_wire = "u8" if wire == "sigdev8" else "i16"
 
     def _load(self, path):
         return load_read_compact_ex(path, Path(path).with_suffix(".label"), self.stride,
@@ -143,8 +150,13 @@ class PerformanceEvaluator:
             "total_processing": t_predicting + t_postprocessing + t_merge,
         }
 
+    def _dispatch_compact(self, path):
+        sig, rr, ev, er, nuc, aux = self._load(path)
+        return self.engine.dispatch_beam_compact(sig, rr, ev, er, _max_output_len(rr, nuc),
+                                                 self.beam_width, aux=aux)
+
     def run_pipelined(self, signal_paths, chunk_size: int = 1024, inflight: int = 8,
-                      finishers: int = 4) -> Dict:
+                      finishers: int = 4, seg_batch: int = 1) -> Dict:
         """The reads as a pipeline: the main thread loads and dispatches read
         k+1 while read k runs on the device and a pool of ``finishers``
         threads waits on finished reads' copies, postprocesses and merges
@@ -152,7 +164,15 @@ class PerformanceEvaluator:
         ``inflight`` bounds the dispatched reads not yet finished. Returns
         one aggregate record: wall time over all reads, and each stage's
         seconds summed over threads (``collect_wait`` is time blocked on the
-        device)."""
+        device).
+
+        On the signal-only wire the main thread reads the raw samples,
+        segments ``seg_batch`` reads in one upload and one device pass, and
+        finishes a segmentation (its meta read, its snippets decoded) only
+        once another is queued behind it, so the meta's copy has a read's
+        load to arrive in; a read whose segmentation buffer overflows takes
+        the compact wire, merged without the gate and the positional prior
+        as in the JAX evaluator (ravvent_tpu/evaluation/performance.py:214-233)."""
         bases_num = samples_num = 0
         stages = {"load": 0.0, "dispatch": 0.0, "collect_wait": 0.0, "postproc": 0.0,
                   "merge": 0.0}
@@ -175,26 +195,65 @@ class PerformanceEvaluator:
                 blob, offsets, flat_probs = flatten_calls(tokens, probs)
                 t2 = timer()
                 add_stage("postproc", t2 - t1)
-                merge_snippets(self.merger, *gate_snippets(self.conf_gate, blob, offsets,
-                                                           flat_probs, rr))
+                if rr is not None:
+                    blob, offsets, flat_probs, rr = gate_snippets(self.conf_gate, blob, offsets,
+                                                                  flat_probs, rr)
+                merge_snippets(self.merger, blob, offsets, flat_probs, rr)
                 add_stage("merge", timer() - t2)
 
         start_all = timer()
         pending = deque()
+        seg_q = deque()  # segmentations whose meta is still on its way
+        raw_q = []  # reads waiting for a batched segmentation
+
+        def finish_seg(seg, path):
+            t1 = timer()
+            handle = self.engine.finish_beam_signal(seg, beam_width=self.beam_width)
+            add_stage("dispatch", timer() - t1)
+            if handle is None:  # the segmentation buffer overflowed
+                handle = self._dispatch_compact(path)
+                pending.append(pool.submit(finish, handle, None))
+                return
+            pending.append(pool.submit(finish, handle, self.engine.signal_ranges(seg)))
+
+        def segment_queued():
+            t1 = timer()
+            segs = self.engine.begin_beam_signal_batch([r for r, _ in raw_q], stride=self.stride,
+                                                       sig_wire=self.sig_wire)
+            stages["dispatch"] += timer() - t1
+            seg_q.extend(zip(segs, [p for _, p in raw_q]))
+            raw_q.clear()
+
         with ThreadPoolExecutor(max_workers=max(1, finishers)) as pool:
             for path in signal_paths:
                 t0 = timer()
-                sig, rr, ev, er, nuc, aux = self._load(path)
-                bases_num += aux["n_bases"]
-                samples_num += aux["n_samples"]
-                t1 = timer()
-                stages["load"] += t1 - t0
-                handle = self.engine.dispatch_beam_compact(
-                    sig, rr, ev, er, _max_output_len(rr, nuc), self.beam_width, aux=aux)
-                stages["dispatch"] += timer() - t1
-                pending.append(pool.submit(finish, handle, rr))
+                if self.wire != "compact":
+                    raw = chiron.load_signal(path)
+                    ranges, _ = chiron.load_label(Path(path).with_suffix(".label"))
+                    bases_num += int(ranges.shape[0])
+                    samples_num += int(raw.size)
+                    stages["load"] += timer() - t0
+                    raw_q.append((raw, path))
+                    if len(raw_q) >= max(1, seg_batch):
+                        segment_queued()
+                    while len(seg_q) >= 2:
+                        finish_seg(*seg_q.popleft())
+                else:
+                    sig, rr, ev, er, nuc, aux = self._load(path)
+                    bases_num += aux["n_bases"]
+                    samples_num += aux["n_samples"]
+                    t1 = timer()
+                    stages["load"] += t1 - t0
+                    handle = self.engine.dispatch_beam_compact(
+                        sig, rr, ev, er, _max_output_len(rr, nuc), self.beam_width, aux=aux)
+                    stages["dispatch"] += timer() - t1
+                    pending.append(pool.submit(finish, handle, rr))
                 while len(pending) >= inflight:
                     pending.popleft().result()
+            if raw_q:  # the last, partial batch
+                segment_queued()
+            while seg_q:
+                finish_seg(*seg_q.popleft())
             while pending:
                 pending.popleft().result()
         wall = timer() - start_all

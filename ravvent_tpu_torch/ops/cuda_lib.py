@@ -13,7 +13,9 @@ it launches its kernel, so a run can show that it went through the kernels.
 ``beam_step`` counts the steps on bf16/f32 memory, each one ``beam_cell``
 and one ``beam_attend`` launch; ``beam_step_i8`` / ``beam_step_i8mxu`` the
 steps on int8 memory, each one ``beam_cell`` and one ``beam_attend_i8`` /
-``beam_attend_i8mxu`` launch.
+``beam_attend_i8mxu`` launch. ``peak_scan`` counts both kernels of
+``csrc/peak_scan.cu``, so a call of its wrapper adds two (the scan, then the
+check).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 launches: Dict[str, int] = {"bilstm": 0, "bilstm_bf16": 0, "beam_step": 0, "beam_cell": 0,
                              "beam_attend": 0, "beam_step_i8": 0, "beam_step_i8mxu": 0,
                              "beam_attend_i8": 0, "beam_attend_i8mxu": 0, "beam_loop": 0,
-                             "decode_step": 0}
+                             "decode_step": 0, "peak_scan": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -109,10 +111,10 @@ def build(force: bool = False) -> str:
     return _build_log
 
 
-# argtypes of each C entry point: ctypes.c_int for an int, c_void_p for each
-# pointer and the stream (without them ctypes passes a pointer as a 32-bit
+# argtypes of each C entry point: ctypes.c_int for an int, c_float for a
+# float, c_void_p for each pointer and the stream (without them ctypes passes a pointer as a 32-bit
 # int and cuts it)
-_I, _P = ctypes.c_int, ctypes.c_void_p
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 ENTRIES = {
     "rv_bilstm_layer": [_P, _I, _I, _I, _I] + [_P] * 8 + [_P],
     "rv_bilstm_layer_bf16": [_P, _I, _I, _I, _I] + [_P] * 8 + [_P],
@@ -123,6 +125,9 @@ ENTRIES = {
     "rv_beam_loop_smem": [_I] * 4,
     "rv_beam_loop_clusters": [_I] * 4 + [_P] * 2,
     "rv_decode_step": [_I] * 3 + [_P] * 18,
+    "rv_peak_scan_blocks": [_I] * 4 + [_F] * 3 + [_P] * 6,
+    "rv_peak_scan_check": [_I] * 4 + [_F] * 3 + [_P] * 7,
+    "rv_peak_scan_state_bytes": [],
 }
 
 

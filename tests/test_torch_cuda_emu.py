@@ -1,8 +1,10 @@
 """The beam step's CUDA kernels (csrc/beam_step_f.cu), the BiLSTM-layer
-kernels (csrc/bilstm.cu, f32; csrc/bilstm_bf16.cu, bf16) and the whole-loop
-beam kernel (csrc/beam_loop.cu, clusters of 2 CTAs on the emulated card),
-run on the CPU by the emulation of tools/cuda_emu.py, against their plain
-versions.
+kernels (csrc/bilstm.cu, f32; csrc/bilstm_bf16.cu, bf16), the whole-loop
+beam kernel (csrc/beam_loop.cu, clusters of 2 CTAs on the emulated card)
+and the peak scan of event detection (csrc/peak_scan.cu), run on the CPU by
+the emulation of tools/cuda_emu.py, against their plain versions. The peak
+scan's traces (synth, coupling_failure_trace, memory_trace) are shared with
+tests/test_torch_event_detect.py and tests/test_torch_gpu.py.
 
 The emulation runs the kernels' own code (indexing, shared-memory layout,
 the persistent grid's row walk, the warp shuffles, the mma fragments) one
@@ -23,7 +25,8 @@ from ravvent_tpu_torch.models import attention as tattn
 from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
 from ravvent_tpu_torch.ops import beam_loop_cuda as tloop
 from ravvent_tpu_torch.ops import beam_step_cuda as tstep
-from ravvent_tpu_torch.ops import rnn_cuda
+from ravvent_tpu_torch.ops import event_detect as ted
+from ravvent_tpu_torch.ops import peak_scan_cuda, rnn_cuda
 
 torch.set_num_threads(1)
 U, V = 128, 7
@@ -335,3 +338,102 @@ def test_replay_holds_the_plain_loop_at_w8():
     assert (res[2][0, :, 7] == tloop.NEG_INF).all()  # the repeat at step 1
     rep = tloop.replay_plain(*res, mem.keys, mem.values, mem.mask, w, 5, 2, 1)
     assert rep == tloop.Replay(1.0, 0.0, 0.0, True)
+
+
+def synth(rng, n_events=200, noise=8.0):
+    """tests/test_device_event_detect.py's synthetic read: events of 4-19
+    samples at levels in [400, 700) with Gaussian noise."""
+    parts = []
+    for _ in range(n_events):
+        parts.append(rng.uniform(400, 700) + rng.normal(0, noise, rng.integers(4, 20)))
+    return np.round(np.concatenate(parts)).astype(np.int64)
+
+
+def coupling_failure_trace():
+    """tests/test_device_event_detect.py's trace: an ancient dip the
+    sequential state remembers past any warm-up (the blocked check fails,
+    though no sample fires)."""
+    t = np.full(4096, 1.0, np.float32)
+    t[:50] = 5.0
+    t[60] = 0.1
+    return t
+
+
+def memory_trace():
+    """A trace whose blocked scan is wrong where the sequential one fires:
+    a peak leaves the short detector's valid flag set, a slow rise keeps
+    moving its peak for 1400 samples (no fire), and a drop of 0.1 fires it
+    at sample 1503. A block that starts from the default state mid-rise never
+    sets the flag, so only the fallback gives the fire."""
+    t = np.full(2048, 1.0, np.float32)
+    t[100], t[101] = 2.0, 1.7
+    k = np.arange(102, 1500)
+    t[102:1500] = (2.1 + 0.001 * (k - 102)).astype(np.float32)
+    t[1500:] = t[1499] - np.float32(0.1)
+    return t
+
+
+def peak_scan_inputs(case):
+    """(t1, t2 [B, S] f32, n_valid [B] int32) of a peak-scan case: two
+    zero-padded synthetic reads of 300 and 150 events, or a trace as both
+    statistics."""
+    if case == "reads":
+        rng = np.random.default_rng(0)
+        r1, r2 = synth(rng, 300), synth(rng, 150)
+        x = np.zeros((2, len(r1) + 700), np.float32)
+        x[0, :len(r1)], x[1, :len(r2)] = r1, r2
+        nv = torch.tensor([len(r1), len(r2)], dtype=torch.int32)
+        xt = torch.from_numpy(x)
+        return ted.compute_tstats_device(xt, 6, 9, nv), ted.compute_tstats_device(xt, 9, 9, nv), nv
+    t = torch.from_numpy((coupling_failure_trace() if case == "coupling_failure"
+                          else memory_trace())[None])
+    return t, t.clone(), torch.tensor([t.shape[1]], dtype=torch.int32)
+
+
+@pytest.fixture(scope="module")
+def emu_peak():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the emulation")
+    from ravvent_tpu_torch.tools import cuda_emu
+
+    return cuda_emu.load("peak_scan.cu")
+
+
+def emu_peak_scan(lib, t1, t2, nv):
+    """Both kernels of csrc/peak_scan.cu, as ops/peak_scan_cuda.py launches
+    them; the fired mask starts all True, so an unwritten sample shows."""
+    B, S = t1.shape
+    C = -(-S // peak_scan_cuda.BLOCK)
+    fired = torch.ones(B, S, dtype=torch.bool)
+    states = torch.empty(B, C, 2, peak_scan_cuda.STATE_WORDS, dtype=torch.int32)
+    ok = torch.empty(B, dtype=torch.uint8)
+    args = (B, S, 6, 9, 1.4, 9.0, 0.2, t1.data_ptr(), t2.data_ptr(), nv.data_ptr(),
+            fired.data_ptr())
+    assert lib.rv_peak_scan_blocks(*args, states.data_ptr(), None) == 0
+    assert lib.rv_peak_scan_check(*args, states.data_ptr(), ok.data_ptr(), None) == 0
+    return fired, ok.bool()
+
+
+@pytest.mark.parametrize("case", ["reads", "coupling_failure", "memory"])
+def test_emulated_peak_scan_matches_plain(emu_peak, case):
+    """The scan and the check against peak_scan_plain, bit for bit: two
+    padded reads (the check passes; nothing fires from n_valid on), and the
+    two traces whose check fails, where the rescan gives the sequential
+    answer (on the memory trace the blocked fires are wrong)."""
+    t1, t2, nv = peak_scan_inputs(case)
+    fired, ok = emu_peak_scan(emu_peak, t1, t2, nv)
+    assert emu_peak.rv_peak_scan_state_bytes() == 4 * peak_scan_cuda.STATE_WORDS
+    assert torch.equal(fired, ted.peak_scan_plain(t1, t2, 6, 9, n_valid=nv))
+    assert ok.tolist() == ([True, True] if case == "reads" else [False])
+    if case == "reads":
+        assert not fired[1, int(nv[1]):].any() and fired.sum() > 400
+    if case == "memory":
+        assert torch.nonzero(fired[0]).flatten().tolist() == [1503]
+
+
+def test_emulated_peak_scan_refuses_what_it_does_not_take(emu_peak):
+    t = torch.zeros(1, 8)
+    nv = torch.tensor([8], dtype=torch.int32)
+    for B, S in ((0, 8), (1, 0), (70000, 8)):
+        assert emu_peak.rv_peak_scan_blocks(B, S, 6, 9, 1.4, 9.0, 0.2, t.data_ptr(), t.data_ptr(),
+                                            nv.data_ptr(), t.data_ptr(), t.data_ptr(), None) != 0

@@ -11,6 +11,7 @@ lacks; this file needs neither.)
 
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,9 +20,11 @@ from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.decoder import init_decoder
 from ravvent_tpu_torch.models.rnn import init_encoder, stacked_weights, stream_weights
 from ravvent_tpu_torch.ops import (
-    beam_loop_cuda, beam_step_cuda, cuda_lib, decode_step_cuda, rnn_cuda,
+    beam_loop_cuda, beam_step_cuda, cuda_lib, decode_step_cuda, event_detect, peak_scan_cuda,
+    rnn_cuda,
 )
 from ravvent_tpu_torch.weights import to_device
+from test_torch_cuda_emu import peak_scan_inputs, synth
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -590,3 +593,106 @@ def test_beam_attend_int8_launch_failures_raise(cuda):
         attend(*cell, scales=(ks, vs.double()))
     with pytest.raises(ValueError, match="16-byte aligned"):
         attend(shifted.view(B * 5, 128), *cell[1:], scales=(ks, vs))
+
+
+def long_reads():
+    """Two synthetic reads of ~138k and ~57k samples padded to 196608, the
+    signal-only wire's bucket for the longer: t1, t2 [2, S] and n_valid."""
+    rng = np.random.default_rng(3)
+    r1, r2 = synth(rng, 12000), synth(rng, 5000)
+    x = np.zeros((2, 196608), np.float32)
+    x[0, :len(r1)], x[1, :len(r2)] = r1, r2
+    nv = torch.tensor([len(r1), len(r2)], dtype=torch.int32)
+    xt = torch.from_numpy(x)
+    return (event_detect.compute_tstats_device(xt, 6, 9, nv),
+            event_detect.compute_tstats_device(xt, 9, 9, nv), nv)
+
+
+@pytest.mark.parametrize("case", ["reads", "long", "coupling_failure", "memory"])
+def test_peak_scan_kernel_matches_plain(cuda, case):
+    """csrc/peak_scan.cu's scan and check against peak_scan_plain on the
+    card, bit for bit: padded reads (the check passes), two long reads in
+    one batch, and the two traces whose check fails (the rescan gives the
+    sequential answer). event_detect.peak_scan launches both kernels and
+    nothing else."""
+    t1, t2, nv = long_reads() if case == "long" else peak_scan_inputs(case)
+    t1, t2, nv = t1.to(cuda), t2.to(cuda), nv.to(cuda)
+    before = cuda_lib.launches["peak_scan"]
+    fired, ok = peak_scan_cuda.peak_scan_cuda(t1, t2, nv, 6, 9)
+    assert cuda_lib.launches["peak_scan"] == before + 2
+    ref = event_detect.peak_scan_plain(t1, t2, 6, 9, n_valid=nv)
+    assert torch.equal(fired, ref)
+    assert ok.all().item() == (case in ("reads", "long"))
+    assert torch.equal(event_detect.peak_scan(t1, t2, 6, 9, n_valid=nv), ref)
+    assert cuda_lib.launches["peak_scan"] == before + 4
+    assert torch.equal(ref.cpu(), event_detect.peak_scan_plain(t1.cpu(), t2.cpu(), 6, 9,
+                                                               n_valid=nv.cpu()))
+
+
+def test_peak_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    t = torch.zeros(2, 600, device=cuda)
+    nv = torch.full((2,), 600, dtype=torch.int32, device=cuda)
+    bad = [
+        (t.cpu(), t.cpu(), nv.cpu()),  # the CPU's tensors go to the plain version
+        (t.double(), t.double(), nv),
+        (t, t, nv.long()),
+        (t, t, nv[:1]),
+        (t[:, ::2], t[:, ::2], nv),
+        (t[:0], t[:0], nv[:0]),
+        (t, t[:1], nv),
+    ]
+    for t1, t2, n in bad:
+        with pytest.raises(ValueError):
+            peak_scan_cuda.peak_scan_cuda(t1, t2, n, 6, 9)
+
+
+@pytest.mark.parametrize("sig_wire", ["i16", "u8"])
+def test_signal_wire_segmentation_on_card_matches_cpu(cuda, sig_wire):
+    """The engine's segmentation of a ~57k-sample read on the card against
+    the CPU engine: the signal, the meta and the ranges equal, the features
+    within 1e-5 (both f64, the cumsums added in other orders), two peak_scan
+    launches a segmentation."""
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.models.basecaller import init_basecaller
+
+    cfg = ModelConfig()
+    params = init_basecaller(cfg, torch.Generator().manual_seed(0))
+    raw = synth(np.random.default_rng(8), 5000)
+    S_b = BasecallEngine._bucket(raw.size, 65536)
+    E_b, N_max = S_b // 2, S_b // 2 // 6 + 1 + 4096
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = BasecallEngine(params, cfg, device=dev)
+        buf = eng._upload({"b": eng.signal_buffer([raw], S_b, sig_wire)})["b"]
+        before = cuda_lib.launches["peak_scan"]
+        out[dev] = [x.cpu() for x in eng._segment(buf[0], S_b, E_b, N_max, 6, sig_wire)]
+        assert cuda_lib.launches["peak_scan"] == before + (2 if dev == "cuda" else 0)
+    (sig, feats, rr, er, meta), ref = out["cuda"], out["cpu"]
+    assert torch.equal(sig, ref[0]) and torch.equal(meta, ref[4]) and meta[1] > 500
+    assert torch.equal(rr, ref[2]) and torch.equal(er, ref[3])
+    assert (feats - ref[1]).abs().max().item() <= 1e-5
+
+
+def test_begin_beam_signal_does_not_wait_on_the_card(cuda):
+    """begin_beam_signal enqueues the upload, the segmentation and the meta's
+    copy without a synchronizing call that torch's sync debug mode knows
+    (it raises on one; the mode is a prototype and does not know every
+    call); finish_beam_signal then decodes every snippet."""
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.models.basecaller import init_basecaller
+
+    cfg = ModelConfig()
+    eng = BasecallEngine(init_basecaller(cfg, torch.Generator().manual_seed(0)), cfg,
+                         memory_dtype=torch.bfloat16, encoder_dtype=torch.bfloat16)
+    raw = synth(np.random.default_rng(2), 1500)
+    eng.begin_beam_signal(raw)  # first use: the kernel library is built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seg = eng.begin_beam_signal(raw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tokens, probs = eng.collect_beam_compact(eng.finish_beam_signal(seg, 40, 5))
+    assert tokens.shape[0] == eng._signal_meta(seg)[1] > 100 and np.isfinite(probs).all()

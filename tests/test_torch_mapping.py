@@ -204,9 +204,15 @@ def test_mapping_evaluator_i8_memory_close_to_jax(flagship, reads, monkeypatch):
 
 
 def test_mapping_evaluator_rejects_what_is_not_ported():
-    for wire in ("sigdev", "sigdev8"):
-        with pytest.raises(NotImplementedError, match="A3"):
-            MappingEvaluator(None, wire=wire)
+    """Multi-beam results (ROADMAP.md A4) and unknown wires are refused; the
+    signal-only wires construct (tests/test_torch_sigdev.py runs them
+    against the JAX evaluator); the defaults are the reference's."""
+    for wire, sig_wire in (("sigdev", "i16"), ("sigdev8", "u8")):
+        assert MappingEvaluator(None, wire=wire).sig_wire == sig_wire
+    with pytest.raises(ValueError, match="wire"):
+        MappingEvaluator(None, wire="sigdev16")
+    with pytest.raises(NotImplementedError, match="A4"):
+        MappingEvaluator(None)._merge(np.zeros((2, 3, 4), np.int64), np.ones((2, 3, 4)), None)
     ev = MappingEvaluator(None)
     assert (ev.stride, ev.beam_width, ev.conf_gate) == (6, 5, (0.12, -0.15, 0.12))
     assert ev.merger.geom_arbitration == 4.0

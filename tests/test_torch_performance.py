@@ -123,8 +123,25 @@ def test_evaluate_files_and_total_results_match_jax(reads, params, tmp_path):
     assert PerformanceEvaluator.compute_total_results(out) == JEvaluator.compute_total_results(out)
 
 
-def test_signal_only_wires_are_not_ported(params):
+def test_signal_only_wires_are_not_ported(reads, params):
+    """The name predates the port of the signal-only wires; it now holds
+    that they run: run_pipelined over both reads on "sigdev" and "sigdev8"
+    counts the bases and samples of the compact wire and merges every read
+    (tests/test_torch_sigdev.py holds them against the JAX evaluator), one
+    segmentation for each read or for the pair (seg_batch=2); ``run`` stays
+    on the compact wire; other wires are refused."""
+    d, paths, _ = reads
     engine = _engine(params, transport_dtype="f16")
-    for wire in ("sigdev", "sigdev8"):
-        with pytest.raises(NotImplementedError, match="A3"):
-            PerformanceEvaluator(engine, wire=wire)
+    compact = PerformanceEvaluator(engine, beam_width=3, cache_dir=str(d / "cache"))
+    ref = compact.run_pipelined(paths, inflight=2, finishers=2)
+    for wire, seg_batch in (("sigdev", 1), ("sigdev8", 2)):
+        pe = PerformanceEvaluator(engine, beam_width=3, cache_dir=str(d / "cache"), wire=wire)
+        merged = []
+        orig = _capture(pe, merged)
+        rec = pe.run_pipelined(paths, inflight=2, finishers=2, seg_batch=seg_batch)
+        pe.merger.merge_flat = orig
+        assert rec["wire"] == wire and len(merged) == 2
+        assert (rec["bases_num"], rec["samples_num"]) == (ref["bases_num"], ref["samples_num"])
+        assert pe.run(paths[0])["bases_num"] == compact.run(paths[0])["bases_num"]
+    with pytest.raises(ValueError, match="wire"):
+        PerformanceEvaluator(engine, wire="sigdev16")
