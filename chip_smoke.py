@@ -6,8 +6,10 @@ and with --beam-impl loop, fused greedy decode
 (ops/decode_step_cuda.py:fused_greedy_decode), and bench.py's main path
 (evaluation/performance.py:PerformanceEvaluator on the bench's engine
 settings), the bench's path on int8 memory through PerformanceEvaluator
-and MappingEvaluator (evaluation/mapping.py), and the signal-only wire
-(sigdev, sigdev8) through both — at the flagship's full width
+and MappingEvaluator (evaluation/mapping.py), the signal-only wire (sigdev,
+sigdev8) through both, the engine's greedy decode, its top-K beams with the
+mapping evaluator's beam selection, and tools/profile_decode.py with a
+torch.profiler trace of the bench's pipelined path — at the flagship's full width
 (joint raw+event input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM
 decoder with Luong attention, vocab 7, beam 5) on seeded random weights, and
 holds each hand-written kernel against its plain PyTorch version on the card:
@@ -76,7 +78,27 @@ holds each hand-written kernel against its plain PyTorch version on the card:
      over the compact wire, sigdev and sigdev8, and MappingEvaluator on
      sigdev, with the bench's settings; no read falls back to the compact
      wire, peak_scan launches twice a segmentation, bilstm_bf16 4 times a
-     chunk, beam_cell and beam_attend once a step.
+     chunk, beam_cell and beam_attend once a step;
+ 14. end to end, BasecallEngine.predict_greedy on the first read's snippets
+     with the CLI's settings (f32 encoder stream, bf16 memory) and the
+     bench's (bf16 stream): the stream's BiLSTM kernel 4 times a chunk, no
+     beam or decode-step kernel, plain greedy steps over the pre-projected
+     memory; card and CPU tokens on 64 snippets, decoding the card's memory
+     and end to end, logits finite;
+ 15. end to end, top-K beams: the bench's settings with n_beams=3 through
+     predict_beam_compact on the 4 reads, beam 0 bit-equal to an n_beams=1
+     engine's result with the same launches (beam_cell and beam_attend once
+     a step); the 3 beams on the card and the CPU on 64 snippets, decoding
+     the card's memory and end to end; MappingEvaluator over the reads on
+     the compact wire (the phase-aware beam selection) and on sigdev (the
+     top beam);
+ 16. tools/profile_decode.py: the legs of the first read's decode on the
+     compact wire and on sigdev (host pack and unpack, H2D, device compute
+     on resident inputs, D2H, end to end; on sigdev also begin, the meta
+     wait and finish), then one torch.profiler trace of run_pipelined over
+     the 4 reads with the bench's settings: the device's idle share, the top
+     device operations and the longest device-idle gaps with the host
+     operations running in them.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -473,19 +495,11 @@ def phase_beam_step() -> list:
 
 
 def simulated_reads() -> list:
-    """4 simulated reads of 12-18 kb from a 60 kb random genome (seeded):
-    (raw signal, base ranges, bases) each."""
-    from ravvent_tpu_torch.data import simulator
+    """tools/profile_decode.py's 4 simulated reads of 12-18 kb from a 60 kb
+    random genome (seeded): (raw signal, base ranges, bases) each."""
+    from ravvent_tpu_torch.tools.profile_decode import simulated_reads as reads
 
-    rng = np.random.default_rng(SEED)
-    genome = simulator.random_genome(60_000, rng)
-    pore = simulator.PoreModel()
-    reads = []
-    for _ in range(4):
-        n = int(rng.integers(12_000, 18_001))
-        s = int(rng.integers(0, len(genome) - n))
-        reads.append(simulator.simulate_read(genome[s:s + n], rng, pore) + (genome[s:s + n],))
-    return reads
+    return reads(SEED)
 
 
 def flagship_params():
@@ -1398,9 +1412,10 @@ def phase_signal_wire(smi: str) -> tuple:
              "library_ms": None}, counts)
 
 
-def top_beam_tokens(engine, mem, max_len: int) -> torch.Tensor:
+def top_beam_tokens(engine, mem, max_len: int, beams: int = 1) -> torch.Tensor:
     """The engine's beam decode of ``mem`` (beam 5, ``max_len - 1`` live
-    steps): the top beam's tokens over the live steps, on the host."""
+    steps): the top ``beams`` beams' tokens over the live steps, on the host
+    ([N, max_len - 1, beams])."""
     from ravvent_tpu_torch.evaluation.basecall import TOTAL_STEPS
     from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
     from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
@@ -1409,7 +1424,227 @@ def top_beam_tokens(engine, mem, max_len: int) -> torch.Tensor:
                             max_len - 1, start_token=NUC_TOKENIZER.start_id,
                             end_token=NUC_TOKENIZER.end_id, loop=beam_step_loop,
                             quant_mxu=engine.quant_mxu)
-    return res.tokens[:, :max_len - 1, 0].cpu()
+    return res.tokens[:, :max_len - 1, :beams].cpu()
+
+
+def phase_greedy_engine(smi: str) -> dict:
+    """BasecallEngine.predict_greedy on the first read's snippets with the
+    CLI's settings (f32 encoder stream, bf16 memory) and the bench's (bf16
+    stream): the BiLSTM kernel of the stream 4 times a chunk, then plain
+    greedy steps over the pre-projected memory; against a CPU engine on 64
+    snippets, decoding the card's memory and end to end. Returns each
+    setting's launch counts."""
+    from ravvent_tpu_torch.data.snippets import prepare_compact
+    from ravvent_tpu_torch.decode.greedy import greedy_decode
+    from ravvent_tpu_torch.evaluation.basecall import TOTAL_STEPS, BasecallEngine
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
+    from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN
+
+    cfg, params = flagship_params()
+    raw, ranges, _ = simulated_reads()[0]
+    sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
+    counts = {}
+    for name, kw, kernel in (("CLI", {}, "bilstm"),
+                             ("bench", dict(encoder_dtype=torch.bfloat16), "bilstm_bf16")):
+        card = BasecallEngine(params, cfg, chunk_size=4096, **kw)
+        cpu = BasecallEngine(params, cfg, chunk_size=4096, device="cpu", **kw)
+        with torch.inference_mode():
+            raw_c, event_c = (torch.cat(x) for x in zip(*card.compact_snippets(sig, rr, ev, er)))
+        raw_h, event_h = raw_c.cpu().numpy(), event_c.cpu().numpy()
+        n = raw_h.shape[0]
+        card.predict_greedy(raw_h[:256], event_h[:256], MAX_OUTPUT_LEN)  # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        tok, logits = card.predict_greedy(raw_h, event_h, MAX_OUTPUT_LEN)
+        wall = time.perf_counter() - t0
+        c = counts[name] = dict(cuda_lib.launches)
+        chunks = -(-n // card.chunk_size)
+        others = sum(v for k, v in c.items() if k != kernel)
+        print(f"  predict_greedy, {name} settings, one read: snippets {n}, {wall:.4f} s "
+              f"({n / wall:.1f} snippets/s); launches: {kernel} {c[kernel]} over {chunks} chunks "
+              f"(need 4 a chunk), other kernels {others} (need 0) [{smi}]")
+        require(c[kernel] == 4 * chunks, f"{kernel} did not launch 4 times a chunk")
+        require(others == 0, "greedy decode launched a beam or decode-step kernel")
+        T = card._fetch_width(MAX_OUTPUT_LEN)
+        require(tok.shape == (n, T) and logits.shape == (n, T, cfg.vocab_size)
+                and np.isfinite(logits).all(), "bad greedy result shape or logits")
+        # all_done couples a call's rows: card and CPU decode the same 64 rows
+        with torch.inference_mode():
+            mem = card.memory(raw_c[:64], event_c[:64])
+            same = [greedy_decode(e.params["decoder"], m, cfg.vocab_size, TOTAL_STEPS,
+                                  MAX_OUTPUT_LEN - 1, start_token=NUC_TOKENIZER.start_id,
+                                  end_token=NUC_TOKENIZER.end_id)[0].cpu()
+                    for e, m in ((card, mem), (cpu, mem.to("cpu")))]
+        same_mem = float((same[0] == same[1]).float().mean())
+        t_cpu, l_cpu = cpu.predict_greedy(raw_h[:64], event_h[:64], MAX_OUTPUT_LEN)
+        t_gpu, l_gpu = card.predict_greedy(raw_h[:64], event_h[:64], MAX_OUTPUT_LEN)
+        agree = float((t_gpu == t_cpu).mean())
+        print(f"  predict_greedy, {name} settings, card vs CPU on 64 snippets: decoding the "
+              f"card's memory, tokens agree {same_mem:.5f} (need >= 0.998); end to end, tokens "
+              f"agree {agree:.5f} (need >= 0.99); logits max abs diff "
+              f"{float(np.abs(l_gpu - l_cpu).max()):.3e}, finite {bool(np.isfinite(l_gpu).all())}")
+        require(np.isfinite(l_gpu).all(), "greedy logits not finite")
+        require(same_mem >= 0.998, "card and CPU greedy-decode the same memory differently")
+        # as phases 4 and 12: seeded weights give near-ties that the encoder
+        # kernels' last-bit differences from their plain versions can flip
+        require(agree >= 0.99, "card and CPU disagree on the greedy tokens end to end")
+    return counts
+
+
+def phase_multibeam(smi: str) -> dict:
+    """Top-K beams: the bench's settings with n_beams=3 through
+    predict_beam_compact on the 4 reads, beam 0 against an n_beams=1 engine
+    bit for bit with the same launches; the 3 beams against a CPU engine on
+    64 snippets (decoding the card's memory, and end to end); then
+    MappingEvaluator over the reads on the compact wire (the beam selection)
+    and on sigdev (the top beam). Returns the n_beams=3 run's launches."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.data.snippets import load_read_compact_ex
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.evaluation.mapping import MappingEvaluator
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.tools.profile_decode import write_reads
+
+    K = 3
+    cfg, params = flagship_params()
+    bench = dict(chunk_size=4096, memory_dtype=torch.bfloat16, beam_impl="step",
+                 encoder_dtype=torch.bfloat16, pack_u8=True, transport_dtype="i8dev", prob_bits=4)
+    one = BasecallEngine(params, cfg, **bench)
+    top_k = BasecallEngine(params, cfg, n_beams=K, **bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        paths = write_reads(simulated_reads(), d)
+        (d / "files_info.json").write_text(json.dumps([{"signal_path": p} for p in paths]))
+        cache = str(d / "cache")
+        loaded = [load_read_compact_ex(p, Path(p).with_suffix(".label"), 6, cache_dir=cache)
+                  for p in paths]
+        sig, rr, ev, er, nuc, aux = loaded[0]
+        max_len = int((nuc != 0).sum(axis=1).max())
+        for engine in (top_k, one):  # warm-up at a read's full size (the allocator's first blocks)
+            engine.predict_beam_compact(sig, rr, ev, er, max_len, 5, aux=aux)
+        counts, out, wall = {}, {}, {}
+        for k, engine in ((K, top_k), (1, one)):
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            out[k] = [engine.predict_beam_compact(s, r, e, q, int((n != 0).sum(axis=1).max()), 5,
+                                                  aux=a) for s, r, e, q, n, a in loaded]
+            wall[k] = time.perf_counter() - t0
+            counts[k] = dict(cuda_lib.launches)
+        same = all(np.array_equal(tk[:, 0], t1) and np.array_equal(pk[:, 0], p1)
+                   for (tk, pk), (t1, p1) in zip(out[K], out[1]))
+        shapes = [tk.shape for tk, _ in out[K]]
+        off = float(np.mean([(t[:, 1] != t[:, 0]).any(axis=1).mean() for t, _ in out[K]]))
+        print(f"  n_beams={K}, bench settings, 4 reads: shapes {shapes}, {wall[K]:.4f} s "
+              f"(n_beams=1 {wall[1]:.4f} s); beam 0 equals n_beams=1 bit for bit {same}; beam 1 "
+              f"differs from beam 0 on {off:.4f} of the rows [{smi}]")
+        print(f"  launches, n_beams={K}: {counts[K]}; n_beams=1: {counts[1]}")
+        require(all(s[1] == K for s in shapes), "n_beams=3 did not return [N, 3, T]")
+        require(same, "beam 0 of n_beams=3 differs from n_beams=1")
+        require(counts[K] == counts[1], "n_beams=3 launched other kernels than n_beams=1")
+        require(counts[K]["beam_cell"] == counts[K]["beam_attend"] == counts[K]["beam_step"] > 0,
+                "a step did not launch beam_cell and beam_attend once each")
+
+        # the card against the CPU on 64 snippets: the card's memory, and end to end
+        cpu = BasecallEngine(params, cfg, device="cpu", n_beams=K, **bench)
+        with torch.inference_mode():
+            (raw_c, event_c), = top_k.compact_snippets(sig, rr[:64], ev, er[:64], aux)
+            mem = top_k.memory(raw_c, event_c)
+            same_mem = (top_beam_tokens(top_k, mem, max_len, K)
+                        == top_beam_tokens(cpu, mem.to("cpu"), max_len, K)).float()
+            same_mem = same_mem.mean(dim=(0, 1)).tolist()
+        t_gpu, p_gpu = top_k.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5, aux=aux)
+        t_cpu, _ = cpu.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5, aux=aux)
+        agree = [float((t_gpu[:, k] == t_cpu[:, k]).mean()) for k in range(K)]
+        # a lower beam's row that differs: is its sequence among the CPU's K
+        # (near-tied hypotheses trading ranks) or a hypothesis of its own?
+        cpu_sets = [set(map(tuple, row)) for row in t_cpu]
+        among = [float(np.mean([tuple(t_gpu[i, k]) in cpu_sets[i] for i in range(64)]))
+                 for k in range(K)]
+        print(f"  n_beams={K}, card vs CPU on 64 snippets, by beam: decoding the card's memory, "
+              f"tokens agree {np.round(same_mem, 5).tolist()} (need >= 0.998 each); end to end "
+              f"{np.round(agree, 5).tolist()} (beam 0 needs >= 0.99); the card's beam among the "
+              f"CPU's {K} on {np.round(among, 5).tolist()} of the rows")
+        require(t_gpu.shape == t_cpu.shape == (64, K, top_k._fetch_width(max_len))
+                and np.isfinite(p_gpu).all(), "bad top-K result shape or probs")
+        require(min(same_mem) >= 0.998, "card and CPU decode the same memory's top-K differently")
+        # as phases 4 and 12 (the top beam): the bf16 encoder kernel's
+        # last-bit differences from its plain version can flip a near-tie of
+        # seeded weights; the lower beams are closer ties still, and their
+        # end-to-end figures are printed (ROADMAP.md section C)
+        require(agree[0] >= 0.99, "card and CPU disagree on the top beam's tokens end to end")
+
+        # MappingEvaluator: the selection on the compact wire, the top beam on sigdev
+        picks, dims = [], []
+        for wire in ("compact", "sigdev"):
+            me = MappingEvaluator(top_k, beam_width=5, cache_dir=cache, wire=wire)
+            select, predict = me._select_beams, top_k.predict_beam_signal
+
+            def selecting(tokens, probs, rr, select=select):
+                res = select(tokens, probs, rr)
+                picks.append(int((res[0] != tokens[:, 0]).any(axis=1).sum()))
+                return res
+
+            def noting_dims(*a, predict=predict, **k):
+                res = predict(*a, **k)
+                dims.append(res[0].ndim)
+                return res
+
+            me._select_beams = selecting
+            top_k.predict_beam_signal = noting_dims
+            t0 = time.perf_counter()
+            records = me.evaluate_files(d / "files_info.json", d / f"map_{wire}.json",
+                                        verbose=False)
+            del top_k.predict_beam_signal
+            print(f"  MappingEvaluator(n_beams={K}) {wire}: {time.perf_counter() - t0:.3f} s, "
+                  f"{len(records)} reads, mapper {sorted({r['mapper'] for r in records})}")
+            require(len(records) == len(paths), f"MappingEvaluator {wire} missed a read")
+        print(f"  beam selection on the compact wire: snippets off the top beam by read {picks} "
+              f"(need one selection a read); sigdev results {dims}-D, no selection there")
+        require(len(picks) == len(paths), "the beam selection did not run once a read")
+        require(dims == [3] * len(paths), "sigdev did not return the top-K beams")
+    return counts[K]
+
+
+def phase_profile(smi: str) -> dict:
+    """tools/profile_decode.py on the card: the legs of read 0's decode on
+    the compact wire and on sigdev (bench settings), then one torch.profiler
+    trace of run_pipelined over the 4 reads on the compact wire: the device's
+    idle share, the top device operations, the longest idle gaps. Returns the
+    trace's summary."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.tools import profile_decode as pd
+
+    cfg, params = flagship_params()
+    engine = BasecallEngine(params, cfg, chunk_size=4096, memory_dtype=torch.bfloat16,
+                            beam_impl="step", encoder_dtype=torch.bfloat16, pack_u8=True,
+                            transport_dtype="i8dev", prob_bits=4)
+    reads = simulated_reads()
+    need = ["host pack+unpack", "H2D upload", "device compute", "D2H fetch", "sum of legs",
+            "end-to-end"]
+    for wire, legs_of, extra in (
+            ("compact", pd.compact_legs, []),
+            ("sigdev", pd.signal_legs, ["begin_beam_signal", "meta wait", "finish+collect"])):
+        legs = legs_of(engine, reads[0], 5, 3)
+        pd.print_legs(legs, f"  profile_decode legs, read 0, {wire}, best of 3 [{smi}]")
+        require(all(k in legs and np.isfinite(legs[k]) and legs[k] >= 0 for k in need + extra),
+                f"profile_decode: a leg of the {wire} wire is missing")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pd.write_reads(reads, Path(tmp))
+        summary = pd.trace_pipelined(engine, paths, Path(tmp) / "trace", "compact", 5,
+                                     cache_dir=str(Path(tmp) / "cache"))
+    pd.print_trace(summary)
+    print(f"  [{smi}]")
+    require(summary["device_events"] > 0, "the profiler's trace holds no device event")
+    require(0.0 <= summary["idle_share"] <= 1.0, "the device's idle share is outside [0, 1]")
+    return summary
 
 
 def main() -> int:
@@ -1461,6 +1696,15 @@ def main() -> int:
     t0 = time.perf_counter()
     k_peak, counts_sig = phase_signal_wire(smi)
     phase("13 end to end, the signal-only wire", t0)
+    t0 = time.perf_counter()
+    phase_greedy_engine(smi)
+    phase("14 end to end, BasecallEngine.predict_greedy", t0)
+    t0 = time.perf_counter()
+    phase_multibeam(smi)
+    phase("15 end to end, top-K beams (n_beams=3) and the beam selection", t0)
+    t0 = time.perf_counter()
+    phase_profile(smi)
+    phase("16 tools/profile_decode.py: legs and a torch.profiler trace", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_cell["launches"] = counts["beam_cell"]

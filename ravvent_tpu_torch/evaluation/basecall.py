@@ -43,6 +43,7 @@ import torch
 
 from ravvent_tpu_torch.config import MAX_TARGET_LEN, ModelConfig
 from ravvent_tpu_torch.decode.beam import beam_scores_to_step_probs
+from ravvent_tpu_torch.decode.greedy import greedy_decode
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import check_config, encode_input
 from ravvent_tpu_torch.models.rnn import kernel_weights, stream_weights
@@ -231,10 +232,12 @@ def _device_snippet_count(lens: torch.Tensor, n_ev, n_rows: int, stride: int,
 class PendingBeamCompact(NamedTuple):
     """In-flight read from :meth:`BasecallEngine.dispatch_beam_compact`: per
     chunk, the host buffer the packed result is being copied into, the CUDA
-    event that marks the copy's end (None on the CPU) and the row count."""
+    event that marks the copy's end (None on the CPU) and the row count;
+    ``n_beams`` beams a row on the wire, each ``T_fetch`` steps wide."""
 
     pending: list
     T_fetch: int
+    n_beams: int = 1
 
 
 class PendingSignal(NamedTuple):
@@ -269,6 +272,7 @@ class BasecallEngine:
         encoder_dtype: Optional[torch.dtype] = None,
         transport_dtype: str = "f16",
         prob_bits: int = 8,
+        n_beams: int = 1,
     ) -> None:
         """``params``: the JAX tree's layout with tensor leaves (see
         weights.py). ``memory_dtype``: bf16 or None (f32) attention memory,
@@ -287,7 +291,11 @@ class BasecallEngine:
         that type; "i8" quantizes both with per-chunk max-abs scales, "i8sig"
         only the signal; "i8dev" sends the i8 signal and u16 event lengths
         and recomputes the features and snippet ranges on the device (needs
-        the ``aux`` dict of data/snippets.py:load_read_compact_ex)."""
+        the ``aux`` dict of data/snippets.py:load_read_compact_ex).
+        ``n_beams``: beams returned a snippet, min(n_beams, beam_width); with
+        more than one, the results are [N, n_beams, T] (beam 0 the top
+        beam), for the merge fold's beam selection
+        (evaluation/mapping.py:MappingEvaluator._select_beams)."""
         check_config(cfg)
         if cfg.decoder_depth != 1:
             raise NotImplementedError("the fused beam kernels support decoder_depth=1")
@@ -304,6 +312,8 @@ class BasecallEngine:
             raise ValueError(f"transport_dtype must be one of {WIRES}, got {transport_dtype!r}")
         if prob_bits not in (8, 4):
             raise ValueError(f"prob_bits must be 8 or 4, got {prob_bits!r}")
+        if n_beams < 1:
+            raise ValueError(f"n_beams must be at least 1, got {n_beams!r}")
         self.beam_impl = beam_impl
         self.device = resolve_device(device)
         self.params = to_device(params, self.device)
@@ -315,6 +325,7 @@ class BasecallEngine:
         self.encoder_dtype = encoder_dtype
         self.transport_dtype = transport_dtype
         self.prob_bits = prob_bits
+        self.n_beams = n_beams
         # the encoders' weights in the stream dtype, cast once, and in the
         # stream's kernel layout, laid out once
         self._enc_weights = {
@@ -349,31 +360,76 @@ class BasecallEngine:
              beam_width: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Encode + beam decode device snippets raw [N, 200, 1], event
         [N, 30, 5]. Returns the top beam's (tokens [N, T] int32, step probs
-        [N, T] f32) with T = TOTAL_STEPS."""
+        [N, T] f32) with T = TOTAL_STEPS; with K = min(n_beams, beam_width)
+        > 1, the top K beams' [N, K, T], beam-major
+        (ravvent_tpu/evaluation/basecall.py:398-411)."""
         loop = beam_loop if self.beam_impl == "loop" else beam_step_loop
         res = fused_beam_decode(self.params["decoder"], self.memory(raw, event),
                                 self.cfg.vocab_size, beam_width, TOTAL_STEPS, max_steps,
                                 start_token=NUC_TOKENIZER.start_id,
                                 end_token=NUC_TOKENIZER.end_id, loop=loop,
                                 quant_mxu=self.quant_mxu)
-        return res.tokens[:, :, 0], beam_scores_to_step_probs(res.scores[:, :, 0])
+        K = min(self.n_beams, beam_width)
+        if K == 1:
+            return res.tokens[:, :, 0], beam_scores_to_step_probs(res.scores[:, :, 0])
+        tokens = res.tokens[:, :, :K].movedim(2, 1)
+        scores = res.scores[:, :, :K].movedim(2, 1)
+        probs = beam_scores_to_step_probs(scores.reshape(-1, scores.shape[2]))
+        return tokens, probs.reshape(scores.shape)
 
     def _fetch_width(self, max_output_len: int) -> int:
         return min(TOTAL_STEPS, ((max_output_len + 7) // 8) * 8)
 
-    def predict_beam(self, raw: np.ndarray, event: np.ndarray, max_output_len: int,
-                     beam_width: int = 5) -> Tuple[np.ndarray, np.ndarray]:
-        """Beam decode materialized snippets; returns (tokens [N, T],
-        step_probs [N, T]) of the top beam, T the fetch width."""
-        T = self._fetch_width(max_output_len)
-        toks, probs = [], []
+    def _device_chunks(self, raw: np.ndarray, event: np.ndarray):
+        """Materialized snippets raw [N, 200, 1], event [N, 30, 5] on the
+        device, ``chunk_size`` rows at a time."""
         for s in range(0, raw.shape[0], self.chunk_size):
             r = torch.from_numpy(np.ascontiguousarray(raw[s:s + self.chunk_size], np.float32))
             e = torch.from_numpy(np.ascontiguousarray(event[s:s + self.chunk_size], np.float32))
-            t, p = self.beam(r.to(self.device), e.to(self.device), max_output_len - 1, beam_width)
-            toks.append(t[:, :T].cpu().numpy())
-            probs.append(p[:, :T].cpu().numpy())
+            yield r.to(self.device), e.to(self.device)
+
+    def predict_beam(self, raw: np.ndarray, event: np.ndarray, max_output_len: int,
+                     beam_width: int = 5) -> Tuple[np.ndarray, np.ndarray]:
+        """Beam decode materialized snippets; returns (tokens [N, T],
+        step_probs [N, T]) of the top beam, T the fetch width ([N, K, T]
+        with K > 1 beams)."""
+        T = self._fetch_width(max_output_len)
+        toks, probs = [], []
+        for r, e in self._device_chunks(raw, event):
+            t, p = self.beam(r, e, max_output_len - 1, beam_width)
+            toks.append(t[..., :T].cpu().numpy())
+            probs.append(p[..., :T].cpu().numpy())
         return np.concatenate(toks), np.concatenate(probs)
+
+    @torch.inference_mode()
+    def predict_greedy(self, raw: np.ndarray, event: np.ndarray, max_output_len: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Greedy decode materialized snippets
+        (ravvent_tpu/evaluation/basecall.py:1328-1345): the engine's encoder
+        and pre-projected memory, then plain PyTorch greedy steps
+        (decode/greedy.py), as the JAX engine's ``_greedy`` decodes with XLA
+        (:413-420). Returns (tokens [N, T], logits [N, T, V] f32), T the
+        fetch width. The JAX engine pads
+        a chunk's rows to ``chunk_size``, this engine runs the chunk's own
+        rows. The all-finished stop couples a call's rows: the two agree on
+        every step until all of this engine's rows have ended; from there
+        this engine emits zeros, where the JAX engine goes on while a padded
+        row has not ended. A row's sequence, up to its end token, is the
+        same."""
+        if self.memory_dtype == "i8":
+            raise ValueError("greedy decode reads bf16 or f32 memory: int8 memory ('i8', "
+                             "'i8mxu') needs a consumer that understands quantized memory, the "
+                             "fused beam-step kernel (ravvent_tpu/models/attention.py:96-98)")
+        T = self._fetch_width(max_output_len)
+        toks, logits = [], []
+        for r, e in self._device_chunks(raw, event):
+            t, lg = greedy_decode(self.params["decoder"], self.memory(r, e), self.cfg.vocab_size,
+                                  TOTAL_STEPS, max_output_len - 1,
+                                  start_token=NUC_TOKENIZER.start_id,
+                                  end_token=NUC_TOKENIZER.end_id)
+            toks.append(t[:, :T].cpu().numpy())
+            logits.append(lg[:, :T].cpu().numpy())
+        return np.concatenate(toks), np.concatenate(logits)
 
     # ---------------------------------------------------------- compact path
 
@@ -499,14 +555,18 @@ class BasecallEngine:
     def _pack(self, tokens: torch.Tensor, probs: torch.Tensor, T_fetch: int) -> torch.Tensor:
         """The result bytes of one chunk: tokens as nibbles and step
         probabilities as u8 or nibbles (pack_u8), else int8 tokens and f16
-        probs (basecall.py:477-498)."""
-        tokens, probs = tokens[:, :T_fetch], probs[:, :T_fetch]
+        probs (basecall.py:477-498). K beams [N, K, T] travel as rows of
+        K * T_fetch steps, padded to whole bytes at the row's end."""
+        tokens, probs = tokens[..., :T_fetch], probs[..., :T_fetch]
+        if tokens.dim() == 3:
+            tokens = tokens.reshape(tokens.shape[0], -1)
+            probs = probs.reshape(probs.shape[0], -1)
         if not self.pack_u8:
             return torch.cat([tokens.to(torch.int8).view(torch.uint8),
                               probs.to(torch.float16).contiguous().view(torch.uint8)], dim=1)
 
         def nibbles(x):
-            if T_fetch % 2:
+            if x.shape[1] % 2:
                 x = torch.nn.functional.pad(x, (0, 1))
             return x[:, 0::2] | (x[:, 1::2] << 4)
 
@@ -528,7 +588,7 @@ class BasecallEngine:
         T_fetch = self._fetch_width(max_output_len)
         pending = [self._enqueue(raw, event, max_output_len - 1, beam_width, T_fetch)
                    for raw, event in self._chunks(signal, raw_ranges, events, event_ranges, aux)]
-        return PendingBeamCompact(pending, T_fetch)
+        return PendingBeamCompact(pending, T_fetch, min(self.n_beams, beam_width))
 
     def _enqueue(self, raw: torch.Tensor, event: torch.Tensor, max_steps: int, beam_width: int,
                  T_fetch: int) -> tuple:
@@ -546,11 +606,11 @@ class BasecallEngine:
 
     def collect_beam_compact(self, handle: PendingBeamCompact) -> Tuple[np.ndarray, np.ndarray]:
         """Wait for a dispatched read's copies and unpack the result bytes.
-        Waits on CUDA events only, so any thread may collect."""
-        T = handle.T_fetch
-        if not handle.pending:
-            return np.zeros((0, T), np.int64), np.zeros((0, T), np.float32)
-        toks, prbs = [], []
+        Waits on CUDA events only, so any thread may collect. With
+        ``n_beams`` > 1 the arrays are [N, n_beams, T_fetch]
+        (ravvent_tpu/evaluation/basecall.py:1024-1060)."""
+        T = handle.n_beams * handle.T_fetch
+        toks, prbs = [np.zeros((0, T), np.int64)], [np.zeros((0, T), np.float32)]
         for host, done, n in handle.pending:
             if done is not None:
                 done.synchronize()
@@ -572,7 +632,11 @@ class BasecallEngine:
             else:
                 toks.append(arr[:, :T].copy().view(np.int8).astype(np.int64))
                 prbs.append(arr[:, T:].copy().view(np.float16).astype(np.float32))
-        return np.concatenate(toks), np.concatenate(prbs)
+        out_t, out_p = np.concatenate(toks), np.concatenate(prbs)
+        if handle.n_beams > 1:
+            shape = (-1, handle.n_beams, handle.T_fetch)
+            out_t, out_p = out_t.reshape(shape), out_p.reshape(shape)
+        return out_t, out_p
 
     # ------------------------------------------------------ signal-only wire
 
@@ -734,7 +798,7 @@ class BasecallEngine:
         pending = [self._enqueue(*self.signal_snippets(seg, s, min(s + self.chunk_size, n_snip)),
                                  max_output_len - 1, beam_width, T_fetch)
                    for s in range(0, n_snip, self.chunk_size)]
-        return PendingBeamCompact(pending, T_fetch)
+        return PendingBeamCompact(pending, T_fetch, min(self.n_beams, beam_width))
 
     @torch.inference_mode()
     def signal_snippets(self, seg: PendingSignal, start: int, end: int
@@ -767,9 +831,10 @@ class BasecallEngine:
     def predict_beam_signal(self, raw_signal: np.ndarray, max_output_len: Optional[int] = None,
                             beam_width: int = 5, stride: int = 6, sig_wire: str = "i16",
                             return_ranges: bool = False) -> Optional[tuple]:
-        """Raw samples in, per-snippet (tokens [N, T], step probs [N, T])
-        out, segmentation, features and snippets all on the device. None
-        when the segmentation buffer overflows (take the compact wire).
+        """Raw samples in, per-snippet (tokens [N, T], step probs [N, T];
+        [N, K, T] with K > 1 beams) out, segmentation, features and
+        snippets all on the device. None when the segmentation buffer
+        overflows (take the compact wire).
         ``return_ranges`` appends the device's snippet raw ranges
         ([N, 2], None for an empty read)."""
         seg = self.begin_beam_signal(raw_signal, stride, sig_wire)

@@ -15,8 +15,10 @@ as ``mapper``. With ``wire="sigdev"`` or ``"sigdev8"`` a read's raw samples
 are the only upload and the device segments it
 (BasecallEngine.predict_beam_signal); the decode bound still comes from the
 labels, and the merge's gate and positional prior from the device's snippet
-ranges. Multi-beam results (an engine with ``n_beams > 1``) are not ported
-yet.
+ranges. With an engine of ``n_beams > 1`` the compact wire picks one beam a
+snippet by junction overlap agreement before the gate and the fold
+(:meth:`MappingEvaluator._select_beams`); the signal-only wire takes the top
+beam, as the reference does.
 """
 
 from __future__ import annotations
@@ -33,13 +35,16 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ravvent_tpu_torch.assembly import sce_mapper
-from ravvent_tpu_torch.assembly.merger import CONF_GATE_DEFAULT, Merger, SeqLogitsPair
+from ravvent_tpu_torch.assembly.merger import (
+    CONF_GATE_DEFAULT, Merger, SeqLogitsPair, expected_overlaps_from_ranges,
+)
 from ravvent_tpu_torch.data import chiron
 from ravvent_tpu_torch.data.snippets import load_read_compact_ex
 from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
 from ravvent_tpu_torch.evaluation.performance import (
     EVALUATOR_WIRES, flatten_calls, gate_snippets, merge_snippets,
 )
+from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
 
 BEAM_WIDTH_DEFAULT = 5
 
@@ -99,14 +104,33 @@ class MappingEvaluator:
         max_output_len = int((nuc != 0).sum(axis=1).max())
         tokens, probs = self.engine.predict_beam_compact(sig, rr, ev, er, max_output_len,
                                                          self.beam_width, aux=aux)
+        if tokens.ndim == 3:  # n_beams > 1: the phase-aware beam selection
+            tokens, probs = self._select_beams(tokens, probs, rr)
         return self._merge(tokens, probs, rr)
 
     def _merge(self, tokens, probs, rr) -> SeqLogitsPair:
-        if tokens.ndim == 3:
-            raise NotImplementedError(
-                "multi-beam results (n_beams > 1) are not ported yet (ROADMAP.md A4)")
         return merge_snippets(self.merger,
                               *gate_snippets(self.conf_gate, *flatten_calls(tokens, probs), rr))
+
+    def _select_beams(self, tokens, probs, rr):
+        """Pick one beam per snippet by junction overlap agreement (Viterbi;
+        assembly/merger.py:Merger.select_beams_by_overlap), the reference's
+        fix for the decode phase on periodic genomes
+        (ravvent_tpu/evaluation/mapping.py:156-176). tokens/probs
+        [N, K, T] -> [N, T]."""
+        N, K, T = tokens.shape
+        flat = tokens.reshape(N * K, T)
+        seqs, _, offs = NUC_TOKENIZER.sequences_to_texts_flat(flat)
+        beam_seqs = [seqs[i * K:(i + 1) * K] for i in range(N)]
+        cnts = np.diff(offs).reshape(N, K)
+        p = np.asarray(probs, np.float64).reshape(N * K, T)
+        step_mask = np.arange(T)[None, :] < np.diff(offs)[:, None]
+        lp = np.where(step_mask, np.log(np.clip(p, 1e-9, 1.0)), 0.0)
+        lp = lp.sum(axis=1).reshape(N, K)
+        eo = expected_overlaps_from_ranges(rr, cnts[:, 0]) if N > 1 else None
+        sel = self.merger.select_beams_by_overlap(beam_seqs, lp, eo)
+        idx = np.arange(N)
+        return tokens[idx, sel], np.asarray(probs)[idx, sel]
 
     def _basecall_read_sigdev(self, signal_path, label_path) -> Optional[SeqLogitsPair]:
         """The signal-only wire (ravvent_tpu/evaluation/mapping.py:178-227):
@@ -126,6 +150,10 @@ class MappingEvaluator:
         if out is None:
             return None
         tokens, probs, rr = out
+        if tokens.ndim == 3:
+            # n_beams > 1: the reference selects no beam on this wire and
+            # takes the top one (ravvent_tpu/evaluation/mapping.py:200-205)
+            tokens, probs = tokens[:, 0], probs[:, 0]
         if tokens.shape[0] == 0:
             return SeqLogitsPair("", [])
         return self._merge(tokens, probs, rr)

@@ -266,3 +266,84 @@ def test_predict_beam_signal_close_to_jax_on_the_trained_flagship(flagship, read
           f"segmentation {same_seg}/{total} ({same_seg / total:.5f})")
     assert same_seg / total >= 0.998
     assert same / total >= (0.999 if setting == "f32" else 0.99)
+
+
+def reference_arm_features(hdr):
+    """The signal-only wire's features computed the JAX engine's way
+    (ravvent_tpu/evaluation/basecall.py:156-206, ``_device_event_features_selfscaled``):
+    f32 cumsums of the z-scored signal over the whole read, subtracted at
+    each event's ends, in f32 throughout; ``hdr`` is the read's upload header
+    (z-score mean and std). A drop-in for the port's function of that name,
+    which sums each event's integer samples exactly."""
+    rm, rs = (torch.tensor(float(v), dtype=torch.float32) for v in hdr[:2])
+
+    def features(x, lens, n_ev, lo, step):
+        sig = (lo + step * x.float() - rm) / rs
+        E, S = lens.shape[0], sig.shape[0]
+        rows = torch.arange(E)
+        valid = rows < n_ev
+        lens_v = torch.where(valid, lens, torch.zeros_like(lens)).long()
+        lens_safe = lens_v.clamp(min=1)
+        cum = torch.cumsum(lens_v, 0)
+        starts = cum - lens_v
+        zero = torch.zeros(1)
+        cs = torch.cat([zero, torch.cumsum(sig, 0)])
+        cq = torch.cat([zero, torch.cumsum(sig * sig, 0)])
+        s_idx, e_idx = starts.clamp(0, S), cum.clamp(0, S)
+        mean_z = (cs[e_idx] - cs[s_idx]) / lens_safe
+        var_z = (cq[e_idx] - cq[s_idx]) / lens_safe - mean_z * mean_z
+        mean = rm + rs * mean_z
+        stdv = torch.sqrt(torch.clamp(rs * rs * var_z, min=1.1754944e-38))
+        dmean = torch.where(rows == 0, 0.0, mean - torch.cat([mean[:1], mean[:-1]]))
+        feats = torch.stack([lens_v.float(), mean, stdv, mean * mean, dmean], dim=1)
+        feats = torch.where(valid[:, None], feats, 0.0)
+        n = torch.as_tensor(n_ev).clamp(min=1).float()
+        fmean = feats.sum(dim=0) / n
+        fvar = torch.where(valid[:, None], (feats - fmean) ** 2, 0.0).sum(dim=0) / n
+        fstd = torch.sqrt(fvar)
+        fstd = torch.where(fstd == 0.0, 1.0, fstd)
+        return torch.where(valid[:, None], (feats - fmean) / fstd, 0.0)
+
+    return features
+
+
+def test_reference_arm_features_on_the_bench_setting(flagship, reads, monkeypatch):
+    """The other arm of the bench setting's end-to-end gap (0.99673 in
+    test_predict_beam_signal_close_to_jax_on_the_trained_flagship): the
+    port's features computed as the JAX engine computes them (f32 cumsums
+    over the whole read, then subtracted) in torch's summation order. They
+    stray from the JAX engine's features as far as the port's exact ones do
+    (up to ~3e-3, in the stdv column, whose variance cancels), since XLA's
+    f32 cumsum rounds in another order; end to end the tokens agree 0.99774
+    (7942/7960), below 0.998, where decoding the JAX engine's own
+    segmentation agrees 0.99937. So the gap follows the f32 rounding of
+    that column, which lands elsewhere under every summation order, and
+    bf16's near-tied beams follow it; held to the existing test's 0.99."""
+    from ravvent_tpu_torch.evaluation import basecall as tbc
+
+    exact = tbc._device_event_features_selfscaled
+    jeng, teng = engines(flagship, "bench")
+    same = total = 0
+    for p in reads[1]:
+        raw = chiron.load_signal(p)
+        S_b = teng._bucket(raw.size, 65536)
+        E_b, N_max = S_b // 2, S_b // 2 // 6 + 1 + teng.chunk_size
+        buf = teng.signal_buffer([raw], S_b)[0]
+        ref = np.asarray(jax_segment(buf, S_b, E_b, N_max, 6)[1])
+        port = teng._segment(torch.from_numpy(buf), S_b, E_b, N_max, 6)[1].numpy()
+        monkeypatch.setattr(tbc, "_device_event_features_selfscaled",
+                            reference_arm_features(buf[:32].view(np.float32)))
+        arm = teng._segment(torch.from_numpy(buf), S_b, E_b, N_max, 6)[1].numpy()
+        d_arm, d_port = np.abs(arm - ref).max(), np.abs(port - ref).max()
+        print(f"features against the JAX engine's: the reference arm {d_arm:.3e}, the port's "
+              f"exact ones {d_port:.3e}; arm against exact {np.abs(arm - port).max():.3e}")
+        assert 1e-3 < d_arm < 1e-2 and d_arm <= 2 * d_port
+        jt, _ = jeng.predict_beam_signal(raw, MAX_OUT, 5)
+        tt, _ = teng.predict_beam_signal(raw, MAX_OUT, 5)
+        monkeypatch.setattr(tbc, "_device_event_features_selfscaled", exact)
+        assert tt.shape == jt.shape and tt.shape[0] > 50
+        same += int((tt == jt).sum())
+        total += tt.size
+    print(f"bench, the reference arm's features: tokens agree end to end {same}/{total} "
+          f"({same / total:.5f})")
+    assert same / total >= 0.99
