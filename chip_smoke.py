@@ -8,11 +8,12 @@ and with --beam-impl loop, fused greedy decode
 settings), the bench's path on int8 memory through PerformanceEvaluator
 and MappingEvaluator (evaluation/mapping.py), the signal-only wire (sigdev,
 sigdev8) through both, the engine's greedy decode, its top-K beams with the
-mapping evaluator's beam selection, and tools/profile_decode.py with a
-torch.profiler trace of the bench's pipelined path — at the flagship's full width
-(joint raw+event input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM
-decoder with Luong attention, vocab 7, beam 5) on seeded random weights, and
-holds each hand-written kernel against its plain PyTorch version on the card:
+mapping evaluator's beam selection, tools/profile_decode.py with a
+torch.profiler trace of the bench's pipelined path, and training
+(training/loop.py:Trainer) — at the flagship's full width (joint raw+event
+input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM decoder with Luong
+attention, vocab 7, beam 5) on seeded random weights, and holds each
+hand-written kernel against its plain PyTorch version on the card:
 
   0. device: the card, torch, CUDA and nvcc versions; TF32 off;
   1. build: nvcc builds the kernels from csrc/ (registers and shared memory
@@ -98,7 +99,20 @@ holds each hand-written kernel against its plain PyTorch version on the card:
      wait and finish), then one torch.profiler trace of run_pipelined over
      the 4 reads with the bench's settings: the device's idle share, the top
      device operations and the longest device-idle gaps with the host
-     operations running in them.
+     operations running in them;
+ 17. training (ravvent_tpu_torch/training/loop.py:Trainer) at the
+     flagship's width with TrainConfig's defaults (batch 128, lr 1e-4,
+     clipnorm 1.0, scheduled sampling at p = 0.5) on batches of simulated
+     reads (data/simulator.py into a temporary directory, then
+     SnippetBatchGenerator): one train step's loss and gradients at p = 0
+     on the card against the CPU from the same seeded weights and batch;
+     fit for one epoch of 20 steps on a repeated batch (the loss finite and
+     falling; seconds a step, peak device memory, and one step's launches
+     by torch.profiler); validate_on_batch on the card against the CPU,
+     which launches the f32 BiLSTM kernel 4 times a batch and no decode
+     kernel; a checkpoint saved, restored into a new Trainer and validated
+     again to the same loss. Training runs no hand-written kernel, as the
+     JAX package's training reaches no Pallas kernel.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -1647,6 +1661,171 @@ def phase_profile(smi: str) -> dict:
     return summary
 
 
+class RepeatedBatch:
+    """A batch source for Trainer.fit that yields one batch every step."""
+    random_seed = 0
+
+    def __init__(self, batch) -> None:
+        self.batch = batch
+
+    def steps(self, n: int):
+        return (self.batch for _ in range(n))
+
+
+def step_launches(trainer, batch) -> tuple:
+    """One train step under torch.profiler: (device operations, the host's
+    kernel-launch calls, the device operations' summed ms, the step's wall
+    ms under the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_on_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                "cudaLaunchKernelExC"))
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    return len(device), host, busy_ms, wall_ms
+
+
+def phase_training(smi: str) -> dict:
+    """Training at the flagship's width on simulated reads: one step card
+    against CPU at p = 0, fit for 20 steps at p = 0.5 on a repeated batch,
+    validation on the card against the CPU, a checkpoint round trip.
+    Returns the figures."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.config import RunConfig
+    from ravvent_tpu_torch.data import chiron, simulator
+    from ravvent_tpu_torch.data.generator import SnippetBatchGenerator
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.training.checkpoints import CheckpointManager
+    from ravvent_tpu_torch.training.loop import Trainer, tree_leaves
+    from ravvent_tpu_torch.weights import flatten
+
+    _, params = flagship_params()
+    cfg = RunConfig()  # the flagship's model; TrainConfig's defaults
+    t = cfg.train
+    require(t.batch_size == 128 and t.teacher_forcing == 0.5, "TrainConfig's defaults changed")
+    cfg_tf = dataclasses.replace(cfg, train=dataclasses.replace(t, teacher_forcing=1.0))
+    fig = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        genome = simulator.random_genome(20_000, np.random.default_rng(SEED))
+        simulator.generate_chiron_dataset(d, genome, n_reads=2, read_len_range=(1500, 1800),
+                                          seed=SEED + 1)
+        fi = chiron.create_files_info(d, stride=6, verbose=False)
+        gen = SnippetBatchGenerator(fi, stride=6, batch_size=t.batch_size, shuffle=False,
+                                    cache_dir=str(d / "cache"))
+        require(len(gen) >= 2, "the simulated reads make fewer than 2 batches")
+        batch, val_batch = gen[0], gen[1]
+
+        # 1. one step at p = 0, card against CPU, from the same weights and batch
+        card, cpu = Trainer(cfg_tf, params=params), Trainer(cfg_tf, params=params, device="cpu")
+        cuda_lib.reset_launches()
+        out_g, g_g = card.loss_and_grads(batch)
+        torch.cuda.synchronize()
+        step_kernels = dict(cuda_lib.launches)
+        t0 = time.perf_counter()
+        out_c, g_c = cpu.loss_and_grads(batch)
+        cpu_s = time.perf_counter() - t0
+        lg, lc = float(out_g.loss.detach()), float(out_c.loss.detach())
+        rel = abs(lg - lc) / abs(lc)
+        fg, fc = flatten(g_g), flatten(g_c)
+        errs = {k: float(np.abs(fg[k] - fc[k]).max()) / max(float(np.abs(fc[k]).max()), 1e-30)
+                for k in fc}
+        worst = max(errs, key=errs.get)
+        print(f"  one train step at p = 0, batch {t.batch_size}, card vs CPU: loss {lg:.7f} vs "
+              f"{lc:.7f}, rel {rel:.3e} (need <= 1e-4); gradients: worst leaf {worst} "
+              f"{errs[worst]:.3e} of its largest magnitude (need <= 1e-3) over {len(errs)} leaves; "
+              f"hand-written kernel launches {sum(step_kernels.values())} (need 0); the CPU's "
+              f"step {cpu_s:.2f} s [{smi}]")
+        require(np.isfinite(lg) and rel <= 1e-4, "card and CPU train losses disagree")
+        require(errs[worst] <= 1e-3, f"card and CPU gradients disagree on {worst}")
+        require(sum(step_kernels.values()) == 0, "the train step launched a hand-written kernel")
+
+        # 3. validation on the card (the f32 BiLSTM kernel) against the CPU
+        card.validate_on_batch(val_batch)  # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        vg = card.validate_on_batch(val_batch)
+        vg = {k: float(v) for k, v in vg.items()}
+        fig["val_step_s"] = time.perf_counter() - t0
+        vk = dict(cuda_lib.launches)
+        vc = {k: float(v) for k, v in cpu.validate_on_batch(val_batch).items()}
+        vrel = abs(vg["loss"] - vc["loss"]) / abs(vc["loss"])
+        others = sum(v for k, v in vk.items() if k != "bilstm")
+        print(f"  validate_on_batch, batch {t.batch_size}: {fig['val_step_s']:.4f} s on the card; "
+              f"loss {vg['loss']:.7f} vs CPU {vc['loss']:.7f}, rel {vrel:.3e} (need <= 1e-3); "
+              f"acc {vg['acc']:.5f} vs {vc['acc']:.5f} (need within 0.005); launches: bilstm "
+              f"{vk['bilstm']} (need 4), other kernels {others} (need 0) [{smi}]")
+        require(vk["bilstm"] == 4 and others == 0, "validation did not launch bilstm 4 times alone")
+        require(np.isfinite(vg["loss"]) and vrel <= 1e-3, "card and CPU validation losses disagree")
+        require(abs(vg["acc"] - vc["acc"]) <= 0.005, "card and CPU validation accuracies disagree")
+        del card, cpu, out_g, g_g
+
+        # 2. learning on the card: fit, one epoch of 20 steps at p = 0.5
+        tr = Trainer(cfg, params=params)
+        require(tr.sampling_probability == 0.5, "the trainer does not sample at p = 0.5")
+        losses, stamps = [], []
+
+        def record(_i, m):
+            losses.append(m["loss"])
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = tr.fit(RepeatedBatch(batch), epochs=1, steps_per_epoch=20,
+                      batch_callbacks=[record], verbose=False)
+        fit_s = time.perf_counter() - t0
+        fig["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        fig["step_s"] = (stamps[-1] - stamps[1]) / (len(stamps) - 2)  # steps 3-20
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        print(f"  fit, 20 steps at p = 0.5 on a repeated batch of {t.batch_size}: {fit_s:.3f} s, "
+              f"{fig['step_s']:.4f} s a step (mean over steps 3-20); loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, mean of the first 5 {first:.5f}, of the last 5 {last:.5f}; "
+              f"peak device memory {fig['peak_gib']:.3f} GiB [{smi}]")
+        require(len(losses) == 20 and all(np.isfinite(losses)), "a train loss is not finite")
+        require(last < first, "the train loss did not fall")
+        require(abs(hist["loss"][0] - float(np.mean(losses))) <= 1e-5 * abs(hist["loss"][0]),
+                "fit's epoch loss is not the mean of its steps")
+        fig["device_ops"], fig["host_launches"], busy, wall = step_launches(tr, batch)
+        print(f"  one train step under torch.profiler: {fig['device_ops']} device operations "
+              f"(kernels, copies, memsets), {fig['host_launches']} kernel launches on the host; "
+              f"the device operations sum to {busy:.3f} ms of the step's {wall:.3f} ms under "
+              f"the profiler [{smi}]")
+        require(fig["device_ops"] > 0 or fig["host_launches"] > 0,
+                "the profiler saw no launch of the train step")
+
+        # 4. checkpoint round trip
+        cm = CheckpointManager(str(d / "ckpt"))
+        path = cfg.checkpoint_path(1)
+        cm.save(path, tr.params, tr.opt_state, epoch=1, rng=tr.rng, data_seed=gen.random_seed)
+        tr2 = Trainer(cfg, seed=SEED + 9)
+        tr2.load_state(cm.restore(path))
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.params),
+                                                      tree_leaves(tr2.params)))
+        same_opt = tr2.opt_state.count == tr.opt_state.count and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(tr.opt_state.nu),
+                                              tree_leaves(tr2.opt_state.nu)))
+        same_rng = torch.equal(tr.rng.get_state(), tr2.rng.get_state())
+        v1 = float(tr.validate_on_batch(val_batch)["loss"])
+        v2 = float(tr2.validate_on_batch(val_batch)["loss"])
+        print(f"  checkpoint {path}: restored parameters equal {same}, optimizer state "
+              f"{same_opt}, generator {same_rng}; validation loss {v1!r} before, {v2!r} after "
+              f"(need equal)")
+        require(same and same_opt and same_rng, "the checkpoint did not restore the state")
+        require(v1 == v2, "the restored trainer validates to another loss")
+    return fig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1705,6 +1884,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_profile(smi)
     phase("16 tools/profile_decode.py: legs and a torch.profiler trace", t0)
+    t0 = time.perf_counter()
+    phase_training(smi)
+    phase("17 training: Trainer at the flagship's width", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_cell["launches"] = counts["beam_cell"]

@@ -1,21 +1,30 @@
 """The basecaller model (counterpart of ravvent_tpu/models/basecaller.py):
-raw and event encoders, attention decoder. Both encoders always exist (raw:
-1 feature, event: 5), as in the reference; joint mode concatenates their
-outputs and masks along time (200 raw + 30 event = 230 memory positions).
+raw and event encoders, attention decoder, losses. Both encoders always
+exist (raw: 1 feature, event: 5), as in the reference; joint mode
+concatenates their outputs and masks along time (200 raw + 30 event = 230
+memory positions). Train metrics: masked CE (pad excluded, mean over
+non-pad) and accuracy omitting pad, start and end. Validation metrics: loss
+on the greedy decode's logits, accuracy omitting start and end only (not
+pad, a reference quirk, basecaller.py:267-279) within the batch-max target
+width.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ravvent_tpu_torch.config import ModelConfig
+from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models import decoder as dec
 from ravvent_tpu_torch.models.rnn import encoder_apply, init_encoder
-from ravvent_tpu_torch.utils.masking import input_mask
+from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
+from ravvent_tpu_torch.utils.masking import input_mask, masked_accuracy, masked_ce_loss
 
 Params = Dict[str, Any]
+
+PAD, END, START = NUC_TOKENIZER.pad_id, NUC_TOKENIZER.end_id, NUC_TOKENIZER.start_id
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -40,16 +49,18 @@ def init_basecaller(cfg: ModelConfig, gen: torch.Generator, device=None) -> Para
 
 def encode_input(params: Params, raw: torch.Tensor, event: torch.Tensor,
                  cfg: ModelConfig, weights: Optional[Dict[str, list]] = None,
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 trainable: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (enc_output [B, S, enc_out_dim], input_mask [B, S]). The
     encoders run on the inputs' dtype (f32, or the bf16 stream); the caller
     casts raw and event first, so the masks come from the cast inputs.
     ``weights``: per encoder key, its layers' ``stream_weights`` (or
-    ``kernel_weights``) in that dtype (made here when None)."""
+    ``kernel_weights``) in that dtype (made here when None).
+    ``trainable=True`` keeps the encoders on their differentiable plain
+    version on every device (see encoder_apply); it takes no ``weights``."""
     weights = weights or {}
 
     def enc(key, xs):
-        return encoder_apply(params[key], xs, weights.get(key))[0]
+        return encoder_apply(params[key], xs, weights.get(key), trainable)[0]
 
     if cfg.data_type == "raw":
         return enc("encoder_raw", raw), input_mask(raw)
@@ -60,3 +71,57 @@ def encode_input(params: Params, raw: torch.Tensor, event: torch.Tensor,
     out = torch.cat([out_raw, out_event], dim=1)
     mask = torch.cat([input_mask(raw), input_mask(event)], dim=-1)
     return out, mask
+
+
+class TrainOutput(NamedTuple):
+    loss: torch.Tensor
+    acc: torch.Tensor
+    logits: torch.Tensor
+
+
+def train_forward(params: Params, raw: torch.Tensor, event: torch.Tensor, targets: torch.Tensor,
+                  cfg: ModelConfig, sampling_probability: float = 0.0,
+                  gen: Optional[torch.Generator] = None,
+                  draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> TrainOutput:
+    """Teacher-forced forward pass with loss and train accuracy
+    (reference: basecaller.py:225-253): the trainable encoders, un-projected
+    f32 memory, then :func:`decoder.teacher_forced_decode` over
+    ``targets[:, :-1]`` against ``targets[:, 1:]``. An unsampled position's
+    -1 counts as a miss, as in the reference."""
+    check_config(cfg)
+    enc_out, mask = encode_input(params, raw, event, cfg, trainable=True)
+    mem = attn.setup_memory(params["decoder"]["attention"], enc_out, mask)
+    logits, sample_ids = dec.teacher_forced_decode(
+        params["decoder"], targets[:, :-1], mem, cfg.vocab_size, sampling_probability, gen,
+        draws)
+    real = targets[:, 1:]
+    loss = masked_ce_loss(real, logits, PAD)
+    acc = masked_accuracy(real, sample_ids, [PAD, START, END])
+    return TrainOutput(loss=loss, acc=acc, logits=logits)
+
+
+def loss_fn(params: Params, batch: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+            cfg: ModelConfig, sampling_probability: float = 0.0,
+            gen: Optional[torch.Generator] = None):
+    raw, event, targets = batch
+    out = train_forward(params, raw, event, targets, cfg, sampling_probability, gen)
+    return out.loss, out
+
+
+def batch_max_target_len(targets: torch.Tensor, pad_token: int = PAD) -> torch.Tensor:
+    """The batch-max token width: the width the reference would have padded
+    this batch to (data_loader.py:124)."""
+    return torch.max(torch.sum(targets != pad_token, dim=1))
+
+
+def val_metrics(real: torch.Tensor, pred_tokens: torch.Tensor, logits: torch.Tensor,
+                targets: torch.Tensor):
+    """Validation loss and accuracy (reference: basecaller.py:267-279):
+    ``real`` = targets[:, 1:], ``pred_tokens`` [B, T-1] the greedy tokens,
+    ``logits`` [B, T-1, V]; the loss masks pad, the accuracy omits start and
+    end within the batch-max width, ``targets`` [B, T] giving that width."""
+    loss = masked_ce_loss(real, logits, PAD)
+    width = batch_max_target_len(targets) - 1
+    in_width = torch.arange(real.shape[1], device=real.device)[None, :] < width
+    acc = masked_accuracy(real, pred_tokens, [START, END], extra_mask=in_width)
+    return loss, acc

@@ -15,7 +15,7 @@ The parameter layout is the JAX tree's: ``cells`` (list of LSTM cells with
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,3 +88,52 @@ def decoder_step(params: Params, state: DecoderState, token_emb: torch.Tensor,
     else:
         attention_vec, logits = output_block(params, query, context)
     return DecoderState(cells=new_cells, attention=attention_vec), logits, align
+
+
+def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.AttnMemory,
+                          vocab_size: int, sampling_probability: float = 0.0,
+                          gen: Optional[torch.Generator] = None,
+                          draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Decode with (scheduled) teacher forcing (counterpart of the JAX
+    package's models/decoder.py:teacher_forced_decode).
+
+    ``dec_inputs`` [B, T] are the targets without their last column; ``mem``
+    is un-projected. Returns (logits [B, T, V], sample_ids [B, T] int64).
+    With ``sampling_probability == 0`` (tfa's TrainingSampler) sample_ids is
+    the argmax and every next input is the ground truth. Otherwise
+    (ScheduledEmbeddingTrainingSampler) each step selects rows with
+    probability p, samples ``argmax(logits + gumbel)`` (what
+    ``jax.random.categorical`` computes), emits the sample where selected
+    and -1 elsewhere, and feeds the sample's one-hot to the selected rows.
+    The draws come from ``gen`` on the inputs' device, or from ``draws =
+    (select [T, B] bool, gumbel [T, B, V] f32)``; a generator's stream
+    differs from jax.random's for the same seed."""
+    B, T = dec_inputs.shape
+    dev = dec_inputs.device
+    state = zero_state(params, B, params["fc"]["kernel"].shape[0], dev)
+    inputs_emb = embed(dec_inputs, vocab_size)  # [B, T, V]
+    scheduled = sampling_probability > 0.0
+    if scheduled:
+        if draws is None:
+            if gen is None:
+                raise ValueError("scheduled sampling needs a generator or draws")
+            select = torch.rand((T, B), generator=gen, device=dev) < sampling_probability
+            u = torch.rand((T, B, vocab_size), generator=gen, device=dev)
+            gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+        else:
+            select, gumbel = (d.to(dev) for d in draws)
+    cur = inputs_emb[:, 0]
+    logits_t, ids_t = [], []
+    for t in range(T):
+        state, logits, _ = decoder_step(params, state, cur, mem)
+        gt_next = inputs_emb[:, min(t + 1, T - 1)]  # the last step's is unused
+        if scheduled:
+            sampled = torch.argmax(logits.detach() + gumbel[t], dim=-1)
+            ids = torch.where(select[t], sampled, -1)
+            cur = torch.where(select[t][:, None], embed(sampled, vocab_size), gt_next)
+        else:
+            ids = torch.argmax(logits.detach(), dim=-1)
+            cur = gt_next
+        logits_t.append(logits)
+        ids_t.append(ids)
+    return torch.stack(logits_t, dim=1), torch.stack(ids_t, dim=1)

@@ -131,7 +131,7 @@ def run_bidi_layer(layer: Params, xs: torch.Tensor, initial_state=None):
 
 def encoder_apply(layers: List[Params], xs: torch.Tensor,
                   weights: Optional[List[Tuple[torch.Tensor, ...]]] = None,
-                  ) -> Tuple[torch.Tensor, Any]:
+                  trainable: bool = False) -> Tuple[torch.Tensor, Any]:
     """Stacked bidirectional encoder on the stream dtype of ``xs`` (f32 or
     bf16; the JAX package's bf16 stream, models/rnn.py:314-347): every layer
     takes and returns that dtype, with f32 state. Every layer of a CUDA
@@ -139,8 +139,19 @@ def encoder_apply(layers: List[Params], xs: torch.Tensor,
     plain version. ``weights``: :func:`stream_weights` of ``layers`` in the
     stream dtype, or :func:`kernel_weights` of them, made once by the
     caller; made here when None.
+    ``trainable=True`` runs every layer's plain version on any device, with
+    the weights stacked from ``layers`` on each call so that autograd
+    reaches them, as the reference trains through its scan because the
+    Pallas layer has no VJP (ravvent_tpu/models/rnn.py:325-326).
     Returns (outputs [B, T, 2U], final (h, c) of the last layer)."""
     out = xs.contiguous()
+    if trainable:
+        if weights is not None:
+            raise ValueError("encoder_apply: trainable=True stacks its own weights")
+        state = None
+        for layer in layers:
+            out, state = run_bidi_layer(layer, out, state)
+        return out, state
     if weights is None:
         weights = stream_weights(layers, xs.dtype)
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None

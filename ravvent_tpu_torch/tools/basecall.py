@@ -2,7 +2,10 @@
 
 Counterpart of tools/basecall.py of the JAX package: basecalls every read of
 a directory with chunked beam decode on the compact path, the confidence
-gate and the overlap merge, and writes the assembled sequences. Weights come
+gate and the overlap merge, and writes the assembled sequences. The reads
+are the directory's ``*.fast5`` files (the whole read is the region), or,
+when it has none, its chiron ``*.signal`` files (the region from the
+``.label`` beside each, else the whole read). Weights come
 from an npz file of the JAX parameter tree (``--weights``, see
 ravvent_tpu_torch/weights.py) or are drawn from ``--seed`` at the configured
 widths. Runs on the first CUDA device unless ``--cpu`` is given.
@@ -82,7 +85,8 @@ def main(argv=None) -> None:
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--weights", help="npz of the JAX parameter tree (ravvent_tpu_torch.weights)")
     src.add_argument("--seed", type=int, default=0, help="seeded random weights (no --weights)")
-    ap.add_argument("--input", required=True, help="dir with .signal/.label files")
+    ap.add_argument("--input", required=True,
+                    help="dir with .fast5 files, or with .signal (and .label) files")
     ap.add_argument("--out", default="basecalls.fasta")
     ap.add_argument("--format", choices=["fasta", "fastq"], default="fasta")
     ap.add_argument("--beam", type=int, default=5)
@@ -115,33 +119,41 @@ def main(argv=None) -> None:
                             device=device, beam_impl=args.beam_impl)
     merger = Merger()
 
-    signals = sorted(Path(args.input).glob("*.signal"))
-    if not signals:
-        sys.exit(f"no .signal files in {args.input}")
+    in_dir = Path(args.input)
+    fast5s = sorted(in_dir.glob("*.fast5"))
+    if fast5s:
+        from ravvent_tpu_torch.utils.io import read_fast5_signal
+
+        reads = [(p.stem, read_fast5_signal(p), None) for p in fast5s]
+    else:
+        reads = []
+        for sp in sorted(in_dir.glob("*.signal")):
+            lp = sp.with_suffix(".label")
+            reads.append((sp.stem, chiron.load_signal(sp), lp if lp.exists() else None))
+    if not reads:
+        sys.exit(f"no .fast5 or .signal files in {in_dir}")
 
     t0 = time.time()
     n_bases = 0
     with open(args.out, "wt") as out:
-        for sp in signals:
-            raw = chiron.load_signal(sp)
-            lp = sp.with_suffix(".label")
+        for name, raw, lp in reads:
             # no labels: treat the whole read as the region of interest
-            ranges = chiron.load_label(lp)[0] if lp.exists() else np.array([[0, raw.size]])
+            ranges = chiron.load_label(lp)[0] if lp is not None else np.array([[0, raw.size]])
             call = basecall_read(engine, merger, raw, ranges, args.beam,
                                  conf_gate=not args.no_conf_gate)
             if call is None:
-                print(f"{sp.stem}: no snippets (read too short)", file=sys.stderr)
+                print(f"{name}: no snippets (read too short)", file=sys.stderr)
                 continue
             seq = call.merged.seq
             n_bases += len(seq)
             if args.format == "fasta":
-                out.write(f">{sp.stem}\n{seq}\n")
+                out.write(f">{name}\n{seq}\n")
             else:
-                out.write(f"@{sp.stem}\n{seq}\n+\n{fastq_quality(call.merged.logits)}\n")
-            print(f"{sp.stem}: {len(seq)} bases", file=sys.stderr)
+                out.write(f"@{name}\n{seq}\n+\n{fastq_quality(call.merged.logits)}\n")
+            print(f"{name}: {len(seq)} bases", file=sys.stderr)
     dt = time.time() - t0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"{len(signals)} reads, {n_bases} bases in {dt:.1f}s "
+    print(f"{len(reads)} reads, {n_bases} bases in {dt:.1f}s "
           f"({n_bases / max(dt, 1e-9):.0f} bases/s on {name})", file=sys.stderr)
 
 
