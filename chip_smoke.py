@@ -9,8 +9,10 @@ settings), the bench's path on int8 memory through PerformanceEvaluator
 and MappingEvaluator (evaluation/mapping.py), the signal-only wire (sigdev,
 sigdev8) through both, the engine's greedy decode, its top-K beams with the
 mapping evaluator's beam selection, tools/profile_decode.py with a
-torch.profiler trace of the bench's pipelined path, and training
-(training/loop.py:Trainer) — at the flagship's full width (joint raw+event
+torch.profiler trace of the bench's pipelined path, training
+(training/loop.py:Trainer), and the engine's plain decode
+(beam_impl="xla") on flagship32's shape and on GRU, unidirectional and
+Bahdanau configurations — at the flagship's full width (joint raw+event
 input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM decoder with Luong
 attention, vocab 7, beam 5) on seeded random weights, and holds each
 hand-written kernel against its plain PyTorch version on the card:
@@ -113,6 +115,20 @@ hand-written kernel against its plain PyTorch version on the card:
      kernel; a checkpoint saved, restored into a new Trainer and validated
      again to the same loss. Training runs no hand-written kernel, as the
      JAX package's training reaches no Pallas kernel.
+ 18. the non-flagship configurations on seeded weights through
+     BasecallEngine(beam_impl="xla"), the plain beam decode the JAX engine
+     runs with XLA for every configuration: (a) flagship32's shape (joint,
+     3 x BiLSTM(128), 2 x LSTM(128) + Luong, beam 5) over the 4 reads with
+     the CLI's settings through its read path (decode seconds a read,
+     bases/s) and with the bench's through
+     PerformanceEvaluator.run_pipelined (bases/s, then one torch.profiler
+     trace of it: the idle share and the top device operations): the
+     stream's BiLSTM kernel 6 times a chunk, no beam or decode-step kernel; card and CPU
+     tokens on 64 snippets, decoding the card's memory (>= 0.998) and end to
+     end (>= 0.99); (b) bigru, gru and lstm on raw input and the flagship
+     with Bahdanau attention, one engine each: encoder and decode ms of a
+     512-snippet chunk, the same bars on 64 snippets; (c) "step" and "loop"
+     refuse (a)'s configuration.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -1826,6 +1842,202 @@ def phase_training(smi: str) -> dict:
     return fig
 
 
+def xla_top_tokens(engine, mem, max_len: int) -> torch.Tensor:
+    """The plain beam decode ("xla") of ``mem`` with the engine's
+    configuration, beam 5, ``max_len - 1`` live steps: the top beam's tokens
+    over the live steps, on the host ([N, max_len - 1])."""
+    from ravvent_tpu_torch.decode.beam import beam_decode
+    from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
+
+    cfg = engine.cfg
+    res = beam_decode(engine.params["decoder"], mem, cfg.vocab_size, 5, engine.total_steps,
+                      max_len - 1, cfg.effective_attention, cfg.cell_type,
+                      NUC_TOKENIZER.start_id, NUC_TOKENIZER.end_id)
+    return res.tokens[:, :max_len - 1, 0].cpu()
+
+
+def card_vs_cpu(card, cpu, sig, rr, ev, er, max_len: int, aux=None) -> tuple:
+    """Card and CPU engines on the same first 64 snippets of a read: token
+    agreement decoding the card's memory on both devices, and end to end
+    through predict_beam_compact. Returns (same memory, end to end)."""
+    rr, er = rr[:64], er[:64]
+    with torch.inference_mode():
+        raw_c, event_c = next(iter(card.compact_snippets(sig, rr, ev, er, aux)))
+        mem = card.memory(raw_c, event_c)
+        t_card = xla_top_tokens(card, mem, max_len)
+        t_host = xla_top_tokens(cpu, mem.to("cpu"), max_len)
+    same = float((t_card == t_host).float().mean())
+    t_gpu, p_gpu = card.predict_beam_compact(sig, rr, ev, er, max_len, 5, aux=aux)
+    t_cpu, _ = cpu.predict_beam_compact(sig, rr, ev, er, max_len, 5, aux=aux)
+    require(t_gpu.shape == (rr.shape[0], card._fetch_width(max_len)) and np.isfinite(p_gpu).all(),
+            "bad result shape or probs")
+    require(((t_gpu >= 0) & (t_gpu < card.cfg.vocab_size)).all(), "token out of the vocabulary")
+    return same, float((t_gpu == t_cpu).mean())
+
+
+def phase_configs(smi: str) -> dict:
+    """The non-flagship configurations through the engine's plain decode
+    (beam_impl="xla"), on seeded weights at full width: (a) flagship32's
+    shape (joint, 3 x BiLSTM(128), 2 x LSTM(128) + Luong, beam 5) over the 4
+    reads with the CLI's settings (f32 encoder, bf16 pre-projected memory,
+    f16 wire) through the CLI's read path, and with the bench's (i8dev, bf16
+    encoder, bf16 memory, 4-bit probs) through
+    PerformanceEvaluator.run_pipelined: the stream's BiLSTM kernel 6 times a
+    chunk and no decode kernel; card against CPU on 64 snippets, decoding
+    the same memory and end to end; (b) one engine each for bigru, gru and
+    lstm on raw input and the flagship with Bahdanau attention: decode ms a
+    chunk of 512 snippets, card against CPU on 64; (c) "step" and "loop"
+    refuse (a)'s configuration. Returns (a)'s launch counts."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.assembly.merger import Merger
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.data.snippets import load_read_compact_ex, prepare_compact
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
+    from ravvent_tpu_torch.models.basecaller import init_basecaller
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.tools import profile_decode as pd
+    from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN, basecall_read
+
+    cfg = ModelConfig(encoder_depth=3, decoder_depth=2)  # flagship32's shape
+    params = init_basecaller(cfg, torch.Generator().manual_seed(SEED))
+    decoders = ("beam_step", "beam_cell", "beam_attend", "beam_step_i8", "beam_step_i8mxu",
+                "beam_attend_i8", "beam_attend_i8mxu", "beam_loop", "decode_step")
+    reads = simulated_reads()
+    chunks = lambda n: -(-n // 4096)  # noqa: E731
+    out = {}
+
+    # (a) the CLI's settings through the CLI's read path
+    cli = BasecallEngine(params, cfg, chunk_size=4096, beam_impl="xla", project_values=True)
+    merger = Merger()
+    basecall_read(cli, merger, reads[0][0][:3000], reads[0][1][reads[0][1][:, 1] <= 3000])
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    decode_s, n_bases, n_chunks = [], 0, 0
+    for raw, ranges, _ in reads:
+        call = basecall_read(cli, merger, raw, ranges)
+        require(call is not None, "a simulated read gave no snippets")
+        decode_s.append(call.seconds["decode"])
+        n_bases += len(call.merged.seq)
+        n_chunks += chunks(call.n_snippets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = out["cli"] = dict(cuda_lib.launches)
+    print(f"  flagship32 shape, CLI settings (f32 encoder, bf16 memory, f16 wire, xla), 4 reads: "
+          f"decode s a read {[round(s, 4) for s in decode_s]}, {n_bases} bases in {wall:.3f} s, "
+          f"{n_bases / wall:.1f} bases/s [{smi}]")
+    print(f"  launches: bilstm {c['bilstm']} over {n_chunks} chunks (need 6 a chunk), "
+          f"bilstm_bf16 {c['bilstm_bf16']}, decode kernels {sum(c[k] for k in decoders)} "
+          f"(need 0)")
+    require(c["bilstm"] == 6 * n_chunks and c["bilstm_bf16"] == 0,
+            "bilstm did not launch 6 times a chunk on flagship32's shape")
+    require(sum(c[k] for k in decoders) == 0, "the xla path launched a decode kernel")
+    require(n_bases > 0, "the reads merged to no bases")
+    raw, ranges, _ = reads[0]
+    sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
+    cpu = BasecallEngine(params, cfg, chunk_size=4096, beam_impl="xla", project_values=True,
+                         device="cpu")
+    same, e2e = card_vs_cpu(cli, cpu, sig, rr, ev, er, MAX_OUTPUT_LEN)
+    print(f"  CLI settings, card vs CPU on 64 snippets: decoding the card's memory, tokens agree "
+          f"{same:.5f} (need >= 0.998); end to end {e2e:.5f} (need >= 0.99)")
+    require(same >= 0.998, "card and CPU decode the same memory differently (flagship32, CLI)")
+    require(e2e >= 0.99, "card and CPU disagree end to end (flagship32, CLI)")
+
+    # (a) the bench's settings through PerformanceEvaluator.run_pipelined
+    bench = dict(chunk_size=4096, memory_dtype=torch.bfloat16, beam_impl="xla",
+                 project_values=True, encoder_dtype=torch.bfloat16, pack_u8=True,
+                 transport_dtype="i8dev", prob_bits=4)
+    engine = BasecallEngine(params, cfg, **bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        paths = pd.write_reads(reads, d)
+        pe = PerformanceEvaluator(engine, beam_width=5, cache_dir=str(d / "cache"))
+        pe.run(paths[0])  # warm-up; fills the read cache
+        loaded = [load_read_compact_ex(p, Path(p).with_suffix(".label"), 6,
+                                       cache_dir=str(d / "cache")) for p in paths]
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        rec = pe.run_pipelined(paths, inflight=8, finishers=4)
+        torch.cuda.synchronize()
+        c = out["bench"] = dict(cuda_lib.launches)
+        # where the time goes: one torch.profiler trace of the same pipeline
+        summary = pd.trace_pipelined(engine, paths, d / "trace", "compact", 5,
+                                     cache_dir=str(d / "cache"))
+    pd.print_trace(summary)
+    print(f"  [{smi}]")
+    require(summary["device_events"] > 0, "the profiler's trace holds no device event")
+    n_chunks = sum(chunks(x[1].shape[0]) for x in loaded)
+    print(f"  flagship32 shape, bench settings (i8dev, bf16 encoder, bf16 memory, xla), "
+          f"run_pipelined inflight 8, finishers 4: {rec['bases_per_s']:.1f} bases/s, wall "
+          f"{rec['wall_s']:.3f} s, stages {rec['stages_s']} [{smi}]")
+    print(f"  launches: bilstm_bf16 {c['bilstm_bf16']} over {n_chunks} chunks (need 6 a chunk), "
+          f"bilstm {c['bilstm']}, decode kernels {sum(c[k] for k in decoders)} (need 0)")
+    require(c["bilstm_bf16"] == 6 * n_chunks and c["bilstm"] == 0,
+            "bilstm_bf16 did not launch 6 times a chunk on flagship32's shape")
+    require(sum(c[k] for k in decoders) == 0, "the xla path launched a decode kernel")
+    require(rec["bases_num"] > 0, "the pipelined run called no bases")
+    sig, rr, ev, er, nuc, aux = loaded[0]
+    max_len = int((nuc != 0).sum(axis=1).max())
+    same, e2e = card_vs_cpu(engine, BasecallEngine(params, cfg, device="cpu", **bench), sig, rr,
+                            ev, er, max_len, aux)
+    print(f"  bench settings, card vs CPU on 64 snippets: decoding the card's memory, tokens "
+          f"agree {same:.5f} (need >= 0.998); end to end {e2e:.5f} (need >= 0.99)")
+    require(same >= 0.998, "card and CPU decode the same memory differently (flagship32, bench)")
+    require(e2e >= 0.99, "card and CPU disagree end to end (flagship32, bench)")
+
+    # (b) one engine each: GRU and unidirectional encoders, Bahdanau attention
+    sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
+    rr, er = rr[:512], er[:512]
+    for name, kw in (("bigru raw", dict(rnn_type="bigru", data_type="raw")),
+                     ("gru raw", dict(rnn_type="gru", data_type="raw")),
+                     ("lstm raw", dict(rnn_type="lstm", data_type="raw")),
+                     ("flagship, Bahdanau", dict(attention_type="bahdanau"))):
+        bcfg = dataclasses.replace(ModelConfig(), **kw)
+        bparams = init_basecaller(bcfg, torch.Generator().manual_seed(SEED))
+        card = BasecallEngine(bparams, bcfg, chunk_size=512, beam_impl="xla", project_values=True)
+        with torch.inference_mode():
+            raw_c, event_c = next(iter(card.compact_snippets(sig, rr, ev, er)))
+            card.beam(raw_c, event_c, MAX_OUTPUT_LEN - 1, 5)  # warm-up
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            mem = card.memory(raw_c, event_c)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            xla_top_tokens(card, mem, MAX_OUTPUT_LEN)
+            t2 = time.perf_counter()
+        c = dict(cuda_lib.launches)
+        same, e2e = card_vs_cpu(card, BasecallEngine(bparams, bcfg, chunk_size=512,
+                                                     beam_impl="xla", project_values=True,
+                                                     device="cpu"),
+                                sig, rr, ev, er, MAX_OUTPUT_LEN)
+        print(f"  {name}: a chunk of {raw_c.shape[0]} snippets, encoder + memory "
+              f"{(t1 - t0) * 1e3:.3f} ms, beam decode (39 steps) {(t2 - t1) * 1e3:.3f} ms; "
+              f"launches {dict((k, v) for k, v in c.items() if v)}; card vs CPU on 64 snippets: "
+              f"same memory {same:.5f} (need >= 0.998), end to end {e2e:.5f} (need >= 0.99) "
+              f"[{smi}]")
+        layers = 4 if bcfg.rnn_type == "bilstm" else 0  # the BiLSTM kernel's alone
+        require(c["bilstm"] == layers and sum(v for k, v in c.items() if k != "bilstm") == 0,
+                f"{name}: unexpected kernel launches")
+        require(same >= 0.998, f"{name}: card and CPU decode the same memory differently")
+        require(e2e >= 0.99, f"{name}: card and CPU disagree end to end")
+
+    # (c) the kernels' beam loops refuse flagship32's shape
+    for impl in ("step", "loop"):
+        try:
+            BasecallEngine(params, cfg, beam_impl=impl)
+        except ValueError as e:
+            require("beam_impl='xla'" in str(e), "the refusal does not name beam_impl='xla'")
+        else:
+            raise SmokeFailure(f"beam_impl={impl!r} accepted a depth-2 decoder")
+    print("  beam_impl='step' and 'loop' refuse flagship32's shape (ValueError naming 'xla')")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1887,6 +2099,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_training(smi)
     phase("17 training: Trainer at the flagship's width", t0)
+    t0 = time.perf_counter()
+    phase_configs(smi)
+    phase("18 the non-flagship configurations, beam_impl=xla", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_cell["launches"] = counts["beam_cell"]

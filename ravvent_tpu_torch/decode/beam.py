@@ -10,8 +10,10 @@ ravvent_tpu/decode/beam.py).
   ``max_len - 1``; tokens after the first end token become the end token.
 
 :func:`beam_decode` is the plain decode loop over the model's decoder
-functions. The engine's loop is ops/beam_step_cuda.py:beam_step_decode, one
-fused kernel launch per step; both end in :func:`gather_tree`.
+functions, any configuration; the engine runs it for ``beam_impl="xla"``.
+The engine's kernel loops (ops/beam_step_cuda.py:beam_step_decode, one
+fused kernel launch per step, and ops/beam_loop_cuda.py) take a depth-1
+LSTM decoder with Luong attention; all end in :func:`gather_tree`.
 """
 
 from __future__ import annotations
@@ -65,18 +67,21 @@ def initial_cum(B: int, W: int, device=None) -> torch.Tensor:
 
 def beam_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_width: int,
                 total_steps: int, max_steps: Optional[int] = None,
+                attention_type: str = "luong", cell_type: str = "lstm",
                 start_token: int = NUC_TOKENIZER.start_id,
                 end_token: int = NUC_TOKENIZER.end_id) -> BeamResult:
-    """Plain batched beam search over memory [B, S, E]. Runs ``total_steps``
-    steps; past ``max_steps`` the state is frozen, so the stored prefix is
-    what a ``max_steps``-bounded run produces."""
+    """Plain batched beam search over memory [B, S, E] (projected or not),
+    any decoder depth, LSTM or GRU cells, Luong or Bahdanau attention: the
+    reference's XLA loop (the JAX engine's ``beam_impl="xla"``). Runs
+    ``eff = min(max_steps, total_steps)`` steps; the tail, which the
+    reference computes from a frozen state and never backtracks, stays 0 in
+    tokens, parents and scores."""
     B = mem.mask.shape[0]
     W, V = beam_width, vocab_size
     dev = mem.keys.device
-    if max_steps is None:
-        max_steps = total_steps
+    eff = effective_steps(total_steps, max_steps)
     dec_units = dec_params["fc"]["kernel"].shape[0]
-    state = dec.zero_state(dec_params, B * W, dec_units, dev)
+    state = dec.zero_state(dec_params, B * W, dec_units, cell_type, dev)
     cur = torch.full((B * W,), start_token, device=dev)
     cum = initial_cum(B, W, dev)
     finished = torch.zeros(B, W, dtype=torch.bool, device=dev)
@@ -84,31 +89,28 @@ def beam_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_width: i
     finished_row = torch.full((V,), NEG_INF, device=dev)
     finished_row[end_token] = 0.0
     rows = (torch.arange(B, device=dev) * W)[:, None]
-    toks, pars, scs, lens = [], [], [], []
-    for t in range(total_steps):
-        new_state, logits, _ = dec.decoder_step(dec_params, state, dec.embed(cur, V), mem, W)
+    tokens = torch.zeros(total_steps, B, W, dtype=torch.int32, device=dev)
+    parents = torch.zeros_like(tokens)
+    scores = torch.zeros(total_steps, B, W, device=dev)
+    lens = torch.zeros_like(tokens)
+    for t in range(eff):
+        state, logits, _ = dec.decoder_step(dec_params, state, dec.embed(cur, V), mem, W,
+                                            attention_type, cell_type)
         step_lp = torch.log_softmax(logits, dim=-1).reshape(B, W, V)
         step_lp = torch.where(finished[..., None], finished_row, step_lp)
-        new_cum, idx = top_w((cum[..., None] + step_lp).reshape(B, W * V), W)
+        cum, idx = top_w((cum[..., None] + step_lp).reshape(B, W * V), W)
         parent, token = idx // V, idx % V
         prev_finished = take_along_beam(finished, parent)
-        new_finished = prev_finished | (token == end_token)
-        new_lengths = take_along_beam(lengths, parent) + (~prev_finished).to(torch.int32)
-        if t < max_steps:
-            flat_parent = (parent + rows).reshape(-1)
-            state = dec.DecoderState(
-                cells=tuple((h[flat_parent], c[flat_parent]) for h, c in new_state.cells),
-                attention=new_state.attention[flat_parent])
-            cur = token.reshape(-1)
-            cum, finished, lengths = new_cum, new_finished, new_lengths
-        toks.append(token.to(torch.int32))
-        pars.append(parent.to(torch.int32))
-        scs.append(new_cum)
-        lens.append(new_lengths)
-    tokens, parents = torch.stack(toks), torch.stack(pars)  # [T, B, W]
-    eff_T = min(max_steps, total_steps)
-    final = gather_tree(tokens, parents, torch.stack(lens), eff_T, end_token)
-    return BeamResult(tokens=final.permute(1, 0, 2), scores=torch.stack(scs).permute(1, 0, 2))
+        finished = prev_finished | (token == end_token)
+        lengths = take_along_beam(lengths, parent) + (~prev_finished).to(torch.int32)
+        flat_parent = (parent + rows).reshape(-1)
+        state = dec.DecoderState(
+            cells=tuple(tuple(x[flat_parent] for x in carry) for carry in state.cells),
+            attention=state.attention[flat_parent])
+        cur = token.reshape(-1)
+        tokens[t], parents[t], scores[t], lens[t] = token, parent, cum, lengths
+    final = gather_tree(tokens, parents, lens, eff, end_token)
+    return BeamResult(tokens=final.permute(1, 0, 2), scores=scores.permute(1, 0, 2))
 
 
 def reconstruct_lengths(tokens: torch.Tensor, parents: torch.Tensor,

@@ -57,18 +57,21 @@ def greedy_loop(step: Callable[[torch.Tensor], torch.Tensor], B: int, vocab_size
 
 
 def greedy_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, total_steps: int,
-                  max_steps: Optional[int] = None, start_token: int = NUC_TOKENIZER.start_id,
+                  max_steps: Optional[int] = None, attention_type: str = "luong",
+                  cell_type: str = "lstm", start_token: int = NUC_TOKENIZER.start_id,
                   end_token: int = NUC_TOKENIZER.end_id) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain greedy decode over memory [B, S, E] (projected or not).
+    """Plain greedy decode over memory [B, S, E] (projected or not), any
+    decoder depth, cell and attention.
     Returns (tokens [B, total_steps] int32, logits [B, total_steps, V])."""
     B = mem.mask.shape[0]
     dev = mem.keys.device
     dec_units = dec_params["fc"]["kernel"].shape[0]
-    state = dec.zero_state(dec_params, B, dec_units, dev)
+    state = dec.zero_state(dec_params, B, dec_units, cell_type, dev)
 
     def step(cur: torch.Tensor) -> torch.Tensor:
         nonlocal state
-        state, logits, _ = dec.decoder_step(dec_params, state, dec.embed(cur, vocab_size), mem)
+        state, logits, _ = dec.decoder_step(dec_params, state, dec.embed(cur, vocab_size), mem, 1,
+                                            attention_type, cell_type)
         return logits
 
     return greedy_loop(step, B, vocab_size, total_steps, max_steps, start_token, end_token, dev)

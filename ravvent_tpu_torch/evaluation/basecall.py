@@ -5,15 +5,20 @@ decode on the compact path. The encoder runs in f32 or on a bf16 stream
 (``encoder_dtype``); the attention memory is pre-projected and stored in
 bf16, f32 or int8 (``memory_dtype="i8"|"i8mxu"``, the step kernel's int8
 variants); beam search runs one fused CUDA step kernel per decode step
-(``beam_impl="step"``) or one whole-loop kernel launch per chunk
-(``beam_impl="loop"``). A read in compact form travels to the device once
-per chunk, as one u8 buffer in the wire format ``transport_dtype`` (the JAX
-engine's "f16", "f32", "i8", "i8sig" or "i8dev", basecall.py:839-1021),
-is unpacked and gathered into snippets there, and the result comes back as
-one u8 buffer per chunk (tokens as nibbles, step probabilities quantized to
-8 or 4 bits). The defaults are the basecalling CLI's settings (f32 encoder,
-f16 wire, 8-bit probabilities); bench.py's main path is
-``encoder_dtype=torch.bfloat16, transport_dtype="i8dev", prob_bits=4``.
+(``beam_impl="step"``, this engine's default) or one whole-loop kernel
+launch per chunk (``beam_impl="loop"``), both for a depth-1 LSTM decoder
+with Luong attention, or the plain decode loop (``beam_impl="xla"``, the JAX
+engine's default and its path for every configuration: GRU or unidirectional
+encoders, Bahdanau attention, deeper decoders), whose memory is
+pre-projected only with ``project_values``. A read in compact form travels
+to the device once per chunk, as one u8 buffer in the wire format
+``transport_dtype`` (the JAX engine's "f16", "f32", "i8", "i8sig" or
+"i8dev", basecall.py:839-1021), is unpacked and gathered into snippets
+there, and the result comes back as one u8 buffer per chunk (tokens as
+nibbles, step probabilities quantized to 8 or 4 bits). The defaults are the
+basecalling CLI's settings (f32 encoder, f16 wire, 8-bit probabilities);
+bench.py's main path is ``encoder_dtype=torch.bfloat16,
+transport_dtype="i8dev", prob_bits=4``.
 
 The signal-only wire (the JAX engine's "sigdev", basecall.py:653-747 and
 1062-1289) sends a read's raw samples and nothing else: one upload of a
@@ -24,10 +29,13 @@ count and ranges, all on the device (:meth:`BasecallEngine.begin_beam_signal`);
 the snippets are then gathered from the device-resident arrays and decoded
 chunk by chunk (:meth:`BasecallEngine.finish_beam_signal`).
 
-On a CUDA device the encoder runs the BiLSTM kernel of its stream
-(ops/rnn_cuda.py) and the decoder the beam-step kernel
+On a CUDA device a bidirectional LSTM encoder runs the BiLSTM kernel of its
+stream (ops/rnn_cuda.py) and the decoder the beam-step kernel
 (ops/beam_step_cuda.py) or the beam-loop kernel (ops/beam_loop_cuda.py); on
-the CPU each runs its plain version. The JAX engine pads each slab to a
+the CPU each runs its plain version. GRU and unidirectional encoders run
+their plain scan, and ``beam_impl="xla"`` the plain beam decode
+(decode/beam.py), on any device, as the JAX package runs ``lax.scan`` and
+XLA for them. The JAX engine pads each slab to a
 small ladder of row counts to bound recompilation; PyTorch does not
 recompile, and rows are independent, so this engine runs each chunk at its
 own row count. Both split a read at the same rows (multiples of
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from ravvent_tpu_torch.config import MAX_TARGET_LEN, ModelConfig
-from ravvent_tpu_torch.decode.beam import beam_scores_to_step_probs
+from ravvent_tpu_torch.decode.beam import beam_decode, beam_scores_to_step_probs
 from ravvent_tpu_torch.decode.greedy import greedy_decode
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import check_config, encode_input
@@ -54,7 +62,8 @@ from ravvent_tpu_torch.ops.gather_rows import gather_rows
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
 from ravvent_tpu_torch.weights import to_device
 
-TOTAL_STEPS = MAX_TARGET_LEN - 1  # static decode length; max_steps bounds it per call
+TOTAL_STEPS = MAX_TARGET_LEN - 1  # default decode length; max_steps bounds it per call
+BEAM_IMPLS = ("step", "loop", "xla")
 WIRES = ("f16", "f32", "i8", "i8sig", "i8dev")
 SIG_WIRES = ("i16", "u8")  # the signal-only wire's sample types
 SIG_BUCKET = 65536  # the signal-only wire pads a read to a multiple of this
@@ -273,6 +282,8 @@ class BasecallEngine:
         transport_dtype: str = "f16",
         prob_bits: int = 8,
         n_beams: int = 1,
+        total_steps: int = TOTAL_STEPS,
+        project_values: bool = False,
     ) -> None:
         """``params``: the JAX tree's layout with tensor leaves (see
         weights.py). ``memory_dtype``: bf16 or None (f32) attention memory,
@@ -283,7 +294,18 @@ class BasecallEngine:
         result buffer (else int8 tokens and f16 probabilities); with
         ``prob_bits=4`` the probabilities are nibbles too.
         ``beam_impl``: "step" (one kernel launch per decode step) or "loop"
-        (one launch per chunk for the whole loop); both give the same beams.
+        (one launch per chunk for the whole loop), which give the same beams
+        and take a depth-1 LSTM decoder with Luong attention (raising
+        ``ValueError`` on any other); or "xla", the plain beam decode of
+        decode/beam.py on the engine's device for any configuration, the
+        JAX engine's default (basecall.py:369-411 there). This engine
+        defaults to "step", so that a flagship engine built with the
+        defaults runs the kernels.
+        ``total_steps``: the decode length, ``MAX_TARGET_LEN - 1`` by
+        default; a call's ``max_output_len - 1`` bounds it.
+        ``project_values``: pre-project the values through the attention
+        layer on the "xla" path (the memory the kernels take); "step" and
+        "loop" always do.
         ``encoder_dtype``: None (f32) or torch.bfloat16, the encoder stream:
         bf16 inputs, weights and inter-layer sequences, f32 state and
         accumulation. ``transport_dtype``: the compact path's wire, one of
@@ -297,13 +319,21 @@ class BasecallEngine:
         beam), for the merge fold's beam selection
         (evaluation/mapping.py:MappingEvaluator._select_beams)."""
         check_config(cfg)
-        if cfg.decoder_depth != 1:
-            raise NotImplementedError("the fused beam kernels support decoder_depth=1")
         if memory_dtype not in (None, torch.bfloat16, torch.float32, "i8", "i8mxu"):
             raise ValueError("memory_dtype must be torch.bfloat16, torch.float32, None, "
                              "'i8' or 'i8mxu'")
-        if beam_impl not in ("step", "loop"):
-            raise ValueError(f"beam_impl must be 'step' or 'loop', got {beam_impl!r}")
+        if beam_impl not in BEAM_IMPLS:
+            raise ValueError(f"beam_impl must be one of {BEAM_IMPLS}, got {beam_impl!r}")
+        if beam_impl != "xla":
+            # the JAX engine asserts the same (basecall.py:334-337 there)
+            if (cfg.cell_type != "lstm" or cfg.effective_attention != "luong"
+                    or cfg.decoder_depth != 1):
+                raise ValueError(
+                    f"beam_impl={beam_impl!r} runs the beam kernels, which take a depth-1 LSTM "
+                    f"decoder with Luong attention; got rnn_type={cfg.rnn_type!r}, attention "
+                    f"{cfg.effective_attention!r}, decoder_depth={cfg.decoder_depth}: use "
+                    f"beam_impl='xla'")
+            project_values = True
         if isinstance(memory_dtype, str) and beam_impl != "step":
             raise ValueError("int8 memory requires beam_impl='step'")
         if encoder_dtype not in (None, torch.bfloat16):
@@ -315,6 +345,8 @@ class BasecallEngine:
         if n_beams < 1:
             raise ValueError(f"n_beams must be at least 1, got {n_beams!r}")
         self.beam_impl = beam_impl
+        self.total_steps = total_steps
+        self.project_values = project_values
         self.device = resolve_device(device)
         self.params = to_device(params, self.device)
         self.cfg = cfg
@@ -326,11 +358,12 @@ class BasecallEngine:
         self.transport_dtype = transport_dtype
         self.prob_bits = prob_bits
         self.n_beams = n_beams
-        # the encoders' weights in the stream dtype, cast once, and in the
-        # stream's kernel layout, laid out once
+        # the BiLSTM encoders' weights in the stream dtype, cast once, and in
+        # the stream's kernel layout, laid out once; other encoders run their
+        # plain scan on the layers themselves
         self._enc_weights = {
             k: kernel_weights(stream_weights(self.params[k], encoder_dtype or torch.float32))
-            for k in ("encoder_raw", "encoder_event")}
+            for k in ("encoder_raw", "encoder_event")} if cfg.rnn_type == "bilstm" else {}
 
     # ------------------------------------------------------------------ model
 
@@ -338,37 +371,48 @@ class BasecallEngine:
     def memory(self, raw: torch.Tensor, event: torch.Tensor,
                project: bool = True) -> attn.AttnMemory:
         """Encode device snippets raw [N, 200, 1], event [N, 30, 5] and set
-        up the attention memory, S padded to a multiple of 8 as the
-        reference pads it. ``project``: keys and pre-projected values in the
-        engine's memory dtype (int8 with scales for "i8"/"i8mxu"), as the
-        beam kernels take them; else
-        un-projected f32 keys and values, as fused greedy decode takes them."""
+        up the attention memory; for the kernels ("step", "loop") S is
+        padded to a multiple of 8 as the reference pads it there, the "xla"
+        path keeps S as the reference's XLA path does. ``project``: the
+        engine's memory: keys and values in its memory dtype (int8 with
+        scales for "i8"/"i8mxu"), the values pre-projected with
+        ``project_values`` (always for the kernels), as the JAX engine's
+        ``_setup`` makes it; else un-projected f32 keys and values, as fused
+        greedy decode takes them."""
         dec = self.params["decoder"]
         if self.encoder_dtype is not None:  # the masks come from the cast inputs
             raw, event = raw.to(self.encoder_dtype), event.to(self.encoder_dtype)
         enc_out, mask = encode_input(self.params, raw, event, self.cfg, self._enc_weights)
-        pad = (-enc_out.shape[1]) % 8
-        enc_out = torch.nn.functional.pad(enc_out, (0, 0, 0, pad))
-        mask = torch.nn.functional.pad(mask, (0, pad))
+        if self.beam_impl != "xla":
+            pad = (-enc_out.shape[1]) % 8
+            enc_out = torch.nn.functional.pad(enc_out, (0, 0, 0, pad))
+            mask = torch.nn.functional.pad(mask, (0, pad))
         if not project:
             return attn.setup_memory(dec["attention"], enc_out, mask, torch.float32)
         return attn.setup_memory(dec["attention"], enc_out, mask, self.memory_dtype,
-                                 attention_layer=dec["attention_layer"])
+                                 attention_layer=dec["attention_layer"] if self.project_values
+                                 else None)
 
     @torch.inference_mode()
     def beam(self, raw: torch.Tensor, event: torch.Tensor, max_steps: int,
              beam_width: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Encode + beam decode device snippets raw [N, 200, 1], event
         [N, 30, 5]. Returns the top beam's (tokens [N, T] int32, step probs
-        [N, T] f32) with T = TOTAL_STEPS; with K = min(n_beams, beam_width)
+        [N, T] f32) with T = total_steps; with K = min(n_beams, beam_width)
         > 1, the top K beams' [N, K, T], beam-major
         (ravvent_tpu/evaluation/basecall.py:398-411)."""
-        loop = beam_loop if self.beam_impl == "loop" else beam_step_loop
-        res = fused_beam_decode(self.params["decoder"], self.memory(raw, event),
-                                self.cfg.vocab_size, beam_width, TOTAL_STEPS, max_steps,
-                                start_token=NUC_TOKENIZER.start_id,
-                                end_token=NUC_TOKENIZER.end_id, loop=loop,
-                                quant_mxu=self.quant_mxu)
+        mem, cfg = self.memory(raw, event), self.cfg
+        if self.beam_impl == "xla":
+            res = beam_decode(self.params["decoder"], mem, cfg.vocab_size, beam_width,
+                              self.total_steps, max_steps, cfg.effective_attention,
+                              cfg.cell_type, NUC_TOKENIZER.start_id, NUC_TOKENIZER.end_id)
+        else:
+            loop = beam_loop if self.beam_impl == "loop" else beam_step_loop
+            res = fused_beam_decode(self.params["decoder"], mem, cfg.vocab_size, beam_width,
+                                    self.total_steps, max_steps,
+                                    start_token=NUC_TOKENIZER.start_id,
+                                    end_token=NUC_TOKENIZER.end_id, loop=loop,
+                                    quant_mxu=self.quant_mxu)
         K = min(self.n_beams, beam_width)
         if K == 1:
             return res.tokens[:, :, 0], beam_scores_to_step_probs(res.scores[:, :, 0])
@@ -378,7 +422,7 @@ class BasecallEngine:
         return tokens, probs.reshape(scores.shape)
 
     def _fetch_width(self, max_output_len: int) -> int:
-        return min(TOTAL_STEPS, ((max_output_len + 7) // 8) * 8)
+        return min(self.total_steps, ((max_output_len + 7) // 8) * 8)
 
     def _device_chunks(self, raw: np.ndarray, event: np.ndarray):
         """Materialized snippets raw [N, 200, 1], event [N, 30, 5] on the
@@ -406,13 +450,13 @@ class BasecallEngine:
                        ) -> Tuple[np.ndarray, np.ndarray]:
         """Greedy decode materialized snippets
         (ravvent_tpu/evaluation/basecall.py:1328-1345): the engine's encoder
-        and pre-projected memory, then plain PyTorch greedy steps
-        (decode/greedy.py), as the JAX engine's ``_greedy`` decodes with XLA
-        (:413-420). Returns (tokens [N, T], logits [N, T, V] f32), T the
-        fetch width. The JAX engine pads
-        a chunk's rows to ``chunk_size``, this engine runs the chunk's own
-        rows. The all-finished stop couples a call's rows: the two agree on
-        every step until all of this engine's rows have ended; from there
+        and memory (:meth:`memory`), then plain PyTorch greedy steps
+        (decode/greedy.py) with the config's cell and attention, as the JAX
+        engine's ``_greedy`` decodes with XLA (:413-420). Returns (tokens
+        [N, T], logits [N, T, V] f32), T the fetch width. The JAX engine
+        pads a chunk's rows to ``chunk_size``, this engine runs the chunk's
+        own rows. The all-finished stop couples a call's rows: the two agree
+        on every step until all of this engine's rows have ended; from there
         this engine emits zeros, where the JAX engine goes on while a padded
         row has not ended. A row's sequence, up to its end token, is the
         same."""
@@ -424,9 +468,9 @@ class BasecallEngine:
         toks, logits = [], []
         for r, e in self._device_chunks(raw, event):
             t, lg = greedy_decode(self.params["decoder"], self.memory(r, e), self.cfg.vocab_size,
-                                  TOTAL_STEPS, max_output_len - 1,
-                                  start_token=NUC_TOKENIZER.start_id,
-                                  end_token=NUC_TOKENIZER.end_id)
+                                  self.total_steps, max_output_len - 1,
+                                  self.cfg.effective_attention, self.cfg.cell_type,
+                                  NUC_TOKENIZER.start_id, NUC_TOKENIZER.end_id)
             toks.append(t[:, :T].cpu().numpy())
             logits.append(lg[:, :T].cpu().numpy())
         return np.concatenate(toks), np.concatenate(logits)
@@ -584,7 +628,7 @@ class BasecallEngine:
         :meth:`collect_beam_compact`."""
         self._check_aux(aux)
         if raw_ranges.shape[0] == 0:
-            return PendingBeamCompact([], TOTAL_STEPS)
+            return PendingBeamCompact([], self.total_steps)
         T_fetch = self._fetch_width(max_output_len)
         pending = [self._enqueue(raw, event, max_output_len - 1, beam_width, T_fetch)
                    for raw, event in self._chunks(signal, raw_ranges, events, event_ranges, aux)]
@@ -746,7 +790,7 @@ class BasecallEngine:
         ns = [int(r.size) for r in raws]
         if not raws:
             return []
-        empty = PendingBeamCompact([], TOTAL_STEPS)
+        empty = PendingBeamCompact([], self.total_steps)
         if max(ns) == 0:
             return [empty] * len(raws)
         S_b = self._bucket(max(ns), SIG_BUCKET)
@@ -789,11 +833,11 @@ class BasecallEngine:
             return seg
         n_true, n_snip = self._signal_meta(seg)
         if max_output_len is None:
-            max_output_len = TOTAL_STEPS + 1
+            max_output_len = self.total_steps + 1
         if n_true > seg.E_b:
             return None
         if n_snip == 0:
-            return PendingBeamCompact([], TOTAL_STEPS)
+            return PendingBeamCompact([], self.total_steps)
         T_fetch = self._fetch_width(max_output_len)
         pending = [self._enqueue(*self.signal_snippets(seg, s, min(s + self.chunk_size, n_snip)),
                                  max_output_len - 1, beam_width, T_fetch)

@@ -1,19 +1,24 @@
-"""Luong attention memory (counterpart of ravvent_tpu/models/attention.py).
+"""Luong and Bahdanau attention (counterpart of
+ravvent_tpu/models/attention.py).
 
+Luong: ``score = q . keys``; Bahdanau (tfa's non-normalized form): ``score =
+sum(v * tanh(q @ W_q + keys))``, in f32 over the keys upcast.
 ``setup_memory`` zeroes the memory at masked positions, computes the keys
-``values @ memory_kernel`` and, given the AttentionWrapper's attention layer,
-pre-projects the values through its context half ``kernel[U:]`` (the
-attention vector is then ``att = query @ watt_h + align @ values`` with
-``watt_h = kernel[:U]``). ``dtype=torch.bfloat16`` stores keys and values in
-bf16; the dots that read them accumulate in f32. ``dtype="i8"`` stores int8
-codes with per-(row, position) max-abs scales (``kscale``, ``vscale``),
-which only the beam step consumes (ops/beam_step_cuda.py). Scores are
-masked with ``finfo(float32).min``, not ``-inf``, so an all-masked row
-softmaxes to a uniform row, as in the reference.
+``values @ memory_kernel`` (no bias, for both) and, given the
+AttentionWrapper's attention layer, pre-projects the values through its
+context half ``kernel[U:]`` (the attention vector is then ``att = query @
+watt_h + align @ values`` with ``watt_h = kernel[:U]``).
+``dtype=torch.bfloat16`` stores keys and values in bf16; the dots that read
+them accumulate in f32. ``dtype="i8"`` stores int8 codes with per-(row,
+position) max-abs scales (``kscale``, ``vscale``), which only the beam step
+consumes (ops/beam_step_cuda.py). Scores are masked with
+``finfo(float32).min``, not ``-inf``, so an all-masked row softmaxes to a
+uniform row, as in the reference.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -47,9 +52,21 @@ class AttnMemory(NamedTuple):
         return AttnMemory(*(None if t is None else t.to(device) for t in self))
 
 
-def init_attention(gen: torch.Generator, units: int, memory_dim: int, device=None) -> Params:
-    """tfa LuongAttention: memory_layer Dense(units, use_bias=False)."""
-    return {"memory_kernel": glorot_uniform(gen, (memory_dim, units), device)}
+def init_attention(gen: torch.Generator, units: int, memory_dim: int, device=None,
+                   attention_type: str = "luong", query_dim: Optional[int] = None) -> Params:
+    """tfa LuongAttention: memory_layer Dense(units, use_bias=False);
+    BahdanauAttention adds query_layer Dense(units, use_bias=False) over the
+    query (``query_dim``, default ``units``) and the score vector v."""
+    p = {"memory_kernel": glorot_uniform(gen, (memory_dim, units), device)}
+    if attention_type == "luong":
+        return p
+    if attention_type != "bahdanau":
+        raise ValueError(f"unknown attention_type {attention_type!r}")
+    limit = math.sqrt(6.0 / (units + units))
+    p["query_kernel"] = glorot_uniform(gen, (query_dim or units, units), device)
+    u = torch.rand(units, generator=gen, dtype=torch.float32)
+    p["attention_v"] = ((2.0 * u - 1.0) * limit).to(device)
+    return p
 
 
 def quantize_rows(x: torch.Tensor):
@@ -96,15 +113,24 @@ def setup_memory(params: Params, memory: torch.Tensor, mask: torch.Tensor, dtype
     return AttnMemory(keys=keys, values=values, mask=mask, watt_h=watt_h)
 
 
-def attend_beams(query: torch.Tensor, mem: AttnMemory):
-    """Beam-batched Luong attention: query [B, W, U] against untiled memory.
-    The query and the alignments are rounded to the memory's dtype before
-    each dot, which accumulates in f32. Returns (context [B, W, E],
-    alignments [B, W, S]). Quantized memory is the beam step's alone."""
+def attend_beams(params: Params, attention_type: str, query: torch.Tensor, mem: AttnMemory):
+    """Beam-batched attention: query [B, W, U] against untiled memory.
+    Luong rounds the query to the keys' dtype before its dot, which
+    accumulates in f32. Bahdanau computes ``v . tanh(query @ W_q + keys)``
+    in f32 over the keys upcast ([B, W, S, U] at once). The alignments are
+    rounded to the values' dtype before the context's dot. Returns (context
+    [B, W, E], alignments [B, W, S]). Quantized memory is the beam step's
+    alone."""
     if mem.quantized:
         raise ValueError("int8 memory is consumed only by the beam step (beam_step_decode)")
-    q = query.to(mem.keys.dtype).float()
-    scores = torch.bmm(q, mem.keys.float().transpose(1, 2))
+    if attention_type == "luong":
+        q = query.to(mem.keys.dtype).float()
+        scores = torch.bmm(q, mem.keys.float().transpose(1, 2))
+    elif attention_type == "bahdanau":
+        q = query @ params["query_kernel"]  # [B, W, U]
+        scores = torch.tanh(q[:, :, None, :] + mem.keys.float()[:, None]) @ params["attention_v"]
+    else:
+        raise ValueError(f"unknown attention_type {attention_type!r}")
     scores = torch.where(mem.mask[:, None, :], scores, torch.full((), NEG_INF, device=q.device))
     m = scores.max(dim=2, keepdim=True).values
     e = torch.exp(scores - m)

@@ -27,23 +27,31 @@ Params = Dict[str, Any]
 PAD, END, START = NUC_TOKENIZER.pad_id, NUC_TOKENIZER.end_id, NUC_TOKENIZER.start_id
 
 
+RNN_TYPES = ("bilstm", "bigru", "lstm", "gru")
+ATTENTION_TYPES = ("luong", "bahdanau")
+
+
 def check_config(cfg: ModelConfig) -> None:
-    """The port runs bidirectional-LSTM encoders with a Luong LSTM decoder."""
-    if cfg.rnn_type != "bilstm" or cfg.effective_attention != "luong":
-        raise NotImplementedError(
-            f"ravvent_tpu_torch ports rnn_type='bilstm' with Luong attention, got "
-            f"{cfg.rnn_type!r}/{cfg.effective_attention!r}")
+    """The configurations ModelConfig allows: ``rnn_type`` one of
+    ``RNN_TYPES`` and the effective attention one of ``ATTENTION_TYPES``."""
+    if cfg.rnn_type not in RNN_TYPES:
+        raise ValueError(f"rnn_type must be one of {RNN_TYPES}, got {cfg.rnn_type!r}")
+    if cfg.effective_attention not in ATTENTION_TYPES:
+        raise ValueError(f"attention_type must be one of {ATTENTION_TYPES}, got "
+                         f"{cfg.effective_attention!r}")
 
 
 def init_basecaller(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
     """Seeded weights at the config's widths (the JAX tree's layout; the
     numbers differ from jax.random's for the same seed)."""
     check_config(cfg)
+    enc = dict(device=device, cell_type=cfg.cell_type, bidirectional=cfg.bidirectional)
     return {
-        "encoder_raw": init_encoder(gen, cfg.enc_units, cfg.encoder_depth, 1, device),
-        "encoder_event": init_encoder(gen, cfg.enc_units, cfg.encoder_depth, 5, device),
+        "encoder_raw": init_encoder(gen, cfg.enc_units, cfg.encoder_depth, 1, **enc),
+        "encoder_event": init_encoder(gen, cfg.enc_units, cfg.encoder_depth, 5, **enc),
         "decoder": dec.init_decoder(gen, cfg.vocab_size, cfg.decoder_depth, cfg.dec_units,
-                                    cfg.enc_out_dim, device),
+                                    cfg.enc_out_dim, device, cfg.effective_attention,
+                                    cfg.cell_type),
     }
 
 
@@ -54,13 +62,15 @@ def encode_input(params: Params, raw: torch.Tensor, event: torch.Tensor,
     encoders run on the inputs' dtype (f32, or the bf16 stream); the caller
     casts raw and event first, so the masks come from the cast inputs.
     ``weights``: per encoder key, its layers' ``stream_weights`` (or
-    ``kernel_weights``) in that dtype (made here when None).
+    ``kernel_weights``) in that dtype (made here when None; bidirectional
+    LSTM encoders only, the others run their plain scan).
     ``trainable=True`` keeps the encoders on their differentiable plain
     version on every device (see encoder_apply); it takes no ``weights``."""
     weights = weights or {}
 
     def enc(key, xs):
-        return encoder_apply(params[key], xs, weights.get(key), trainable)[0]
+        return encoder_apply(params[key], xs, weights.get(key), trainable, cfg.cell_type,
+                             cfg.bidirectional)[0]
 
     if cfg.data_type == "raw":
         return enc("encoder_raw", raw), input_mask(raw)
@@ -93,7 +103,7 @@ def train_forward(params: Params, raw: torch.Tensor, event: torch.Tensor, target
     mem = attn.setup_memory(params["decoder"]["attention"], enc_out, mask)
     logits, sample_ids = dec.teacher_forced_decode(
         params["decoder"], targets[:, :-1], mem, cfg.vocab_size, sampling_probability, gen,
-        draws)
+        draws, cfg.effective_attention, cfg.cell_type)
     real = targets[:, 1:]
     loss = masked_ce_loss(real, logits, PAD)
     acc = masked_accuracy(real, sample_ids, [PAD, START, END])

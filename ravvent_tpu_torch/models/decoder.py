@@ -1,6 +1,7 @@
-"""Attention-wrapped LSTM decoder (counterpart of ravvent_tpu/models/decoder.py).
+"""Attention-wrapped stacked RNN decoder (counterpart of ravvent_tpu/models/decoder.py).
 
-tfa AttentionWrapper step semantics, Luong attention, LSTM cells:
+tfa AttentionWrapper step semantics, Luong or Bahdanau attention, LSTM or
+GRU cells at any depth:
 1. cell input = concat([one-hot token, previous attention vector]);
 2. the stacked cells run (cell i's output feeds cell i+1);
 3. the top cell output is the attention query;
@@ -8,9 +9,12 @@ tfa AttentionWrapper step semantics, Luong attention, LSTM cells:
    ``query @ watt_h + context`` on pre-projected memory;
 5. logits = Dense(vocab) of the attention vector.
 
-The parameter layout is the JAX tree's: ``cells`` (list of LSTM cells with
-``kernel`` [V+U, 4U]), ``attention`` (``memory_kernel``),
-``attention_layer`` (``kernel`` [U+E, U]) and ``fc`` (``kernel``, ``bias``).
+The parameter layout is the JAX tree's: ``cells`` (list of cells, the first
+with ``kernel`` [V+U, G*U], G = 4 for an LSTM and 3 for a GRU),
+``attention`` (``memory_kernel``; Bahdanau adds ``query_kernel`` and
+``attention_v``), ``attention_layer`` (``kernel`` [U+E, U]) and ``fc``
+(``kernel``, ``bias``). A cell's carry is (h, c) for an LSTM and (h,) for a
+GRU.
 """
 
 from __future__ import annotations
@@ -20,35 +24,39 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ravvent_tpu_torch.models import attention as attn
-from ravvent_tpu_torch.models.rnn import dense, init_dense, init_lstm_cell, lstm_step
+from ravvent_tpu_torch.models.rnn import CELLS, cell_step, cell_zero_state, dense, init_dense
 
 Params = Dict[str, Any]
 
 
 class DecoderState(NamedTuple):
-    cells: Tuple  # per cell: (h, c)
+    cells: Tuple  # per cell: its carry, (h, c) or (h,)
     attention: torch.Tensor  # [B, dec_units]
 
 
 def init_decoder(gen: torch.Generator, vocab_size: int, depth: int, dec_units: int,
-                 memory_dim: int, device=None) -> Params:
+                 memory_dim: int, device=None, attention_type: str = "luong",
+                 cell_type: str = "lstm") -> Params:
+    init_cell = CELLS[cell_type][0]
     cells = []
     in_dim = vocab_size + dec_units  # one-hot token + attention vector
     for _ in range(depth):
-        cells.append(init_lstm_cell(gen, in_dim, dec_units, device))
+        cells.append(init_cell(gen, in_dim, dec_units, device))
         in_dim = dec_units
     return {
         "cells": cells,
-        "attention": attn.init_attention(gen, dec_units, memory_dim, device),
+        "attention": attn.init_attention(gen, dec_units, memory_dim, device, attention_type,
+                                         dec_units),
         "attention_layer": init_dense(gen, dec_units + memory_dim, dec_units, use_bias=False,
                                       device=device),
         "fc": init_dense(gen, dec_units, vocab_size, use_bias=True, device=device),
     }
 
 
-def zero_state(params: Params, batch: int, dec_units: int, device=None) -> DecoderState:
-    z = lambda: torch.zeros(batch, dec_units, device=device)  # noqa: E731
-    return DecoderState(cells=tuple((z(), z()) for _ in params["cells"]), attention=z())
+def zero_state(params: Params, batch: int, dec_units: int, cell_type: str = "lstm",
+               device=None) -> DecoderState:
+    cells = tuple(cell_zero_state(cell_type, batch, dec_units, device) for _ in params["cells"])
+    return DecoderState(cells=cells, attention=torch.zeros(batch, dec_units, device=device))
 
 
 def embed(token_ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -57,11 +65,11 @@ def embed(token_ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return (token_ids[..., None] == cols).to(torch.float32)
 
 
-def cells_apply(params: Params, cells_state: Tuple, x: torch.Tensor):
+def cells_apply(params: Params, cells_state: Tuple, x: torch.Tensor, cell_type: str = "lstm"):
     """Run the stacked cells; returns (new cells state, top output)."""
     new_cells = []
     for cell_p, carry in zip(params["cells"], cells_state):
-        carry, x = lstm_step(cell_p, carry, x)
+        carry, x = cell_step(cell_type, cell_p, carry, x)
         new_cells.append(carry)
     return tuple(new_cells), x
 
@@ -73,14 +81,16 @@ def output_block(params: Params, query: torch.Tensor, context: torch.Tensor):
 
 
 def decoder_step(params: Params, state: DecoderState, token_emb: torch.Tensor,
-                 mem: attn.AttnMemory, beams: int = 1):
+                 mem: attn.AttnMemory, beams: int = 1, attention_type: str = "luong",
+                 cell_type: str = "lstm"):
     """One decode step for B*beams hypotheses (beam-major within each batch
     row) against memory of B rows, read once for all of a row's beams.
     Returns (new_state, logits [B*beams, V], alignments [B, beams, S])."""
     x = torch.cat([token_emb, state.attention], dim=-1)
-    new_cells, query = cells_apply(params, state.cells, x)
+    new_cells, query = cells_apply(params, state.cells, x, cell_type)
     B = mem.mask.shape[0]
-    context, align = attn.attend_beams(query.reshape(B, beams, -1), mem)
+    context, align = attn.attend_beams(params["attention"], attention_type,
+                                       query.reshape(B, beams, -1), mem)
     context = context.reshape(B * beams, -1)
     if mem.projected:
         attention_vec = query @ mem.watt_h + context
@@ -93,7 +103,8 @@ def decoder_step(params: Params, state: DecoderState, token_emb: torch.Tensor,
 def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.AttnMemory,
                           vocab_size: int, sampling_probability: float = 0.0,
                           gen: Optional[torch.Generator] = None,
-                          draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                          draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                          attention_type: str = "luong", cell_type: str = "lstm"):
     """Decode with (scheduled) teacher forcing (counterpart of the JAX
     package's models/decoder.py:teacher_forced_decode).
 
@@ -110,7 +121,7 @@ def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.At
     differs from jax.random's for the same seed."""
     B, T = dec_inputs.shape
     dev = dec_inputs.device
-    state = zero_state(params, B, params["fc"]["kernel"].shape[0], dev)
+    state = zero_state(params, B, params["fc"]["kernel"].shape[0], cell_type, dev)
     inputs_emb = embed(dec_inputs, vocab_size)  # [B, T, V]
     scheduled = sampling_probability > 0.0
     if scheduled:
@@ -125,7 +136,7 @@ def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.At
     cur = inputs_emb[:, 0]
     logits_t, ids_t = [], []
     for t in range(T):
-        state, logits, _ = decoder_step(params, state, cur, mem)
+        state, logits, _ = decoder_step(params, state, cur, mem, 1, attention_type, cell_type)
         gt_next = inputs_emb[:, min(t + 1, T - 1)]  # the last step's is unused
         if scheduled:
             sampled = torch.argmax(logits.detach() + gumbel[t], dim=-1)

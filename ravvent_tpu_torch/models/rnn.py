@@ -1,15 +1,23 @@
-"""LSTM cells and the stacked bidirectional encoder.
+"""Recurrent cells and the stacked (bi)directional encoder.
 
-Counterpart of ravvent_tpu/models/rnn.py, bidirectional LSTM only (the
-flagship's ``rnn_type="bilstm"``). Keras semantics: gate order (i, f, g, o),
-sigmoid recurrent activation, tanh activation, unit forget bias,
-glorot-uniform kernel, orthogonal recurrent kernel. Layer i's final states
-seed layer i+1, forward seeds forward and backward seeds backward. The
-encoder takes no mask: padded timesteps run as zero inputs, as in the
-reference.
+Counterpart of ravvent_tpu/models/rnn.py: LSTM and GRU cells, uni- and
+bidirectional layers (``rnn_type`` "bilstm", "bigru", "lstm", "gru"). Keras
+semantics: LSTM gate order (i, f, g, o), unit forget bias; GRU
+``reset_after=True``, gate order (z, r, h), separate input and recurrent
+biases; sigmoid recurrent activation, tanh activation, glorot-uniform
+kernel, orthogonal recurrent kernel. Layer i's final states seed layer i+1,
+forward seeds forward and backward seeds backward. The encoder takes no
+mask: padded timesteps run as zero inputs, as in the reference.
 
-Parameters are nested dicts of tensors with the JAX tree's keys:
-``{"kernel": [F, 4U], "recurrent": [U, 4U], "bias": [4U]}`` per direction.
+A bidirectional LSTM layer runs the BiLSTM kernel on a CUDA tensor
+(ops/rnn_cuda.py); GRU layers and unidirectional layers run the plain scan
+on any device, as the JAX package runs ``lax.scan`` for them (its Pallas
+layer is the BiLSTM's alone, models/rnn.py:330-347 there).
+
+Parameters are nested dicts of tensors with the JAX tree's keys, per
+direction: LSTM ``{"kernel": [F, 4U], "recurrent": [U, 4U], "bias": [4U]}``,
+GRU ``{"kernel": [F, 3U], "recurrent": [U, 3U], "input_bias": [3U],
+"recurrent_bias": [3U]}``; a unidirectional layer has only ``"fwd"``.
 """
 
 from __future__ import annotations
@@ -69,10 +77,27 @@ def init_lstm_cell(gen: torch.Generator, in_dim: int, units: int, device=None) -
     }
 
 
-def lstm_step(p: Params, carry, x: torch.Tensor):
-    """One LSTM step; returns ((h, c), h)."""
+def _stream_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` honouring a bf16 stream (the JAX package's ``_stream_mm``):
+    when ``a`` is bf16, bf16 operands whose products accumulate in f32 (the
+    operands upcast; a bf16 ``@`` on the CPU would round its output to
+    bf16); otherwise plain f32. Returns f32."""
+    if a.dtype == torch.bfloat16:
+        return a.float() @ b.to(torch.bfloat16).float()
+    return a @ b
+
+
+def lstm_zero_state(batch: int, units: int, device=None):
+    return (torch.zeros(batch, units, device=device), torch.zeros(batch, units, device=device))
+
+
+def lstm_step(p: Params, carry, x: Optional[torch.Tensor], x_proj: Optional[torch.Tensor] = None):
+    """One LSTM step; returns ((h, c), h). ``x_proj`` is the precomputed
+    ``x @ kernel + bias`` (the hoisted projection of a layer), else it is
+    computed here."""
     h, c = carry
-    z = x @ p["kernel"] + p["bias"] + h @ p["recurrent"]
+    z = (x @ p["kernel"] + p["bias"]) if x_proj is None else x_proj
+    z = z + h @ p["recurrent"]
     u = p["recurrent"].shape[0]
     i, f, g, o = z[:, :u], z[:, u:2 * u], z[:, 2 * u:3 * u], z[:, 3 * u:]
     c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
@@ -80,14 +105,118 @@ def lstm_step(p: Params, carry, x: torch.Tensor):
     return (h, c), h
 
 
+def init_gru_cell(gen: torch.Generator, in_dim: int, units: int, device=None) -> Params:
+    return {
+        "kernel": glorot_uniform(gen, (in_dim, 3 * units), device),
+        "recurrent": orthogonal(gen, (units, 3 * units), device),
+        "input_bias": torch.zeros(3 * units, device=device),
+        "recurrent_bias": torch.zeros(3 * units, device=device),
+    }
+
+
+def gru_zero_state(batch: int, units: int, device=None):
+    return (torch.zeros(batch, units, device=device),)
+
+
+def _gru_gates(mx: torch.Tensor, mi: torch.Tensor, h: torch.Tensor, u: int) -> torch.Tensor:
+    """keras ``reset_after=True``: the new h from the input part ``mx`` and
+    the recurrent part ``mi`` (each [..., 3U], biases in)."""
+    xz, xr, xh = mx[..., :u], mx[..., u:2 * u], mx[..., 2 * u:]
+    rz, rr, rh = mi[..., :u], mi[..., u:2 * u], mi[..., 2 * u:]
+    z = torch.sigmoid(xz + rz)
+    r = torch.sigmoid(xr + rr)
+    hh = torch.tanh(xh + r * rh)
+    return z * h + (1.0 - z) * hh
+
+
+def gru_step(p: Params, carry, x: Optional[torch.Tensor], x_proj: Optional[torch.Tensor] = None):
+    """One GRU step (keras ``reset_after=True``); returns ((h,), h)."""
+    (h,) = carry
+    mx = (x @ p["kernel"] + p["input_bias"]) if x_proj is None else x_proj
+    mi = h @ p["recurrent"] + p["recurrent_bias"]
+    h = _gru_gates(mx, mi, h, p["recurrent"].shape[0])
+    return (h,), h
+
+
+# cell type -> (init, step, zero state, gate count)
+CELLS = {
+    "lstm": (init_lstm_cell, lstm_step, lstm_zero_state, 4),
+    "gru": (init_gru_cell, gru_step, gru_zero_state, 3),
+}
+
+
+def cell_zero_state(cell_type: str, batch: int, units: int, device=None):
+    return CELLS[cell_type][2](batch, units, device)
+
+
+def cell_step(cell_type: str, p: Params, carry, x, x_proj=None):
+    return CELLS[cell_type][1](p, carry, x, x_proj)
+
+
+def run_rnn_layer(p: Params, cell_type: str, xs: torch.Tensor, initial_state=None,
+                  reverse: bool = False):
+    """One unidirectional layer over time (plain PyTorch, the reference's
+    ``lax.scan``), its input projection hoisted into one product over all
+    timesteps; ``reverse`` runs from the last timestep, the outputs staying
+    time-aligned. On a bf16 stream the projection takes bf16 operands
+    (:func:`_stream_mm`) while the state and the recurrent product stay f32,
+    and the outputs are rounded to bf16. Returns (outputs [B, T, U] in the
+    stream dtype, final carry)."""
+    _, step, zero_state, ngates = CELLS[cell_type]
+    B, T, _ = xs.shape
+    units = p["recurrent"].shape[0]
+    carry = zero_state(B, units, xs.device) if initial_state is None else initial_state
+    bias = p["bias"] if cell_type == "lstm" else p["input_bias"]
+    proj = (_stream_mm(xs.reshape(B * T, -1), p["kernel"]) + bias).reshape(B, T, ngates * units)
+    outs: List[Optional[torch.Tensor]] = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        carry, h = step(p, carry, None, proj[:, t])
+        outs[t] = h.to(xs.dtype)
+    return torch.stack(outs, dim=1), carry
+
+
+def bigru_layer_plain(layer: Params, xs: torch.Tensor, h0: Optional[torch.Tensor] = None):
+    """Forward + backward GRU directions of one layer (plain PyTorch, the
+    reference's GRU branch of ``run_bidi_layer``): one batched recurrent
+    product per step for both directions; on a bf16 stream its operands
+    bf16(h) and bf16 weights, accumulated in f32, with f32 state. Returns
+    (outputs [B, T, 2U] time-aligned in the stream dtype, h [2, B, U])."""
+    pf, pb = layer["fwd"], layer["bwd"]
+    B, T, _ = xs.shape
+    U = pf["recurrent"].shape[0]
+    bf16 = xs.dtype == torch.bfloat16
+    x2 = xs.reshape(B * T, -1)
+    proj_f = (_stream_mm(x2, pf["kernel"]) + pf["input_bias"]).reshape(B, T, 3 * U)
+    proj_b = (_stream_mm(x2, pb["kernel"]) + pb["input_bias"]).reshape(B, T, 3 * U)
+    R = torch.stack([pf["recurrent"], pb["recurrent"]])  # [2, U, 3U]
+    if bf16:
+        R = R.to(torch.bfloat16).float()
+    rbias = torch.stack([pf["recurrent_bias"], pb["recurrent_bias"]])[:, None, :]
+    h = torch.zeros(2, B, U, device=xs.device) if h0 is None else h0
+    out_f: List[Optional[torch.Tensor]] = [None] * T
+    out_b: List[Optional[torch.Tensor]] = [None] * T
+    for t in range(T):
+        hr = h.to(torch.bfloat16).float() if bf16 else h
+        mi = torch.bmm(hr, R) + rbias
+        h = _gru_gates(torch.stack([proj_f[:, t], proj_b[:, T - 1 - t]]), mi, h, U)
+        out_f[t] = h[0].to(xs.dtype)
+        out_b[T - 1 - t] = h[1].to(xs.dtype)
+    out = torch.cat([torch.stack(out_f, dim=1), torch.stack(out_b, dim=1)], dim=-1)
+    return out, h
+
+
 def init_encoder(gen: torch.Generator, units: int, depth: int, in_features: int,
-                 device=None) -> List[Params]:
+                 device=None, cell_type: str = "lstm", bidirectional: bool = True
+                 ) -> List[Params]:
+    init_cell = CELLS[cell_type][0]
     layers = []
     in_dim = in_features
     for _ in range(depth):
-        layers.append({"fwd": init_lstm_cell(gen, in_dim, units, device),
-                       "bwd": init_lstm_cell(gen, in_dim, units, device)})
-        in_dim = 2 * units
+        layer = {"fwd": init_cell(gen, in_dim, units, device)}
+        if bidirectional:
+            layer["bwd"] = init_cell(gen, in_dim, units, device)
+        layers.append(layer)
+        in_dim = units * (2 if bidirectional else 1)
     return layers
 
 
@@ -120,9 +249,13 @@ def _zero_state(xs: torch.Tensor, units: int):
     return z, z.clone()
 
 
-def run_bidi_layer(layer: Params, xs: torch.Tensor, initial_state=None):
+def run_bidi_layer(layer: Params, xs: torch.Tensor, initial_state=None, cell_type: str = "lstm"):
     """Forward + backward directions of one layer (plain PyTorch). Returns
-    (outputs [B, T, 2U] time-aligned, (h, c) each [2, B, U])."""
+    (outputs [B, T, 2U] time-aligned, final carry: (h, c) each [2, B, U]
+    for an LSTM, (h,) for a GRU)."""
+    if cell_type == "gru":
+        out, h = bigru_layer_plain(layer, xs, None if initial_state is None else initial_state[0])
+        return out, (h,)
     U = layer["fwd"]["recurrent"].shape[0]
     h0, c0 = initial_state if initial_state is not None else _zero_state(xs, U)
     out, h, c = bilstm_layer_plain(xs, *stacked_weights(layer), h0, c0)
@@ -131,20 +264,39 @@ def run_bidi_layer(layer: Params, xs: torch.Tensor, initial_state=None):
 
 def encoder_apply(layers: List[Params], xs: torch.Tensor,
                   weights: Optional[List[Tuple[torch.Tensor, ...]]] = None,
-                  trainable: bool = False) -> Tuple[torch.Tensor, Any]:
-    """Stacked bidirectional encoder on the stream dtype of ``xs`` (f32 or
-    bf16; the JAX package's bf16 stream, models/rnn.py:314-347): every layer
-    takes and returns that dtype, with f32 state. Every layer of a CUDA
-    tensor runs the BiLSTM kernel (ops/rnn_cuda.py); a CPU tensor runs its
-    plain version. ``weights``: :func:`stream_weights` of ``layers`` in the
-    stream dtype, or :func:`kernel_weights` of them, made once by the
-    caller; made here when None.
-    ``trainable=True`` runs every layer's plain version on any device, with
-    the weights stacked from ``layers`` on each call so that autograd
+                  trainable: bool = False, cell_type: str = "lstm",
+                  bidirectional: bool = True) -> Tuple[torch.Tensor, Any]:
+    """Stacked encoder on the stream dtype of ``xs`` (f32 or bf16; the JAX
+    package's bf16 stream, models/rnn.py:314-347): every layer takes and
+    returns that dtype, with f32 state.
+
+    Bidirectional LSTM: every layer of a CUDA tensor runs the BiLSTM kernel
+    (ops/rnn_cuda.py); a CPU tensor runs its plain version. ``weights``:
+    :func:`stream_weights` of ``layers`` in the stream dtype, or
+    :func:`kernel_weights` of them, made once by the caller; made here when
+    None. ``trainable=True`` runs every layer's plain version on any device,
+    with the weights stacked from ``layers`` on each call so that autograd
     reaches them, as the reference trains through its scan because the
     Pallas layer has no VJP (ravvent_tpu/models/rnn.py:325-326).
-    Returns (outputs [B, T, 2U], final (h, c) of the last layer)."""
+
+    GRU layers (``cell_type="gru"``) and unidirectional layers
+    (``bidirectional=False``) run the plain scan on any device, as the
+    reference runs ``lax.scan`` for them; they take no ``weights``.
+
+    Returns (outputs [B, T, U * directions], the last layer's final carry:
+    (h, c) or (h,) stacked [2, B, U] when bidirectional, ``(carry,)`` of
+    [B, U] tensors when not)."""
     out = xs.contiguous()
+    if cell_type != "lstm" or not bidirectional:
+        if weights is not None:
+            raise ValueError("encoder_apply: only bidirectional LSTM layers take weights")
+        state = None
+        for layer in layers:
+            if bidirectional:
+                out, state = run_bidi_layer(layer, out, state, cell_type)
+            else:
+                out, state = run_rnn_layer(layer["fwd"], cell_type, out, state)
+        return out, (state if bidirectional else (state,))
     if trainable:
         if weights is not None:
             raise ValueError("encoder_apply: trainable=True stacks its own weights")

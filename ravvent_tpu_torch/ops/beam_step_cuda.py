@@ -144,7 +144,7 @@ def candidates(st: StepState, h_new, att_h, keys, values, mask, w: DecoderWeight
     V = w.wfc.shape[1]
     if scales is None:
         mem = attn.AttnMemory(keys=keys, values=values, mask=mask)
-        context, _ = attn.attend_beams(h_new.reshape(B, W, U), mem)
+        context, _ = attn.attend_beams(None, "luong", h_new.reshape(B, W, U), mem)
     else:
         context = attend_quantized(h_new.reshape(B, W, U), keys, values, mask, *scales, mxu)
     att_new = att_h + context.reshape(B * W, U)

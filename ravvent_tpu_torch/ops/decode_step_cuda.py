@@ -60,7 +60,8 @@ def fused_decode_step_plain(w: FusedDecodeWeights, tok, att, h, c, keys, values,
     keys [B, S, U], values [B, S, E] f32; mask [B, S] bool. Returns
     (h', c', attention vector, logits [B, V])."""
     h_new, c_new = lstm_cell_plain(tok, att, h, c, w.wx, w.wh, w.b)
-    context, _ = attn.attend_beams(h_new[:, None], attn.AttnMemory(keys, values, mask))
+    context, _ = attn.attend_beams(None, "luong", h_new[:, None],
+                                   attn.AttnMemory(keys, values, mask))
     att_new = torch.cat([h_new, context[:, 0]], dim=1) @ w.watt
     return h_new, c_new, att_new, att_new @ w.wfc + w.bfc
 

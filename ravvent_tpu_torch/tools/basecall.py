@@ -8,12 +8,16 @@ when it has none, its chiron ``*.signal`` files (the region from the
 ``.label`` beside each, else the whole read). Weights come
 from an npz file of the JAX parameter tree (``--weights``, see
 ravvent_tpu_torch/weights.py) or are drawn from ``--seed`` at the configured
-widths. Runs on the first CUDA device unless ``--cpu`` is given.
+widths. Runs on the first CUDA device unless ``--cpu`` is given. The memory
+is bf16 and pre-projected, as the JAX CLI sets it. ``--beam-impl step`` and
+``loop`` run the beam kernels, which take the flagship's depth-1 decoder;
+``xla`` runs the plain beam decode and serves any depth, e.g. the 3-layer
+encoder, 2-layer decoder flagship32.
 
 Usage:
   python -m ravvent_tpu_torch.tools.basecall --weights flagship.npz \
       --input datasets/sim_lambda/eval --out basecalls.fasta [--beam 5] \
-      [--beam-impl step|loop]
+      [--beam-impl step|loop|xla] [--encoder-depth 2] [--decoder-depth 1]
 """
 
 from __future__ import annotations
@@ -94,9 +98,11 @@ def main(argv=None) -> None:
     ap.add_argument("--enc-units", type=int, default=128)
     ap.add_argument("--dec-units", type=int, default=128)
     ap.add_argument("--encoder-depth", type=int, default=2)
+    ap.add_argument("--decoder-depth", type=int, default=1)
     ap.add_argument("--chunk", type=int, default=4096)
-    ap.add_argument("--beam-impl", default="step", choices=["step", "loop"],
-                    help="beam kernel: one launch per decode step, or one per chunk")
+    ap.add_argument("--beam-impl", default="step", choices=["xla", "loop", "step"],
+                    help="beam kernel: one launch per decode step, or one per chunk; or the "
+                         "plain decode (any decoder depth)")
     ap.add_argument("--pack-u8", action=argparse.BooleanOptionalAction, default=True,
                     help="nibble-pack tokens + u8-quantize step probs in the result buffer")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
@@ -106,7 +112,7 @@ def main(argv=None) -> None:
 
     device = resolve_device("cpu" if args.cpu else None)
     cfg = ModelConfig(enc_units=args.enc_units, dec_units=args.dec_units,
-                      encoder_depth=args.encoder_depth, decoder_depth=1,
+                      encoder_depth=args.encoder_depth, decoder_depth=args.decoder_depth,
                       data_type=args.data_type)
     if args.weights:
         params = load_npz(args.weights)
@@ -116,7 +122,7 @@ def main(argv=None) -> None:
         print(f"WARNING: no --weights — using random weights from seed {args.seed}",
               file=sys.stderr)
     engine = BasecallEngine(params, cfg, chunk_size=args.chunk, pack_u8=args.pack_u8,
-                            device=device, beam_impl=args.beam_impl)
+                            device=device, beam_impl=args.beam_impl, project_values=True)
     merger = Merger()
 
     in_dir = Path(args.input)

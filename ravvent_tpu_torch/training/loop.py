@@ -211,7 +211,8 @@ class Trainer:
             enc_out, mask = encode_input(self.params, raw, event, self.mcfg)
             mem = attn.setup_memory(self.params["decoder"]["attention"], enc_out, mask)
             tokens, logits = greedy_decode(self.params["decoder"], mem, self.mcfg.vocab_size,
-                                           targets.shape[1] - 1, max_steps)
+                                           targets.shape[1] - 1, max_steps,
+                                           self.mcfg.effective_attention, self.mcfg.cell_type)
             loss, acc = val_metrics(targets[:, 1:], tokens, logits, targets)
         return {"loss": loss, "acc": acc}
 

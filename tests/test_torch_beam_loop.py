@@ -140,7 +140,7 @@ def test_replay_holds_a_loop_result_to_the_plain_step(memories, fault):
 def test_engine_rejects_unknown_beam_impl(flagship):
     _, params = flagship
     with pytest.raises(ValueError, match="beam_impl"):
-        BasecallEngine(params, ModelConfig(), device="cpu", beam_impl="xla")
+        BasecallEngine(params, ModelConfig(), device="cpu", beam_impl="pallas")
 
 
 def test_compact_path_loop_f32_memory_matches_jax_engine(flagship, read):

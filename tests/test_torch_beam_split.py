@@ -32,7 +32,7 @@ def step_before_split(st, keys, values, mask, w, end_token):
     W = st.cum.shape[1]
     h_new, c_new = tstep.lstm_cell_plain(st.tok, st.att, st.h, st.c, w.wx, w.wh, w.b)
     mem = tattn.AttnMemory(keys=keys, values=values, mask=mask)
-    context, _ = tattn.attend_beams(h_new.reshape(B, W, U), mem)
+    context, _ = tattn.attend_beams(None, "luong", h_new.reshape(B, W, U), mem)
     att_new = h_new @ w.watt_h + context.reshape(B * W, U)
     logits = att_new @ w.wfc + w.bfc
     lmax = logits.max(dim=1, keepdim=True).values

@@ -155,7 +155,7 @@ def test_int8_memory_outside_the_beam_step_raises(model):
                             attention_layer=td["attention_layer"])
     w = tstep.pack_decoder_weights(td, tm)
     with pytest.raises(ValueError, match="beam step"):
-        tattn.attend_beams(torch.zeros(B, W, 128), tm)
+        tattn.attend_beams(None, "luong", torch.zeros(B, W, 128), tm)
     with pytest.raises(ValueError, match="int8 memory"):
         tloop.beam_loop(tm.keys, tm.values, tm.mask, w, W, TOTAL, TOTAL, 2, 1,
                         (tm.kscale, tm.vscale))
