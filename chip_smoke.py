@@ -129,6 +129,21 @@ hand-written kernel against its plain PyTorch version on the card:
      with Bahdanau attention, one engine each: encoder and decode ms of a
      512-snippet chunk, the same bars on 64 snippets; (c) "step" and "loop"
      refuse (a)'s configuration.
+ 19. multi-device runs on the one card (parallel/): (a) a
+     ShardedBasecallEngine over a 2-shard mesh on cuda:0 with the bench's
+     settings against the 1-shard engine, PerformanceEvaluator.run_pipelined
+     over the 4 reads on the compact wire and on sigdev: every read's tokens
+     and probabilities bit-equal, bilstm_bf16, beam_cell and beam_attend
+     launched twice as often (each chunk's two shards), the segmentation's
+     peak_scan as often, both walls printed; (b) data-parallel training, 2
+     gloo ranks spawned on the card (parallel.distributed.spawn), 64 rows
+     each of a global batch of 128 of phase 17's data, TrainConfig's
+     defaults: the step's loss within 1e-5 relative of the single-process
+     step on the card, the all-reduced gradients within 1e-5 of each leaf's
+     largest magnitude, the two ranks' parameters bit-equal after it, the
+     largest parameter difference printed in units of the learning rate,
+     and 5 more steps timed on each; (c) entry.dryrun_multichip(2), both
+     ranks on the card. A rank that fails fails the phase.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -2038,6 +2053,196 @@ def phase_configs(smi: str) -> dict:
     return out
 
 
+def captured(engine, store: list, lock) -> None:
+    """Record on ``engine`` (its instance) a digest of each collected
+    result: its shape and the bytes of its tokens and probabilities."""
+    import hashlib
+
+    orig = engine.collect_beam_compact
+
+    def collect(handle):
+        tokens, probs = orig(handle)
+        digest = hashlib.sha256(tokens.tobytes() + probs.tobytes()).hexdigest()
+        with lock:
+            store.append((tokens.shape, digest))
+        return tokens, probs
+
+    engine.collect_beam_compact = collect
+
+
+def dp_step_rank(rank: int, world_size: int, init_method: str, out_dir: str, params: dict,
+                 batch: tuple, timed_steps: int) -> None:
+    """A data-parallel rank of phase 19 (b) on the card: one train step of
+    the flagship at TrainConfig's defaults on its rows of the global batch,
+    its loss, all-reduced gradients and updated parameters to
+    ``out_dir/rank{rank}.npz``, then ``timed_steps`` steps timed."""
+    import dataclasses
+
+    from ravvent_tpu_torch.config import RunConfig
+    from ravvent_tpu_torch.parallel import distributed
+    from ravvent_tpu_torch.training.loop import Trainer
+    from ravvent_tpu_torch.weights import flatten, unflatten
+
+    distributed.initialize(init_method, world_size, rank, "gloo")
+    try:
+        cfg = RunConfig()
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                 num_data_shards=world_size))
+        tr = Trainer(cfg, params=unflatten(params))
+        out, grads = tr.loss_and_grads(batch)
+        tr.apply_gradients(grads)
+        torch.cuda.synchronize()
+        got = {"loss": float(out.loss), "acc": float(out.acc)}
+        got.update({"grad/" + k: v for k, v in flatten(grads).items()})
+        got.update({"param/" + k: v for k, v in flatten(tr.params).items()})
+        got["step_s"] = np.asarray(train_steps(tr, batch, timed_steps))
+        np.savez(f"{out_dir}/rank{rank}.npz", **got)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def train_steps(trainer, batch, n: int) -> list:
+    """Seconds of each of ``n`` train steps, each ending in a synchronize."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        trainer.train_on_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def phase_multidevice(smi: str) -> dict:
+    """Multi-device runs on the one card: (a) the sharded engine, a 2-shard
+    mesh on cuda:0 at the flagship's widths and the bench's settings,
+    against the 1-shard engine through PerformanceEvaluator.run_pipelined
+    on the compact wire and on sigdev over the 4 reads (results bit-equal;
+    each kernel's launches doubled a chunk); (b) data-parallel training, 2
+    gloo ranks spawned on the card, global batch 128 of phase 17's data,
+    one step against the single-process step on the card; (c) the entry's
+    dry run, dryrun_multichip(2), both ranks on the card. Returns the
+    figures."""
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from ravvent_tpu_torch.config import RunConfig
+    from ravvent_tpu_torch.data import chiron, simulator
+    from ravvent_tpu_torch.data.generator import SnippetBatchGenerator
+    from ravvent_tpu_torch.entry import dryrun_multichip
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.parallel.distributed import spawn
+    from ravvent_tpu_torch.parallel.inference import ShardedBasecallEngine
+    from ravvent_tpu_torch.parallel.mesh import make_mesh
+    from ravvent_tpu_torch.training.loop import Trainer
+    from ravvent_tpu_torch.weights import flatten
+
+    cfg, params = flagship_params()
+    bench = dict(chunk_size=4096, memory_dtype=torch.bfloat16, beam_impl="step",
+                 encoder_dtype=torch.bfloat16, pack_u8=True, transport_dtype="i8dev", prob_bits=4)
+    engines = {1: BasecallEngine(params, cfg, **bench),
+               2: ShardedBasecallEngine(params, cfg, make_mesh(devices=["cuda:0", "cuda:0"]),
+                                        **bench)}
+    fig = {}
+    kernels = ("bilstm_bf16", "beam_cell", "beam_attend", "peak_scan")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        paths = []
+        for i, (raw, ranges, seq) in enumerate(simulated_reads()):
+            chiron.write_read(d / f"r{i}.signal", d / f"r{i}.label", raw, ranges, seq)
+            paths.append(str(d / f"r{i}.signal"))
+
+        # (a) the sharded engine against one shard, result for result
+        for wire in ("compact", "sigdev"):
+            runs = {}
+            for shards, engine in engines.items():
+                pe = PerformanceEvaluator(engine, beam_width=5, cache_dir=str(d / "cache"),
+                                          wire=wire)
+                pe.run_pipelined(paths, inflight=8, finishers=4)  # warm-up; fills the read cache
+                store, lock = [], threading.Lock()
+                captured(engine, store, lock)
+                torch.cuda.synchronize()
+                cuda_lib.reset_launches()
+                rec = pe.run_pipelined(paths, inflight=8, finishers=4)
+                torch.cuda.synchronize()
+                counts = dict(cuda_lib.launches)
+                del engine.collect_beam_compact  # the class's method again
+                runs[shards] = (sorted(store), counts, rec)
+                per_read = ", ".join(f"{k} {counts[k] / len(paths):g}" for k in kernels)
+                print(f"  (a) {wire}, {shards} shard(s) on cuda:0: run_pipelined wall "
+                      f"{rec['wall_s']:.4f} s, {rec['bases_per_s']:.1f} bases/s, stages "
+                      f"{rec['stages_s']}; launches a read: {per_read} [{smi}]")
+                fig[f"{wire}_{shards}_wall_s"] = rec["wall_s"]
+            (res1, c1, r1), (res2, c2, r2) = runs[1], runs[2]
+            require(len(res1) == len(paths) and res1 == res2,
+                    f"{wire}: 2 shards' tokens or probabilities differ from 1 shard's")
+            require(r1["bases_num"] == r2["bases_num"], f"{wire}: the runs counted other bases")
+            for k in ("bilstm_bf16", "beam_cell", "beam_attend"):
+                require(c1[k] > 0 and c2[k] == 2 * c1[k], f"{wire}: {k} did not launch twice as "
+                        f"often on 2 shards ({c2[k]} vs {c1[k]})")
+            require(c2["peak_scan"] == c1["peak_scan"] == (2 * len(paths) if wire == "sigdev"
+                                                           else 0),
+                    f"{wire}: the segmentation ran other than once a read")
+            print(f"  (a) {wire}: 2 shards' results bit-equal to 1 shard's on all "
+                  f"{len(res1)} reads; wall 2 shards / 1 shard "
+                  f"{r2['wall_s'] / r1['wall_s']:.4f}")
+
+        # (b) data-parallel training: 2 gloo ranks on the card, against one process
+        genome = simulator.random_genome(20_000, np.random.default_rng(SEED))
+        simulator.generate_chiron_dataset(d / "ds", genome, n_reads=2,
+                                          read_len_range=(1500, 1800), seed=SEED + 1)
+        fi = chiron.create_files_info(d / "ds", stride=6, verbose=False)
+        run_cfg = RunConfig()
+        gen = SnippetBatchGenerator(fi, stride=6, batch_size=run_cfg.train.batch_size,
+                                    shuffle=False, cache_dir=str(d / "ds" / "cache"))
+        batch = gen[0]
+        require(batch[2].shape[0] == 128, "phase 17's batch is not 128 rows")
+        timed = 5
+        t0 = time.perf_counter()
+        spawn(dp_step_rank, 2, (str(d), flatten(params), batch, timed), init_dir=str(d),
+              timeout=400.0)
+        fig["dp_spawn_s"] = time.perf_counter() - t0
+        one = Trainer(run_cfg, params=params)
+        out, grads = one.loss_and_grads(batch)
+        one.apply_gradients(grads)
+        g1, p1 = flatten(grads), flatten(one.params)  # after the one step
+        one_steps = train_steps(one, batch, timed)
+        ranks = [np.load(d / f"rank{r}.npz") for r in range(2)]
+        lr = run_cfg.train.learning_rate
+        loss1 = float(out.loss.detach())
+        rel = abs(float(ranks[0]["loss"]) - loss1) / abs(loss1)
+        gerr = {k: float(np.abs(ranks[0]["grad/" + k] - g1[k]).max())
+                / max(float(np.abs(g1[k]).max()), 1e-30) for k in g1}
+        worst = max(gerr, key=gerr.get)
+        same = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0].files
+                   if k.startswith("param/"))
+        pdiff = max(float(np.abs(ranks[0]["param/" + k] - p1[k]).max()) for k in p1)
+        fig["dp_step_s"] = float(np.mean(ranks[0]["step_s"]))
+        fig["one_step_s"] = float(np.mean(one_steps))
+        print(f"  (b) DP train step, 2 gloo ranks on cuda:0, 64 rows each of a global batch of "
+              f"128 at p = 0.5: loss {float(ranks[0]['loss']):.7f} vs one process {loss1:.7f}, "
+              f"rel {rel:.3e} (need <= 1e-5); all-reduced gradients: worst leaf {worst} "
+              f"{gerr[worst]:.3e} of its largest magnitude (need <= 1e-5); the ranks' "
+              f"parameters bit-equal {same}; parameters' largest difference from one process "
+              f"{pdiff / lr:.4f} lr [{smi}]")
+        print(f"  (b) step seconds (mean of {timed} after the first): DP rank 0 "
+              f"{fig['dp_step_s']:.4f} s ({np.round(ranks[0]['step_s'], 4).tolist()}), one "
+              f"process {fig['one_step_s']:.4f} s ({np.round(one_steps, 4).tolist()}); the spawn "
+              f"with its step {fig['dp_spawn_s']:.2f} s [{smi}]")
+        require(np.isfinite(loss1) and rel <= 1e-5, "the DP loss differs from one process's")
+        require(gerr[worst] <= 1e-5, f"the DP gradients differ from one process's on {worst}")
+        require(same, "the ranks' parameters differ after the step")
+
+    # (c) the dry run: one DP step and validation, then the sharded decodes
+    t0 = time.perf_counter()
+    dryrun_multichip(2, timeout=400.0)
+    fig["dryrun_s"] = time.perf_counter() - t0
+    print(f"  (c) dryrun_multichip(2), both ranks on cuda:0: {fig['dryrun_s']:.2f} s [{smi}]")
+    return fig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2102,6 +2307,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_configs(smi)
     phase("18 the non-flagship configurations, beam_impl=xla", t0)
+    t0 = time.perf_counter()
+    phase_multidevice(smi)
+    phase("19 multi-device: the sharded engine, data-parallel training, the dry run", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_cell["launches"] = counts["beam_cell"]

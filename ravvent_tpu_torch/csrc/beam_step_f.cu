@@ -904,16 +904,22 @@ beam_attend_kernel(int B, int S, int V, int end_token,
   }
 }
 
-// Raise the kernel's dynamic shared memory limit to `bytes` the first time
-// a launch needs more than the limit set so far (the default 48 KB holds
-// static and dynamic shared memory together).
+// Raise the kernel's dynamic shared memory limit on the current device to
+// `bytes` the first time a launch there needs more than the limit set so far
+// (the default 48 KB holds static and dynamic shared memory together). The
+// attribute is a device's own, so the limit set is kept a device.
+constexpr int kMaxDevices = 64;
+
 template <typename Fn>
-int allow_smem(Fn* kernel, size_t bytes, int& allowed) {
-  if ((int)bytes <= allowed) return 0;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+int allow_smem(Fn* kernel, size_t bytes, int (&allowed)[kMaxDevices]) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
-  allowed = (int)bytes;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidValue;
+  if ((int)bytes <= allowed[device]) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  allowed[device] = (int)bytes;
   return 0;
 }
 
@@ -927,7 +933,7 @@ struct AttendArgs {
 template <class Md, int W>
 int launch_attend(const AttendArgs& a, cudaStream_t stream) {
   using M = typename Md::M;
-  static int allowed = 0;
+  static int allowed[kMaxDevices] = {};
   const size_t smem = (size_t)att_layout<Md>(W, a.S, a.V).total * sizeof(float);
   int rc = allow_smem(beam_attend_kernel<Md, W>, smem, allowed);
   if (rc) return rc;
@@ -981,7 +987,7 @@ extern "C" int rv_beam_cell(int N, int V, const void* tok, const void* att_in, c
                             const void* watt_h, void* h_new, void* c_new, void* att_h,
                             void* stream) {
   if (N <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
-  static int allowed = 0;
+  static int allowed[kMaxDevices] = {};
   const int rc = allow_smem(beam_cell_kernel, (size_t)kCellSmem, allowed);
   if (rc) return rc;
   const int grid = (N + kCellM - 1) / kCellM;

@@ -14,6 +14,11 @@ with ``impute_finished=False``, as a fixed-length loop:
 other rows of the call. Steps at ``t >= max_steps`` emit zeros and change
 nothing that is emitted, so the loop runs ``min(max_steps, total_steps)``
 steps and leaves the rest zero; it never reads ``all_done`` on the host.
+The samples do not depend on ``all_done``, so the loop keeps every step's
+output and the ``all_done`` that held before it, and masks once after the
+loop. A data-parallel rank passes ``reduce`` (utils/masking.py): one
+reduction over the ranks (a minimum: all ranks done) turns its rows'
+``all_done`` into the global batch's before the mask.
 
 :func:`greedy_decode` is plain PyTorch over the model's ``decoder_step`` on
 any memory. The fused loop over kernel B4 is
@@ -30,38 +35,47 @@ from ravvent_tpu_torch.decode.beam import effective_steps
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models import decoder as dec
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
+from ravvent_tpu_torch.utils.masking import Reduce
 
 
 def greedy_loop(step: Callable[[torch.Tensor], torch.Tensor], B: int, vocab_size: int,
                 total_steps: int, max_steps: Optional[int], start_token: int, end_token: int,
-                device) -> Tuple[torch.Tensor, torch.Tensor]:
+                device, reduce: Optional[Reduce] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The greedy bookkeeping around ``step(token_ids [B]) -> logits [B, V]``,
     which advances its own decoder state. Returns (tokens [B, total_steps]
-    int32, logits [B, total_steps, V])."""
+    int32, logits [B, total_steps, V]); with ``reduce`` the all-finished
+    stop is the global batch's."""
     eff = effective_steps(total_steps, max_steps)
     tokens = torch.zeros(B, total_steps, dtype=torch.int32, device=device)
     logits_out = torch.zeros(B, total_steps, vocab_size, device=device)
     cur = torch.full((B,), start_token, dtype=torch.int32, device=device)
     finished = torch.zeros(B, dtype=torch.bool, device=device)
     all_done = torch.zeros((), dtype=torch.bool, device=device)
+    done_before = []  # each step's all_done before it, of this call's rows
     for t in range(eff):
         logits = step(cur)
         sample = torch.argmax(logits, dim=-1).to(torch.int32)
-        executes = ~all_done  # t < max_steps holds inside the loop
-        tokens[:, t] = torch.where(executes, sample, 0)
-        logits_out[:, t] = torch.where(executes, logits, 0.0)
+        tokens[:, t] = sample
+        logits_out[:, t] = logits
+        done_before.append(all_done)
         finished = finished | (sample == end_token)
         all_done = all_done | finished.all()
         cur = sample
+    if eff:  # t < max_steps holds inside the loop
+        done = torch.stack(done_before).to(torch.int32)
+        executes = (done if reduce is None else reduce(done, "min")) == 0  # [eff]
+        tokens[:, :eff] = torch.where(executes[None, :], tokens[:, :eff], 0)
+        logits_out[:, :eff] = torch.where(executes[None, :, None], logits_out[:, :eff], 0.0)
     return tokens, logits_out
 
 
 def greedy_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, total_steps: int,
                   max_steps: Optional[int] = None, attention_type: str = "luong",
                   cell_type: str = "lstm", start_token: int = NUC_TOKENIZER.start_id,
-                  end_token: int = NUC_TOKENIZER.end_id) -> Tuple[torch.Tensor, torch.Tensor]:
+                  end_token: int = NUC_TOKENIZER.end_id, reduce: Optional[Reduce] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain greedy decode over memory [B, S, E] (projected or not), any
-    decoder depth, cell and attention.
+    decoder depth, cell and attention; ``reduce``: see :func:`greedy_loop`.
     Returns (tokens [B, total_steps] int32, logits [B, total_steps, V])."""
     B = mem.mask.shape[0]
     dev = mem.keys.device
@@ -74,4 +88,5 @@ def greedy_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, total_steps
                                             attention_type, cell_type)
         return logits
 
-    return greedy_loop(step, B, vocab_size, total_steps, max_steps, start_token, end_token, dev)
+    return greedy_loop(step, B, vocab_size, total_steps, max_steps, start_token, end_token, dev,
+                       reduce)

@@ -40,10 +40,24 @@ small ladder of row counts to bound recompilation; PyTorch does not
 recompile, and rows are independent, so this engine runs each chunk at its
 own row count. Both split a read at the same rows (multiples of
 ``chunk_size``), so the i8 wires' per-chunk scales are the JAX slabs'.
+
+With a ``mesh`` (parallel/mesh.py) the engine runs data-parallel over the
+mesh's devices, as the JAX engine's ``shard_map`` over ``'data'`` does
+(basecall.py:293-316 there): every device holds the parameters and the
+encoders' kernel-layout weights, each chunk's rows split over the shards
+(``torch.tensor_split``'s rule; a shard of no rows is skipped), and each
+shard runs the single-device program on its rows: the compact wire's upload
+and unpack once per device, then its own rows' gather, encode, decode and
+packed result. The host concatenates the shards' results in row order; no
+collective runs. On the signal-only wire the segmentation runs once, on the
+mesh's first device, and each shard's device receives the read's signal,
+features and ranges.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -59,6 +73,7 @@ from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
 from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
 from ravvent_tpu_torch.ops.event_detect import detect_boundaries_device, fired_to_event_lens
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
+from ravvent_tpu_torch.parallel.mesh import Mesh, replicate, row_bounds, shard_batch
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
 from ravvent_tpu_torch.weights import to_device
 
@@ -238,11 +253,22 @@ def _device_snippet_count(lens: torch.Tensor, n_ev, n_rows: int, stride: int,
     return (ok & prev_stop).sum().to(torch.int32)
 
 
+def _gather_snippets(sig: torch.Tensor, feats: torch.Tensor, rr: torch.Tensor,
+                     er: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Snippets raw [n, 200, 1], event [n, 30, 5] gathered from a signal
+    [S], event features [E, 5] and their ranges [n, 2]."""
+    raw = gather_rows(sig, rr[:, 0], rr[:, 1] - rr[:, 0], 200)[..., None]
+    event = gather_rows(feats.reshape(-1), er[:, 0] * 5, (er[:, 1] - er[:, 0]) * 5,
+                        150).reshape(-1, 30, 5)
+    return raw, event
+
+
 class PendingBeamCompact(NamedTuple):
     """In-flight read from :meth:`BasecallEngine.dispatch_beam_compact`: per
-    chunk, the host buffer the packed result is being copied into, the CUDA
-    event that marks the copy's end (None on the CPU) and the row count;
-    ``n_beams`` beams a row on the wire, each ``T_fetch`` steps wide."""
+    chunk (per shard of a chunk under a mesh), in row order, the host
+    buffer the packed result is being copied into, the CUDA event that
+    marks the copy's end (None on the CPU) and the row count; ``n_beams``
+    beams a row on the wire, each ``T_fetch`` steps wide."""
 
     pending: list
     T_fetch: int
@@ -284,6 +310,7 @@ class BasecallEngine:
         n_beams: int = 1,
         total_steps: int = TOTAL_STEPS,
         project_values: bool = False,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         """``params``: the JAX tree's layout with tensor leaves (see
         weights.py). ``memory_dtype``: bf16 or None (f32) attention memory,
@@ -317,7 +344,10 @@ class BasecallEngine:
         ``n_beams``: beams returned a snippet, min(n_beams, beam_width); with
         more than one, the results are [N, n_beams, T] (beam 0 the top
         beam), for the merge fold's beam selection
-        (evaluation/mapping.py:MappingEvaluator._select_beams)."""
+        (evaluation/mapping.py:MappingEvaluator._select_beams).
+        ``mesh``: run data-parallel over the mesh's devices (see the module's
+        docstring); ``device`` is then the mesh's first device and may not
+        be given."""
         check_config(cfg)
         if memory_dtype not in (None, torch.bfloat16, torch.float32, "i8", "i8mxu"):
             raise ValueError("memory_dtype must be torch.bfloat16, torch.float32, None, "
@@ -344,6 +374,11 @@ class BasecallEngine:
             raise ValueError(f"prob_bits must be 8 or 4, got {prob_bits!r}")
         if n_beams < 1:
             raise ValueError(f"n_beams must be at least 1, got {n_beams!r}")
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("with a mesh the engine runs on the mesh's devices: "
+                                 "pass no device")
+            device = mesh.devices[0]
         self.beam_impl = beam_impl
         self.total_steps = total_steps
         self.project_values = project_values
@@ -361,9 +396,45 @@ class BasecallEngine:
         # the BiLSTM encoders' weights in the stream dtype, cast once, and in
         # the stream's kernel layout, laid out once; other encoders run their
         # plain scan on the layers themselves
-        self._enc_weights = {
-            k: kernel_weights(stream_weights(self.params[k], encoder_dtype or torch.float32))
-            for k in ("encoder_raw", "encoder_event")} if cfg.rnn_type == "bilstm" else {}
+        self._enc_weights = self._encoder_weights()
+        self.mesh = mesh
+        self._shards = [self]
+        if mesh is not None:
+            # one engine a shard, on its device: this one on the first
+            # device, a copy holding the parameters on each other device
+            replicas = {self.device: self}
+            for d, p in zip(mesh.devices, replicate(self.params, mesh)):
+                if d not in replicas:
+                    replicas[d] = self._replica(d, p)
+            self._shards = [replicas[d] for d in mesh.devices]
+
+    def _encoder_weights(self) -> dict:
+        return {k: kernel_weights(stream_weights(self.params[k],
+                                                 self.encoder_dtype or torch.float32))
+                for k in ("encoder_raw", "encoder_event")} if self.cfg.rnn_type == "bilstm" else {}
+
+    def _replica(self, device: torch.device, params) -> "BasecallEngine":
+        """This engine's single-device program on ``device``: its settings,
+        with ``params`` (its parameters there) and encoder weights laid out
+        from them."""
+        r = copy.copy(self)
+        r.device, r.mesh = device, None
+        r.params = params
+        r._enc_weights = r._encoder_weights()
+        r._shards = [r]
+        return r
+
+    def _shard_rows(self, n: int) -> List[Tuple["BasecallEngine", int, int]]:
+        """(engine, lo, hi) of each shard that holds rows of a chunk of
+        ``n`` rows, in row order; one shard of all rows without a mesh."""
+        bounds = row_bounds(n, len(self._shards))
+        return [(eng, lo, hi) for eng, (lo, hi) in zip(self._shards, bounds) if hi > lo]
+
+    def _on_device(self):
+        """The CUDA runtime's current device set to the engine's, for its
+        kernels' launches and events."""
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
 
     # ------------------------------------------------------------------ model
 
@@ -425,12 +496,16 @@ class BasecallEngine:
         return min(self.total_steps, ((max_output_len + 7) // 8) * 8)
 
     def _device_chunks(self, raw: np.ndarray, event: np.ndarray):
-        """Materialized snippets raw [N, 200, 1], event [N, 30, 5] on the
-        device, ``chunk_size`` rows at a time."""
+        """Materialized snippets raw [N, 200, 1], event [N, 30, 5],
+        ``chunk_size`` rows at a time, per shard: (engine, raw, event) on
+        the shard's device; a shard of no rows is skipped."""
+        mesh = self.mesh or Mesh((self.device,))
         for s in range(0, raw.shape[0], self.chunk_size):
             r = torch.from_numpy(np.ascontiguousarray(raw[s:s + self.chunk_size], np.float32))
             e = torch.from_numpy(np.ascontiguousarray(event[s:s + self.chunk_size], np.float32))
-            yield r.to(self.device), e.to(self.device)
+            for eng, (rs, es) in zip(self._shards, shard_batch((r, e), mesh)):
+                if rs.shape[0]:
+                    yield eng, rs, es
 
     def predict_beam(self, raw: np.ndarray, event: np.ndarray, max_output_len: int,
                      beam_width: int = 5) -> Tuple[np.ndarray, np.ndarray]:
@@ -439,8 +514,9 @@ class BasecallEngine:
         with K > 1 beams)."""
         T = self._fetch_width(max_output_len)
         toks, probs = [], []
-        for r, e in self._device_chunks(raw, event):
-            t, p = self.beam(r, e, max_output_len - 1, beam_width)
+        for eng, r, e in self._device_chunks(raw, event):
+            with eng._on_device():
+                t, p = eng.beam(r, e, max_output_len - 1, beam_width)
             toks.append(t[..., :T].cpu().numpy())
             probs.append(p[..., :T].cpu().numpy())
         return np.concatenate(toks), np.concatenate(probs)
@@ -455,22 +531,23 @@ class BasecallEngine:
         engine's ``_greedy`` decodes with XLA (:413-420). Returns (tokens
         [N, T], logits [N, T, V] f32), T the fetch width. The JAX engine
         pads a chunk's rows to ``chunk_size``, this engine runs the chunk's
-        own rows. The all-finished stop couples a call's rows: the two agree
-        on every step until all of this engine's rows have ended; from there
-        this engine emits zeros, where the JAX engine goes on while a padded
-        row has not ended. A row's sequence, up to its end token, is the
-        same."""
+        own rows (a shard's rows under a mesh). The all-finished stop
+        couples a call's rows: the two agree on every step until all of this
+        engine's rows have ended; from there this engine emits zeros, where
+        the JAX engine goes on while a padded row has not ended. A row's
+        sequence, up to its end token, is the same."""
         if self.memory_dtype == "i8":
             raise ValueError("greedy decode reads bf16 or f32 memory: int8 memory ('i8', "
                              "'i8mxu') needs a consumer that understands quantized memory, the "
                              "fused beam-step kernel (ravvent_tpu/models/attention.py:96-98)")
         T = self._fetch_width(max_output_len)
         toks, logits = [], []
-        for r, e in self._device_chunks(raw, event):
-            t, lg = greedy_decode(self.params["decoder"], self.memory(r, e), self.cfg.vocab_size,
-                                  self.total_steps, max_output_len - 1,
-                                  self.cfg.effective_attention, self.cfg.cell_type,
-                                  NUC_TOKENIZER.start_id, NUC_TOKENIZER.end_id)
+        for eng, r, e in self._device_chunks(raw, event):
+            with eng._on_device():
+                t, lg = greedy_decode(eng.params["decoder"], eng.memory(r, e), self.cfg.vocab_size,
+                                      self.total_steps, max_output_len - 1,
+                                      self.cfg.effective_attention, self.cfg.cell_type,
+                                      NUC_TOKENIZER.start_id, NUC_TOKENIZER.end_id)
             toks.append(t[:, :T].cpu().numpy())
             logits.append(lg[:, :T].cpu().numpy())
         return np.concatenate(toks), np.concatenate(logits)
@@ -495,25 +572,30 @@ class BasecallEngine:
 
     def compact_snippets(self, signal: np.ndarray, raw_ranges: np.ndarray, events: np.ndarray,
                          event_ranges: np.ndarray, aux: Optional[dict] = None):
-        """Per chunk of a read in compact form: upload its slices over the
-        engine's wire, unpack them and gather its snippets on the device,
-        and yield them as raw [n, 200, 1], event [n, 30, 5] (f32)."""
+        """Per chunk of a read in compact form (per shard of a chunk under a
+        mesh): upload its slices over the engine's wire, unpack them and
+        gather its snippets on the device, and yield them as raw
+        [n, 200, 1], event [n, 30, 5] (f32)."""
         self._check_aux(aux)
-        return self._chunks(signal, raw_ranges, events, event_ranges, aux)
+        return ((raw, event) for _, raw, event in
+                self._chunks(signal, raw_ranges, events, event_ranges, aux))
 
     @torch.inference_mode()
     def _chunks(self, signal, raw_ranges, events, event_ranges, aux):
+        """Per chunk, per shard: (engine, raw, event) on the shard's device;
+        a chunk's upload and unpack run once on each device."""
         # ranges may extend past the arrays; slicing clips them, as the
         # materialized path does
         raw_ranges = np.minimum(raw_ranges, signal.shape[0])
         event_ranges = np.minimum(event_ranges, events.shape[0])
         for s in range(0, raw_ranges.shape[0], self.chunk_size):
-            sig, ev, rr, er = self.upload_chunk(signal, events, raw_ranges[s:s + self.chunk_size],
-                                                event_ranges[s:s + self.chunk_size], aux)
-            raw = gather_rows(sig, rr[:, 0], rr[:, 1] - rr[:, 0], 200)[..., None]
-            event = gather_rows(ev.reshape(-1), er[:, 0] * 5, (er[:, 1] - er[:, 0]) * 5,
-                                150).reshape(-1, 30, 5)
-            yield raw, event
+            rr_c, er_c = raw_ranges[s:s + self.chunk_size], event_ranges[s:s + self.chunk_size]
+            uploads = {}
+            for eng, lo, hi in self._shard_rows(rr_c.shape[0]):
+                if eng.device not in uploads:
+                    uploads[eng.device] = eng.upload_chunk(signal, events, rr_c, er_c, aux)
+                sig, ev, rr, er = uploads[eng.device]
+                yield (eng, *_gather_snippets(sig, ev, rr[lo:hi], er[lo:hi]))
 
     def upload_chunk(self, signal, events, rr, er, aux=None):
         """One chunk of rows (``rr``, ``er`` [n, 2]) over the engine's wire:
@@ -630,8 +712,9 @@ class BasecallEngine:
         if raw_ranges.shape[0] == 0:
             return PendingBeamCompact([], self.total_steps)
         T_fetch = self._fetch_width(max_output_len)
-        pending = [self._enqueue(raw, event, max_output_len - 1, beam_width, T_fetch)
-                   for raw, event in self._chunks(signal, raw_ranges, events, event_ranges, aux)]
+        pending = [eng._enqueue(raw, event, max_output_len - 1, beam_width, T_fetch)
+                   for eng, raw, event in self._chunks(signal, raw_ranges, events, event_ranges,
+                                                       aux)]
         return PendingBeamCompact(pending, T_fetch, min(self.n_beams, beam_width))
 
     def _enqueue(self, raw: torch.Tensor, event: torch.Tensor, max_steps: int, beam_width: int,
@@ -639,13 +722,14 @@ class BasecallEngine:
         """Decode one chunk of device snippets and start its packed result's
         copy to (pinned) host memory: (host buffer, CUDA event or None, rows)."""
         cuda = self.device.type == "cuda"
-        packed = self._pack(*self.beam(raw, event, max_steps, beam_width), T_fetch)
-        host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=cuda)
-        host.copy_(packed, non_blocking=cuda)
-        done = None
-        if cuda:
-            done = torch.cuda.Event()
-            done.record()
+        with self._on_device():
+            packed = self._pack(*self.beam(raw, event, max_steps, beam_width), T_fetch)
+            host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=cuda)
+            host.copy_(packed, non_blocking=cuda)
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
         return host, done, raw.shape[0]
 
     def collect_beam_compact(self, handle: PendingBeamCompact) -> Tuple[np.ndarray, np.ndarray]:
@@ -797,17 +881,18 @@ class BasecallEngine:
         E_b = S_b // 2
         N_max = E_b // stride + 1 + self.chunk_size
         buf = self._upload({"buf": self.signal_buffer(raws, S_b, sig_wire)})["buf"]
-        sig, feats, rr, er, meta = self._segment_batch(buf, S_b, E_b, N_max, stride, sig_wire)
-        done = None
-        if self.device.type == "cuda":
-            meta_host = torch.empty(meta.shape, dtype=meta.dtype, pin_memory=True)
-            meta_host.copy_(meta, non_blocking=True)
-            rr_host = torch.empty(rr.shape, dtype=rr.dtype, pin_memory=True)
-            rr_host.copy_(rr, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            meta_host, rr_host = meta, rr
+        with self._on_device():
+            sig, feats, rr, er, meta = self._segment_batch(buf, S_b, E_b, N_max, stride, sig_wire)
+            done = None
+            if self.device.type == "cuda":
+                meta_host = torch.empty(meta.shape, dtype=meta.dtype, pin_memory=True)
+                meta_host.copy_(meta, non_blocking=True)
+                rr_host = torch.empty(rr.shape, dtype=rr.dtype, pin_memory=True)
+                rr_host.copy_(rr, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                meta_host, rr_host = meta, rr
         return [PendingSignal(sig, feats, rr, er, meta_host, rr_host, done, E_b, k) if ns[k]
                 else empty for k in range(len(raws))]
 
@@ -828,7 +913,9 @@ class BasecallEngine:
         engine's slabs start), each chunk's result copied to pinned host
         memory. Returns a handle for :meth:`collect_beam_compact`, or None
         when the segmentation buffer overflowed (more than E_b events): the
-        caller then takes the compact wire."""
+        caller then takes the compact wire. Under a mesh each shard's
+        device receives the read's signal, features and ranges once, and
+        each shard gathers and decodes its rows of every chunk."""
         if isinstance(seg, PendingBeamCompact):  # an empty read
             return seg
         n_true, n_snip = self._signal_meta(seg)
@@ -839,9 +926,17 @@ class BasecallEngine:
         if n_snip == 0:
             return PendingBeamCompact([], self.total_steps)
         T_fetch = self._fetch_width(max_output_len)
-        pending = [self._enqueue(*self.signal_snippets(seg, s, min(s + self.chunk_size, n_snip)),
-                                 max_output_len - 1, beam_width, T_fetch)
-                   for s in range(0, n_snip, self.chunk_size)]
+        resident = {}  # device -> the read's (signal, features, raw ranges, event ranges)
+        pending = []
+        for s in range(0, n_snip, self.chunk_size):
+            for eng, lo, hi in self._shard_rows(min(s + self.chunk_size, n_snip) - s):
+                if eng.device not in resident:
+                    resident[eng.device] = tuple(x[seg.k].to(eng.device)
+                                                 for x in (seg.sig, seg.feats, seg.rr, seg.er))
+                sig, feats, rr, er = resident[eng.device]
+                pending.append(eng._enqueue(
+                    *_gather_snippets(sig, feats, rr[s + lo:s + hi], er[s + lo:s + hi]),
+                    max_output_len - 1, beam_width, T_fetch))
         return PendingBeamCompact(pending, T_fetch, min(self.n_beams, beam_width))
 
     @torch.inference_mode()
@@ -850,11 +945,8 @@ class BasecallEngine:
         """Snippet rows [start, end) of a segmented read, gathered on the
         device from its signal and features: raw [n, 200, 1], event
         [n, 30, 5] (f32)."""
-        rr, er = seg.rr[seg.k, start:end], seg.er[seg.k, start:end]
-        raw = gather_rows(seg.sig[seg.k], rr[:, 0], rr[:, 1] - rr[:, 0], 200)[..., None]
-        event = gather_rows(seg.feats[seg.k].reshape(-1), er[:, 0] * 5, (er[:, 1] - er[:, 0]) * 5,
-                            150).reshape(-1, 30, 5)
-        return raw, event
+        return _gather_snippets(seg.sig[seg.k], seg.feats[seg.k], seg.rr[seg.k, start:end],
+                                seg.er[seg.k, start:end])
 
     def signal_ranges(self, seg: Union[PendingSignal, PendingBeamCompact]) -> Optional[np.ndarray]:
         """The device's snippet raw ranges of a segmented read, [n_snip, 2]

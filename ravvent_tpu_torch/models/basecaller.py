@@ -6,7 +6,8 @@ memory positions). Train metrics: masked CE (pad excluded, mean over
 non-pad) and accuracy omitting pad, start and end. Validation metrics: loss
 on the greedy decode's logits, accuracy omitting start and end only (not
 pad, a reference quirk, basecaller.py:267-279) within the batch-max target
-width.
+width. Data-parallel training passes ``reduce`` (utils/masking.py), so
+that every count and the batch-max width are the global batch's.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models import decoder as dec
 from ravvent_tpu_torch.models.rnn import encoder_apply, init_encoder
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
-from ravvent_tpu_torch.utils.masking import input_mask, masked_accuracy, masked_ce_loss
+from ravvent_tpu_torch.utils.masking import Reduce, input_mask, masked_accuracy, masked_ce_loss
 
 Params = Dict[str, Any]
 
@@ -92,12 +93,15 @@ class TrainOutput(NamedTuple):
 def train_forward(params: Params, raw: torch.Tensor, event: torch.Tensor, targets: torch.Tensor,
                   cfg: ModelConfig, sampling_probability: float = 0.0,
                   gen: Optional[torch.Generator] = None,
-                  draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> TrainOutput:
+                  draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  reduce: Optional[Reduce] = None) -> TrainOutput:
     """Teacher-forced forward pass with loss and train accuracy
     (reference: basecaller.py:225-253): the trainable encoders, un-projected
     f32 memory, then :func:`decoder.teacher_forced_decode` over
     ``targets[:, :-1]`` against ``targets[:, 1:]``. An unsampled position's
-    -1 counts as a miss, as in the reference."""
+    -1 counts as a miss, as in the reference. With ``reduce`` (a
+    data-parallel rank's rows) the loss is this rank's share of the global
+    batch's loss and the accuracy the global batch's."""
     check_config(cfg)
     enc_out, mask = encode_input(params, raw, event, cfg, trainable=True)
     mem = attn.setup_memory(params["decoder"]["attention"], enc_out, mask)
@@ -105,8 +109,8 @@ def train_forward(params: Params, raw: torch.Tensor, event: torch.Tensor, target
         params["decoder"], targets[:, :-1], mem, cfg.vocab_size, sampling_probability, gen,
         draws, cfg.effective_attention, cfg.cell_type)
     real = targets[:, 1:]
-    loss = masked_ce_loss(real, logits, PAD)
-    acc = masked_accuracy(real, sample_ids, [PAD, START, END])
+    loss = masked_ce_loss(real, logits, PAD, reduce)
+    acc = masked_accuracy(real, sample_ids, [PAD, START, END], reduce=reduce)
     return TrainOutput(loss=loss, acc=acc, logits=logits)
 
 
@@ -118,20 +122,25 @@ def loss_fn(params: Params, batch: Tuple[torch.Tensor, torch.Tensor, torch.Tenso
     return out.loss, out
 
 
-def batch_max_target_len(targets: torch.Tensor, pad_token: int = PAD) -> torch.Tensor:
+def batch_max_target_len(targets: torch.Tensor, pad_token: int = PAD,
+                         reduce: Optional[Reduce] = None) -> torch.Tensor:
     """The batch-max token width: the width the reference would have padded
-    this batch to (data_loader.py:124)."""
-    return torch.max(torch.sum(targets != pad_token, dim=1))
+    this batch to (data_loader.py:124); the global batch's with ``reduce``."""
+    width = torch.max(torch.sum(targets != pad_token, dim=1))
+    return width if reduce is None else reduce(width, "max")
 
 
 def val_metrics(real: torch.Tensor, pred_tokens: torch.Tensor, logits: torch.Tensor,
-                targets: torch.Tensor):
+                targets: torch.Tensor, reduce: Optional[Reduce] = None):
     """Validation loss and accuracy (reference: basecaller.py:267-279):
     ``real`` = targets[:, 1:], ``pred_tokens`` [B, T-1] the greedy tokens,
     ``logits`` [B, T-1, V]; the loss masks pad, the accuracy omits start and
-    end within the batch-max width, ``targets`` [B, T] giving that width."""
-    loss = masked_ce_loss(real, logits, PAD)
-    width = batch_max_target_len(targets) - 1
+    end within the batch-max width, ``targets`` [B, T] giving that width.
+    With ``reduce`` both are the global batch's."""
+    loss = masked_ce_loss(real, logits, PAD, reduce)
+    if reduce is not None:
+        loss = reduce(loss, "sum")
+    width = batch_max_target_len(targets, reduce=reduce) - 1
     in_width = torch.arange(real.shape[1], device=real.device)[None, :] < width
-    acc = masked_accuracy(real, pred_tokens, [START, END], extra_mask=in_width)
+    acc = masked_accuracy(real, pred_tokens, [START, END], extra_mask=in_width, reduce=reduce)
     return loss, acc

@@ -100,6 +100,17 @@ def decoder_step(params: Params, state: DecoderState, token_emb: torch.Tensor,
     return DecoderState(cells=new_cells, attention=attention_vec), logits, align
 
 
+def scheduled_draws(gen: torch.Generator, T: int, B: int, vocab_size: int,
+                    sampling_probability: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scheduled sampling's draws for T steps of B rows from ``gen``:
+    (select [T, B] bool, gumbel [T, B, V] f32), select first. A
+    data-parallel rank draws the global batch's and keeps its rows, so that
+    it draws what one process draws."""
+    select = torch.rand((T, B), generator=gen, device=device) < sampling_probability
+    u = torch.rand((T, B, vocab_size), generator=gen, device=device)
+    return select, -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+
+
 def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.AttnMemory,
                           vocab_size: int, sampling_probability: float = 0.0,
                           gen: Optional[torch.Generator] = None,
@@ -128,9 +139,7 @@ def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.At
         if draws is None:
             if gen is None:
                 raise ValueError("scheduled sampling needs a generator or draws")
-            select = torch.rand((T, B), generator=gen, device=dev) < sampling_probability
-            u = torch.rand((T, B, vocab_size), generator=gen, device=dev)
-            gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+            select, gumbel = scheduled_draws(gen, T, B, vocab_size, sampling_probability, dev)
         else:
             select, gumbel = (d.to(dev) for d in draws)
     cur = inputs_emb[:, 0]

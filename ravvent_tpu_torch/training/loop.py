@@ -17,7 +17,27 @@ package:
 - parameters stay in the JAX tree's layout (models/basecaller.py), each
   leaf a tensor that requires grad.
 
-Data-parallel training (``num_data_shards > 1``) is not ported yet.
+Data-parallel training (``num_data_shards = N > 1``, the JAX trainer's
+batch-sharded ``jit`` with replicated parameters, ravvent_tpu/training/
+loop.py:140-151) runs one process a shard in a process group of world size
+N (parallel/distributed.py:initialize). Every rank is given the same
+global batch and keeps its ``local_batch_slice`` rows; it equals one
+process's step on the global batch:
+
+- the loss's normalizer, the non-pad count, is summed over the ranks before
+  the division, each rank's loss is its share of the global mean, and the
+  gradients (and the shares) are summed in one flat all-reduce a step; a
+  mean of per-rank means would be wrong whenever the shards' counts differ;
+- the train accuracy's match count and total are summed likewise;
+- scheduled sampling's draws are the global batch's, from the same seeded
+  generator on every rank, each rank keeping its rows;
+- validation's batch-max width and greedy all-finished stop, and its loss
+  and accuracy, are the global batch's;
+- rank 0's initial parameters and generator state are broadcast at
+  construction; clipping and
+  Adam then run on every rank on the same summed gradients, so the ranks'
+  parameters stay equal bit for bit. Only rank 0 writes checkpoints and the
+  CSV log.
 """
 
 from __future__ import annotations
@@ -35,6 +55,8 @@ from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import (
     PAD, check_config, encode_input, init_basecaller, train_forward, val_metrics,
 )
+from ravvent_tpu_torch.models.decoder import scheduled_draws
+from ravvent_tpu_torch.parallel import distributed
 from ravvent_tpu_torch.training.logging import CSVLogger
 
 if TYPE_CHECKING:
@@ -138,7 +160,10 @@ class Trainer:
     unless ``"cpu"`` is asked for. Scheduled sampling draws from
     ``self.rng``, a ``torch.Generator`` on the device seeded from
     ``random_seed`` (or ``seed``); its stream differs from jax.random's, so
-    only ``teacher_forcing >= 1`` (p = 0) repeats the JAX trainer's steps."""
+    only ``teacher_forcing >= 1`` (p = 0) repeats the JAX trainer's steps.
+    With ``num_data_shards > 1`` this process is one rank of data-parallel
+    training (the module's docstring) and needs an initialized process
+    group of that world size."""
 
     def __init__(self, cfg: RunConfig, params: Optional[Params] = None,
                  device: Union[str, torch.device, None] = None, seed: Optional[int] = None):
@@ -146,8 +171,14 @@ class Trainer:
         self.mcfg = cfg.model
         self.tcfg = cfg.train
         check_config(self.mcfg)
-        if self.tcfg.num_data_shards > 1:
-            raise NotImplementedError("data-parallel training (num_data_shards > 1) is not ported")
+        self.n_shards = self.tcfg.num_data_shards
+        self.rank, world = distributed.process_info()
+        if self.n_shards > 1 and world != self.n_shards:
+            raise RuntimeError(
+                f"num_data_shards={self.n_shards} trains one process a shard: initialize a process "
+                f"group of world size {self.n_shards} first (parallel.distributed.initialize); "
+                f"this process's world size is {world}")
+        self._reduce = distributed.all_reduce if self.n_shards > 1 else None
         self.device = resolve_device(device)
         self.optimizer = make_optimizer(self.tcfg.learning_rate, self.tcfg.clipnorm)
         tf = float(self.tcfg.teacher_forcing)
@@ -160,6 +191,13 @@ class Trainer:
         if params is None:
             params = init_basecaller(self.mcfg, torch.Generator().manual_seed(seed))
         self.params = as_trainable(params, self.device)
+        if self.n_shards > 1:  # rank 0's initial parameters and generator on every rank
+            with torch.no_grad():
+                leaves = tree_leaves(self.params)
+                flat = distributed.broadcast(torch.cat([p.reshape(-1) for p in leaves]), 0)
+                for p, v in zip(leaves, flat.split([p.numel() for p in leaves])):
+                    p.copy_(v.view_as(p))
+            self.rng.set_state(distributed.broadcast(self.rng.get_state(), 0))
         self.opt_state = self.optimizer.init(self.params)
 
     def load_state(self, state: Dict[str, Any]) -> None:
@@ -176,7 +214,15 @@ class Trainer:
             self.rng.set_state(state["rng"])
 
     def _to_device(self, batch):
+        """The batch's rows this process trains on, as device tensors: the
+        whole batch, or a data-parallel rank's ``local_batch_slice``."""
         raw, event, targets = (np.asarray(x) for x in batch)
+        if self.n_shards > 1:
+            if targets.shape[0] % self.n_shards:
+                raise ValueError(f"a batch of {targets.shape[0]} rows does not split over "
+                                 f"{self.n_shards} data shards")
+            rows = distributed.local_batch_slice(targets.shape[0])
+            raw, event, targets = raw[rows], event[rows], targets[rows]
         dev = self.device
         return (torch.as_tensor(raw, dtype=torch.float32).to(dev),
                 torch.as_tensor(event, dtype=torch.float32).to(dev),
@@ -184,27 +230,51 @@ class Trainer:
 
     def loss_and_grads(self, batch):
         """(TrainOutput, gradient tree) of one batch at the current
-        parameters; the step's draws come from ``self.rng``."""
+        parameters; the step's draws come from ``self.rng``. Data-parallel:
+        the global batch's loss, accuracy and gradients (summed over the
+        ranks); the logits are this rank's rows'."""
         raw, event, targets = self._to_device(batch)
+        draws = None
+        if self.n_shards > 1 and self.sampling_probability > 0.0:
+            B, T = np.asarray(batch[2]).shape
+            select, gumbel = scheduled_draws(self.rng, T - 1, B, self.mcfg.vocab_size,
+                                             self.sampling_probability, self.device)
+            rows = distributed.local_batch_slice(B)
+            draws = (select[:, rows], gumbel[:, rows])
         out = train_forward(self.params, raw, event, targets, self.mcfg,
-                            self.sampling_probability, self.rng)
-        grads = torch.autograd.grad(out.loss, tree_leaves(self.params))
+                            self.sampling_probability, self.rng, draws, self._reduce)
+        leaves = tree_leaves(self.params)
+        grads = torch.autograd.grad(out.loss, leaves)
+        if self.n_shards > 1:
+            # one all-reduce a step: the gradients and the loss shares
+            flat = torch.cat([g.reshape(-1) for g in grads] + [out.loss.detach().reshape(1)])
+            distributed.all_reduce(flat, "sum")
+            *grads, loss = flat.split([p.numel() for p in leaves] + [1])
+            grads = [g.view_as(p) for g, p in zip(grads, leaves)]
+            out = out._replace(loss=loss[0])
         return out, tree_unflatten(self.params, grads)
 
     def train_on_batch(self, batch) -> Dict[str, torch.Tensor]:
         """Value, gradient, clip, then Adam. Returns the step's loss and
         accuracy as device scalars (no host sync)."""
         out, grads = self.loss_and_grads(batch)
+        self.apply_gradients(grads)
+        return {"loss": out.loss.detach(), "acc": out.acc.detach()}
+
+    def apply_gradients(self, grads) -> None:
+        """Clip and Adam: the parameters updated in place by a gradient tree
+        (:meth:`loss_and_grads`'s)."""
         with torch.no_grad():
             updates, self.opt_state = self.optimizer.update(grads, self.opt_state)
             apply_updates(self.params, updates)
-        return {"loss": out.loss.detach(), "acc": out.acc.detach()}
 
     def validate_on_batch(self, batch) -> Dict[str, torch.Tensor]:
         """The encoders (the BiLSTM kernel on the card), un-projected f32
         memory and a plain greedy decode of ``T - 1`` steps bounded by the
         batch-max target length (reference quirk #4), then
-        :func:`val_metrics`. The bound is read from the host batch."""
+        :func:`val_metrics`. The bound is read from the host batch, which a
+        data-parallel rank is given whole: its metrics are the global
+        batch's."""
         raw, event, targets = self._to_device(batch)
         max_steps = int((np.asarray(batch[2]) != PAD).sum(axis=1).max()) - 1
         with torch.no_grad():
@@ -212,8 +282,9 @@ class Trainer:
             mem = attn.setup_memory(self.params["decoder"]["attention"], enc_out, mask)
             tokens, logits = greedy_decode(self.params["decoder"], mem, self.mcfg.vocab_size,
                                            targets.shape[1] - 1, max_steps,
-                                           self.mcfg.effective_attention, self.mcfg.cell_type)
-            loss, acc = val_metrics(targets[:, 1:], tokens, logits, targets)
+                                           self.mcfg.effective_attention, self.mcfg.cell_type,
+                                           reduce=self._reduce)
+            loss, acc = val_metrics(targets[:, 1:], tokens, logits, targets, self._reduce)
         return {"loss": loss, "acc": acc}
 
     def fit(self, train_gen, val_gen=None, epochs: Optional[int] = None,
@@ -222,10 +293,17 @@ class Trainer:
             checkpoint_manager: Optional["CheckpointManager"] = None,
             batch_callbacks: Iterable[Callable[[int, Dict[str, float]], None]] = (),
             verbose: bool = True) -> Dict[str, list]:
+        """Train ``epochs`` epochs of ``steps_per_epoch`` batches, validating
+        after each; returns the history of the epochs' mean metrics.
+        Data-parallel: each step's metrics are the global batch's, so every
+        rank's history is the same; only rank 0 prints, writes the CSV log
+        and the checkpoints."""
         epochs = epochs if epochs is not None else self.tcfg.epochs
         steps_per_epoch = steps_per_epoch or self.tcfg.steps_per_epoch
         validation_steps = validation_steps or self.tcfg.validation_steps
-        csv = CSVLogger(csv_log_path) if csv_log_path else None
+        writer = self.rank == 0
+        verbose = verbose and writer
+        csv = CSVLogger(csv_log_path) if csv_log_path and writer else None
         batch_callbacks = tuple(batch_callbacks)
 
         history: Dict[str, list] = {"loss": [], "acc": [], "val_loss": [], "val_acc": []}
@@ -256,7 +334,7 @@ class Trainer:
                 history.setdefault(k, []).append(v)
             if csv:
                 csv.log(epoch, metrics)
-            if checkpoint_manager is not None:
+            if checkpoint_manager is not None and writer:
                 # the reference's schema: one directory per epoch, every epoch
                 checkpoint_manager.save(
                     self.cfg.checkpoint_path(epoch + 1), self.params, self.opt_state,

@@ -1,11 +1,17 @@
 """Masking, loss and accuracy (counterpart of ravvent_tpu/utils/masking.py;
-reference: utils.py:15-32, basecaller.py:212-220)."""
+reference: utils.py:15-32, basecaller.py:212-220).
+
+Data-parallel training passes ``reduce(t, op) -> t``, which reduces a
+tensor over the ranks (parallel/distributed.py:all_reduce), so that a
+mean's normalizer is the global batch's."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+
+Reduce = Callable[[torch.Tensor, str], torch.Tensor]
 
 
 def input_mask(x: torch.Tensor, padding_value: float = 0.0) -> torch.Tensor:
@@ -21,20 +27,28 @@ def _token_ce(real: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, real.long()[..., None])[..., 0]
 
 
-def masked_ce_loss(real: torch.Tensor, logits: torch.Tensor, pad_token: int = 0) -> torch.Tensor:
+def masked_ce_loss(real: torch.Tensor, logits: torch.Tensor, pad_token: int = 0,
+                   reduce: Optional[Reduce] = None) -> torch.Tensor:
     """Sparse categorical cross-entropy from logits, mean over non-pad
-    positions (reference: basecaller.py:212-220)."""
+    positions (reference: basecaller.py:212-220). With ``reduce`` the count
+    of non-pad positions is the global batch's, and the result this rank's
+    share of the global mean: the ranks' shares sum to it."""
     ce = _token_ce(real, logits)
     mask = (real != pad_token).to(ce.dtype)
-    return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if reduce is not None:
+        count = reduce(count, "sum")
+    return torch.sum(ce * mask) / torch.clamp(count, min=1.0)
 
 
 def masked_accuracy(y_true: torch.Tensor, y_pred: torch.Tensor, omit_vals: Sequence[int],
-                    extra_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    extra_mask: Optional[torch.Tensor] = None,
+                    reduce: Optional[Reduce] = None) -> torch.Tensor:
     """Exact-match rate over positions whose true token is not in
     ``omit_vals`` (reference: utils.py:15-24). ``extra_mask`` (bool, same
     shape) excludes more positions: the validation step's batch-max target
-    width on top of the static padding. Returns an f32 scalar."""
+    width on top of the static padding. Returns an f32 scalar; with
+    ``reduce``, the global batch's rate."""
     match = (y_true == y_pred).to(torch.int32)
     mask = torch.ones_like(y_true, dtype=torch.int32)
     for ov in omit_vals:
@@ -43,6 +57,8 @@ def masked_accuracy(y_true: torch.Tensor, y_pred: torch.Tensor, omit_vals: Seque
         mask = mask * extra_mask.to(torch.int32)
     total = torch.sum(mask)
     count = torch.sum(mask * match)
+    if reduce is not None:
+        count, total = reduce(torch.stack([count, total]), "sum")
     return count.float() / torch.clamp(total, min=1).float()
 
 

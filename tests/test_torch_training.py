@@ -285,8 +285,8 @@ def test_trainer_options():
     sched = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, teacher_forcing=0.5))
     assert Trainer(sched, device="cpu").sampling_probability == 0.5
     dp = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, num_data_shards=2))
-    with pytest.raises(NotImplementedError):
-        Trainer(dp, device="cpu")
+    with pytest.raises(RuntimeError, match="initialize a process group"):
+        Trainer(dp, device="cpu")  # data-parallel needs an initialized process group
     # seeded weights repeat
     a, b = Trainer(cfg, device="cpu", seed=4), Trainer(cfg, device="cpu", seed=4)
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)))
