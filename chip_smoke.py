@@ -10,7 +10,9 @@ and MappingEvaluator (evaluation/mapping.py), the signal-only wire (sigdev,
 sigdev8) through both, the engine's greedy decode, its top-K beams with the
 mapping evaluator's beam selection, tools/profile_decode.py with a
 torch.profiler trace of the bench's pipelined path, training
-(training/loop.py:Trainer), and the engine's plain decode
+(training/loop.py:Trainer), the multi-device runs, the user CLIs
+(tools/{make_dataset, train, evaluate, train_curriculum, sweep_epochs,
+eval_token_acc}.py), and the engine's plain decode
 (beam_impl="xla") on flagship32's shape and on GRU, unidirectional and
 Bahdanau configurations — at the flagship's full width (joint raw+event
 input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM decoder with Luong
@@ -144,6 +146,21 @@ hand-written kernel against its plain PyTorch version on the card:
      largest parameter difference printed in units of the learning rate,
      and 5 more steps timed on each; (c) entry.dryrun_multichip(2), both
      ranks on the card. A rank that fails fails the phase.
+ 20. the user tools (ravvent_tpu_torch/tools/), each CLI's main(argv) in
+     process in a temporary directory at the flagship's width (batch 128,
+     seeded): (a) make_dataset, 2 train and 4 eval reads of 1.5-1.8 kb (the
+     val split a quarter of the eval reads); (b) train, 2 epochs of 3 steps
+     at teacher forcing 1.0 (validation launches bilstm 4 times a batch, the
+     steps no kernel), then a resume from epoch 1 whose epoch-2 loss and
+     parameters equal the uninterrupted run's within 1e-6; (c) evaluate on
+     (b)'s last checkpoint with beams 5 and 1 over the test split, on the
+     card (bilstm, beam_cell, beam_attend) and with --cpu: the same result
+     files, identities within 0.3 points, the card's bases/s; (d)
+     train_curriculum, two stages, the bad-basin restart firing once, a
+     sweep of 2 epochs and the export; (e) sweep_epochs over (b)'s
+     checkpoints, and eval_token_acc on the card (bilstm, decode_step once a
+     step) against --cpu: accuracies within 0.01, tokens on the same memory
+     >= 0.998. Each step's seconds and launches printed.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -431,7 +448,8 @@ def phase_beam_step() -> list:
     """The bf16/f32 beam step (beam_cell, then beam_attend) against
     beam_step_plain at B=4096, S=232, W=5: bf16 memory over 40 steps, with
     each kernel against its own plain version on the same inputs, then f32
-    memory over 10 steps; each step fed the plain version's state. Times
+    memory over 10 steps, and over 10 steps at the evaluate-side tools'
+    B=1024, W=5 and W=1; each step fed the plain version's state. Times
     the pair and each kernel beside its bound, and the step at S=8."""
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
@@ -496,6 +514,17 @@ def phase_beam_step() -> list:
                                          plain_on(kf, vf, mask), st0, 10, B, W, tol)
     print(f"  beam_step B={B} S={S} W={W} f32, 10 steps: tokens agree {f_tok:.5f}, parents agree "
           f"{f_par:.5f} (need >= 0.998); score max_abs_err {f_err:.3e} (tol {tol:g})")
+    # the evaluate-side tools' shapes: chunks of 1024 rows on f32 memory, at
+    # beam widths 5 and 1 (tools/evaluate.py --beams 5,1)
+    Bc = 1024
+    kc, vc, mc = kf[:Bc].contiguous(), vf[:Bc].contiguous(), mask[:Bc].contiguous()
+    for Wc in (5, 1):
+        c_tok, c_par, c_err, _ = check_steps(
+            f"beam_step f32 B={Bc} W={Wc}", step_on(kc, vc, mc), plain_on(kc, vc, mc),
+            initial_state(Bc, Wc, U, 2, dev), 10, Bc, Wc, tol)
+        print(f"  beam_step B={Bc} S={S} W={Wc} f32, 10 steps: tokens agree {c_tok:.5f}, parents "
+              f"agree {c_par:.5f} (need >= 0.998); score max_abs_err {c_err:.3e} (tol {tol:g})")
+    del kc, vc, mc
 
     # times on a mid-decode state
     st = st_mid
@@ -2243,6 +2272,201 @@ def phase_multidevice(smi: str) -> dict:
     return fig
 
 
+def last_checkpoint(models: "Path", epoch: int) -> "Path":
+    """The run's one checkpoint of ``epoch`` under the run-name schema."""
+    found = sorted((models / "snippets" / "mask" / "encd_2_decd_1").glob(f"*.{epoch:02d}"))
+    require(len(found) == 1, f"expected one epoch-{epoch} checkpoint, found {len(found)}")
+    return found[0]
+
+
+def phase_tools(smi: str) -> dict:
+    """The user tools (ravvent_tpu_torch/tools/) at the flagship's width,
+    each CLI's main(argv) in process, in a temporary directory: (a)
+    make_dataset, (b) train and a resume, (c) evaluate on the card and with
+    --cpu, (d) train_curriculum with a restart and a sweep, (e) sweep_epochs
+    and eval_token_acc on the card and with --cpu. Returns the figures."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.assembly.alignment import banded_global_identity
+    from ravvent_tpu_torch.config import DataConfig, ModelConfig
+    from ravvent_tpu_torch.data.generator import SnippetBatchGenerator
+    from ravvent_tpu_torch.evaluation.mapping import MappingEvaluator
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.tools import (
+        eval_token_acc, evaluate, make_dataset, sweep_epochs, train, train_curriculum,
+    )
+    from ravvent_tpu_torch.tools.common import load_params
+    from ravvent_tpu_torch.weights import flatten, to_device
+
+    fig, secs, kernels = {}, {}, {}
+
+    def step(name: str, fn):
+        """Run one step from zeroed launch counts: (result, seconds); the
+        step's launches kept under its name."""
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        kernels[name] = {k: v for k, v in cuda_lib.launches.items() if v}
+        print(f"  {name}: {secs[name]:.3f} s, launches {kernels[name]} [{smi}]", flush=True)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ds = d / "ds"
+        # (a) the dataset: 2 train and 4 eval reads of 1.5-1.8 kb (4, so that
+        # the val split, a quarter of them, holds a read)
+        step("(a) make_dataset", lambda: make_dataset.main([
+            "--out", str(ds), "--n-kmers", "43", "--genome-len", "20000", "--train-reads", "2",
+            "--eval-reads", "4", "--read-len", "1500", "1800", "--seed", str(SEED + 3)]))
+        val_fi = ds / "eval" / "files_info.val.snippets.stride_6.json"
+        test_fi = ds / "eval" / "files_info.test.snippets.stride_6.json"
+        n_val, n_test = (len(json.loads(p.read_text())) for p in (val_fi, test_fi))
+        require((n_val, n_test) == (1, 3), f"val/test split {n_val}/{n_test}, expected 1/3")
+
+        # (b) train, 2 epochs of 3 steps at p = 0, then a resume from epoch 1
+        models = d / "models"
+        targs = ["--dataset", str(ds), "--epochs", "2", "--steps-per-epoch", "3",
+                 "--validation-steps", "2", "--teacher-forcing", "1.0", "--seed", str(SEED)]
+        hist = step("(b) train", lambda: train.main(targs + [
+            "--checkpoint-dir", str(models), "--info-dir", str(d / "info")]))
+        k = kernels["(b) train"]
+        n_val_batches = 2 * 2
+        print(f"  train: loss {hist['loss']}, val_loss {hist['val_loss']}; bilstm "
+              f"{k.get('bilstm', 0)} launches (need 4 a validation batch: "
+              f"{4 * n_val_batches}), others {sum(v for n, v in k.items() if n != 'bilstm')} "
+              f"(need 0: the train steps run the plain encoder)")
+        require(all(np.isfinite(hist["loss"] + hist["val_loss"])), "a train loss is not finite")
+        require(k == {"bilstm": 4 * n_val_batches}, "train launched other than 4 bilstm a "
+                "validation batch")
+        ckpt1, ckpt2 = last_checkpoint(models, 1), last_checkpoint(models, 2)
+        hist_r = step("(b) train, resumed", lambda: train.main(targs + [
+            "--resume-epoch", "1", "--resume-path", str(ckpt1), "--checkpoint-dir",
+            str(d / "models_r"), "--info-dir", str(d / "info_r")]))
+        rel = abs(hist_r["loss"][0] - hist["loss"][1]) / abs(hist["loss"][1])
+        got, ref = (flatten(load_params(p)) for p in (last_checkpoint(d / "models_r", 2), ckpt2))
+        perr = max(float(np.abs(got[n] - ref[n]).max()) / max(float(np.abs(ref[n]).max()), 1e-30)
+                   for n in ref)
+        fig["resume_loss_rel"], fig["resume_param_err"] = rel, perr
+        print(f"  resume from epoch 1: epoch-2 loss {hist_r['loss'][0]!r} vs {hist['loss'][1]!r}, "
+              f"rel {rel:.3e} (need <= 1e-6); parameters {perr:.3e} of a leaf's largest "
+              f"(need <= 1e-6)")
+        require(rel <= 1e-6 and perr <= 1e-6, "the resumed run differs from the uninterrupted one")
+
+        # (c) evaluate the last checkpoint on the card, then with --cpu
+        merged = []
+        map_identity = MappingEvaluator.map_identity
+
+        def recording(self, pred_seq, ref_seq):
+            merged.append(pred_seq)
+            return map_identity(self, pred_seq, ref_seq)
+
+        MappingEvaluator.map_identity = recording
+        try:
+            eargs = ["--checkpoint", str(ckpt2), "--files-info", str(test_fi), "--beams", "5,1",
+                     "--tag", "smoke", "--cache-dir", str(ds / ".cache")]
+            tot_card = step("(c) evaluate", lambda: evaluate.main(eargs + [
+                "--out-dir", str(d / "ev_card")]))
+            card_merged = list(merged)
+            tot_cpu = step("(c) evaluate --cpu", lambda: evaluate.main(eargs + [
+                "--cpu", "--out-dir", str(d / "ev_cpu")]))
+        finally:
+            MappingEvaluator.map_identity = map_identity
+        cpu_merged = merged[len(card_merged):]
+        card_bases = sum(len(m) for m in card_merged)
+        require(len(card_merged) == len(cpu_merged) == 2 * n_test, "a read was not merged")
+        agree = [banded_global_identity(a, b) for a, b in zip(card_merged, cpu_merged)]
+        fig["merged_agree"] = sum(m for m, _, _ in agree) / max(sum(c for _, c, _ in agree), 1)
+        n_equal = sum(a == b for a, b in zip(card_merged, cpu_merged))
+        names = sorted(p.name for p in (d / "ev_card").iterdir())
+        require(names == sorted(p.name for p in (d / "ev_cpu").iterdir()) and len(names) == 4,
+                "card and CPU evaluate wrote other files")
+        for n in names:
+            if n.startswith("mapping_evaluator_results"):
+                rc, rh = (json.loads((d / side / n).read_text()) for side in ("ev_card", "ev_cpu"))
+                require([(r["path"], sorted(r)) for r in rc] == [(r["path"], sorted(r)) for r in rh],
+                        f"{n}: card and CPU records differ in reads or keys")
+        gap = max(abs(tot_card[key][0] - tot_cpu[key][0]) for key in tot_card)
+        k = kernels["(c) evaluate"]
+        fig["eval_bases_per_s"] = card_bases / secs["(c) evaluate"]
+        print(f"  evaluate, beams 5 and 1 over {n_test} reads: card {tot_card}, CPU {tot_cpu}; "
+              f"identity gap {gap:.3f} points (need <= 0.3); {card_bases} merged bases in "
+              f"{secs['(c) evaluate']:.3f} s on the card: {fig['eval_bases_per_s']:.0f} bases/s "
+              f"(a smoke figure: a 2-epoch model, {n_test} short reads, the host's merge and "
+              f"mapping inside), "
+              f"the CPU {secs['(c) evaluate --cpu']:.3f} s; merged reads card vs CPU: "
+              f"{n_equal} of {len(agree)} equal, banded identity {fig['merged_agree']:.5f} (need "
+              f">= 0.999) [{smi}]")
+        require(gap <= 0.3, "card and CPU identities differ by more than 0.3 points")
+        require(n_equal == len(agree) or fig["merged_agree"] >= 0.999,
+                "card and CPU merged reads differ: banded "
+                f"identity {fig['merged_agree']:.5f} < 0.999")
+        require(k.get("beam_cell", 0) > 0 and k.get("beam_attend", 0) == k.get("beam_cell")
+                and k.get("bilstm", 0) > 0, "evaluate did not run bilstm, beam_cell and "
+                "beam_attend")
+        require(not kernels["(c) evaluate --cpu"], "the CPU run launched a kernel")
+
+        # (d) the curriculum: the restart fires once, the sweep takes 2 epochs
+        summary = step("(d) train_curriculum", lambda: train_curriculum.main([
+            "--dataset", str(ds), "--tag", "smoke", "--seed", str(SEED), "--stages",
+            "[[1.0,2e-3,1,3],[0.5,5e-4,1,3]]", "--sweep-epochs", "2", "--restart-below",
+            "1.01", "--max-restarts", "1", "--workdir", str(d / "cur"), "--export",
+            str(d / "cur_best")]))
+        print(f"  curriculum: restarts {summary['restarts']}, sweep {summary['epoch_sweep']}, "
+              f"best epoch {summary['best_epoch']}")
+        require(len(summary["restarts"]) == 1 and summary["restarts"][0]["restarted"]
+                and summary["seed"] == SEED + 1, "the bad-basin restart did not fire once")
+        require([r["epoch"] for r in summary["epoch_sweep"]] == [1, 2], "the sweep missed an epoch")
+        require((d / "cur_best" / "params.npz").exists() and (d / "cur" / "restart_log.json")
+                .exists(), "the curriculum wrote no export or restart log")
+        k = kernels["(d) train_curriculum"]
+        require(k.get("bilstm", 0) > 0 and k.get("beam_cell", 0) > 0, "the curriculum's "
+                "validation and sweep launched no kernel")
+
+        # (e) sweep_epochs over (b)'s checkpoints; eval_token_acc card and CPU
+        res = step("(e) sweep_epochs", lambda: sweep_epochs.main([
+            "--run-name", ckpt1.name[:-3], "--epochs", "1,2", "--checkpoint-dir", str(models),
+            "--files-info", str(val_fi), "--out", str(d / "sweep.json"), "--export-best",
+            str(d / "best")]))
+        require(sorted(res) == [1, 2] and (d / "best" / "params.npz").exists(),
+                "sweep_epochs missed an epoch or the export")
+        targs = ["--checkpoint", str(ckpt2), "--files-info", str(test_fi), "--tag", "smoke",
+                 "--max-batches", "2", "--cache-dir", str(ds / ".cache")]
+        row_card = step("(e) eval_token_acc", lambda: eval_token_acc.main(
+            targs + ["--out-dir", str(d / "tok_card")]))
+        row_cpu = step("(e) eval_token_acc --cpu", lambda: eval_token_acc.main(
+            targs + ["--cpu", "--out-dir", str(d / "tok_cpu")]))
+        k = kernels["(e) eval_token_acc"]
+        # the tokens on the same memory: the card's, decoded on both devices
+        cfg = ModelConfig()
+        params = to_device(load_params(ckpt2), "cuda")
+        gen = SnippetBatchGenerator.from_config(str(test_fi), DataConfig(),
+                                               cache_dir=str(ds / ".cache"))
+        raw, event, nuc = gen[0]
+        with torch.no_grad():
+            mem = eval_token_acc.memory(params, cfg, torch.as_tensor(raw, device="cuda"),
+                                        torch.as_tensor(event, device="cuda"))
+            steps = nuc.shape[1] - 1
+            t_card = eval_token_acc.greedy_tokens(params, cfg, mem, steps).cpu()
+            t_cpu = eval_token_acc.greedy_tokens(to_device(params, "cpu"), cfg, mem.to("cpu"), steps)
+        same = float((t_card == t_cpu).float().mean())
+        accs = ("strict", "val_style", "teacher_forced")
+        worst = max(abs(row_card[a] - row_cpu[a]) for a in accs)
+        fig["token_same"], fig["token_acc_gap"] = same, worst
+        print(f"  eval_token_acc, 2 batches of 128: card {row_card}, CPU {row_cpu}, largest gap "
+              f"{worst:.5f} (need <= 0.01); tokens on the same memory {same:.5f} (need >= 0.998); "
+              f"decode_step {k.get('decode_step', 0)} launches (need 2 x {steps}) [{smi}]")
+        require(worst <= 0.01, "card and CPU token accuracies differ by more than 0.01")
+        require(same >= 0.998, "card and CPU greedy tokens disagree on the same memory")
+        require(k.get("decode_step", 0) == 2 * steps and k.get("bilstm", 0) == 8,
+                "eval_token_acc did not launch decode_step a step and bilstm 4 a batch")
+    fig["secs"], fig["kernels"] = secs, kernels
+    return fig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2310,6 +2534,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_multidevice(smi)
     phase("19 multi-device: the sharded engine, data-parallel training, the dry run", t0)
+    t0 = time.perf_counter()
+    phase_tools(smi)
+    phase("20 the user tools at the flagship's width", t0)
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_cell["launches"] = counts["beam_cell"]

@@ -119,10 +119,11 @@ class SnippetBatchGenerator:
             self.fetch_ids = self._compute_new_fetch_ids()
 
     # --- prefetching epoch iterator (not in the reference) ---
-    def epoch(self) -> Iterator[Batch]:
-        """Iterate one epoch with background prefetch, then advance the plan."""
+    def epoch(self, start: int = 0) -> Iterator[Batch]:
+        """Iterate one epoch with background prefetch, from batch ``start``
+        of the plan, then advance the plan."""
         if self.prefetch <= 0:
-            for i in range(len(self)):
+            for i in range(start, len(self)):
                 yield self[i]
             self.on_epoch_end()
             return
@@ -142,7 +143,7 @@ class SnippetBatchGenerator:
 
         def producer() -> None:
             try:
-                for i in range(n):
+                for i in range(start, n):
                     if stop.is_set() or not _put(("ok", self[i])):
                         return
             except Exception as exc:  # pragma: no cover
@@ -168,9 +169,24 @@ class SnippetBatchGenerator:
             stop.set()
             t.join(timeout=5)
 
-    def _stream(self) -> Iterator[Batch]:
+    def _stream(self, start: int = 0) -> Iterator[Batch]:
         while True:
-            yield from self.epoch()
+            yield from self.epoch(start)
+            start = 0
+
+    def skip(self, num_steps: int) -> None:
+        """Start the :meth:`steps` stream ``num_steps`` batches in, as if
+        they had been drawn (the plans' reshuffles included), loading none:
+        a resumed run then draws the batches the uninterrupted run drew
+        after them. Call it before the first :meth:`steps`."""
+        if getattr(self, "_steps_stream", None) is not None:
+            raise RuntimeError("skip() starts the stream: call it before steps()")
+        if num_steps and not len(self):
+            raise ValueError("the index makes no batch to skip")
+        while num_steps and num_steps >= len(self):
+            num_steps -= len(self)
+            self.on_epoch_end()
+        self._steps_stream = self._stream(num_steps)
 
     def steps(self, num_steps: int) -> Iterator[Batch]:
         """Yield exactly ``num_steps`` batches from a PERSISTENT stream that

@@ -58,7 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import Iterable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,7 +70,7 @@ from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import check_config, encode_input
 from ravvent_tpu_torch.models.rnn import kernel_weights, stream_weights
 from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
-from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
+from ravvent_tpu_torch.ops.beam_step_cuda import KERNEL_BEAMS, beam_step_loop, fused_beam_decode
 from ravvent_tpu_torch.ops.event_detect import detect_boundaries_device, fired_to_event_lens
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
 from ravvent_tpu_torch.parallel.mesh import Mesh, replicate, row_bounds, shard_batch
@@ -86,6 +86,14 @@ _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
                  np.dtype(np.int16): torch.int16,
                  np.dtype(np.int32): torch.int32, np.dtype(np.float16): torch.float16,
                  np.dtype(np.float32): torch.float32}
+
+
+def kernels_serve(cfg: ModelConfig, beams: Iterable[int] = ()) -> bool:
+    """Whether the decode kernels (the beam step, the beam loop, the fused
+    greedy step) serve ``cfg``'s decoder, a depth-1 LSTM with Luong
+    attention, and the beam step every width in ``beams`` (``KERNEL_BEAMS``)."""
+    return (cfg.cell_type == "lstm" and cfg.effective_attention == "luong"
+            and cfg.decoder_depth == 1 and all(b in KERNEL_BEAMS for b in beams))
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -356,8 +364,7 @@ class BasecallEngine:
             raise ValueError(f"beam_impl must be one of {BEAM_IMPLS}, got {beam_impl!r}")
         if beam_impl != "xla":
             # the JAX engine asserts the same (basecall.py:334-337 there)
-            if (cfg.cell_type != "lstm" or cfg.effective_attention != "luong"
-                    or cfg.decoder_depth != 1):
+            if not kernels_serve(cfg):
                 raise ValueError(
                     f"beam_impl={beam_impl!r} runs the beam kernels, which take a depth-1 LSTM "
                     f"decoder with Luong attention; got rnn_type={cfg.rnn_type!r}, attention "

@@ -1,0 +1,85 @@
+"""What the port's user tools share: the model flags, weights from a
+checkpoint or an npz file, and the engine of the evaluate-side tools.
+
+The JAX package's evaluate-side tools (tools/evaluate.py, sweep_epochs.py,
+train_curriculum.py) build ``BasecallEngine(params, cfg, chunk_size=1024)``
+with that engine's defaults: f32 memory, f32 encoder stream, the plain beam
+decode (ravvent_tpu/evaluation/basecall.py:250-256 there). The port's tools
+keep those numerics, f32 memory and encoder with chunks of 1024 rows, and
+decode with the beam-step kernels (``beam_impl="step"``) where the
+configuration allows it (evaluation/basecall.py:kernels_serve, the rule
+the engine enforces), else with the plain decode (``"xla"``):
+:func:`default_beam_impl`.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Iterable, Optional
+
+import torch
+
+from ravvent_tpu_torch.config import ModelConfig
+from ravvent_tpu_torch.evaluation.basecall import BasecallEngine, kernels_serve
+from ravvent_tpu_torch.training.checkpoints import PARAMS_FILE
+from ravvent_tpu_torch.weights import load_npz
+
+EVAL_CHUNK = 1024  # rows a chunk of the evaluate-side tools' engine
+
+
+def add_model_flags(ap: argparse.ArgumentParser, rnn_type: bool = True,
+                    attention: bool = False) -> None:
+    """The model's flags, as the JAX tools name them: ``--data-type``, the
+    widths and depths, and where the tool takes them ``--rnn-type`` and
+    ``--attention``."""
+    ap.add_argument("--data-type", default="joint", choices=["raw", "event", "joint"])
+    if rnn_type:
+        ap.add_argument("--rnn-type", default="bilstm", choices=["gru", "lstm", "bigru", "bilstm"])
+    if attention:
+        ap.add_argument("--attention", default="luong", choices=["luong", "bahdanau"])
+    ap.add_argument("--enc-units", type=int, default=128)
+    ap.add_argument("--dec-units", type=int, default=128)
+    ap.add_argument("--encoder-depth", type=int, default=2)
+    ap.add_argument("--decoder-depth", type=int, default=1)
+
+
+def model_config(args: argparse.Namespace) -> ModelConfig:
+    """The ``ModelConfig`` of :func:`add_model_flags`' flags."""
+    return ModelConfig(
+        enc_units=args.enc_units, dec_units=args.dec_units,
+        encoder_depth=args.encoder_depth, decoder_depth=args.decoder_depth,
+        rnn_type=getattr(args, "rnn_type", "bilstm"),
+        attention_type=getattr(args, "attention", "luong"), data_type=args.data_type,
+    )
+
+
+def load_params(path) -> dict:
+    """The parameters of a port checkpoint directory (its ``params.npz``,
+    training/checkpoints.py) or of an npz file (``weights.save_npz``), as
+    CPU tensors."""
+    p = Path(path)
+    if p.is_dir():
+        p = p / PARAMS_FILE
+    if not p.is_file():
+        raise FileNotFoundError(f"no checkpoint or npz of weights at {path}")
+    return load_npz(p)
+
+
+def default_beam_impl(cfg: ModelConfig, beams: Iterable[int]) -> str:
+    """``"step"`` (the beam-step kernels) where ``kernels_serve(cfg, beams)``,
+    ``"xla"`` (the plain beam decode) otherwise."""
+    return "step" if kernels_serve(cfg, beams) else "xla"
+
+
+def eval_engine(params, cfg: ModelConfig, device: torch.device, beams: Iterable[int],
+                n_beams: int = 1, beam_impl: Optional[str] = None) -> BasecallEngine:
+    """The evaluate-side tools' engine: f32 memory and encoder, chunks of
+    1024 rows, unpacked results, ``beam_impl`` or :func:`default_beam_impl`."""
+    return BasecallEngine(params, cfg, chunk_size=EVAL_CHUNK, memory_dtype=None,
+                          encoder_dtype=None, pack_u8=False, device=device,
+                          beam_impl=beam_impl or default_beam_impl(cfg, beams), n_beams=n_beams)
+
+
+def device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

@@ -35,3 +35,35 @@ def test_checker_sees_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom ravvent_tpu.models import rnn\nimport ravvent_tpu_torch\n")
     assert set(imported_roots(p)) & FORBIDDEN == {"ravvent_tpu"}
+
+
+TOOL_MODULES = sorted(f"ravvent_tpu_torch.tools.{p.stem}"
+                      for p in (REPO / "ravvent_tpu_torch" / "tools").glob("*.py")
+                      if p.stem != "__init__")
+USER_TOOLS = ["make_dataset", "train", "evaluate", "train_curriculum", "sweep_epochs",
+              "eval_token_acc", "analyse_accuracies", "params_search", "event_max_estimation",
+              "fix_invalid_reads", "plots"]
+
+
+def test_scan_covers_the_tools():
+    for name in USER_TOOLS:
+        assert REPO / "ravvent_tpu_torch" / "tools" / f"{name}.py" in FILES, name
+    for rel in ("evaluation/guppy.py", "utils/shape_checker.py"):
+        assert REPO / "ravvent_tpu_torch" / rel in FILES, rel
+
+
+def test_tools_import_without_matplotlib_or_h5py(monkeypatch):
+    """The card's machine has neither: every module of
+    ravvent_tpu_torch.tools imports all the same."""
+    import importlib
+    import sys
+
+    for name in ("matplotlib", "matplotlib.pyplot", "h5py"):
+        monkeypatch.setitem(sys.modules, name, None)
+    for mod in TOOL_MODULES + ["ravvent_tpu_torch.evaluation.guppy",
+                               "ravvent_tpu_torch.utils.shape_checker"]:
+        monkeypatch.delitem(sys.modules, mod, raising=False)
+        importlib.import_module(mod)
+    with pytest.raises(ImportError):
+        importlib.import_module("matplotlib")
+    assert len(TOOL_MODULES) >= len(USER_TOOLS) + 3
