@@ -12,7 +12,8 @@ mapping evaluator's beam selection, tools/profile_decode.py with a
 torch.profiler trace of the bench's pipelined path, training
 (training/loop.py:Trainer), the multi-device runs, the user CLIs
 (tools/{make_dataset, train, evaluate, train_curriculum, sweep_epochs,
-eval_token_acc}.py), and the engine's plain decode
+eval_token_acc}.py) and the bench's entry point (tools/bench.py), and the
+engine's plain decode
 (beam_impl="xla") on flagship32's shape and on GRU, unidirectional and
 Bahdanau configurations — at the flagship's full width (joint raw+event
 input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM decoder with Luong
@@ -146,6 +147,11 @@ hand-written kernel against its plain PyTorch version on the card:
      largest parameter difference printed in units of the learning rate,
      and 5 more steps timed on each; (c) entry.dryrun_multichip(2), both
      ranks on the card. A rank that fails fails the phase.
+ 18 (d). a 64-unit encoder (f32 stream and memory, beam_impl="step"), a
+     width the BiLSTM kernels do not take: the first read on the card, every
+     layer on the plain route (bilstm_plain_route 4 a chunk, no BiLSTM
+     kernel), the beam kernels as usual; card and CPU tokens on 64 snippets
+     (>= 0.998).
  20. the user tools (ravvent_tpu_torch/tools/), each CLI's main(argv) in
      process in a temporary directory at the flagship's width (batch 128,
      seeded): (a) make_dataset, 2 train and 4 eval reads of 1.5-1.8 kb (the
@@ -161,6 +167,16 @@ hand-written kernel against its plain PyTorch version on the card:
      checkpoints, and eval_token_acc on the card (bilstm, decode_step once a
      step) against --cpu: accuracies within 0.01, tokens on the same memory
      >= 0.998. Each step's seconds and launches printed.
+ 21. the bench's entry point (ravvent_tpu_torch/tools/bench.py), its
+     main(argv) in process at its defaults on seeded weights, identity
+     included, on bench.py's reads made into a temporary directory (4 reads
+     of 12-18 kb, 12 distinct stream reads): its last JSON line (value > 0,
+     the card's name and power limit), bilstm_bf16 4 times a chunk encoded,
+     beam_cell = beam_attend = beam_step, peak_scan on the signal-only
+     wires, no other kernel, each pipelined record's bases those of the
+     stream reads; its seconds, its per-read and its three pipelined
+     bases/s. After it, no phase that ran the flagship's shape (4, 7, 8,
+     10, 12, 13, 21) took the BiLSTM's plain route.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -1931,7 +1947,9 @@ def phase_configs(smi: str) -> dict:
     the same memory and end to end; (b) one engine each for bigru, gru and
     lstm on raw input and the flagship with Bahdanau attention: decode ms a
     chunk of 512 snippets, card against CPU on 64; (c) "step" and "loop"
-    refuse (a)'s configuration. Returns (a)'s launch counts."""
+    refuse (a)'s configuration; (d) a 64-unit encoder, which the BiLSTM
+    kernels do not take, on its plain route beside the beam kernels, card
+    against CPU on 64 snippets. Returns (a)'s and (d)'s launch counts."""
     import dataclasses
     import tempfile
     from pathlib import Path
@@ -2069,6 +2087,36 @@ def phase_configs(smi: str) -> dict:
                 f"{name}: unexpected kernel launches")
         require(same >= 0.998, f"{name}: card and CPU decode the same memory differently")
         require(e2e >= 0.99, f"{name}: card and CPU disagree end to end")
+
+    # (d) an encoder width the BiLSTM kernels do not take (64 units): the
+    # plain layers on the card, counted, beside the beam kernels
+    wcfg = ModelConfig(enc_units=64)
+    wparams = init_basecaller(wcfg, torch.Generator().manual_seed(SEED))
+    narrow = dict(chunk_size=4096, memory_dtype=None, encoder_dtype=None, transport_dtype="f32")
+    card = BasecallEngine(wparams, wcfg, **narrow)
+    sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
+    card.predict_beam_compact(sig, rr[:64], ev, er[:64], MAX_OUTPUT_LEN, 5)  # warm-up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    card.predict_beam_compact(sig, rr, ev, er, MAX_OUTPUT_LEN, 5)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    c = out["enc64"] = dict(cuda_lib.launches)
+    n_chunks = chunks(rr.shape[0])
+    cpu = BasecallEngine(wparams, wcfg, device="cpu", **narrow)
+    t_card, _ = card.predict_beam_compact(sig, rr[:64], ev, er[:64], MAX_OUTPUT_LEN, 5)
+    t_cpu, _ = cpu.predict_beam_compact(sig, rr[:64], ev, er[:64], MAX_OUTPUT_LEN, 5)
+    agree = float((t_card == t_cpu).mean())
+    print(f"  64-unit encoder (f32 stream and memory, step): the first read, {rr.shape[0]} "
+          f"snippets, {t_read:.3f} s; launches {dict((k, v) for k, v in c.items() if v)} "
+          f"(bilstm_plain_route need 4 a chunk over {n_chunks}, bilstm and bilstm_bf16 0); "
+          f"card vs CPU on 64 snippets: tokens agree {agree:.5f} (need >= 0.998) [{smi}]")
+    require(c["bilstm_plain_route"] == 4 * n_chunks and c["bilstm"] == c["bilstm_bf16"] == 0,
+            "the 64-unit encoder did not take the plain route 4 times a chunk")
+    require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] > 0,
+            "the 64-unit encoder's engine did not run the beam kernels")
+    require(agree >= 0.998, "card and CPU disagree on the 64-unit encoder's tokens")
 
     # (c) the kernels' beam loops refuse flagship32's shape
     for impl in ("step", "loop"):
@@ -2467,6 +2515,101 @@ def phase_tools(smi: str) -> dict:
     return fig
 
 
+def phase_bench_tool(smi: str, identity: bool = True) -> dict:
+    """The bench's entry point (ravvent_tpu_torch/tools/bench.py): its
+    main(argv) in process at its defaults on seeded weights (bf16 memory and
+    encoder stream, i8dev, beam 5, step; 4 reads of 12-18 kb, 5 repeats
+    each; 12 distinct stream reads pipelined over 3 passes on the compact
+    wire, sigdev and sigdev8; the identity pass on the 3 wires unless
+    ``identity`` is False) in a temporary data directory, the reads made
+    first. Requires its last line, the launches (bilstm_bf16 4 a chunk
+    encoded, beam_cell = beam_attend = beam_step, peak_scan, no other
+    kernel, no BiLSTM layer on the plain route) and each pipelined record's
+    bases. Returns the launch counts, the line and the figures."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.data import chiron
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.tools import bench
+
+    encoded = [0]  # chunks encoded: each BasecallEngine.memory call encodes one
+    memory = BasecallEngine.memory
+
+    def counting(self, *a, **k):
+        encoded[0] += 1
+        return memory(self, *a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        fi, fi_stream = bench.ensure_dataset(data)
+        t_data = time.perf_counter() - t0
+        stream = [v["signal_path"] for v in json.loads(fi_stream.read_text())]
+        stream_bases = sum(chiron.load_label(Path(p).with_suffix(".label"))[0].shape[0]
+                           for p in stream)
+        argv = ["--seed", str(SEED), "--data-dir", str(data)] + ([] if identity else
+                                                                 ["--no-identity"])
+        out = io.StringIO()
+        BasecallEngine.memory = counting
+        try:
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                line = bench.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            BasecallEngine.memory = memory
+        counts = dict(cuda_lib.launches)
+        details = json.loads((data / "details.json").read_text())
+    printed = out.getvalue().strip().splitlines()
+    require(bool(printed) and json.loads(printed[-1]) == line,
+            "the bench tool's last line is not its JSON object")
+    pipes = {w: details["pipeline" if w == "compact" else f"pipeline_{w}"]
+             for w in ("compact", "sigdev", "sigdev8")}
+    print(f"  bench tool, main({argv[:2] + argv[4:]} and the reads' --data-dir), seeded "
+          f"weights: {secs:.2f} s (the reads made before it in {t_data:.2f} s) [{smi}]")
+    print(f"  its line: {printed[-1]}")
+    print(f"  evaluate_files: {details['bases_per_s']:.1f} bases/s over "
+          f"{len(details['reads'])} reads; run_pipelined over {pipes['compact']['reads']} "
+          f"stream reads, best of 3: "
+          + ", ".join(f"{w} {r['bases_per_s']:.1f} bases/s (wall {r['wall_s']:.3f} s, stages "
+                      f"{r['stages_s']})" for w, r in pipes.items()) + f" [{smi}]")
+    if identity:
+        print("  identity (total, valid, invalid %), seeded weights: "
+              + ", ".join(f"{w} ({details['identity_total' + sfx]}, "
+                          f"{details['identity_valid' + sfx]}, {details['invalid_pct' + sfx]})"
+                          for w, sfx in (("compact", ""), ("sigdev", "_sigdev"),
+                                         ("sigdev8", "_sigdev8"))))
+    others = {k: counts[k] for k in ("bilstm", "beam_loop", "decode_step", "bilstm_plain_route",
+                                     "beam_step_i8", "beam_step_i8mxu", "beam_attend_i8",
+                                     "beam_attend_i8mxu")}
+    print(f"  launches: bilstm_bf16 {counts['bilstm_bf16']} over {encoded[0]} chunks encoded "
+          f"(need 4 each), beam_step {counts['beam_step']} (beam_cell {counts['beam_cell']}, "
+          f"beam_attend {counts['beam_attend']}), peak_scan {counts['peak_scan']}; "
+          f"{others} (need 0)")
+    require(line["value"] > 0 and line["unit"] == "bases/s", "the bench tool measured nothing")
+    require(line["device"] == smi, f"the bench tool's device {line['device']!r} is not the card's")
+    require(counts["bilstm_bf16"] == 4 * encoded[0] and encoded[0] > 0,
+            "bilstm_bf16 did not launch 4 a chunk encoded")
+    require(counts["beam_step"] > 0 and counts["beam_cell"] == counts["beam_attend"]
+            == counts["beam_step"], "a bf16 step did not launch beam_cell and beam_attend once each")
+    require(counts["peak_scan"] > 0, "the signal-only wires launched no peak_scan")
+    require(not any(others.values()), "the bench tool launched a kernel of another path, or took "
+            "the BiLSTM's plain route")
+    require(all(r["bases_num"] == stream_bases and r["reads"] == len(stream)
+                for r in pipes.values()),
+            f"a pipelined record counted other bases than the stream reads' {stream_bases}")
+    return {"counts": counts, "line": line, "secs": secs, "encoded": encoded[0],
+            "bases_per_s": details["bases_per_s"],
+            "pipelined": {w: r["bases_per_s"] for w, r in pipes.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2537,6 +2680,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_tools(smi)
     phase("20 the user tools at the flagship's width", t0)
+    t0 = time.perf_counter()
+    tool = phase_bench_tool(smi)
+    phase("21 the bench's entry point, tools/bench.py", t0)
+    # no BiLSTM layer of the flagship's shape takes the plain route
+    for name, c in (("4", counts), ("7", counts_loop), ("8", counts_greedy),
+                    ("10", counts_bench), ("12 i8", counts_i8["i8"]),
+                    ("12 i8mxu", counts_i8["i8mxu"]), ("13", counts_sig),
+                    ("21", tool["counts"])):
+        require(c["bilstm_plain_route"] == 0, f"phase {name} ran a BiLSTM layer of the "
+                "flagship's shape on its plain route")
     # launches of each kernel on its own path's run
     k_bilstm["launches"] = counts["bilstm"]
     k_cell["launches"] = counts["beam_cell"]

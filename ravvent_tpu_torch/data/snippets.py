@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 from pathlib import Path
 from typing import List, Sequence, Tuple
 
@@ -370,8 +371,15 @@ def load_read_snippets(
 
     if cache_path is not None:
         # atomic publish: a concurrent reader (trainer vs cache prewarmer)
-        # must never see a partially-written archive
-        tmp = cache_path.with_suffix(f".tmp{os.getpid()}.npz")
-        np.savez_compressed(tmp, raw=raw_arr, event=event_arr, nuc=nuc_tok)
-        os.replace(tmp, cache_path)
+        # must never see a partially-written archive; the temporary file is
+        # this writer's own, so two threads that miss one entry never share it
+        tmp = cache_path.with_name(
+            f".{cache_path.name}.tmp{os.getpid()}.{threading.get_ident()}")
+        try:
+            with open(tmp, "wb") as f:
+                np.savez_compressed(f, raw=raw_arr, event=event_arr, nuc=nuc_tok)
+            os.replace(tmp, cache_path)
+        except BaseException:
+            tmp.unlink(missing_ok=True)
+            raise
     return raw_arr, event_arr, nuc_tok

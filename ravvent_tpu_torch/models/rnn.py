@@ -27,8 +27,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ravvent_tpu_torch.ops import cuda_lib
 from ravvent_tpu_torch.ops.rnn_cuda import (
-    UNITS, bilstm_layer, bilstm_layer_plain, kernel_layout,
+    bilstm_layer, bilstm_layer_plain, kernel_layout, kernel_takes,
 )
 
 Params = Dict[str, Any]
@@ -238,10 +239,10 @@ def stream_weights(layers: List[Params], dtype=torch.float32) -> List[Tuple[torc
 def kernel_weights(weights: List[Tuple[torch.Tensor, ...]]) -> List[Tuple[Any, ...]]:
     """:func:`stream_weights` with each layer's weights in its stream's
     kernel layout (ops/rnn_cuda.py:kernel_layout) as a fourth item, made
-    once so that no layer call re-lays them out. Layers of other widths
-    than the kernels' (which they do not take) stay as they are."""
-    return [(wx, wh, b, kernel_layout(wx, wh)) if wh.shape[1] == UNITS else (wx, wh, b)
-            for wx, wh, b in weights]
+    once so that no layer call re-lays them out. Layers of other shapes
+    than the kernels take (ops/rnn_cuda.py:kernel_takes) stay as they are."""
+    return [(wx, wh, b, kernel_layout(wx, wh)) if kernel_takes(wh.shape[1], wx.shape[1], wx.dtype)
+            else (wx, wh, b) for wx, wh, b in weights]
 
 
 def _zero_state(xs: torch.Tensor, units: int):
@@ -262,6 +263,11 @@ def run_bidi_layer(layer: Params, xs: torch.Tensor, initial_state=None, cell_typ
     return out, (h, c)
 
 
+def on_card(xs: torch.Tensor) -> bool:
+    """Whether a layer of ``xs`` runs where the BiLSTM kernels launch."""
+    return xs.is_cuda
+
+
 def encoder_apply(layers: List[Params], xs: torch.Tensor,
                   weights: Optional[List[Tuple[torch.Tensor, ...]]] = None,
                   trainable: bool = False, cell_type: str = "lstm",
@@ -271,7 +277,11 @@ def encoder_apply(layers: List[Params], xs: torch.Tensor,
     returns that dtype, with f32 state.
 
     Bidirectional LSTM: every layer of a CUDA tensor runs the BiLSTM kernel
-    (ops/rnn_cuda.py); a CPU tensor runs its plain version. ``weights``:
+    (ops/rnn_cuda.py) where the kernels take its shape
+    (``kernel_takes``), else its plain version, counted under
+    ``cuda_lib.launches["bilstm_plain_route"]``, as the reference runs its
+    scan where the Pallas layer does not fit (models/rnn.py:304-311 there);
+    a CPU tensor runs the plain version. ``weights``:
     :func:`stream_weights` of ``layers`` in the stream dtype, or
     :func:`kernel_weights` of them, made once by the caller; made here when
     None. ``trainable=True`` runs every layer's plain version on any device,
@@ -309,6 +319,11 @@ def encoder_apply(layers: List[Params], xs: torch.Tensor,
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     for wx, wh, b, *layout in weights:
         h0, c0 = state if state is not None else _zero_state(out, wh.shape[1])
-        out, h, c = bilstm_layer(out, wx, wh, b, h0.contiguous(), c0.contiguous(), *layout)
+        h0, c0 = h0.contiguous(), c0.contiguous()
+        if on_card(out) and not kernel_takes(wh.shape[1], wx.shape[1], out.dtype):
+            out, h, c = bilstm_layer_plain(out, wx, wh, b, h0, c0)
+            cuda_lib.launches["bilstm_plain_route"] += 1
+        else:
+            out, h, c = bilstm_layer(out, wx, wh, b, h0, c0, *layout)
         state = (h, c)
     return out, state

@@ -120,6 +120,17 @@ def launch(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> i
                  cN.data_ptr(), *extra, torch.cuda.current_stream(xs.device).cuda_stream)
 
 
+def kernel_takes(U: int, F: int, dtype) -> bool:
+    """Whether the kernels take a layer of ``U`` units on ``F`` input
+    features on a stream of ``dtype``: the shapes :func:`bilstm_layer`
+    accepts on a CUDA tensor (it raises on any other). U = 128, F <= 256, an
+    f32 or bf16 stream, and on bf16 F <= 16 or a multiple of 8 (the bf16
+    kernel also needs such an input 16-byte aligned, which a contiguous
+    tensor of its own allocation is)."""
+    return (U == UNITS and F <= 2 * UNITS and dtype in STREAMS
+            and (dtype == torch.float32 or F <= 16 or F % 8 == 0))
+
+
 def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One BiLSTM layer: the CUDA kernel of the stream dtype for CUDA tensors,
@@ -130,22 +141,16 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
         return bilstm_layer_plain(xs, wx, wh, b, h0, c0)
     B, T, F = xs.shape
     U = wh.shape[1]
-    if U != UNITS:
-        raise ValueError(f"bilstm kernel is compiled for {UNITS} units, got {U}")
     dt, f32 = xs.dtype, torch.float32
-    if dt not in STREAMS:
-        raise ValueError(f"bilstm: the stream must be f32 or bf16, got {dt}")
+    if not kernel_takes(U, F, dt):
+        raise ValueError(f"bilstm: the kernels take no layer of U = {U} units on F = {F} "
+                         f"features of {dt} (see kernel_takes)")
     cuda_lib.check_tensors("bilstm", xs.device, [
         ("xs", xs, dt, (B, T, F)), ("wx", wx, dt, (2, F, 4 * U)), ("wh", wh, dt, (2, U, 4 * U)),
         ("b", b, f32, (2, 4 * U)), ("h0", h0, f32, (2, B, U)), ("c0", c0, f32, (2, B, U)),
     ])
-    if F > 2 * UNITS:
-        raise ValueError(f"bilstm: the kernels take F <= {2 * UNITS}, got {F}")
-    if dt == torch.bfloat16:
-        if F > 16 and F % 8:
-            raise ValueError(f"bilstm_bf16: the kernel takes F <= 16 or a multiple of 8, got {F}")
-        if F > 16 and xs.data_ptr() % 16:  # x rows are copied 16 bytes at a time
-            raise ValueError("bilstm_bf16: xs must be 16-byte aligned")
+    if dt == torch.bfloat16 and F > 16 and xs.data_ptr() % 16:  # rows copied 16 bytes at a time
+        raise ValueError("bilstm_bf16: xs must be 16-byte aligned")
     if layout is None:
         layout = kernel_layout(wx, wh)
     kx = padded_k(F, dt)

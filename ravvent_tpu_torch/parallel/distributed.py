@@ -39,7 +39,12 @@ def initialize(init_method: str, world_size: int, rank: int, backend: str) -> No
     ``init_method`` (``tcp://host:port`` or ``file:///path``); a no-op for
     ``world_size <= 1``. ``backend`` is ``"nccl"`` (one process per GPU:
     rank r takes ``cuda:{r % device_count}`` as its current device) or
-    ``"gloo"``."""
+    ``"gloo"``. Under gloo it returns once every rank has joined: gloo
+    connects the ranks while the group is set up, and a rank that left the
+    set-up early and then failed would close its connections under a rank
+    still connecting, whose set-up then fails with a connection error in
+    place of the first rank's own (NCCL connects at the first
+    collective)."""
     if world_size <= 1:
         return
     if backend not in BACKENDS:
@@ -47,6 +52,8 @@ def initialize(init_method: str, world_size: int, rank: int, backend: str) -> No
     if backend == "nccl":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
+    if backend == "gloo":
+        dist.barrier()
 
 
 def process_info() -> tuple:

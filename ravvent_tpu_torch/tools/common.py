@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Union
 
 import torch
 
@@ -66,10 +66,12 @@ def load_params(path) -> dict:
     return load_npz(p)
 
 
-def default_beam_impl(cfg: ModelConfig, beams: Iterable[int]) -> str:
-    """``"step"`` (the beam-step kernels) where ``kernels_serve(cfg, beams)``,
-    ``"xla"`` (the plain beam decode) otherwise."""
-    return "step" if kernels_serve(cfg, beams) else "xla"
+def default_beam_impl(cfg: ModelConfig, beams: Iterable[int],
+                      device: Union[str, torch.device, None] = None) -> str:
+    """``"step"`` (the beam-step kernels) where ``kernels_serve(cfg, beams,
+    device)``, ``"xla"`` (the plain beam decode) otherwise: on a CUDA
+    device, also for decoder widths the kernels are not compiled for."""
+    return "step" if kernels_serve(cfg, beams, device) else "xla"
 
 
 def eval_engine(params, cfg: ModelConfig, device: torch.device, beams: Iterable[int],
@@ -78,7 +80,8 @@ def eval_engine(params, cfg: ModelConfig, device: torch.device, beams: Iterable[
     1024 rows, unpacked results, ``beam_impl`` or :func:`default_beam_impl`."""
     return BasecallEngine(params, cfg, chunk_size=EVAL_CHUNK, memory_dtype=None,
                           encoder_dtype=None, pack_u8=False, device=device,
-                          beam_impl=beam_impl or default_beam_impl(cfg, beams), n_beams=n_beams)
+                          beam_impl=beam_impl or default_beam_impl(cfg, beams, device),
+                          n_beams=n_beams)
 
 
 def device_name(device: torch.device) -> str:

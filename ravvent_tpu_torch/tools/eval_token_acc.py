@@ -17,8 +17,9 @@ checkpoint over a files_info index:
 Per batch: the encoders (the f32 BiLSTM kernel on the card), un-projected
 f32 memory, and a greedy decode of ``T - 1`` steps bounded by ``T - 1``:
 the fused decode-step kernel (ops/decode_step_cuda.py:fused_greedy_decode)
-for a depth-1 LSTM decoder with Luong attention, else the plain
-``greedy_decode``; then ``train_forward``. Results are folded into
+for a depth-1 LSTM decoder with Luong attention (on a card, of the
+kernel's widths: 128 decoder units, an encoder output of 256), else the
+plain ``greedy_decode``; then ``train_forward``. Results are folded into
 ``<out_dir>/token_acc.<tag>.json`` keyed like the accuracy_results_all
 schema: {"(encd, decd)": {data_type: {...}}}. ``--checkpoint`` is a port
 checkpoint directory or an npz of weights. Runs on the first CUDA device
@@ -60,9 +61,10 @@ def memory(params, cfg: ModelConfig, raw: torch.Tensor, event: torch.Tensor) -> 
 @torch.no_grad()
 def greedy_tokens(params, cfg: ModelConfig, mem: attn.AttnMemory, steps: int) -> torch.Tensor:
     """Greedy tokens [B, steps] over ``mem``, bounded by ``steps``: the fused
-    decode step where the decode kernels serve the decoder
-    (evaluation/basecall.py:kernels_serve), else the plain decode."""
-    if kernels_serve(cfg):
+    decode step where the decode kernels serve the decoder on the memory's
+    device (evaluation/basecall.py:kernels_serve, its widths on a card),
+    else the plain decode."""
+    if kernels_serve(cfg, device=mem.keys.device, greedy=True):
         return fused_greedy_decode(params["decoder"], mem, cfg.vocab_size, steps, steps)[0]
     return greedy_decode(params["decoder"], mem, cfg.vocab_size, steps, steps,
                          cfg.effective_attention, cfg.cell_type)[0]

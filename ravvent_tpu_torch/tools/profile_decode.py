@@ -371,20 +371,20 @@ def _union(intervals: list) -> list:
     return out
 
 
-def trace_summary(trace: dict, thread: Optional[int] = None, top: int = 10, gaps: int = 3
-                  ) -> dict:
+def trace_summary(trace: dict, thread: Optional[int] = None, top: int = 10, gaps: int = 3,
+                  window: str = WINDOW) -> dict:
     """The device's idle share, top device operations and longest idle
     gaps of a Chrome trace from ``torch.profiler``, inside the window of
-    the ``WINDOW`` annotation (times in ms). Each gap names the innermost
+    the ``window`` annotation (times in ms). Each gap names the innermost
     host operation of every thread at its middle, and the annotated seams
     of ``thread`` (the dispatching one; any thread when None) that ended
     last before it and start first after it."""
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X" and "dur" in e]
-    window = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == WINDOW]
-    if not window:
-        raise ValueError(f"the trace has no {WINDOW!r} annotation")
-    w0 = float(window[0]["ts"])
-    w1 = w0 + float(window[0]["dur"])
+    marks = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == window]
+    if not marks:
+        raise ValueError(f"the trace has no {window!r} annotation")
+    w0 = float(marks[0]["ts"])
+    w1 = w0 + float(marks[0]["dur"])
     device = [e for e in events if e.get("cat") in DEVICE_CATS]
     spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in device]
     busy = _union([(max(w0, a), min(w1, b)) for a, b in spans if a < w1 and b > w0])
@@ -399,7 +399,7 @@ def trace_summary(trace: dict, thread: Optional[int] = None, top: int = 10, gaps
     holes = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
                     for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]), reverse=True)
     host = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation")
-            and e["name"] != WINDOW]
+            and e["name"] != window]
     seams = [e for e in host if e["cat"] == "user_annotation"
              and (thread is None or e["tid"] == thread)]
     gap_list = []

@@ -19,6 +19,7 @@ across through ``weights.from_jax_params``.
 from __future__ import annotations
 
 import os
+import threading
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -51,13 +52,18 @@ class CheckpointManager:
             }
         if rng is not None:
             state["rng"] = rng.get_state()
-        # each file is published whole, so a reader never sees a torn one
+        # each file is published whole, so a reader never sees a torn one,
+        # through a temporary file of this writer's own (threads included)
         for name, write in ((PARAMS_FILE, lambda f: np.savez(f, **weights.flatten(params))),
                             (STATE_FILE, lambda f: torch.save(state, f))):
-            tmp = full / f".{name}.tmp{os.getpid()}"
-            with open(tmp, "wb") as f:
-                write(f)
-            os.replace(tmp, full / name)
+            tmp = full / f".{name}.tmp{os.getpid()}.{threading.get_ident()}"
+            try:
+                with open(tmp, "wb") as f:
+                    write(f)
+                os.replace(tmp, full / name)
+            except BaseException:
+                tmp.unlink(missing_ok=True)
+                raise
         return str(full)
 
     def restore(self, path: str) -> Dict[str, Any]:

@@ -42,7 +42,7 @@ from ravvent_tpu_torch import weights
 from ravvent_tpu_torch.config import DataConfig
 from ravvent_tpu_torch.data.generator import SnippetBatchGenerator
 from ravvent_tpu_torch.tools import (
-    eval_token_acc, evaluate, make_dataset, sweep_epochs, train, train_curriculum,
+    bench, eval_token_acc, evaluate, make_dataset, sweep_epochs, train, train_curriculum,
 )
 from ravvent_tpu_torch.training.checkpoints import CheckpointManager
 from ravvent_tpu_torch.training.loop import Trainer
@@ -215,6 +215,7 @@ def test_train_cli_builds_a_missing_dataset(tmp_path, monkeypatch):
     (train_curriculum, ["--dataset", "x", "--tag", "t"]),
     (sweep_epochs, ["--run-name", "r", "--epochs", "1", "--files-info", "x.json"]),
     (eval_token_acc, ["--checkpoint", "c", "--files-info", "x.json", "--tag", "t"]),
+    (bench, []),
 ], ids=lambda v: getattr(v, "__name__", "").rsplit(".", 1)[-1])
 def test_cli_needs_a_card_unless_asked_for_the_cpu(cli, argv):
     if torch.cuda.is_available():
@@ -266,6 +267,47 @@ def test_default_beam_impl_takes_the_kernels_where_they_serve():
         assert not kernels_serve(cfg), cfg
         with pytest.raises(ValueError, match="depth-1 LSTM"):
             BasecallEngine({}, cfg, beam_impl="step", device="cpu")
+    # on a card the kernels' compiled widths too; the CPU runs the plain
+    # versions at any width, so its choice does not change
+    narrow = ModelConfig(enc_units=16, dec_units=16)
+    assert default_beam_impl(narrow, [5, 1]) == default_beam_impl(narrow, [5, 1], "cpu") == "step"
+    assert default_beam_impl(narrow, [5, 1], "cuda") == "xla"
+    assert default_beam_impl(ModelConfig(enc_units=16), [5, 1], "cuda") == "step"
+    assert default_beam_impl(ModelConfig(), [5, 1], torch.device("cuda", 0)) == "step"
+    assert kernels_serve(ModelConfig(), device="cuda", greedy=True)
+    for cfg in (narrow, ModelConfig(enc_units=16), ModelConfig(rnn_type="lstm")):
+        assert kernels_serve(cfg, device="cpu", greedy=True), cfg
+        assert not kernels_serve(cfg, device="cuda", greedy=True), cfg
+    assert kernels_serve(ModelConfig(rnn_type="lstm", enc_units=256), device="cuda", greedy=True)
+
+
+def test_tools_take_the_plain_decode_on_a_card_for_other_widths(monkeypatch):
+    """On a card, eval_token_acc decodes a 16-unit model greedily with the
+    plain decode and the flagship's widths with the fused step; the engine
+    refuses "step" for a 16-unit decoder at construction, naming the width
+    (the card stood in for: the checks run before anything reaches it)."""
+    from types import SimpleNamespace
+
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.evaluation import basecall
+
+    picked = []
+    monkeypatch.setattr(eval_token_acc, "greedy_decode", lambda *a: picked.append("plain") or [0])
+    monkeypatch.setattr(eval_token_acc, "fused_greedy_decode",
+                        lambda *a: picked.append("fused") or [0])
+    on_card = SimpleNamespace(keys=SimpleNamespace(device=torch.device("cuda", 0)))
+    on_cpu = SimpleNamespace(keys=SimpleNamespace(device=torch.device("cpu")))
+    params = {"decoder": {}}
+    for cfg, mem in ((ModelConfig(enc_units=16, dec_units=16), on_card),
+                     (ModelConfig(dec_units=16), on_card), (ModelConfig(enc_units=16), on_card),
+                     (ModelConfig(), on_card), (ModelConfig(enc_units=16, dec_units=16), on_cpu)):
+        eval_token_acc.greedy_tokens(params, cfg, mem, 3)
+    assert picked == ["plain", "plain", "plain", "fused", "fused"]
+
+    monkeypatch.setattr(basecall, "resolve_device", lambda device: torch.device("cuda", 0))
+    for impl in ("step", "loop"):
+        with pytest.raises(ValueError, match="dec_units=16"):
+            basecall.BasecallEngine({}, ModelConfig(enc_units=16, dec_units=16), beam_impl=impl)
 
 
 def test_evaluate_cli_refuses_a_missing_checkpoint(tmp_path):

@@ -85,6 +85,28 @@ def test_bilstm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert cuda_lib.launches["bilstm"] == before
 
 
+def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda):
+    """A 16-unit BiLSTM encoder, which the kernels do not take: encode_input
+    on the card runs its 4 layers on the plain route (counted, no kernel
+    launched) and equals the CPU's within 1e-5 relative."""
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.models.basecaller import encode_input, init_basecaller
+
+    cfg = ModelConfig(enc_units=16)
+    params = init_basecaller(cfg, torch.Generator().manual_seed(16))
+    gen = torch.Generator().manual_seed(17)
+    raw, event = torch.randn(64, 200, 1, generator=gen), torch.randn(64, 30, 5, generator=gen)
+    ref, ref_mask = encode_input(params, raw, event, cfg)
+    before = dict(cuda_lib.launches)
+    got, mask = encode_input(to_device(params, cuda), raw.to(cuda), event.to(cuda), cfg)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in cuda_lib.launches.items() if v != before[k]}
+    assert delta == {"bilstm_plain_route": 4}
+    assert torch.equal(mask.cpu(), ref_mask)
+    scale = ref.abs().max().item()
+    assert (got.cpu() - ref).abs().max().item() <= 1e-5 * scale
+
+
 @pytest.mark.parametrize("B", [37, 130, 2858], ids=["one ragged tile", "three tiles", "2858 rows"])
 @pytest.mark.parametrize("F,T,seeded", [(1, 200, False), (5, 30, False), (256, 40, True)])
 def test_bilstm_bf16_kernel_matches_plain(cuda, F, T, seeded, B):

@@ -258,3 +258,85 @@ def test_engine_lays_out_the_f32_encoder_once():
     got, mask = encode_input(params, raw, event, cfg, engine._enc_weights)
     ref, ref_mask = encode_input(params, raw, event, cfg, plain)
     assert got.dtype == torch.float32 and torch.equal(got, ref) and torch.equal(mask, ref_mask)
+
+
+class OnCard:
+    """A CPU tensor that says it lies on the card: enough of one for
+    ``bilstm_layer``'s checks, which run before its launch."""
+
+    is_cuda = True
+
+    def __init__(self, t: torch.Tensor) -> None:
+        self.t, self.shape, self.dtype, self.device = t, t.shape, t.dtype, t.device
+
+    def data_ptr(self) -> int:
+        return self.t.data_ptr()
+
+
+class Launched(Exception):
+    pass
+
+
+def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
+    """``bilstm_layer`` on a card's tensor gets past its checks to the launch
+    on the flagship's shapes, and raises a ValueError naming the shape where
+    ``kernel_takes`` is false: another width, too many features, an
+    unaligned bf16 feature count, another dtype."""
+    from ravvent_tpu_torch.ops import cuda_lib
+
+    def launch():
+        raise Launched
+
+    monkeypatch.setattr(cuda_lib, "check_tensors", lambda *a: None)  # devices are the CPU's
+    monkeypatch.setattr(cuda_lib, "lib", launch)
+    B, T = 3, 2
+    f32, bf16 = torch.float32, torch.bfloat16
+    taken = [(128, 1, f32), (128, 5, bf16), (128, 24, bf16), (128, 256, f32), (128, 256, bf16)]
+    refused = [(16, 5, f32), (64, 256, bf16), (128, 264, f32), (128, 17, bf16),
+               (128, 5, torch.float16)]
+    for U, F, dt in taken + refused:
+        wx, wh = torch.zeros(2, F, 4 * U, dtype=dt), torch.zeros(2, U, 4 * U, dtype=dt)
+        b, z = torch.zeros(2, 4 * U), torch.zeros(2, B, U)
+        xs = OnCard(torch.zeros(B, T, F, dtype=dt))
+        assert rnn_cuda.kernel_takes(U, F, dt) == ((U, F, dt) in taken), (U, F, dt)
+        if (U, F, dt) in taken:
+            with pytest.raises(Launched):
+                rnn_cuda.bilstm_layer(xs, wx, wh, b, z, z)
+        else:
+            with pytest.raises(ValueError, match=f"U = {U} units on F = {F} features"):
+                rnn_cuda.bilstm_layer(xs, wx, wh, b, z, z)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_encoder_apply_routes_other_widths_to_the_plain_layer(dtype, monkeypatch):
+    """On a card (the predicate patched), a 16-unit encoder runs every layer
+    on the plain version and counts each under ``bilstm_plain_route``, with
+    the CPU encoder's output bit for bit; a 128-unit one calls the kernels'
+    wrapper and counts nothing."""
+    from ravvent_tpu_torch.ops import cuda_lib
+
+    gen = torch.Generator().manual_seed(4)
+    xs = torch.randn(6, 9, 5, generator=gen).to(dtype)
+    cases = []
+    for U, routed in ((16, 2), (128, 0)):
+        layers = trnn.init_encoder(gen, U, 2, 5)
+        weights = trnn.kernel_weights(trnn.stream_weights(layers, dtype))
+        cases.append((layers, weights, routed, trnn.encoder_apply(layers, xs, weights)))
+
+    wrapped = []
+
+    def wrapper(*a):
+        wrapped.append(a[0].shape)
+        return rnn_cuda.bilstm_layer_plain(*a[:6])
+
+    monkeypatch.setattr(trnn, "on_card", lambda t: True)
+    monkeypatch.setattr(trnn, "bilstm_layer", wrapper)
+    for layers, weights, routed, (ref, ref_state) in cases:
+        cuda_lib.reset_launches()
+        wrapped.clear()
+        out, state = trnn.encoder_apply(layers, xs, weights)
+        assert cuda_lib.launches["bilstm_plain_route"] == routed
+        assert len(wrapped) == 2 - routed
+        assert out.dtype == dtype and torch.equal(out, ref)
+        assert all(torch.equal(a, b) for a, b in zip(state, ref_state))
+    cuda_lib.reset_launches()
