@@ -145,8 +145,15 @@ hand-written kernel against its plain PyTorch version on the card:
      step on the card, the all-reduced gradients within 1e-5 of each leaf's
      largest magnitude, the two ranks' parameters bit-equal after it, the
      largest parameter difference printed in units of the learning rate,
-     and 5 more steps timed on each; (c) entry.dryrun_multichip(2), both
-     ranks on the card. A rank that fails fails the phase.
+     and 5 more steps timed on each; (d) the 'model' axis, a 1 x 2 and a
+     2 x 2 grid (data x model) of gloo ranks spawned on the card, the
+     attention memory's 230 positions split over each model row, the same
+     global batch and defaults: each rank validates (bilstm 4 times, no
+     plain route) then steps; loss within 1e-5 relative, gradients within
+     1e-5 of each leaf's largest magnitude, validation loss within 1e-4,
+     every rank's parameters bit-equal; each grid's step seconds printed
+     beside (b)'s; (c) entry.dryrun_multichip(2) and (4) (a 2 x 2 grid),
+     every rank on the card. A rank that fails fails the phase.
  18 (d). a 64-unit encoder (f32 stream and memory, beam_impl="step"), a
      width the BiLSTM kernels do not take: the first read on the card, every
      layer on the plain route (bilstm_plain_route 4 a chunk, no BiLSTM
@@ -2148,14 +2155,18 @@ def captured(engine, store: list, lock) -> None:
 
 
 def dp_step_rank(rank: int, world_size: int, init_method: str, out_dir: str, params: dict,
-                 batch: tuple, timed_steps: int) -> None:
-    """A data-parallel rank of phase 19 (b) on the card: one train step of
-    the flagship at TrainConfig's defaults on its rows of the global batch,
-    its loss, all-reduced gradients and updated parameters to
-    ``out_dir/rank{rank}.npz``, then ``timed_steps`` steps timed."""
+                 batch: tuple, timed_steps: int, model_shards: int = 1) -> None:
+    """A rank of phase 19 (b) (data-parallel) or (d) (a grid of
+    ``world_size / model_shards`` data shards by ``model_shards`` model
+    ranks) on the card: a validation of the flagship at TrainConfig's
+    defaults, its kernel launches counted, then one train step on its rows
+    of the global batch; its metrics, launches, gradients and updated
+    parameters to ``out_dir/rank{rank}.npz``, then ``timed_steps`` steps
+    timed."""
     import dataclasses
 
     from ravvent_tpu_torch.config import RunConfig
+    from ravvent_tpu_torch.ops import cuda_lib
     from ravvent_tpu_torch.parallel import distributed
     from ravvent_tpu_torch.training.loop import Trainer
     from ravvent_tpu_torch.weights import flatten, unflatten
@@ -2163,16 +2174,37 @@ def dp_step_rank(rank: int, world_size: int, init_method: str, out_dir: str, par
     distributed.initialize(init_method, world_size, rank, "gloo")
     try:
         cfg = RunConfig()
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
-                                                                 num_data_shards=world_size))
-        tr = Trainer(cfg, params=unflatten(params))
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, num_data_shards=world_size // model_shards))
+        tr = Trainer(cfg, params=unflatten(params), model_shards=model_shards)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        v = tr.validate_on_batch(batch)
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.launches)
         out, grads = tr.loss_and_grads(batch)
         tr.apply_gradients(grads)
         torch.cuda.synchronize()
-        got = {"loss": float(out.loss), "acc": float(out.acc)}
+        got = {"loss": float(out.loss.detach()), "acc": float(out.acc),
+               "val": [float(v["loss"]), float(v["acc"])], "launches": json.dumps(launches)}
         got.update({"grad/" + k: v for k, v in flatten(grads).items()})
         got.update({"param/" + k: v for k, v in flatten(tr.params).items()})
+        # the timed steps' collectives: their count and host seconds, each
+        # timed from a synchronized card (its device-to-host copy would
+        # wait for the queued work anyway)
+        in_place, coll = distributed._in_place, [0, 0.0]
+
+        def timed_in_place(fn, t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = in_place(fn, t)
+            coll[0] += 1
+            coll[1] += time.perf_counter() - t0
+            return out
+
+        distributed._in_place = timed_in_place
         got["step_s"] = np.asarray(train_steps(tr, batch, timed_steps))
+        got["collectives"], got["collective_s"] = coll[0] / timed_steps, coll[1] / timed_steps
         np.savez(f"{out_dir}/rank{rank}.npz", **got)
     finally:
         torch.distributed.destroy_process_group()
@@ -2196,9 +2228,11 @@ def phase_multidevice(smi: str) -> dict:
     on the compact wire and on sigdev over the 4 reads (results bit-equal;
     each kernel's launches doubled a chunk); (b) data-parallel training, 2
     gloo ranks spawned on the card, global batch 128 of phase 17's data,
-    one step against the single-process step on the card; (c) the entry's
-    dry run, dryrun_multichip(2), both ranks on the card. Returns the
-    figures."""
+    one step against the single-process step on the card; (d) the same on
+    a 1 x 2 and a 2 x 2 grid of ranks (the 'model' axis: the attention
+    memory's positions sharded over each model row); (c) the entry's dry
+    run, dryrun_multichip(2) and (4) (a 2 x 2 grid), every rank on the
+    card. Returns the figures."""
     import tempfile
     import threading
     from pathlib import Path
@@ -2282,41 +2316,96 @@ def phase_multidevice(smi: str) -> dict:
               timeout=400.0)
         fig["dp_spawn_s"] = time.perf_counter() - t0
         one = Trainer(run_cfg, params=params)
+        v1 = one.validate_on_batch(batch)
         out, grads = one.loss_and_grads(batch)
         one.apply_gradients(grads)
         g1, p1 = flatten(grads), flatten(one.params)  # after the one step
         one_steps = train_steps(one, batch, timed)
-        ranks = [np.load(d / f"rank{r}.npz") for r in range(2)]
+        loss1, val1 = float(out.loss.detach()), float(v1["loss"])
         lr = run_cfg.train.learning_rate
-        loss1 = float(out.loss.detach())
-        rel = abs(float(ranks[0]["loss"]) - loss1) / abs(loss1)
-        gerr = {k: float(np.abs(ranks[0]["grad/" + k] - g1[k]).max())
-                / max(float(np.abs(g1[k]).max()), 1e-30) for k in g1}
-        worst = max(gerr, key=gerr.get)
-        same = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0].files
-                   if k.startswith("param/"))
-        pdiff = max(float(np.abs(ranks[0]["param/" + k] - p1[k]).max()) for k in p1)
+
+        def against_one(ranks: list) -> dict:
+            """Rank 0 against the one-process step, and every rank's
+            parameters against rank 0's."""
+            gerr = {k: float(np.abs(ranks[0]["grad/" + k] - g1[k]).max())
+                    / max(float(np.abs(g1[k]).max()), 1e-30) for k in g1}
+            worst = max(gerr, key=gerr.get)
+            return {"rel": abs(float(ranks[0]["loss"]) - loss1) / abs(loss1),
+                    "val_rel": abs(float(ranks[0]["val"][0]) - val1) / abs(val1),
+                    "worst": worst, "gerr": gerr[worst],
+                    "same": all(np.array_equal(r[k], ranks[0][k]) for r in ranks[1:]
+                                for k in ranks[0].files if k.startswith("param/")),
+                    "pdiff": max(float(np.abs(ranks[0]["param/" + k] - p1[k]).max())
+                                 for k in p1) / lr}
+
+        ranks = [np.load(d / f"rank{r}.npz") for r in range(2)]
+        h = against_one(ranks)
         fig["dp_step_s"] = float(np.mean(ranks[0]["step_s"]))
         fig["one_step_s"] = float(np.mean(one_steps))
         print(f"  (b) DP train step, 2 gloo ranks on cuda:0, 64 rows each of a global batch of "
               f"128 at p = 0.5: loss {float(ranks[0]['loss']):.7f} vs one process {loss1:.7f}, "
-              f"rel {rel:.3e} (need <= 1e-5); all-reduced gradients: worst leaf {worst} "
-              f"{gerr[worst]:.3e} of its largest magnitude (need <= 1e-5); the ranks' "
-              f"parameters bit-equal {same}; parameters' largest difference from one process "
-              f"{pdiff / lr:.4f} lr [{smi}]")
+              f"rel {h['rel']:.3e} (need <= 1e-5); all-reduced gradients: worst leaf "
+              f"{h['worst']} {h['gerr']:.3e} of its largest magnitude (need <= 1e-5); the "
+              f"ranks' parameters bit-equal {h['same']}; parameters' largest difference from "
+              f"one process {h['pdiff']:.4f} lr [{smi}]")
         print(f"  (b) step seconds (mean of {timed} after the first): DP rank 0 "
               f"{fig['dp_step_s']:.4f} s ({np.round(ranks[0]['step_s'], 4).tolist()}), one "
-              f"process {fig['one_step_s']:.4f} s ({np.round(one_steps, 4).tolist()}); the spawn "
-              f"with its step {fig['dp_spawn_s']:.2f} s [{smi}]")
-        require(np.isfinite(loss1) and rel <= 1e-5, "the DP loss differs from one process's")
-        require(gerr[worst] <= 1e-5, f"the DP gradients differ from one process's on {worst}")
-        require(same, "the ranks' parameters differ after the step")
+              f"process {fig['one_step_s']:.4f} s ({np.round(one_steps, 4).tolist()}); rank 0's "
+              f"collectives a step {float(ranks[0]['collectives']):g}, "
+              f"{float(ranks[0]['collective_s']):.4f} s; the spawn with its step "
+              f"{fig['dp_spawn_s']:.2f} s [{smi}]")
+        require(np.isfinite(loss1) and h["rel"] <= 1e-5, "the DP loss differs from one process's")
+        require(h["gerr"] <= 1e-5, f"the DP gradients differ from one process's on {h['worst']}")
+        require(h["same"], "the ranks' parameters differ after the step")
 
-    # (c) the dry run: one DP step and validation, then the sharded decodes
-    t0 = time.perf_counter()
-    dryrun_multichip(2, timeout=400.0)
-    fig["dryrun_s"] = time.perf_counter() - t0
-    print(f"  (c) dryrun_multichip(2), both ranks on cuda:0: {fig['dryrun_s']:.2f} s [{smi}]")
+        # (d) the 'model' axis: a 1 x 2 and a 2 x 2 grid of gloo ranks on the
+        # card, the attention memory's positions sharded over each model row
+        for n_data in (1, 2):
+            world, grid = 2 * n_data, f"{n_data}x2"
+            gd = d / f"grid{grid}"
+            gd.mkdir()
+            t0 = time.perf_counter()
+            spawn(dp_step_rank, world, (str(gd), flatten(params), batch, timed, 2),
+                  init_dir=str(gd), timeout=400.0)
+            fig[f"grid{grid}_spawn_s"] = time.perf_counter() - t0
+            ranks = [np.load(gd / f"rank{r}.npz") for r in range(world)]
+            h = against_one(ranks)
+            counts = [json.loads(str(r["launches"])) for r in ranks]
+            fig[f"grid{grid}_step_s"] = float(np.mean(ranks[0]["step_s"]))
+            print(f"  (d) grid {grid} (data x model), {world} gloo ranks on cuda:0, "
+                  f"{128 // n_data} rows and half the 230 memory positions each, p = 0.5: loss "
+                  f"{float(ranks[0]['loss']):.7f} vs one process {loss1:.7f}, rel "
+                  f"{h['rel']:.3e} (need <= 1e-5); gradients: worst leaf {h['worst']} "
+                  f"{h['gerr']:.3e} of its largest magnitude (need <= 1e-5); validation loss "
+                  f"rel {h['val_rel']:.3e} (need <= 1e-4); the ranks' parameters bit-equal "
+                  f"{h['same']}; parameters' largest difference from one process "
+                  f"{h['pdiff']:.4f} lr; bilstm launches a validation on each rank "
+                  f"{[c['bilstm'] for c in counts]}, plain route "
+                  f"{[c['bilstm_plain_route'] for c in counts]} [{smi}]")
+            print(f"  (d) step seconds (mean of {timed} after the first): grid {grid} rank 0 "
+                  f"{fig[f'grid{grid}_step_s']:.4f} s "
+                  f"({np.round(ranks[0]['step_s'], 4).tolist()}), beside (b)'s DP rank 0 "
+                  f"{fig['dp_step_s']:.4f} s and one process {fig['one_step_s']:.4f} s; rank "
+                  f"0's collectives a step {float(ranks[0]['collectives']):g}, "
+                  f"{float(ranks[0]['collective_s']):.4f} s; the spawn with its steps "
+                  f"{fig[f'grid{grid}_spawn_s']:.2f} s [{smi}]")
+            require(h["rel"] <= 1e-5, f"grid {grid}: the loss differs from one process's")
+            require(h["gerr"] <= 1e-5,
+                    f"grid {grid}: the gradients differ from one process's on {h['worst']}")
+            require(h["val_rel"] <= 1e-4,
+                    f"grid {grid}: the validation loss differs from one process's")
+            require(h["same"], f"grid {grid}: the ranks' parameters differ after the step")
+            require(all(c["bilstm"] == 4 and c["bilstm_plain_route"] == 0 for c in counts),
+                    f"grid {grid}: a rank's validation did not run its encoder on bilstm")
+
+    # (c) the dry run: one step and validation, then the sharded decodes; at
+    # 4 ranks on a 2 x 2 grid
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        dryrun_multichip(n, timeout=400.0)
+        fig[f"dryrun{n}_s"] = time.perf_counter() - t0
+        print(f"  (c) dryrun_multichip({n}), all ranks on cuda:0: {fig[f'dryrun{n}_s']:.2f} s "
+              f"[{smi}]")
     return fig
 
 
@@ -2676,7 +2765,8 @@ def main() -> int:
     phase("18 the non-flagship configurations, beam_impl=xla", t0)
     t0 = time.perf_counter()
     phase_multidevice(smi)
-    phase("19 multi-device: the sharded engine, data-parallel training, the dry run", t0)
+    phase("19 multi-device: the sharded engine, data-parallel training, the 'model' "
+          "axis, the dry run", t0)
     t0 = time.perf_counter()
     phase_tools(smi)
     phase("20 the user tools at the flagship's width", t0)

@@ -72,11 +72,13 @@ def greedy_loop(step: Callable[[torch.Tensor], torch.Tensor], B: int, vocab_size
 def greedy_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, total_steps: int,
                   max_steps: Optional[int] = None, attention_type: str = "luong",
                   cell_type: str = "lstm", start_token: int = NUC_TOKENIZER.start_id,
-                  end_token: int = NUC_TOKENIZER.end_id, reduce: Optional[Reduce] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  end_token: int = NUC_TOKENIZER.end_id, reduce: Optional[Reduce] = None,
+                  model_axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain greedy decode over memory [B, S, E] (projected or not), any
-    decoder depth, cell and attention; ``reduce``: see :func:`greedy_loop`.
-    Returns (tokens [B, total_steps] int32, logits [B, total_steps, V])."""
+    decoder depth, cell and attention; ``reduce``: see :func:`greedy_loop`;
+    ``model_axis``: ``mem`` is this rank's slice of the positions
+    (models/decoder.py:decoder_step). Returns (tokens [B, total_steps]
+    int32, logits [B, total_steps, V])."""
     B = mem.mask.shape[0]
     dev = mem.keys.device
     dec_units = dec_params["fc"]["kernel"].shape[0]
@@ -85,7 +87,7 @@ def greedy_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, total_steps
     def step(cur: torch.Tensor) -> torch.Tensor:
         nonlocal state
         state, logits, _ = dec.decoder_step(dec_params, state, dec.embed(cur, vocab_size), mem, 1,
-                                            attention_type, cell_type)
+                                            attention_type, cell_type, model_axis)
         return logits
 
     return greedy_loop(step, B, vocab_size, total_steps, max_steps, start_token, end_token, dev,

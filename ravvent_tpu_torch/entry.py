@@ -6,14 +6,17 @@
   targets, gen, draws=None) -> (loss, acc)``, at B = 16 on the JAX entry's
   numpy-seeded inputs.
 - :func:`dryrun_multichip` spawns n gloo ranks on tiny shapes (16 units on
-  the CPU; on the card 128, the only width its BiLSTM kernels are compiled
-  for): each runs one data-parallel train step and one validation; then rank 0
-  decodes one simulated read with a :class:`ShardedBasecallEngine` over an
-  n-shard mesh, on the i8dev wire (4-bit probabilities, packed result,
+  the CPU; on the card 128, the width the f32 BiLSTM kernel is built for,
+  so that each rank's validation runs its encoder on that kernel rather
+  than on the plain route other widths take). As the JAX dry run does, at
+  n >= 4 and n even the ranks form a grid of n / 2 data shards by 2 model
+  ranks (``model_shards=2``: the attention memory's positions sharded over
+  each model row), else n data shards. Each rank runs one train step and
+  one validation on that grid; then rank 0 decodes one simulated read with
+  a :class:`ShardedBasecallEngine` over the same mesh (rows split over
+  ``'data'``), on the i8dev wire (4-bit probabilities, packed result,
   pre-projected values) and on the signal-only wire, and requires both to
-  equal a single-device engine bit for bit. Pure data parallelism: the JAX
-  dry run's ``model_shards=2`` mesh at n >= 4 waits for the ``'model'``
-  axis (ROADMAP A8b).
+  equal a single-device engine bit for bit.
 
 Usage: ``python -m ravvent_tpu_torch.entry [multichip N] [--cpu]``; the card
 unless ``--cpu`` (a dry run's ranks then share the card's devices
@@ -97,11 +100,12 @@ def _dryrun_rank(rank: int, world_size: int, init_method: str, device: Optional[
     try:
         dev = _rank_device(rank, device)
         cfg = RunConfig()  # the flagship: teacher forcing 0.5, lr 1e-4
+        model_shards = 2 if world_size >= 4 and world_size % 2 == 0 else 1
         # narrow on the CPU for a fast step; the sharding structure is the same
         cfg = dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model, enc_units=units, dec_units=units),
-            train=dataclasses.replace(cfg.train, num_data_shards=world_size))
-        trainer = Trainer(cfg, device=dev)
+            train=dataclasses.replace(cfg.train, num_data_shards=world_size // model_shards))
+        trainer = Trainer(cfg, device=dev, model_shards=model_shards)
         B = 2 * world_size
         rng = np.random.default_rng(0)
         batch = (rng.normal(size=(B, 40, 1)).astype(np.float32),
@@ -121,7 +125,8 @@ def _dryrun_rank(rank: int, world_size: int, init_method: str, device: Optional[
                    [_rank_device(i, None) for i in range(world_size)])
         fast = dict(chunk_size=512, beam_impl="xla", memory_dtype=None, transport_dtype="i8dev",
                     pack_u8=True, prob_bits=4, project_values=True)
-        engine = ShardedBasecallEngine(trainer.params, cfg.model, make_mesh(devices=devices),
+        engine = ShardedBasecallEngine(trainer.params, cfg.model,
+                                       make_mesh(devices=devices, model_shards=model_shards),
                                        **fast)
         single = BasecallEngine(trainer.params, cfg.model, device=devices[0], **fast)
         max_len = int((nuc != 0).sum(axis=1).max())
@@ -147,8 +152,9 @@ def _dryrun_rank(rank: int, world_size: int, init_method: str, device: Optional[
 
 def dryrun_multichip(n_devices: int, device: Optional[str] = None, timeout: float = 600.0
                      ) -> None:
-    """One data-parallel train step and validation on ``n_devices`` gloo
-    ranks, then the sharded decode checks (the module's docstring); ranks
+    """One train step and validation on ``n_devices`` gloo ranks (a grid of
+    ``n_devices / 2`` x 2 at n >= 4 and n even), then the sharded decode
+    checks (the module's docstring); ranks
     on the card's devices round-robin unless ``device`` (e.g. "cpu") is
     given. Raises when a rank fails."""
     from ravvent_tpu_torch.ops.rnn_cuda import UNITS

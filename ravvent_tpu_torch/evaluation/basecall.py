@@ -42,9 +42,11 @@ own row count. Both split a read at the same rows (multiples of
 ``chunk_size``), so the i8 wires' per-chunk scales are the JAX slabs'.
 
 With a ``mesh`` (parallel/mesh.py) the engine runs data-parallel over the
-mesh's devices, as the JAX engine's ``shard_map`` over ``'data'`` does
-(basecall.py:293-316 there): every device holds the parameters and the
-encoders' kernel-layout weights, each chunk's rows split over the shards
+mesh's ``'data'`` axis, as the JAX engine's ``shard_map`` over ``'data'``
+does (basecall.py:293-316 there; on a ``('data', 'model')`` mesh each data
+shard runs on the first device of its model row): every shard's device
+holds the parameters and the encoders' kernel-layout weights, each chunk's
+rows split over the shards
 (``torch.tensor_split``'s rule; a shard of no rows is skipped), and each
 shard runs the single-device program on its rows: the compact wire's upload
 and unpack once per device, then its own rows' gather, encode, decode and
@@ -365,9 +367,9 @@ class BasecallEngine:
         more than one, the results are [N, n_beams, T] (beam 0 the top
         beam), for the merge fold's beam selection
         (evaluation/mapping.py:MappingEvaluator._select_beams).
-        ``mesh``: run data-parallel over the mesh's devices (see the module's
-        docstring); ``device`` is then the mesh's first device and may not
-        be given."""
+        ``mesh``: run data-parallel over the mesh's ``'data'`` axis (see the
+        module's docstring); ``device`` is then the mesh's first device and
+        may not be given."""
         check_config(cfg)
         if memory_dtype not in (None, torch.bfloat16, torch.float32, "i8", "i8mxu"):
             raise ValueError("memory_dtype must be torch.bfloat16, torch.float32, None, "
@@ -424,10 +426,10 @@ class BasecallEngine:
             # one engine a shard, on its device: this one on the first
             # device, a copy holding the parameters on each other device
             replicas = {self.device: self}
-            for d, p in zip(mesh.devices, replicate(self.params, mesh)):
+            for d, p in zip(mesh.data_devices, replicate(self.params, mesh)):
                 if d not in replicas:
                     replicas[d] = self._replica(d, p)
-            self._shards = [replicas[d] for d in mesh.devices]
+            self._shards = [replicas[d] for d in mesh.data_devices]
 
     def _encoder_weights(self) -> dict:
         return {k: kernel_weights(stream_weights(self.params[k],

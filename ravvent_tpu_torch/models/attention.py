@@ -14,6 +14,16 @@ position) max-abs scales (``kscale``, ``vscale``), which only the beam step
 consumes (ops/beam_step_cuda.py). Scores are masked with
 ``finfo(float32).min``, not ``-inf``, so an all-masked row softmaxes to a
 uniform row, as in the reference.
+
+On a ``('data', 'model')`` grid of training ranks each rank of a model row
+holds a slice of the memory's positions (parallel/mesh.py:memory_sharding,
+the counterpart of the JAX trainer's sequence sharding) and
+:func:`attend_beams` takes the row's ``model_axis``
+(parallel/distributed.py:Axis): the query enters the sharded region, the
+scores' max is a MAX across the row (detached: the softmax does not change
+under a shift), and the exp-sum and the context's partial sums leave it in
+one SUM. Nothing is padded, so an all-masked row stays uniform over the
+real positions.
 """
 
 from __future__ import annotations
@@ -113,16 +123,24 @@ def setup_memory(params: Params, memory: torch.Tensor, mask: torch.Tensor, dtype
     return AttnMemory(keys=keys, values=values, mask=mask, watt_h=watt_h)
 
 
-def attend_beams(params: Params, attention_type: str, query: torch.Tensor, mem: AttnMemory):
+def attend_beams(params: Params, attention_type: str, query: torch.Tensor, mem: AttnMemory,
+                 model_axis=None):
     """Beam-batched attention: query [B, W, U] against untiled memory.
     Luong rounds the query to the keys' dtype before its dot, which
     accumulates in f32. Bahdanau computes ``v . tanh(query @ W_q + keys)``
     in f32 over the keys upcast ([B, W, S, U] at once). The alignments are
     rounded to the values' dtype before the context's dot. Returns (context
     [B, W, E], alignments [B, W, S]). Quantized memory is the beam step's
-    alone."""
+    alone. With ``model_axis`` (the module's docstring) ``mem`` is this
+    rank's f32 slice of the memory, ``params`` have entered the region
+    (models/basecaller.py:shard_attention) and the alignments returned are
+    the slice's."""
     if mem.quantized:
         raise ValueError("int8 memory is consumed only by the beam step (beam_step_decode)")
+    if model_axis is not None:
+        if mem.values.dtype != torch.float32:
+            raise ValueError("a memory sharded over the model axis is f32 (training's)")
+        query = model_axis.enter(query)
     if attention_type == "luong":
         q = query.to(mem.keys.dtype).float()
         scores = torch.bmm(q, mem.keys.float().transpose(1, 2))
@@ -132,6 +150,14 @@ def attend_beams(params: Params, attention_type: str, query: torch.Tensor, mem: 
     else:
         raise ValueError(f"unknown attention_type {attention_type!r}")
     scores = torch.where(mem.mask[:, None, :], scores, torch.full((), NEG_INF, device=q.device))
+    if model_axis is not None:
+        m = model_axis.all_reduce(scores.detach().amax(dim=2, keepdim=True), "max")
+        e = torch.exp(scores - m)
+        # [B, W, 1 + E]: the exp-sum and the context's partials in one sum
+        total = model_axis.leave(torch.cat([e.sum(dim=2, keepdim=True),
+                                            torch.bmm(e, mem.values)], dim=2))
+        denom = total[..., :1]
+        return total[..., 1:] / denom, e / denom
     m = scores.max(dim=2, keepdim=True).values
     e = torch.exp(scores - m)
     align = e / e.sum(dim=2, keepdim=True)

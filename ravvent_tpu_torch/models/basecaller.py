@@ -7,7 +7,8 @@ non-pad) and accuracy omitting pad, start and end. Validation metrics: loss
 on the greedy decode's logits, accuracy omitting start and end only (not
 pad, a reference quirk, basecaller.py:267-279) within the batch-max target
 width. Data-parallel training passes ``reduce`` (utils/masking.py), so
-that every count and the batch-max width are the global batch's.
+that every count and the batch-max width are the global batch's; a rank of
+a model row passes its ``model_axis`` too (:func:`shard_attention`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ravvent_tpu_torch.config import ModelConfig
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models import decoder as dec
 from ravvent_tpu_torch.models.rnn import encoder_apply, init_encoder
+from ravvent_tpu_torch.parallel.mesh import memory_sharding
 from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
 from ravvent_tpu_torch.utils.masking import Reduce, input_mask, masked_accuracy, masked_ce_loss
 
@@ -84,6 +86,23 @@ def encode_input(params: Params, raw: torch.Tensor, event: torch.Tensor,
     return out, mask
 
 
+def shard_attention(dec_params: Params, enc_out: torch.Tensor, mask: torch.Tensor,
+                    model_axis=None) -> Tuple[Params, torch.Tensor, torch.Tensor]:
+    """The counterpart of the JAX trainer's memory constraint: this model
+    rank's positions of the memory and its mask
+    (parallel/mesh.py:memory_sharding), and the decoder's parameters with
+    the attention's entering the sharded region
+    (parallel/distributed.py:Axis). The memory and those parameters act
+    only on this rank's slice there, so their gradients sum the slices'
+    shares across the row, and the encoders' gradients are whole on every
+    rank. Unchanged without a ``model_axis``."""
+    if model_axis is None:
+        return dec_params, enc_out, mask
+    s = memory_sharding(model_axis.size, model_axis.index, enc_out.shape[1])
+    attention = {k: model_axis.enter(v) for k, v in dec_params["attention"].items()}
+    return {**dec_params, "attention": attention}, model_axis.enter(enc_out)[:, s], mask[:, s]
+
+
 class TrainOutput(NamedTuple):
     loss: torch.Tensor
     acc: torch.Tensor
@@ -94,20 +113,23 @@ def train_forward(params: Params, raw: torch.Tensor, event: torch.Tensor, target
                   cfg: ModelConfig, sampling_probability: float = 0.0,
                   gen: Optional[torch.Generator] = None,
                   draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  reduce: Optional[Reduce] = None) -> TrainOutput:
+                  reduce: Optional[Reduce] = None, model_axis=None) -> TrainOutput:
     """Teacher-forced forward pass with loss and train accuracy
     (reference: basecaller.py:225-253): the trainable encoders, un-projected
     f32 memory, then :func:`decoder.teacher_forced_decode` over
     ``targets[:, :-1]`` against ``targets[:, 1:]``. An unsampled position's
     -1 counts as a miss, as in the reference. With ``reduce`` (a
     data-parallel rank's rows) the loss is this rank's share of the global
-    batch's loss and the accuracy the global batch's."""
+    batch's loss and the accuracy the global batch's. With ``model_axis``
+    the attention memory is sharded over it (:func:`shard_attention`); the
+    outputs are the whole row's on every rank of the axis."""
     check_config(cfg)
     enc_out, mask = encode_input(params, raw, event, cfg, trainable=True)
-    mem = attn.setup_memory(params["decoder"]["attention"], enc_out, mask)
+    dec_params, enc_out, mask = shard_attention(params["decoder"], enc_out, mask, model_axis)
+    mem = attn.setup_memory(dec_params["attention"], enc_out, mask)
     logits, sample_ids = dec.teacher_forced_decode(
-        params["decoder"], targets[:, :-1], mem, cfg.vocab_size, sampling_probability, gen,
-        draws, cfg.effective_attention, cfg.cell_type)
+        dec_params, targets[:, :-1], mem, cfg.vocab_size, sampling_probability, gen,
+        draws, cfg.effective_attention, cfg.cell_type, model_axis)
     real = targets[:, 1:]
     loss = masked_ce_loss(real, logits, PAD, reduce)
     acc = masked_accuracy(real, sample_ids, [PAD, START, END], reduce=reduce)

@@ -82,15 +82,17 @@ def output_block(params: Params, query: torch.Tensor, context: torch.Tensor):
 
 def decoder_step(params: Params, state: DecoderState, token_emb: torch.Tensor,
                  mem: attn.AttnMemory, beams: int = 1, attention_type: str = "luong",
-                 cell_type: str = "lstm"):
+                 cell_type: str = "lstm", model_axis=None):
     """One decode step for B*beams hypotheses (beam-major within each batch
     row) against memory of B rows, read once for all of a row's beams.
-    Returns (new_state, logits [B*beams, V], alignments [B, beams, S])."""
+    Returns (new_state, logits [B*beams, V], alignments [B, beams, S]).
+    ``model_axis``: ``mem`` is this rank's slice of the positions, the
+    attention reduces across the axis (models/attention.py)."""
     x = torch.cat([token_emb, state.attention], dim=-1)
     new_cells, query = cells_apply(params, state.cells, x, cell_type)
     B = mem.mask.shape[0]
     context, align = attn.attend_beams(params["attention"], attention_type,
-                                       query.reshape(B, beams, -1), mem)
+                                       query.reshape(B, beams, -1), mem, model_axis)
     context = context.reshape(B * beams, -1)
     if mem.projected:
         attention_vec = query @ mem.watt_h + context
@@ -115,7 +117,8 @@ def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.At
                           vocab_size: int, sampling_probability: float = 0.0,
                           gen: Optional[torch.Generator] = None,
                           draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                          attention_type: str = "luong", cell_type: str = "lstm"):
+                          attention_type: str = "luong", cell_type: str = "lstm",
+                          model_axis=None):
     """Decode with (scheduled) teacher forcing (counterpart of the JAX
     package's models/decoder.py:teacher_forced_decode).
 
@@ -129,7 +132,8 @@ def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.At
     and -1 elsewhere, and feeds the sample's one-hot to the selected rows.
     The draws come from ``gen`` on the inputs' device, or from ``draws =
     (select [T, B] bool, gumbel [T, B, V] f32)``; a generator's stream
-    differs from jax.random's for the same seed."""
+    differs from jax.random's for the same seed. ``model_axis``: see
+    :func:`decoder_step`."""
     B, T = dec_inputs.shape
     dev = dec_inputs.device
     state = zero_state(params, B, params["fc"]["kernel"].shape[0], cell_type, dev)
@@ -145,7 +149,8 @@ def teacher_forced_decode(params: Params, dec_inputs: torch.Tensor, mem: attn.At
     cur = inputs_emb[:, 0]
     logits_t, ids_t = [], []
     for t in range(T):
-        state, logits, _ = decoder_step(params, state, cur, mem, 1, attention_type, cell_type)
+        state, logits, _ = decoder_step(params, state, cur, mem, 1, attention_type, cell_type,
+                                        model_axis)
         gt_next = inputs_emb[:, min(t + 1, T - 1)]  # the last step's is unused
         if scheduled:
             sampled = torch.argmax(logits.detach() + gumbel[t], dim=-1)

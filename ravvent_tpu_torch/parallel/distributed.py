@@ -7,7 +7,11 @@ ravvent_tpu/parallel/distributed.py).
   share a card (NCCL refuses two ranks on one GPU). Nothing picks a backend.
 - Training: every rank is given the same global batch and keeps its
   :func:`local_batch_slice`; the trainer sums counts and gradients with
-  :func:`all_reduce` (training/loop.py).
+  :func:`all_reduce` (training/loop.py). On a (data, model) grid of ranks
+  (:func:`grid_axes`) the ranks of one model row share a data shard and
+  split the attention memory's positions: :meth:`Axis.enter` and
+  :meth:`Axis.leave` carry tensors into and out of the row's sharded
+  region under autograd, and the data reductions run over a data column.
 - Inference: reads are the unit a rank owns (a read's snippets merge in a
   sequential fold), so the files-info index is split per rank
   (:func:`shard_files_info`, :func:`balanced_shard_files_info`) and the
@@ -24,7 +28,8 @@ import json
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,10 +89,94 @@ def _in_place(collective: Callable[[torch.Tensor], None], t: torch.Tensor) -> to
     return t.copy_(moved)
 
 
-def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced over the ranks in place (``op`` "sum", "max" or "min")
-    and returned, on any device under either backend."""
-    return _in_place(lambda x: dist.all_reduce(x, _OPS[op]), t)
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """``t`` reduced over the ranks of ``group`` (default: all of them) in
+    place (``op`` "sum", "max" or "min") and returned, on any device under
+    either backend."""
+    on = {} if group is None else {"group": group}
+    return _in_place(lambda x: dist.all_reduce(x, _OPS[op], **on), t)
+
+
+class _Enter(torch.autograd.Function):
+    """The identity forward; the gradient summed over ``group`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format), "sum", ctx.group), None
+
+
+class _Leave(torch.autograd.Function):
+    """The sum over ``group`` forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One axis of a (data, model) grid of ranks as this rank sees it: its
+    ``size``, this rank's ``index`` along it, and the process ``group`` of
+    the ranks that differ from this one only along it (None: every rank).
+    An axis of size 1 runs no collective.
+
+    Along the model axis the ranks hold the same rows and compute the same
+    values, except inside a region where each holds a slice of the
+    attention memory: a replicated tensor enters the region through
+    :meth:`enter` (so its gradient sums every slice's share) and the
+    slices' partial sums leave it through :meth:`leave` (summed, after which
+    the computation is replicated again). ``torch.distributed.nn``'s
+    all-reduce will not do for :meth:`leave`: its backward sums the
+    gradient over the ranks again, and that gradient, computed alike on
+    every rank downstream, would count ``size`` times."""
+
+    size: int = 1
+    index: int = 0
+    group: Any = None
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return t if self.size == 1 else all_reduce(t, op, self.group)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.size == 1 else _Enter.apply(x, self.group)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.size == 1 else _Leave.apply(x, self.group)
+
+
+def grid_axes(n_data: int, n_model: int) -> Tuple[Axis, Axis]:
+    """This rank's (data, model) axes on a grid of ``n_data * n_model``
+    ranks laid out as parallel.mesh.make_mesh lays out devices: rank r is
+    data index ``r // n_model`` and model index ``r % n_model``. It creates
+    the grid's process groups, one for each model row and one for each
+    data column, so every rank must call it at the same point (gloo hangs
+    otherwise). An axis that spans every rank uses the default group; a
+    grid of one rank is this process alone, whatever its world."""
+    if n_data * n_model == 1:
+        return Axis(), Axis()
+    rank, world = process_info()
+    if world != n_data * n_model:
+        raise RuntimeError(f"a grid of {n_data} x {n_model} ranks needs a world size of "
+                           f"{n_data * n_model}; this process's is {world}")
+    d, m = divmod(rank, n_model)
+    data_group = model_group = None
+    if n_data > 1 and n_model > 1:
+        for row in range(n_data):
+            g = dist.new_group([row * n_model + i for i in range(n_model)])
+            model_group = g if row == d else model_group
+        for col in range(n_model):
+            g = dist.new_group([i * n_model + col for i in range(n_data)])
+            data_group = g if col == m else data_group
+    return Axis(n_data, d, data_group), Axis(n_model, m, model_group)
 
 
 def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -129,9 +218,14 @@ def balanced_shard_files_info(files_info_path, process_id: Optional[int] = None,
     return [fi for i, fi in enumerate(files_info) if owner[i] == process_id]
 
 
-def local_batch_slice(global_batch: int) -> slice:
-    """The half-open row range of the global batch this rank feeds."""
+def local_batch_slice(global_batch: int, index: Optional[int] = None,
+                      count: Optional[int] = None) -> slice:
+    """The half-open row range of the global batch that shard ``index`` of
+    ``count`` feeds; by default this rank of all of them (on a grid, the
+    caller passes its data index and the data axis's size)."""
     p, n = process_info()
+    p = p if index is None else index
+    n = n if count is None else count
     per = global_batch // n
     return slice(p * per, (p + 1) * per)
 

@@ -8,7 +8,10 @@ it has (``predict_beam``, ``predict_greedy``, the compact wire with its
 dispatch/collect pipelining, the signal-only wire) with each chunk's rows
 split over the mesh's ``'data'`` axis; each shard runs the identical
 single-device program on its device, kernels included, and no collective
-sits on the hot path (evaluation/basecall.py's module docstring).
+sits on the hot path (evaluation/basecall.py's module docstring). A
+``('data', 'model')`` mesh (training's) serves as its ``'data'`` axis: a
+data shard runs on the first device of its model row, as the JAX engine
+splits rows over ``mesh.shape["data"]`` alone.
 
 :class:`ShardedBasecallEngine` is the mesh-first constructor of that engine;
 the evaluators take it as they take a ``BasecallEngine``.

@@ -1,14 +1,16 @@
 """Device mesh and sharding helpers (counterpart of ravvent_tpu/parallel/mesh.py).
 
-The workload is pure data parallelism over a 1-D ``('data',)`` mesh: the
-model is small (128-unit RNNs, vocab 7) and the snippet batch is the
-embarrassingly parallel axis, so parameters replicate and the batch's
-leading axis shards. A :class:`Mesh` is the devices of that axis in order;
-a device may repeat, so ``["cuda:0", "cuda:0"]`` is two shards on one card.
-
-The JAX package's second axis, ``'model'`` (the attention memory's
-positions sharded in training, with collectives inside every decode step),
-is not ported: ``make_mesh(model_shards > 1)`` raises (ROADMAP A8b).
+The snippet batch is the embarrassingly parallel axis, so the first axis,
+``'data'``, shards the batch's leading axis and replicates the parameters
+(the model is small: 128-unit RNNs, vocab 7). A second axis, ``'model'``
+(``make_mesh(model_shards=k)``), shards the attention memory's positions
+in training: each of the k ranks of a model row holds a slice of the
+memory (:func:`memory_sharding`) and the attention reduces across the row
+inside every decode step (models/attention.py, training/loop.py). A
+:class:`Mesh` is its devices in rank order, laid out as JAX's
+``devices.reshape(-1, k)``; a device may repeat, so ``["cuda:0",
+"cuda:0"]`` is two shards on one card. Inference splits rows over
+``'data'`` only (:attr:`Mesh.data_devices`), as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -23,22 +25,33 @@ Device = Union[str, torch.device]
 
 @dataclass(frozen=True)
 class Mesh:
-    """A grid of devices with named axes, as ``jax.sharding.Mesh``: here one
-    axis, ``'data'``, and ``devices`` its devices in shard order."""
+    """A grid of devices with named axes, as ``jax.sharding.Mesh``:
+    ``('data',)``, or ``('data', 'model')`` when ``model_shards > 1``.
+    ``devices`` holds them in rank order: device ``i`` is data index
+    ``i // model_shards`` and model index ``i % model_shards``."""
 
     devices: Tuple[torch.device, ...]
+    model_shards: int = 1
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
-        return ("data",)
+        return ("data",) if self.model_shards == 1 else ("data", "model")
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": len(self.devices)}
+        n_data = len(self.devices) // self.model_shards
+        return {"data": n_data} if self.model_shards == 1 else {"data": n_data,
+                                                                "model": self.model_shards}
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def data_devices(self) -> Tuple[torch.device, ...]:
+        """The first device of each model row, in data order: where a
+        data shard of the rows runs (every device of a 1-D mesh)."""
+        return self.devices[::self.model_shards]
 
 
 def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence[Device]] = None,
@@ -47,11 +60,11 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence[Device
     (``cuda:0`` .. ``cuda:{n-1}``, all of them unless ``n_devices`` is
     given); raises when there is no card. The CPU is used only when the
     caller passes it, e.g. ``devices=["cpu"] * 8``; a device may repeat.
-    ``n_devices`` takes the first n of ``devices``."""
-    if model_shards > 1:
-        raise NotImplementedError(
-            "the 'model' mesh axis (sequence-parallel attention memory in training) is not "
-            "ported (ROADMAP A8b); use model_shards=1")
+    ``n_devices`` takes the first n of ``devices``. With ``model_shards =
+    k > 1`` a ``('data', 'model')`` mesh of ``n // k`` rows of k devices;
+    k must divide the device count."""
+    if model_shards < 1:
+        raise ValueError(f"model_shards must be at least 1, got {model_shards}")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass devices=['cpu'] * n to shard "
@@ -67,7 +80,10 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence[Device
             raise ValueError("a mesh needs at least one device")
         if any(d.type == "cuda" for d in devs) and not torch.cuda.is_available():
             raise RuntimeError("a CUDA device was asked for and none is available")
-    return Mesh(tuple(devs))
+    if len(devs) % model_shards:
+        raise ValueError(f"{len(devs)} devices do not split into rows of model_shards="
+                         f"{model_shards}")
+    return Mesh(tuple(devs), model_shards)
 
 
 def row_bounds(n_rows: int, n_shards: int) -> List[Tuple[int, int]]:
@@ -83,6 +99,21 @@ def row_bounds(n_rows: int, n_shards: int) -> List[Tuple[int, int]]:
     return bounds
 
 
+def memory_sharding(model_shards: int, model_index: int, n_positions: int) -> Optional[slice]:
+    """The attention memory's positions that model index ``model_index``
+    holds when ``n_positions`` split over ``model_shards`` ranks by
+    :func:`row_bounds` (uneven counts differ by one position; nothing is
+    padded, so an all-masked row still softmaxes over the real positions);
+    None on a pure data-parallel mesh (``model_shards == 1``)."""
+    if model_shards == 1:
+        return None
+    if n_positions < model_shards:
+        raise ValueError(f"{n_positions} memory positions do not give each of {model_shards} "
+                         f"model shards one")
+    lo, hi = row_bounds(n_positions, model_shards)[model_index]
+    return slice(lo, hi)
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -92,20 +123,22 @@ def _tree_map(fn, tree):
 
 
 def shard_batch(batch: Any, mesh: Mesh) -> List[Any]:
-    """One piece of a batch tree per device of the mesh: every leaf's
-    leading axis split by :func:`row_bounds` (uneven counts differ by at
-    most one row) and the piece moved to its device."""
+    """One piece of a batch tree per data shard of the mesh, on its device
+    (:attr:`Mesh.data_devices`): every leaf's leading axis split by
+    :func:`row_bounds` (uneven counts differ by at most one row)."""
+    devices = mesh.data_devices
+
     def piece(i: int, d: torch.device):
         def cut(x):
             x = torch.as_tensor(x)
-            lo, hi = row_bounds(x.shape[0], mesh.size)[i]
+            lo, hi = row_bounds(x.shape[0], len(devices))[i]
             return x[lo:hi].to(d)
         return _tree_map(cut, batch)
 
-    return [piece(i, d) for i, d in enumerate(mesh.devices)]
+    return [piece(i, d) for i, d in enumerate(devices)]
 
 
 def replicate(tree: Any, mesh: Mesh) -> List[Any]:
-    """One copy of a tree per device of the mesh (a device's copy is the
-    tree itself where its leaves already lie there)."""
-    return [_tree_map(lambda x, d=d: torch.as_tensor(x).to(d), tree) for d in mesh.devices]
+    """One copy of a tree per data shard of the mesh, on its device (a
+    device's copy is the tree itself where its leaves already lie there)."""
+    return [_tree_map(lambda x, d=d: torch.as_tensor(x).to(d), tree) for d in mesh.data_devices]

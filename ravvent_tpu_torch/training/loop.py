@@ -38,6 +38,17 @@ process's step on the global batch:
   Adam then run on every rank on the same summed gradients, so the ranks'
   parameters stay equal bit for bit. Only rank 0 writes checkpoints and the
   CSV log.
+
+With ``model_shards = k > 1`` (the JAX trainer on a ``('data', 'model')``
+mesh, ravvent_tpu/training/loop.py:103-139) the world is a grid of N data
+shards by k model ranks (parallel/distributed.py:grid_axes; rank r is data
+index r // k, model index r % k). The k ranks of a model row train on the
+same data shard, each on a slice of the attention memory's positions, in
+the train step and in validation (models/basecaller.py:shard_attention):
+every decode step reduces the softmax and the context across the row. The
+reductions above then run over a data column instead of the world (the
+initial broadcast still reaches every rank), and the ranks of a row
+compute the same loss, gradients and metrics.
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ from ravvent_tpu_torch.decode.greedy import greedy_decode
 from ravvent_tpu_torch.evaluation.basecall import resolve_device
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import (
-    PAD, check_config, encode_input, init_basecaller, train_forward, val_metrics,
+    PAD, check_config, encode_input, init_basecaller, shard_attention, train_forward, val_metrics,
 )
 from ravvent_tpu_torch.models.decoder import scheduled_draws
 from ravvent_tpu_torch.parallel import distributed
@@ -148,9 +159,15 @@ def apply_updates(params, updates) -> None:
 
 
 def as_trainable(params, device: torch.device):
-    """Fresh f32 leaves on ``device`` that require grad."""
-    return tree_map(lambda p: torch.as_tensor(p).detach().to(device, torch.float32).clone()
-                    .requires_grad_(True), params)
+    """Fresh f32 leaves on ``device`` that require grad, each dict's keys
+    sorted: ranks given trees in other key orders (a JAX tree's,
+    ``init_basecaller``'s) then agree leaf for leaf in the flat broadcast
+    and all-reduce."""
+    if isinstance(params, dict):
+        return {k: as_trainable(params[k], device) for k in sorted(params)}
+    if isinstance(params, (list, tuple)):
+        return [as_trainable(v, device) for v in params]
+    return torch.as_tensor(params).detach().to(device, torch.float32).clone().requires_grad_(True)
 
 
 class Trainer:
@@ -161,24 +178,29 @@ class Trainer:
     ``self.rng``, a ``torch.Generator`` on the device seeded from
     ``random_seed`` (or ``seed``); its stream differs from jax.random's, so
     only ``teacher_forcing >= 1`` (p = 0) repeats the JAX trainer's steps.
-    With ``num_data_shards > 1`` this process is one rank of data-parallel
-    training (the module's docstring) and needs an initialized process
-    group of that world size."""
+    With ``num_data_shards * model_shards > 1`` this process is one rank
+    of a grid of that many (the module's docstring) and needs an
+    initialized process group of that world size; every rank constructs
+    its trainer at the same point, since that creates the grid's groups."""
 
     def __init__(self, cfg: RunConfig, params: Optional[Params] = None,
-                 device: Union[str, torch.device, None] = None, seed: Optional[int] = None):
+                 device: Union[str, torch.device, None] = None, seed: Optional[int] = None,
+                 model_shards: int = 1):
         self.cfg = cfg
         self.mcfg = cfg.model
         self.tcfg = cfg.train
         check_config(self.mcfg)
         self.n_shards = self.tcfg.num_data_shards
         self.rank, world = distributed.process_info()
-        if self.n_shards > 1 and world != self.n_shards:
+        ranks = self.n_shards * model_shards
+        if ranks > 1 and world != ranks:
             raise RuntimeError(
-                f"num_data_shards={self.n_shards} trains one process a shard: initialize a process "
-                f"group of world size {self.n_shards} first (parallel.distributed.initialize); "
-                f"this process's world size is {world}")
-        self._reduce = distributed.all_reduce if self.n_shards > 1 else None
+                f"num_data_shards={self.n_shards} x model_shards={model_shards} trains one process "
+                f"a rank: initialize a process group of world size {ranks} first "
+                f"(parallel.distributed.initialize); this process's world size is {world}")
+        self.data_axis, model_axis = distributed.grid_axes(self.n_shards, model_shards)
+        self.model_axis = model_axis if model_shards > 1 else None
+        self._reduce = self.data_axis.all_reduce if self.n_shards > 1 else None
         self.device = resolve_device(device)
         self.optimizer = make_optimizer(self.tcfg.learning_rate, self.tcfg.clipnorm)
         tf = float(self.tcfg.teacher_forcing)
@@ -191,7 +213,7 @@ class Trainer:
         if params is None:
             params = init_basecaller(self.mcfg, torch.Generator().manual_seed(seed))
         self.params = as_trainable(params, self.device)
-        if self.n_shards > 1:  # rank 0's initial parameters and generator on every rank
+        if ranks > 1:  # rank 0's initial parameters and generator on every rank
             with torch.no_grad():
                 leaves = tree_leaves(self.params)
                 flat = distributed.broadcast(torch.cat([p.reshape(-1) for p in leaves]), 0)
@@ -213,15 +235,18 @@ class Trainer:
         if "rng" in state:
             self.rng.set_state(state["rng"])
 
+    def _rows(self, global_batch: int) -> slice:
+        return distributed.local_batch_slice(global_batch, self.data_axis.index, self.n_shards)
+
     def _to_device(self, batch):
         """The batch's rows this process trains on, as device tensors: the
-        whole batch, or a data-parallel rank's ``local_batch_slice``."""
+        whole batch, or its data shard's ``local_batch_slice``."""
         raw, event, targets = (np.asarray(x) for x in batch)
         if self.n_shards > 1:
             if targets.shape[0] % self.n_shards:
                 raise ValueError(f"a batch of {targets.shape[0]} rows does not split over "
                                  f"{self.n_shards} data shards")
-            rows = distributed.local_batch_slice(targets.shape[0])
+            rows = self._rows(targets.shape[0])
             raw, event, targets = raw[rows], event[rows], targets[rows]
         dev = self.device
         return (torch.as_tensor(raw, dtype=torch.float32).to(dev),
@@ -231,24 +256,25 @@ class Trainer:
     def loss_and_grads(self, batch):
         """(TrainOutput, gradient tree) of one batch at the current
         parameters; the step's draws come from ``self.rng``. Data-parallel:
-        the global batch's loss, accuracy and gradients (summed over the
-        ranks); the logits are this rank's rows'."""
+        the global batch's loss, accuracy and gradients (summed over a
+        data column); the logits are this data shard's rows'."""
         raw, event, targets = self._to_device(batch)
         draws = None
         if self.n_shards > 1 and self.sampling_probability > 0.0:
             B, T = np.asarray(batch[2]).shape
             select, gumbel = scheduled_draws(self.rng, T - 1, B, self.mcfg.vocab_size,
                                              self.sampling_probability, self.device)
-            rows = distributed.local_batch_slice(B)
+            rows = self._rows(B)
             draws = (select[:, rows], gumbel[:, rows])
         out = train_forward(self.params, raw, event, targets, self.mcfg,
-                            self.sampling_probability, self.rng, draws, self._reduce)
+                            self.sampling_probability, self.rng, draws, self._reduce,
+                            self.model_axis)
         leaves = tree_leaves(self.params)
         grads = torch.autograd.grad(out.loss, leaves)
         if self.n_shards > 1:
             # one all-reduce a step: the gradients and the loss shares
             flat = torch.cat([g.reshape(-1) for g in grads] + [out.loss.detach().reshape(1)])
-            distributed.all_reduce(flat, "sum")
+            self.data_axis.all_reduce(flat, "sum")
             *grads, loss = flat.split([p.numel() for p in leaves] + [1])
             grads = [g.view_as(p) for g, p in zip(grads, leaves)]
             out = out._replace(loss=loss[0])
@@ -274,16 +300,19 @@ class Trainer:
         batch-max target length (reference quirk #4), then
         :func:`val_metrics`. The bound is read from the host batch, which a
         data-parallel rank is given whole: its metrics are the global
-        batch's."""
+        batch's. On a grid the memory is sharded over the model row, as in
+        the train step."""
         raw, event, targets = self._to_device(batch)
         max_steps = int((np.asarray(batch[2]) != PAD).sum(axis=1).max()) - 1
         with torch.no_grad():
             enc_out, mask = encode_input(self.params, raw, event, self.mcfg)
-            mem = attn.setup_memory(self.params["decoder"]["attention"], enc_out, mask)
-            tokens, logits = greedy_decode(self.params["decoder"], mem, self.mcfg.vocab_size,
+            dec_params, enc_out, mask = shard_attention(self.params["decoder"], enc_out, mask,
+                                                        self.model_axis)
+            mem = attn.setup_memory(dec_params["attention"], enc_out, mask)
+            tokens, logits = greedy_decode(dec_params, mem, self.mcfg.vocab_size,
                                            targets.shape[1] - 1, max_steps,
                                            self.mcfg.effective_attention, self.mcfg.cell_type,
-                                           reduce=self._reduce)
+                                           reduce=self._reduce, model_axis=self.model_axis)
             loss, acc = val_metrics(targets[:, 1:], tokens, logits, targets, self._reduce)
         return {"loss": loss, "acc": acc}
 

@@ -16,7 +16,8 @@ rendezvous under tmp_path, each spawning test bounded at 120 s).
   data-parallel step (the carried weights, p = 0: 1e-4 relative, as
   tests/test_torch_training.py holds the 1-device step);
 - entry() against __graft_entry__.entry() with the same weights and
-  jax.random's draws (loss 1e-5 relative), and the dry run on the CPU.
+  jax.random's draws (loss 1e-5 relative), and the dry run on the CPU at 2
+  ranks and on a 2 x 2 grid.
 """
 
 import dataclasses
@@ -223,6 +224,15 @@ def test_entry_matches_graft_entry():
 def test_dryrun_multichip_on_the_cpu(capfd):
     entry.dryrun_multichip(2, device="cpu", timeout=SPAWN_TIMEOUT)
     assert "bit-equal to one device" in capfd.readouterr().out
+
+
+def test_dryrun_multichip_on_a_grid_on_the_cpu(capfd):
+    """At 4 ranks the dry run trains on a 2 x 2 grid (model_shards=2), as
+    __graft_entry__.dryrun_multichip(4) does, and rank 0's sharded decodes
+    over that mesh stay bit-equal to one device."""
+    entry.dryrun_multichip(4, device="cpu", timeout=SPAWN_TIMEOUT)
+    out = capfd.readouterr().out
+    assert "mesh={'data': 2, 'model': 2}" in out and "bit-equal to one device" in out
 
 
 def test_greedy_all_finished_stop_is_the_global_batchs():

@@ -11,7 +11,9 @@ show:
   flagship's widths and TrainConfig's defaults (global batch 128, p = 0.5):
   a validation, then one step, against one process's on cuda:0; loss and
   validation within 1e-5 relative, the all-reduced gradients within 1e-5 of
-  each leaf's largest magnitude, the ranks' parameters bit-equal;
+  each leaf's largest magnitude, the ranks' parameters bit-equal; and the
+  same on a 2 x 2 grid of NCCL ranks (data x model: the attention memory's
+  positions sharded over each model row);
 - the sharded engine over a mesh of every card, the flagship's widths and
   the bench's settings, against one card on 4 simulated reads: tokens and
   probabilities bit-equal on the compact wire (i8dev with its aux dict,
@@ -103,6 +105,17 @@ def test_nccl_gather_read_results_across_cards(tmp_path):
 @pytest.mark.parametrize("n", [2, 4])
 def test_nccl_dp_step_matches_one_process(tmp_path, n):
     cards(n)
+    step_against_one_process(tmp_path, n, 1)
+
+
+def test_nccl_grid_step_matches_one_process(tmp_path):
+    cards(4)
+    step_against_one_process(tmp_path, 4, 2)
+
+
+def step_against_one_process(tmp_path, n: int, model_shards: int):
+    """n NCCL ranks, one card each, in a grid of n / model_shards data
+    shards by model_shards model ranks, against one process on cuda:0."""
     params = init_basecaller(ModelConfig(), torch.Generator().manual_seed(SEED))
     start = flatten(params)
     genome = simulator.random_genome(20_000, np.random.default_rng(SEED))
@@ -120,7 +133,7 @@ def test_nccl_dp_step_matches_one_process(tmp_path, n):
     one.apply_gradients(grads)
     g1, p1 = flatten(grads), flatten(one.params)
     t0 = time.perf_counter()
-    distributed.spawn(torch_ranks.card_dp_rank, n, (str(tmp_path), start, batch),
+    distributed.spawn(torch_ranks.card_dp_rank, n, (str(tmp_path), start, batch, model_shards),
                       init_dir=tmp_path, timeout=SPAWN_TIMEOUT)
     spawn_s = time.perf_counter() - t0
     ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(n)]
@@ -130,8 +143,9 @@ def test_nccl_dp_step_matches_one_process(tmp_path, n):
             / max(float(np.abs(g1[k]).max()), 1e-30) for k in g1}
     worst = max(gerr, key=gerr.get)
     pdiff = max(float(np.abs(ranks[0]["param/" + k] - p1[k]).max()) for k in p1)
-    print(f"\n  NCCL DP, {n} ranks on cards {[int(r['card']) for r in ranks]}, "
-          f"{128 // n} rows each: loss {float(ranks[0]['loss']):.7f} vs one process "
+    print(f"\n  NCCL, {n // model_shards} x {model_shards} ranks (data x model) on cards "
+          f"{[int(r['card']) for r in ranks]}, {128 // (n // model_shards)} rows each: loss "
+          f"{float(ranks[0]['loss']):.7f} vs one process "
           f"{loss1:.7f}, rel {rel:.3e}; val {ranks[0]['val'].tolist()} vs "
           f"{[float(v['loss']), float(v['acc'])]}; gradients: worst leaf {worst} "
           f"{gerr[worst]:.3e} of its largest magnitude; parameters' largest difference from "

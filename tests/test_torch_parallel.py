@@ -89,8 +89,21 @@ def test_make_mesh(monkeypatch):
     assert m.shape == {"data": 3} and m.axis_names == ("data",) and m.size == 3
     assert m.devices == (torch.device("cpu"),) * 3
     assert make_mesh(2, devices=["cpu"] * 5).shape == {"data": 2}
-    with pytest.raises(NotImplementedError, match="A8b"):
-        make_mesh(devices=["cpu"] * 4, model_shards=2)
+    assert m.data_devices == m.devices
+    # the ('data', 'model') mesh, laid out as JAX's devices.reshape(-1, k)
+    devs = ["cpu", "cpu:0"] * 4
+    g = make_mesh(devices=devs, model_shards=2)
+    assert g.shape == {"data": 4, "model": 2} and g.axis_names == ("data", "model")
+    assert g.size == 8 and g.devices == tuple(torch.device(d) for d in devs)
+    # JAX's mesh holds device i at (i // 2, i % 2); a data shard's device is
+    # the first of its model row
+    ids = np.array([[d.id for d in row] for row in jmake_mesh(8, model_shards=2).devices])
+    assert np.array_equal(ids, np.arange(8).reshape(4, 2))
+    assert g.data_devices == tuple(g.devices[i] for i in ids[:, 0])
+    assert make_mesh(6, devices=["cpu"] * 8, model_shards=3).shape == {"data": 2, "model": 3}
+    assert make_mesh(devices=["cpu"] * 4, model_shards=1).axis_names == ("data",)
+    with pytest.raises(ValueError, match="model_shards=3"):
+        make_mesh(devices=["cpu"] * 4, model_shards=3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
         make_mesh()
@@ -114,6 +127,22 @@ def test_row_bounds_shard_batch_and_replicate(n):
         assert torch.equal(s["x"], p) and torch.equal(s["y"][0], p[:, 0])
     reps = replicate({"w": x}, mesh)
     assert len(reps) == N_SHARDS and all(torch.equal(r["w"], x) for r in reps)
+
+
+def test_engine_over_a_model_axis_mesh_splits_rows_over_data(params):
+    """A ('data', 'model') mesh (training's) serves the engine as its
+    'data' axis: 4 data shards, each on the first device of its model row,
+    results bit-equal to one device."""
+    rng = np.random.default_rng(1)
+    raw = rng.normal(size=(13, 200, 1)).astype(np.float32)
+    event = rng.normal(size=(13, 30, 5)).astype(np.float32)
+    mesh = make_mesh(devices=["cpu", "cpu:0"] * 4, model_shards=2)
+    one, sharded = pair(params, mesh, chunk_size=16, total_steps=12)
+    assert [e.device for e in sharded._shards] == [torch.device("cpu")] * 4
+    assert len(shard_batch({"x": torch.zeros(13)}, mesh)) == 4
+    assert [len(r["w"]) for r in replicate({"w": torch.zeros(3)}, mesh)] == [3] * 4
+    assert_same(one.predict_beam(raw, event, 12, beam_width=3),
+                sharded.predict_beam(raw, event, 12, beam_width=3))
 
 
 @pytest.mark.parametrize("beam_impl", ["step", "loop", "xla"])
