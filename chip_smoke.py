@@ -23,9 +23,10 @@ hand-written kernel against its plain PyTorch version on the card:
   0. device: the card, torch, CUDA and nvcc versions; TF32 off;
   1. build: nvcc builds the kernels from csrc/ (registers and shared memory
      per kernel from -Xptxas -v);
-  2. the f32-stream BiLSTM kernel against its plain version at B=4096 and
-     at B=2858 (the first read's rows) for the four layer shapes of one
-     chunk, timed beside torch.nn.LSTM in f32;
+  2. the f32-stream BiLSTM kernel against its plain version for the four
+     layer shapes of one chunk (F = 1, 2U, 5, 2U) at each compiled width
+     (U = 64, 128, 256) at B=4096, and at 128 units also at B=2858 (the
+     first read's rows), timed beside torch.nn.LSTM in f32;
   3. the bf16/f32 beam step, two kernels (beam_cell, then beam_attend),
      against its plain version at B=4096, S=232, U=128, W=5: bf16 memory
      over 40 steps, each kernel also against its own plain version on the
@@ -52,9 +53,9 @@ hand-written kernel against its plain PyTorch version on the card:
   8. end to end: the first read's snippets encoded by the BiLSTM kernel, as
      un-projected f32 memory, decoded by fused_greedy_decode on the card,
      checked against plain greedy_decode on the CPU on 64 snippets;
-  9. the bf16-stream BiLSTM kernel against its plain version at B=4096 and
-     at B=2858 (the first read's rows) for the four layer shapes of one
-     chunk, timed beside torch.nn.LSTM in bf16;
+  9. the bf16-stream BiLSTM kernel against its plain version as phase 2
+     holds the f32 one (each width at B=4096, 128 units also at B=2858),
+     timed beside torch.nn.LSTM in bf16;
  10. end to end, bench.py's main path: PerformanceEvaluator (evaluate_files,
      then run_pipelined with 8 reads in flight and 4 finishers) over the
      engine with the bench's settings (i8dev wire, bf16 encoder stream on
@@ -154,11 +155,23 @@ hand-written kernel against its plain PyTorch version on the card:
      every rank's parameters bit-equal; each grid's step seconds printed
      beside (b)'s; (c) entry.dryrun_multichip(2) and (4) (a 2 x 2 grid),
      every rank on the card. A rank that fails fails the phase.
- 18 (d). a 64-unit encoder (f32 stream and memory, beam_impl="step"), a
-     width the BiLSTM kernels do not take: the first read on the card, every
-     layer on the plain route (bilstm_plain_route 4 a chunk, no BiLSTM
-     kernel), the beam kernels as usual; card and CPU tokens on 64 snippets
-     (>= 0.998).
+ 18 (d). a 64-unit encoder (f32 stream and memory, beam_impl="step"): the
+     first read on the card, every layer on the f32 BiLSTM kernel at 64
+     units (bilstm 4 a chunk, bilstm_plain_route 0), the beam kernels as
+     usual; card and CPU tokens on 64 snippets (>= 0.998); then on the bf16
+     stream and memory (bilstm_bf16 4 a chunk; same memory >= 0.998, end to
+     end >= 0.99); then a 48-unit encoder, a width the kernels are not
+     compiled for, f32 as the first: every layer on its plain version on the
+     card (bilstm_plain_route 4 a chunk, bilstm and bilstm_bf16 0), the beam
+     kernels, tokens and same memory >= 0.998 against the CPU.
+ 18 (e). the slice's path at full width: a 256-unit encoder (joint, 2 x
+     BiLSTM(256), LSTM(128) + Luong, vocab 7, seeded) through BasecallEngine
+     at the bench's settings (i8dev wire, bf16 encoder stream, bf16 memory,
+     4-bit probs, beam 5, "step") over the first read: bilstm_bf16 4 a chunk
+     at 256 units, bilstm_plain_route 0, the beam kernels once a step; card
+     and CPU on 64 snippets, same memory >= 0.998, end to end >= 0.99; then
+     the same model on the f32 stream and memory (bilstm 4 a chunk at 256
+     units, the same bars).
  20. the user tools (ravvent_tpu_torch/tools/), each CLI's main(argv) in
      process in a temporary directory at the flagship's width (batch 128,
      seeded): (a) make_dataset, 2 train and 4 eval reads of 1.5-1.8 kb (the
@@ -302,31 +315,45 @@ def cudnn_lstm_ms(F: int, U: int, dtype, wx, wh, b, xs, h0, c0, reps: int) -> tu
     return ms, out
 
 
-def phase_bilstm(dtype) -> dict:
+def phase_bilstm(dtype) -> list:
     """The BiLSTM kernel of one stream (f32: csrc/bilstm.cu, phase 2; bf16:
     csrc/bilstm_bf16.cu, phase 9) against its plain version for the four
-    layer shapes of one chunk, at 4096 rows and at 2858 (the first read's
-    row count, which the CLI and the bench path run as their own chunk),
-    timed beside torch.nn.LSTM in the stream's dtype. The weights are laid
-    out for the kernel once, as the engine lays them out. The kernels line
-    carries the 4096-row chunk."""
+    layer shapes of one chunk (raw F = 1 and 2U at T = 200, event F = 5 and
+    2U at T = 30) at each compiled width U (ops/rnn_cuda.py:KERNEL_UNITS), at
+    4096 rows, and at the flagship's 128 units also at 2858 (the first
+    read's row count, which the CLI and the bench path run as their own
+    chunk), timed beside torch.nn.LSTM in the stream's dtype. The weights
+    are laid out for the kernel once, as the engine lays them out. Returns
+    one kernels-line entry a width, of the 4096-row chunk."""
+    from ravvent_tpu_torch.ops.rnn_cuda import KERNEL_UNITS
+
+    f32 = dtype == torch.float32
+    gen = torch.Generator().manual_seed(SEED if f32 else SEED + 4)
+    # the flagship's width first, so that its draws are those of earlier runs
+    return [bilstm_width(dtype, U, gen, (4096, 2858) if U == 128 else (4096,))
+            for U in sorted(KERNEL_UNITS, key=lambda u: u != 128)]
+
+
+def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
+    """phase_bilstm at one width U: the kernels-line entry of its 4096-row
+    chunk, named ``bilstm`` / ``bilstm_bf16`` at 128 units and with
+    ``_u<U>`` after it at another width."""
     from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
     from ravvent_tpu_torch.ops.rnn_cuda import bilstm_layer, bilstm_layer_plain, kernel_layout
 
     dev, f32 = torch.device("cuda"), dtype == torch.float32
-    name = "bilstm" if f32 else "bilstm_bf16"
-    gen = torch.Generator().manual_seed(SEED if f32 else SEED + 4)
-    U = 128
+    source = "bilstm" if f32 else "bilstm_bf16"
+    name = source if U == 128 else f"{source}_u{U}"
     # f32: another summation order over up to 200 steps, relative to max(1, |ref|)
     # too. bf16: outputs are bf16(h), about two bf16 ulps at |h| <= 1, where a
     # summation order flips a rounding and the recurrence carries it; f32
     # final states
     tol_out, tol_state = (1e-4, 1e-4) if f32 else (1e-2, 1e-3)
     names = ["raw L0", "raw L1", "event L0", "event L1"]
-    shapes = [(1, 200, False), (256, 200, True), (5, 30, False), (256, 30, True)]
+    shapes = [(1, 200, False), (2 * U, 200, True), (5, 30, False), (2 * U, 30, True)]
     layers = [stream_weights(init_encoder(gen, U, 1, F, dev), dtype)[0] for F, _, _ in shapes]
     chunks, err = {}, 0.0
-    for B in (4096, 2858):
+    for B in batches:
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         bound_by = set()
         for lname, (F, T, seeded), (wx, wh, b) in zip(names, shapes, layers):
@@ -351,7 +378,7 @@ def phase_bilstm(dtype) -> dict:
             lib_err = (lib_out.float() - ref[0].float()).abs().max().item()
             bound, by = bilstm_bounds(B, T, F, U, dtype)
             bound_by.add(by)
-            print(f"  {name} B={B} {lname} T={T} F={F}: out max_abs_err {err_out:.3e} (tol "
+            print(f"  {name} U={U} B={B} {lname} T={T} F={F}: out max_abs_err {err_out:.3e} (tol "
                   f"{tol_out:g}), final states {err_state:.3e} (tol {tol_state:g}), max_rel_err "
                   f"{rel:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.nn.LSTM "
                   f"{lib_ms:.3f} ms (its out err vs plain {lib_err:.3e}), bound {bound:.3f} ms "
@@ -363,12 +390,12 @@ def phase_bilstm(dtype) -> dict:
             tot["library_ms"] += lib_ms
             tot["bound_ms"] += bound
             err = max(err, err_out, err_state)
-        print(f"  {name} B={B}, one chunk's four layers: kernel {tot['ms']:.3f} ms, plain "
+        print(f"  {name} U={U} B={B}, one chunk's four layers: kernel {tot['ms']:.3f} ms, plain "
               f"{tot['plain_ms']:.3f} ms, torch.nn.LSTM {tot['library_ms']:.3f} ms, bound "
               f"{tot['bound_ms']:.3f} ms", flush=True)
         chunks[B] = (tot, bound_by)
     tot, bound_by = chunks[4096]
-    return {"name": name, "route": "cuda", "source": f"ravvent_tpu_torch/csrc/{name}.cu",
+    return {"name": name, "route": "cuda", "source": f"ravvent_tpu_torch/csrc/{source}.cu",
             "replaces": "ravvent_tpu/ops/rnn_pallas.py:33", "max_abs_err": err,
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if "operations" in bound_by else "bytes",
@@ -1942,6 +1969,25 @@ def card_vs_cpu(card, cpu, sig, rr, ev, er, max_len: int, aux=None) -> tuple:
     return same, float((t_gpu == t_cpu).mean())
 
 
+def width_run(card, cpu, snippets, max_len: int, aux) -> tuple:
+    """One read's snippets through ``card``'s predict_beam_compact (beam 5)
+    after a warm-up, with the launches counted from 0 just before it, then
+    card_vs_cpu on its first 64 snippets. Returns (the launches, the run's
+    seconds, same memory, end to end)."""
+    from ravvent_tpu_torch.ops import cuda_lib
+
+    sig, rr, ev, er = snippets
+    card.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5, aux=aux)  # warm-up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    card.predict_beam_compact(sig, rr, ev, er, max_len, 5, aux=aux)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (dict(cuda_lib.launches), seconds) + card_vs_cpu(card, cpu, sig, rr, ev, er, max_len,
+                                                            aux)
+
+
 def phase_configs(smi: str) -> dict:
     """The non-flagship configurations through the engine's plain decode
     (beam_impl="xla"), on seeded weights at full width: (a) flagship32's
@@ -1954,9 +2000,12 @@ def phase_configs(smi: str) -> dict:
     the same memory and end to end; (b) one engine each for bigru, gru and
     lstm on raw input and the flagship with Bahdanau attention: decode ms a
     chunk of 512 snippets, card against CPU on 64; (c) "step" and "loop"
-    refuse (a)'s configuration; (d) a 64-unit encoder, which the BiLSTM
-    kernels do not take, on its plain route beside the beam kernels, card
-    against CPU on 64 snippets. Returns (a)'s and (d)'s launch counts."""
+    refuse (a)'s configuration; (d) a 64-unit encoder on the BiLSTM kernels
+    at 64 units (f32, then bf16) beside the beam kernels, then a 48-unit
+    one on the counted plain route, card against CPU on 64 snippets; (e) a
+    256-unit encoder at the bench's settings (bf16 kernel at 256 units),
+    then on the f32 stream, card against CPU on 64 snippets. Returns the launch counts of (a) ("cli", "bench"), (d)
+    ("enc64", "enc64_bf16", "enc48") and (e) ("enc256", "enc256_f32")."""
     import dataclasses
     import tempfile
     from pathlib import Path
@@ -2095,35 +2144,105 @@ def phase_configs(smi: str) -> dict:
         require(same >= 0.998, f"{name}: card and CPU decode the same memory differently")
         require(e2e >= 0.99, f"{name}: card and CPU disagree end to end")
 
-    # (d) an encoder width the BiLSTM kernels do not take (64 units): the
-    # plain layers on the card, counted, beside the beam kernels
+    # (d) a 64-unit encoder: every layer on the f32 BiLSTM kernel at 64
+    # units, beside the beam kernels at the decoder's 128; then once on the
+    # bf16 stream
     wcfg = ModelConfig(enc_units=64)
     wparams = init_basecaller(wcfg, torch.Generator().manual_seed(SEED))
     narrow = dict(chunk_size=4096, memory_dtype=None, encoder_dtype=None, transport_dtype="f32")
-    card = BasecallEngine(wparams, wcfg, **narrow)
     sig, rr, ev, er, _, _ = prepare_compact(raw, ranges, np.array(["a"] * len(ranges)), 6)
-    card.predict_beam_compact(sig, rr[:64], ev, er[:64], MAX_OUTPUT_LEN, 5)  # warm-up
-    torch.cuda.synchronize()
-    cuda_lib.reset_launches()
-    t0 = time.perf_counter()
-    card.predict_beam_compact(sig, rr, ev, er, MAX_OUTPUT_LEN, 5)
-    torch.cuda.synchronize()
-    t_read = time.perf_counter() - t0
-    c = out["enc64"] = dict(cuda_lib.launches)
     n_chunks = chunks(rr.shape[0])
-    cpu = BasecallEngine(wparams, wcfg, device="cpu", **narrow)
-    t_card, _ = card.predict_beam_compact(sig, rr[:64], ev, er[:64], MAX_OUTPUT_LEN, 5)
-    t_cpu, _ = cpu.predict_beam_compact(sig, rr[:64], ev, er[:64], MAX_OUTPUT_LEN, 5)
-    agree = float((t_card == t_cpu).mean())
+    c, secs, same, agree = width_run(BasecallEngine(wparams, wcfg, **narrow),
+                                     BasecallEngine(wparams, wcfg, device="cpu", **narrow),
+                                     (sig, rr, ev, er), MAX_OUTPUT_LEN, None)
+    out["enc64"] = c
     print(f"  64-unit encoder (f32 stream and memory, step): the first read, {rr.shape[0]} "
-          f"snippets, {t_read:.3f} s; launches {dict((k, v) for k, v in c.items() if v)} "
-          f"(bilstm_plain_route need 4 a chunk over {n_chunks}, bilstm and bilstm_bf16 0); "
-          f"card vs CPU on 64 snippets: tokens agree {agree:.5f} (need >= 0.998) [{smi}]")
-    require(c["bilstm_plain_route"] == 4 * n_chunks and c["bilstm"] == c["bilstm_bf16"] == 0,
-            "the 64-unit encoder did not take the plain route 4 times a chunk")
+          f"snippets, {secs:.3f} s; launches {dict((k, v) for k, v in c.items() if v)} "
+          f"(bilstm need 4 a chunk over {n_chunks}, bilstm_plain_route and bilstm_bf16 0); "
+          f"card vs CPU on 64 snippets: tokens agree {agree:.5f} (need >= 0.998), same memory "
+          f"{same:.5f} (need >= 0.998) [{smi}]")
+    require(c["bilstm"] == 4 * n_chunks and c["bilstm_plain_route"] == c["bilstm_bf16"] == 0,
+            "the 64-unit encoder did not run the f32 BiLSTM kernel 4 times a chunk")
     require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] > 0,
             "the 64-unit encoder's engine did not run the beam kernels")
-    require(agree >= 0.998, "card and CPU disagree on the 64-unit encoder's tokens")
+    require(agree >= 0.998 and same >= 0.998,
+            "card and CPU disagree on the 64-unit encoder's tokens")
+    stream = dict(chunk_size=4096, memory_dtype=torch.bfloat16, encoder_dtype=torch.bfloat16,
+                  transport_dtype="f32")
+    c, secs, same, e2e = width_run(BasecallEngine(wparams, wcfg, **stream),
+                                   BasecallEngine(wparams, wcfg, device="cpu", **stream),
+                                   (sig, rr, ev, er), MAX_OUTPUT_LEN, None)
+    out["enc64_bf16"] = c
+    print(f"  64-unit encoder, bf16 stream and memory: {secs:.3f} s; launches "
+          f"{dict((k, v) for k, v in c.items() if v)} (bilstm_bf16 need 4 a chunk over "
+          f"{n_chunks}); card vs CPU on 64 snippets: same memory {same:.5f} (need >= 0.998), "
+          f"end to end {e2e:.5f} (need >= 0.99) [{smi}]")
+    require(c["bilstm_bf16"] == 4 * n_chunks and c["bilstm_plain_route"] == c["bilstm"] == 0,
+            "the 64-unit encoder did not run the bf16 BiLSTM kernel 4 times a chunk")
+    require(same >= 0.998 and e2e >= 0.99, "card and CPU disagree on the 64-unit bf16 encoder")
+    # a width the kernels are not compiled for (48 units; f32 stream and
+    # memory as above): every layer on its plain version on the card,
+    # counted under bilstm_plain_route, beside the beam kernels
+    pcfg = ModelConfig(enc_units=48)
+    pparams = init_basecaller(pcfg, torch.Generator().manual_seed(SEED))
+    c, secs, same, agree = width_run(BasecallEngine(pparams, pcfg, **narrow),
+                                     BasecallEngine(pparams, pcfg, device="cpu", **narrow),
+                                     (sig, rr, ev, er), MAX_OUTPUT_LEN, None)
+    out["enc48"] = c
+    print(f"  48-unit encoder (uncompiled width; f32 stream and memory, step): {secs:.3f} s; "
+          f"launches {dict((k, v) for k, v in c.items() if v)} (bilstm_plain_route need 4 a "
+          f"chunk over {n_chunks}, bilstm and bilstm_bf16 0); card vs CPU on 64 snippets: tokens "
+          f"agree {agree:.5f} (need >= 0.998), same memory {same:.5f} (need >= 0.998) [{smi}]")
+    require(c["bilstm_plain_route"] == 4 * n_chunks and c["bilstm"] == c["bilstm_bf16"] == 0,
+            "the 48-unit encoder did not take the plain route 4 times a chunk")
+    require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] > 0,
+            "the 48-unit encoder's engine did not run the beam kernels")
+    require(agree >= 0.998 and same >= 0.998,
+            "card and CPU disagree on the 48-unit encoder's tokens")
+
+    # (e) the slice's path at full width: a 256-unit encoder (joint, 2 x
+    # BiLSTM(256), LSTM(128) + Luong) at the bench's settings over the first
+    # read, its layers on the bf16 BiLSTM kernel at 256 units, the decoder on
+    # the beam kernels; then once on the f32 stream (the f32 kernel at 256)
+    ecfg = ModelConfig(enc_units=256)
+    eparams = init_basecaller(ecfg, torch.Generator().manual_seed(SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        path = pd.write_reads(reads[:1], d)[0]
+        loaded = load_read_compact_ex(path, Path(path).with_suffix(".label"), 6)
+    sig, rr, ev, er, nuc, aux = loaded
+    max_len = int((nuc != 0).sum(axis=1).max())
+    n_chunks = chunks(rr.shape[0])
+    wide = dict(chunk_size=4096, memory_dtype=torch.bfloat16, beam_impl="step",
+                encoder_dtype=torch.bfloat16, pack_u8=True, transport_dtype="i8dev", prob_bits=4)
+    card = BasecallEngine(eparams, ecfg, **wide)
+    c, secs, same, e2e = width_run(card, BasecallEngine(eparams, ecfg, device="cpu", **wide),
+                                   (sig, rr, ev, er), max_len, aux)
+    out["enc256"] = c
+    print(f"  256-unit encoder, bench settings (i8dev, bf16 encoder, bf16 memory, 4-bit probs, "
+          f"step): the first read, {rr.shape[0]} snippets, {secs:.3f} s; launches "
+          f"{dict((k, v) for k, v in c.items() if v)} (bilstm_bf16 need 4 a "
+          f"chunk over {n_chunks}, bilstm_plain_route 0); card vs CPU on 64 snippets: same "
+          f"memory {same:.5f} (need >= 0.998), end to end {e2e:.5f} (need >= 0.99) [{smi}]")
+    require(c["bilstm_bf16"] == 4 * n_chunks and c["bilstm_plain_route"] == c["bilstm"] == 0,
+            "the 256-unit encoder did not run the bf16 BiLSTM kernel 4 times a chunk")
+    require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] > 0,
+            "the 256-unit encoder's engine did not run the beam kernels")
+    require(same >= 0.998, "card and CPU decode the same memory differently (256 units)")
+    require(e2e >= 0.99, "card and CPU disagree end to end (256 units)")
+    c, secs, same, e2e = width_run(BasecallEngine(eparams, ecfg, **narrow),
+                                   BasecallEngine(eparams, ecfg, device="cpu", **narrow),
+                                   (sig, rr, ev, er), MAX_OUTPUT_LEN, None)
+    out["enc256_f32"] = c
+    print(f"  256-unit encoder, f32 stream and memory (step): {secs:.3f} s; launches "
+          f"{dict((k, v) for k, v in c.items() if v)} (bilstm need 4 a chunk "
+          f"over {n_chunks}); card vs CPU on 64 snippets: same memory {same:.5f} (need >= "
+          f"0.998), end to end {e2e:.5f} (need >= 0.99) [{smi}]")
+    require(c["bilstm"] == 4 * n_chunks and c["bilstm_plain_route"] == c["bilstm_bf16"] == 0,
+            "the 256-unit encoder did not run the f32 BiLSTM kernel 4 times a chunk")
+    require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] > 0,
+            "the 256-unit f32 engine did not run the beam kernels")
+    require(same >= 0.998 and e2e >= 0.99, "card and CPU disagree on the 256-unit f32 encoder")
 
     # (c) the kernels' beam loops refuse flagship32's shape
     for impl in ("step", "loop"):
@@ -2761,8 +2880,8 @@ def main() -> int:
     phase_training(smi)
     phase("17 training: Trainer at the flagship's width", t0)
     t0 = time.perf_counter()
-    phase_configs(smi)
-    phase("18 the non-flagship configurations, beam_impl=xla", t0)
+    counts_cfg = phase_configs(smi)
+    phase("18 the non-flagship configurations, beam_impl=xla; other encoder widths", t0)
     t0 = time.perf_counter()
     phase_multidevice(smi)
     phase("19 multi-device: the sharded engine, data-parallel training, the 'model' "
@@ -2780,20 +2899,25 @@ def main() -> int:
                     ("21", tool["counts"])):
         require(c["bilstm_plain_route"] == 0, f"phase {name} ran a BiLSTM layer of the "
                 "flagship's shape on its plain route")
-    # launches of each kernel on its own path's run
-    k_bilstm["launches"] = counts["bilstm"]
+    # launches of each kernel on its own path's run; the BiLSTM kernels' at
+    # 64 and 256 units on phase 18 (d) and (e)
+    runs = {"bilstm": counts, "bilstm_u64": counts_cfg["enc64"],
+            "bilstm_u256": counts_cfg["enc256_f32"], "bilstm_bf16": counts_bench,
+            "bilstm_bf16_u64": counts_cfg["enc64_bf16"], "bilstm_bf16_u256": counts_cfg["enc256"]}
+    for kd in k_bilstm + k_bf16:
+        kd["launches"] = runs[kd["name"]][kd["name"].partition("_u")[0]]
+        require(kd["launches"] > 0, f"{kd['name']} did not launch on its path's run")
     k_cell["launches"] = counts["beam_cell"]
     k_attend["launches"] = counts["beam_attend"]
     k_loop["launches"] = counts_loop["beam_loop"]
     k_dstep["launches"] = counts_greedy["decode_step"]
-    k_bf16["launches"] = counts_bench["bilstm_bf16"]
     k_i8["launches"] = counts_i8["i8"]["beam_attend_i8"]
     k_i8mxu["launches"] = counts_i8["i8mxu"]["beam_attend_i8mxu"]
     k_peak["launches"] = counts_sig["peak_scan"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (
-        k_bilstm, k_cell, k_attend, k_loop, k_dstep, k_bf16, k_i8, k_i8mxu, k_peak)]}))
+        *k_bilstm, k_cell, k_attend, k_loop, k_dstep, *k_bf16, k_i8, k_i8mxu, k_peak)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

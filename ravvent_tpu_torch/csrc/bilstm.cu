@@ -22,36 +22,43 @@
 // for h.Wh, 114k for x.Wx on a wide input: ≈ 400 cycles a k for 32 FMAs a
 // thread), and the 512 CTAs of 4096 rows ran in two waves.
 //
-// Design: one CTA per (direction, tile of R batch rows), R = 16, 32, 48 or
-// 64, 8R threads: the C entry picks the fewest rows with which both
-// directions' CTAs fit the SMs at once (4096 rows: 128 CTAs of 64; 2858: 120
-// of 48). A step is one product z = [x_t | h_{t-1}] . [Wx; Wh] + b of R rows
-// by 4U columns:
-// - Thread (u, r0) owns units u and u + 64 of rows [r0, r0 + 8): all four
+// Design: one CTA per (direction, tile of R batch rows), U R / 16 threads,
+// for U = 64, 128 or 256 units (a template on U; the C entry takes U and
+// refuses any other). The C entry picks the fewest rows R = 16, 32, ... with
+// which both directions' CTAs fit the SMs at once, up to 64 rows for U <= 128
+// (4096 rows: 128 CTAs of 64; 2858: 120 of 48) and up to 32 for U = 256,
+// where 64 rows would take 1024 threads at 64 registers for the 64
+// accumulators, and A (below) would not fit beside the ring; there 4096 rows
+// run 256 CTAs of 32 in two waves. A step is one product
+// z = [x_t | h_{t-1}] . [Wx; Wh] + b of R rows by 4U columns:
+// - Thread (u, r0) owns units u and u + U/2 of rows [r0, r0 + 8): all four
 //   gates, 64 accumulators, so the cell needs no exchange. For each k it
 //   reads 8 rows of A and the 4 gates of its two units, four float4 loads
 //   for 64 FMAs. A warp covers 8 units of 4 row octets (16 of 2 where R / 8
 //   is not a multiple of 4): its loads of A read 4 addresses, its loads of
-//   the weights 128 contiguous bytes.
+//   the weights 128 contiguous bytes (256 on 2 octets), at every U.
 // - A = [x_t | h_{t-1}] lies k-major in shared memory, [Kx + U][R + 4]: the
 //   pad puts a warp's float4 stores of h on distinct banks. The cell state c
 //   lies there too, so that the registers go to the accumulators.
-// - The weights, (F + U) x 4U f32 a direction (768 KiB at F = 256), exceed
-//   shared memory, so they stream through a ring of two 16-row k-tiles (32
-//   KiB each): every CTA reads them from L2 once a step, one bulk copy (TMA)
-//   a k-tile, asked for by one thread and landing on the slot's mbarrier
-//   while the other k-tile is used. They come laid out once per engine
-//   (ops/rnn_cuda.py:kernel_layout): row k's 4 gates of a unit are 16
+// - The weights, (F + U) x 4U f32 a direction (768 KiB at U = 128 and F =
+//   256, 3 MiB at U = 256 and F = 512), exceed shared memory, so they stream
+//   through a ring of two k-tiles of 16 rows (32 KiB each at U = 128; 8 rows
+//   at U = 256, 32 KiB each, so that A at Kx = 512 and R = 32, 108 KiB, fits
+//   beside them): every CTA reads them from L2 once a step, one bulk copy
+//   (TMA) a k-tile, asked for by one thread and landing on the slot's
+//   mbarrier while the other k-tile is used. They come laid out once per
+//   engine (ops/rnn_cuda.py:kernel_layout): row k's 4 gates of a unit are 16
 //   adjacent bytes, and a k-tile is contiguous.
 // - A step runs the x k-tiles first, then the h k-tiles. x_{t+1} lands in A
 //   by 4-byte cp.async (a transposing copy) in one piece per h k-tile, and
 //   h_t is stored after the next step's first barrier: one block barrier a
 //   k-tile and no other.
 // - The cell runs on ex2.approx and rcp.approx in f32, as in bilstm_bf16.cu.
-// What bounds a step now (PERF.md): the FMA pipe, which the products' loop
-// (1024 FFMA and 64 LDS.128 a k-tile and warp, no other instruction to
-// speak of) keeps at about two thirds of its issue rate, with or without
-// its shared-memory loads.
+// What bounds a step now (PERF.md, U = 128): the FMA pipe, which the
+// products' loop (1024 FFMA and 64 LDS.128 a k-tile and warp, no other
+// instruction to speak of) keeps at about two thirds of its issue rate, with
+// or without its shared-memory loads. At U = 256 every CTA also reads 3 MiB
+// of weights from L2 a step.
 //
 // Timing build (-DRV_BILSTM_PHASES, tools/bilstm_phases.py --stream f32):
 // lane 0 of each warp sums clock64() cycles per phase of the step and
@@ -63,15 +70,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilstm_units.cuh"
+
 namespace {
 
-constexpr int kU = 128;          // LSTM units (the flagship's; the wrapper checks)
-constexpr int kG = 4 * kU;       // gate columns
-constexpr int kKT = 16;          // weight rows of a k-tile
-constexpr int kTile = kKT * kU;  // float4s of a k-tile (32 KiB)
-constexpr int kSlots = 2;        // k-tiles in the ring
-constexpr int kHT = kU / kKT;    // h k-tiles a step; x_{t+1} lands in as many pieces
-constexpr int kMaxK = 2 * kU;    // widest layer input
+constexpr int kSlots = 2;  // k-tiles in the ring
+
+// weight rows of a k-tile: 16, or 8 at U = 256, where a k-tile of 4U columns
+// is 32 KiB at 8 rows
+__host__ __device__ constexpr int kt_rows(int U) { return U >= 256 ? 8 : 16; }
+// the most rows a CTA: U R / 16 threads of 64 accumulators stay at 512 and
+// 128 registers, and A fits beside the ring
+__host__ __device__ constexpr int max_rows(int U) { return U >= 256 ? 32 : 64; }
 
 constexpr int kPhases = 5;
 #ifdef RV_BILSTM_PHASES
@@ -144,12 +154,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 
 // acc[q][gate][i] += a[k][i] * w[k][unit q][gate] for the k-rows [0, K) of
 // a k-tile: a points at row 0 of A's rows for this thread (stride AS), w at
-// the thread's first unit in the k-tile, its second unit 64 float4s further
-template <int K, int AS>
+// the thread's first unit in the k-tile, its second unit U/2 float4s further
+template <int U, int K, int AS>
 __device__ __forceinline__ void fma_rows(float (&acc)[2][4][8], const float* a, const float4* w) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const float4 w0 = w[k * kU], w1 = w[k * kU + kU / 2];
+    const float4 w0 = w[k * U], w1 = w[k * U + U / 2];
     const float4 xa = *reinterpret_cast<const float4*>(a + k * AS);
     const float4 xb = *reinterpret_cast<const float4*>(a + k * AS + 4);
     const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
@@ -167,8 +177,8 @@ __device__ __forceinline__ void fma_rows(float (&acc)[2][4][8], const float* a, 
   }
 }
 
-template <int R>
-__global__ void __launch_bounds__(8 * R, 1)
+template <int U, int R>
+__global__ void __launch_bounds__(U * R / 16, 1)
 bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
               int B, int T, int F, int Kx,     // Kx = F rounded up to 4
               const float4* __restrict__ wxL,  // [2][Kx][U]: gates i, f, g, o of a unit
@@ -180,35 +190,40 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
               float* __restrict__ hN,          // [2, B, U]
               float* __restrict__ cN           // [2, B, U]
               RV_PHASES_ARG) {
-  constexpr int kThreads = 8 * R;
-  constexpr int AS = R + 4;  // A's row stride
+  constexpr int kThreads = U * R / 16;
+  constexpr int kKT = kt_rows(U);  // weight rows of a k-tile
+  constexpr int kTile = kKT * U;   // float4s of a k-tile
+  constexpr int kHT = U / kKT;     // h k-tiles a step; x_{t+1} lands in as many pieces
+  constexpr int kHalf = U / 2;     // a thread's units u and u + kHalf
+  constexpr int AS = R + 4;        // A's row stride
   extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t bars[kSlots];                // k-tile landed in slot s
   float4* ring = reinterpret_cast<float4*>(smem);  // [kSlots][kKT][U] weight k-tiles
   float* A = smem + 4 * kSlots * kTile;            // [Kx + U][AS]: x_t, then h_{t-1}
-  float* C = A + (Kx + kU) * AS;                   // [2][8][kThreads]: each thread's c
+  float* C = A + (Kx + U) * AS;                    // [2][8][kThreads]: each thread's c
 
   const int d = blockIdx.y;  // 0 forward, 1 backward
   const int b0 = blockIdx.x * R;
   // a warp covers OW row octets of UW units: its loads of A read OW
   // addresses, of the weights UW * 16 contiguous bytes
   constexpr int OW = (R / 8) % 4 == 0 ? 4 : 2, UW = 32 / OW;
+  static_assert(kHalf % UW == 0, "a warp's units tile the unit slots");
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int u = (w % (64 / UW)) * UW + lane % UW;        // units u and u + 64
-  const int r0 = 8 * ((w / (64 / UW)) * OW + lane / UW);  // rows r0 .. r0 + 7 of the tile
+  const int u = (w % (kHalf / UW)) * UW + lane % UW;         // units u and u + kHalf
+  const int r0 = 8 * ((w / (kHalf / UW)) * OW + lane / UW);  // rows r0 .. r0 + 7 of the tile
   const int nx = (Kx + kKT - 1) / kKT;      // x k-tiles a step
   const int NT = nx + kHT;                  // k-tiles a step
-  const float4* wx_d = wxL + (size_t)d * Kx * kU;
-  const float4* wh_d = whL + (size_t)d * kU * kU;
-  const float* bd = bias + d * kG;
+  const float4* wx_d = wxL + (size_t)d * Kx * U;
+  const float4* wh_d = whL + (size_t)d * U * U;
+  const float* bd = bias + d * 4 * U;
   auto c_at = [&](int q, int i) -> float& { return C[(q * 8 + i) * kThreads + tid]; };
 
   // k-tile j of a step: rows [k0(j), k0(j) + rows(j)) of A and of [Wx; Wh]
   auto rows_of = [&](int j) { return j < nx ? min(kKT, Kx - kKT * j) : kKT; };
   auto k0_of = [&](int j) { return j < nx ? kKT * j : Kx + kKT * (j - nx); };
   auto issue_tile = [&](int j, int slot) {  // by thread 0
-    const float4* src = j < nx ? wx_d + (size_t)kKT * j * kU : wh_d + (size_t)kKT * (j - nx) * kU;
-    bulk_copy(ring + slot * kTile, src, 16u * kU * rows_of(j), &bars[slot]);
+    const float4* src = j < nx ? wx_d + (size_t)kKT * j * U : wh_d + (size_t)kKT * (j - nx) * U;
+    bulk_copy(ring + slot * kTile, src, 16u * U * rows_of(j), &bars[slot]);
   };
   // piece p of x_t into A's rows [0, F) (transposed, 4 bytes a copy): the
   // thread's elements e = tid + m * kThreads of the row-major [R, F] tile,
@@ -226,7 +241,7 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
   };
 
   // A zero: x's columns past F and the rows past B stay zero
-  for (int i = tid; i < (Kx + kU) * AS; i += kThreads) A[i] = 0.f;
+  for (int i = tid; i < (Kx + U) * AS; i += kThreads) A[i] = 0.f;
   if (tid == 0) {
     mbar_init(&bars[0]);
     mbar_init(&bars[1]);
@@ -237,9 +252,9 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int row = b0 + r0 + i;
-      const size_t s = ((size_t)d * B + row) * kU + u + 64 * q;
+      const size_t s = ((size_t)d * B + row) * U + u + kHalf * q;
       c_at(q, i) = row < B ? c0[s] : 0.f;
-      A[(Kx + u + 64 * q) * AS + r0 + i] = row < B ? h0[s] : 0.f;
+      A[(Kx + u + kHalf * q) * AS + r0 + i] = row < B ? h0[s] : 0.f;
     }
   {
     int m = 0, r = tid / F, k = tid - (tid / F) * F;
@@ -261,7 +276,7 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
     for (int q = 0; q < 2; ++q)
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate) {
-        const float bv = __ldg(bd + gate * kU + u + 64 * q);
+        const float bv = __ldg(bd + gate * U + u + kHalf * q);
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[q][gate][i] = bv;
       }
@@ -275,7 +290,7 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
       if (j == 0 && step > 0) {  // every read of h_{t-1}'s predecessor is done
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          float4* hd = reinterpret_cast<float4*>(A + (Kx + u + 64 * q) * AS + r0);
+          float4* hd = reinterpret_cast<float4*>(A + (Kx + u + kHalf * q) * AS + r0);
           hd[0] = make_float4(hp[q][0], hp[q][1], hp[q][2], hp[q][3]);
           hd[1] = make_float4(hp[q][4], hp[q][5], hp[q][6], hp[q][7]);
         }
@@ -294,10 +309,10 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
       const float* a = A + k0_of(j) * AS + r0;
       const int rows = rows_of(j);
       if (rows == kKT) {
-        fma_rows<kKT, AS>(acc, a, wt);
+        fma_rows<U, kKT, AS>(acc, a, wt);
       } else {
 #pragma unroll 1
-        for (int k = 0; k < rows; k += 4) fma_rows<4, AS>(acc, a + k * AS, wt + k * kU);
+        for (int k = 0; k < rows; k += 4) fma_rows<U, 4, AS>(acc, a + k * AS, wt + k * U);
       }
       if (j < nx) RV_STAMP(2);
       else RV_STAMP(3);
@@ -313,9 +328,9 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
         c = cv;
         const int row = b0 + r0 + i;
         if (row < B) {
-          out[((size_t)row * T + t) * (2 * kU) + d * kU + u + 64 * q] = hp[q][i];
+          out[((size_t)row * T + t) * (2 * U) + d * U + u + kHalf * q] = hp[q][i];
           if (!more) {
-            const size_t s = ((size_t)d * B + row) * kU + u + 64 * q;
+            const size_t s = ((size_t)d * B + row) * U + u + kHalf * q;
             hN[s] = hp[q][i];
             cN[s] = cv;
           }
@@ -326,59 +341,78 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
   RV_PHASES_STORE;
 }
 
-// Shared memory of one CTA of R rows for an input padded to Kx columns: the
-// ring, A and c.
-size_t smem_bytes(int R, int Kx) {
-  return 16 * (size_t)kSlots * kTile + 4 * (size_t)(Kx + kU) * (R + 4) + 4 * (size_t)kU * R;
+// Shared memory of one CTA of R rows of U units for an input padded to Kx
+// columns: the ring, A and c.
+size_t smem_bytes(int U, int R, int Kx) {
+  return 16 * (size_t)kSlots * kt_rows(U) * U + 4 * (size_t)(Kx + U) * (R + 4) + 4 * (size_t)U * R;
 }
 
-template <int R>
+template <int U, int R>
 int launch(const float* xs, int B, int T, int F, int Kx, const void* wxL, const void* whL,
            const float* bias, const float* h0, const float* c0, float* out, float* hN, float* cN
            RV_PHASES_ARG, cudaStream_t stream) {
-  auto kern = bilstm_kernel<R>;
-  const size_t smem = smem_bytes(R, Kx);
+  auto kern = bilstm_kernel<U, R>;
+  const size_t smem = smem_bytes(U, R, Kx);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((B + R - 1) / R, 2);
-  kern<<<grid, 8 * R, smem, stream>>>(xs, B, T, F, Kx, static_cast<const float4*>(wxL),
-                                      static_cast<const float4*>(whL), bias, h0, c0, out, hN,
-                                      cN RV_PHASES_PASS);
+  kern<<<grid, U * R / 16, smem, stream>>>(xs, B, T, F, Kx, static_cast<const float4*>(wxL),
+                                           static_cast<const float4*>(whL), bias, h0, c0, out, hN,
+                                           cN RV_PHASES_PASS);
   return (int)cudaGetLastError();
+}
+
+// The fewest rows a CTA (16, 32, ... up to max_rows(U)) with which both
+// directions' CTAs fit the SMs at once; the most where none does.
+template <int U>
+int launch_rows(int sms, const float* xs, int B, int T, int F, int Kx, const void* wxL,
+                const void* whL, const float* bias, const float* h0, const float* c0, float* out,
+                float* hN, float* cN RV_PHASES_ARG, cudaStream_t s) {
+  int R = 16;
+  while (R < max_rows(U) && 2 * ((B + R - 1) / R) > sms) R += 16;
+  switch (R) {
+    case 16: return launch<U, 16>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+    case 32: return launch<U, 32>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+  }
+  if constexpr (max_rows(U) >= 64) {
+    if (R == 48) return launch<U, 48>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+    return launch<U, 64>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns a cudaError_t (0 = launched). xs [B, T, F]
-// f32 (F <= 256); Kx = F rounded up to 4; wxL [2, Kx, U, 4], whL [2, U, U,
-// 4] the weights with each row's gate columns grouped by unit, 16-byte
-// aligned (ops/rnn_cuda.py:kernel_layout); bias [2, 4U]; h0, c0, hN, cN
-// [2, B, U]; out [B, T, 2U].
+// Launches on `stream`; returns a cudaError_t (0 = launched). U = 64, 128 or
+// 256 units; xs [B, T, F] f32 (F <= 2U); Kx = F rounded up to 4; wxL [2, Kx,
+// U, 4], whL [2, U, U, 4] the weights with each row's gate columns grouped
+// by unit, 16-byte aligned (ops/rnn_cuda.py:kernel_layout); bias [2, 4U];
+// h0, c0, hN, cN [2, B, U]; out [B, T, 2U].
 #ifdef RV_BILSTM_PHASES
 extern "C" const char* rv_bilstm_phase_names() { return RV_BILSTM_PHASE_NAMES; }
-extern "C" int rv_bilstm_layer_phases(const float* xs, int B, int T, int F, int Kx,
+extern "C" int rv_bilstm_layer_phases(const float* xs, int B, int T, int F, int Kx, int U,
                                       const void* wxL, const void* whL, const float* bias,
                                       const float* h0, const float* c0, float* out, float* hN,
                                       float* cN, long long* stamps, void* stream) {
 #else
-extern "C" int rv_bilstm_layer(const float* xs, int B, int T, int F, int Kx,
+extern "C" int rv_bilstm_layer(const float* xs, int B, int T, int F, int Kx, int U,
                                const void* wxL, const void* whL, const float* bias,
                                const float* h0, const float* c0, float* out, float* hN,
                                float* cN, void* stream) {
 #endif
-  if (B <= 0 || T <= 0 || F <= 0 || F > kMaxK || Kx != (F + 3) / 4 * 4)
+  if (!rv_bilstm_compiled(U) || B <= 0 || T <= 0 || F <= 0 || F > 2 * U ||
+      Kx != (F + 3) / 4 * 4)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  int R = 16;  // the fewest rows a CTA with which both directions' CTAs fit the SMs at once
-  while (R < 64 && 2 * ((B + R - 1) / R) > sms) R += 16;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (R) {
-    case 16: return launch<16>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
-    case 32: return launch<32>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
-    case 48: return launch<48>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
-    default: return launch<64>(xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+  switch (U) {  // one case a compiled width (bilstm_units.cuh)
+#define RV_UNIT_CASE(u) \
+    case u: return launch_rows<u>(sms, xs, B, T, F, Kx, wxL, whL, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+    RV_BILSTM_UNITS(RV_UNIT_CASE)
+#undef RV_UNIT_CASE
   }
+  return (int)cudaErrorInvalidValue;
 }

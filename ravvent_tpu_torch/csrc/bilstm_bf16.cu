@@ -24,19 +24,28 @@
 // __ldg, one k-tile at a time), the cell 14.6k, x_t's load 7.7k. Its second
 // barrier cost nothing.
 //
-// Design: one CTA per (direction, tile of 16*MT batch rows), 16 warps, warp
-// w owning units [8w, 8w + 8) of all four gates, so the i, f, g, o sums of
-// a (row, unit) land in one thread and the cell needs no exchange; 4 warps
-// a sub-partition hide the cell's and the products' latencies.
+// Design: one CTA per (direction, tile of 16*MT batch rows), U / 8 warps
+// for U = 64, 128 or 256 units (a template on U; the C entry takes U and
+// refuses any other), warp w owning units [8w, 8w + 8) of all four gates, so
+// the i, f, g, o sums of a (row, unit) land in one thread and the cell needs
+// no exchange; at U = 128, 4 warps a sub-partition hide the cell's and the
+// products' latencies.
 // - The grid fits the card: the C entry picks the fewest rows a CTA (16,
 //   32, 48 or 64) with which 2*ceil(B / rows) CTAs fit the SMs in one wave
-//   (2858 rows: 120 CTAs of 48).
+//   (2858 rows: 120 CTAs of 48). At U = 256 a CTA is 32 warps, 1024 threads
+//   at 64 registers, which hold one m-tile's 16 accumulators and no more: 16
+//   rows a CTA, and 4096 rows run 512 CTAs in four waves.
 // - The weights come in mma-fragment order, made once per engine
 //   (ops/rnn_cuda.py:kernel_layout): for warp w, k-tile kt and gate, lane l's
 //   B fragment is one 8-byte word, a warp's 32 words 256 contiguous bytes.
-//   Wh (128 KiB) stays in shared memory; Wx stays there too for F <= 16,
-//   else is read from L2 by coalesced loads, two k-tiles in flight, the
-//   first two issued at the step's start so that they land during h.Wh.
+//   Wh (128 KiB at U = 128, 32 KiB at 64) stays in shared memory; Wx stays
+//   there too for F <= 16, else is read from L2 by coalesced loads, two
+//   k-tiles in flight, the first two issued at the step's start so that
+//   they land during h.Wh. At U = 256 Wh is 512 KiB a direction, past
+//   shared memory: its k-tiles stream from L2 by the same two-in-flight
+//   loads, ahead of Wx's in one sequence (a simple design; a cluster that
+//   splits the units and trades bf16(h) through distributed shared memory
+//   would keep it on chip).
 // - bf16(h) lives in shared memory in A-fragment order: warp w's cell output
 //   for m-tile mt is half of lane l's A fragment of k-tile w / 2, and an A
 //   fragment is one 16-byte load.
@@ -54,7 +63,8 @@
 //
 // Timing build (-DRV_BILSTM_PHASES, tools/bilstm_phases.py): lane 0 of each
 // warp sums clock64() cycles per phase of the step and writes them at the
-// end; the production build compiles none of it.
+// end; the production build compiles none of it. At U = 256 h.Wh streams
+// with x.Wx, so its cycles fall in phase x_wx+x_issue.
 //
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
@@ -63,16 +73,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilstm_units.cuh"
+
 namespace {
 
-constexpr int kU = 128;            // LSTM units (the flagship's; the wrapper checks)
-constexpr int kG = 4 * kU;         // gate columns
-constexpr int kWarps = 16;         // warp w owns units [8w, 8w + 8) of all four gates
-constexpr int kThreads = 32 * kWarps;
-constexpr int kHT = kU / 16;       // k-tiles of h.Wh; warp w's units are half of k-tile w / 2
-constexpr int kMaxK = 2 * kU;      // widest layer input
 constexpr int kSmallK = 16;        // Wx stays in shared memory for F <= 16 (one k-tile)
 constexpr int kFrag = 4 * 32;      // 8-byte words of one (warp, k-tile): 4 gates x 32 lanes
+
+// the most m-tiles (16 rows) a CTA: 4, or 1 at U = 256, whose 1024 threads
+// have 64 registers each
+__host__ __device__ constexpr int max_mtiles(int U) { return U >= 256 ? 1 : 4; }
 
 typedef __nv_bfloat16 bf16;
 
@@ -144,12 +154,12 @@ __device__ __forceinline__ uint4 x_frag(const bf16* x, int xsr, int mt, int kt, 
   return make_uint4(lds32(p), lds32(p + 8 * xsr), lds32(p + 8), lds32(p + 8 * xsr + 8));
 }
 
-template <int MT, bool kWxSmem>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int U, int MT, bool kWxSmem>
+__global__ void __launch_bounds__(4 * U, 1)
 bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
                    int B, int T, int F, int Kx,
-                   const uint2* __restrict__ wxF,    // [2][16 warps][Kx/16][4 gates][32 lanes]
-                   const uint2* __restrict__ whF,    // [2][16 warps][8][4 gates][32 lanes]
+                   const uint2* __restrict__ wxF,    // [2][U/8 warps][Kx/16][4 gates][32 lanes]
+                   const uint2* __restrict__ whF,    // [2][U/8 warps][U/16][4 gates][32 lanes]
                    const float* __restrict__ bias,   // [2, 4U]
                    const float* __restrict__ h0,     // [2, B, U]
                    const float* __restrict__ c0,     // [2, B, U]
@@ -157,13 +167,18 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
                    float* __restrict__ hN,           // [2, B, U]
                    float* __restrict__ cN            // [2, B, U]
                    RV_PHASES_ARG) {
-  constexpr int R = 16 * MT;  // batch rows of the CTA
+  constexpr int R = 16 * MT;          // batch rows of the CTA
+  constexpr int kWarps = U / 8;       // warp w owns units [8w, 8w + 8) of all four gates
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kHT = U / 16;         // k-tiles of h.Wh; warp w's units are half of k-tile w / 2
+  constexpr bool kWhSmem = U <= 128;  // Wh in shared memory, else streamed from L2
   extern __shared__ __align__(16) float smem[];
   const int Kw = kWxSmem ? kSmallK : Kx;  // a constant on the small path (the C entry checks)
   const int KT = Kw / 16, XS = Kw + 8;    // x row stride: an A fragment's 8 rows, distinct banks
-  uint2* whs = reinterpret_cast<uint2*>(smem);              // [16][8][4][32] Wh fragments
-  uint4* hs = reinterpret_cast<uint4*>(whs + kWarps * kHT * kFrag);  // [2][MT][8][32] bf16(h)
-  uint2* wxs = reinterpret_cast<uint2*>(hs + 2 * MT * kHT * 32);    // [16][1][4][32] (kWxSmem)
+  uint2* whs = reinterpret_cast<uint2*>(smem);  // [kWarps][kHT][4][32] Wh fragments (kWhSmem)
+  // [2][MT][kHT][32] bf16(h), in A-fragment order
+  uint4* hs = reinterpret_cast<uint4*>(whs + (kWhSmem ? kWarps * kHT * kFrag : 0));
+  uint2* wxs = reinterpret_cast<uint2*>(hs + 2 * MT * kHT * 32);  // [kWarps][1][4][32] (kWxSmem)
   bf16* xsm = reinterpret_cast<bf16*>(wxs + (kWxSmem ? kWarps * kFrag : 0));  // [2][R][XS]
 
   const int d = blockIdx.y;  // 0 forward, 1 backward
@@ -173,13 +188,25 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
   const int ubase = 8 * w;
   const uint2* wx_d = wxF + (size_t)d * kWarps * KT * kFrag;
   const uint2* wx_w = (kWxSmem ? wxs : wx_d) + w * KT * kFrag + lane;  // this lane's words
-  const uint2* wh_w = whs + w * kHT * kFrag + lane;
-  const float* bd = bias + d * kG;
+  const uint2* wh_d = whF + (size_t)d * kWarps * kHT * kFrag;
+  const uint2* wh_w = (kWhSmem ? whs : wh_d) + w * kHT * kFrag + lane;
+  const float* bd = bias + d * 4 * U;
+  // The k-tiles whose Wh or Wx fragments stream from L2, in order: h.Wh's
+  // where Wh is not in shared memory, then x.Wx's where Wx is not. Streamed
+  // k-tile j's A fragment of m-tile mt comes from bf16(h) or from the x
+  // tile xc, its B fragments from src(j).
+  constexpr int nh = kWhSmem ? 0 : kHT;
+  const int NS = nh + (kWxSmem ? 0 : KT);
+  auto src = [&](int j) { return j < nh ? wh_w + j * kFrag : wx_w + (j - nh) * kFrag; };
+  auto a_frag = [&](const uint4* hc, const bf16* xc, int j, int mt) {
+    return j < nh ? hc[(mt * kHT + j) * 32] : x_frag(xc, XS, mt, j - nh, g, tg);
+  };
 
   {
-    const uint4* wh_d = reinterpret_cast<const uint4*>(whF + (size_t)d * kWarps * kHT * kFrag);
     uint4* whs4 = reinterpret_cast<uint4*>(whs);
-    for (int i = tid; i < kWarps * kHT * kFrag / 2; i += kThreads) cp_async16(whs4 + i, wh_d + i);
+    if (kWhSmem)
+      for (int i = tid; i < kWarps * kHT * kFrag / 2; i += kThreads)
+        cp_async16(whs4 + i, reinterpret_cast<const uint4*>(wh_d) + i);
     if (kWxSmem)
       for (int i = tid; i < kWarps * kFrag / 2; i += kThreads)
         cp_async16(reinterpret_cast<uint4*>(wxs) + i, reinterpret_cast<const uint4*>(wx_d) + i);
@@ -205,7 +232,7 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
     }
     cp_async_commit();
   };
-  constexpr int kXR = (MT + 1) / 2;  // x elements a thread carries: 16 * MT rows x 16 columns
+  constexpr int kXR = (16 * MT * kSmallK + kThreads - 1) / kThreads;  // x elements a thread carries
   auto load_xr = [&](bf16 (&xr)[kXR], int t) {
 #pragma unroll
     for (int i = 0; i < kXR; ++i) {
@@ -245,7 +272,7 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int row = b0 + 16 * mt + g + 8 * hf, u = ubase + 2 * tg + q;
-        const size_t s = ((size_t)d * B + row) * kU + u;
+        const size_t s = ((size_t)d * B + row) * U + u;
         c[mt][2 * hf + q] = row < B ? c0[s] : 0.f;
         hv[q] = row < B ? h0[s] : 0.f;
       }
@@ -261,19 +288,19 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
   for (int step = 0; step < T; ++step) {
     const int t = d == 0 ? step : T - 1 - step;
     const bool more = step + 1 < T;
-    uint2 bx[2][4];  // Wx k-tiles in flight (Kx > 16: at least 2 k-tiles)
-    if (!kWxSmem) {
+    uint2 bx[2][4];  // streamed k-tiles in flight (NS > 0: at least 2 k-tiles)
+    if (NS > 0) {
 #pragma unroll
       for (int s = 0; s < 2; ++s)
 #pragma unroll
-        for (int gate = 0; gate < 4; ++gate) bx[s][gate] = __ldg(wx_w + (s * 4 + gate) * 32);
+        for (int gate = 0; gate < 4; ++gate) bx[s][gate] = __ldg(src(s) + gate * 32);
     }
     RV_STAMP(0);
 
     float acc[4][MT][4];
 #pragma unroll
     for (int gate = 0; gate < 4; ++gate) {
-      const float2 bv = __ldg(reinterpret_cast<const float2*>(bd + gate * kU + ubase + 2 * tg));
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(bd + gate * U + ubase + 2 * tg));
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         acc[gate][mt][0] = bv.x; acc[gate][mt][1] = bv.y;
@@ -283,7 +310,7 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
 
     const uint4* hc = hs + cur * MT * kHT * 32 + lane;
 #pragma unroll 1
-    for (int kt = 0; kt < kHT; ++kt) {
+    for (int kt = 0; kt < (kWhSmem ? kHT : 0); ++kt) {
       uint2 b[4];
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate) b[gate] = wh_w[(kt * 4 + gate) * 32];
@@ -297,6 +324,31 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
     RV_STAMP(2);
 
     const bf16* xc = xsm + cur * R * XS;
+#pragma unroll 1
+    for (int j = 0; j < NS; j += 2) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 a = a_frag(hc, xc, j, mt);
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, bx[0][gate]);
+      }
+      if (j + 2 < NS) {
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) bx[0][gate] = __ldg(src(j + 2) + gate * 32);
+      }
+      if (j + 1 < NS) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint4 a = a_frag(hc, xc, j + 1, mt);
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, bx[1][gate]);
+        }
+        if (j + 3 < NS) {
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate) bx[1][gate] = __ldg(src(j + 3) + gate * 32);
+        }
+      }
+    }
     if (kWxSmem) {
       uint2 b[4];
 #pragma unroll
@@ -306,34 +358,6 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
         const uint4 a = x_frag(xc, XS, mt, 0, g, tg);
 #pragma unroll
         for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, b[gate]);
-      }
-    } else {
-#pragma unroll 1
-      for (int kt = 0; kt < KT; kt += 2) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const uint4 a = x_frag(xc, XS, mt, kt, g, tg);
-#pragma unroll
-          for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, bx[0][gate]);
-        }
-        if (kt + 2 < KT) {
-#pragma unroll
-          for (int gate = 0; gate < 4; ++gate)
-            bx[0][gate] = __ldg(wx_w + ((kt + 2) * 4 + gate) * 32);
-        }
-        if (kt + 1 < KT) {
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            const uint4 a = x_frag(xc, XS, mt, kt + 1, g, tg);
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) mma_bf16(acc[gate][mt], a, bx[1][gate]);
-          }
-          if (kt + 3 < KT) {
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate)
-              bx[1][gate] = __ldg(wx_w + ((kt + 3) * 4 + gate) * 32);
-          }
-        }
       }
     }
     // x_{t+1} into the other buffer, for the next step: issued after the
@@ -360,7 +384,7 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
         if (!more) {
           const int row = b0 + 16 * mt + g + 8 * hf;
           if (row < B) {
-            const size_t s = ((size_t)d * B + row) * kU + ubase + 2 * tg;
+            const size_t s = ((size_t)d * B + row) * U + ubase + 2 * tg;
             *reinterpret_cast<float2*>(hN + s) = make_float2(hv[0], hv[1]);
             *reinterpret_cast<float2*>(cN + s) = make_float2(c[mt][2 * hf], c[mt][2 * hf + 1]);
           }
@@ -377,7 +401,7 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
       for (int hf = 0; hf < 2; ++hf) {
         const int row = b0 + 16 * mt + g + 8 * hf;
         if (row < B)
-          *reinterpret_cast<uint32_t*>(out + ((size_t)row * T + t) * (2 * kU) + d * kU + ubase +
+          *reinterpret_cast<uint32_t*>(out + ((size_t)row * T + t) * (2 * U) + d * U + ubase +
                                        2 * tg) = hp[mt][hf];
       }
     }
@@ -393,71 +417,91 @@ bilstm_bf16_kernel(const bf16* __restrict__ xs,      // [B, T, F]
   RV_PHASES_STORE;
 }
 
-// Shared memory of one CTA of 16*mt rows for an input padded to Kx columns.
-size_t smem_bytes(int mt, bool wx_smem, int Kx) {
-  return 8 * ((size_t)kWarps * kHT * kFrag + (wx_smem ? (size_t)kWarps * kFrag : 0)) +
-         16 * (size_t)2 * mt * kHT * 32 + 2 * (size_t)2 * 16 * mt * (Kx + 8);
+// Shared memory of one CTA of 16*mt rows of U units for an input padded to
+// Kx columns.
+size_t smem_bytes(int U, int mt, bool wx_smem, int Kx) {
+  const size_t warps = U / 8, kht = U / 16;
+  return 8 * ((U <= 128 ? warps * kht * kFrag : 0) + (wx_smem ? warps * kFrag : 0)) +
+         16 * (size_t)2 * mt * kht * 32 + 2 * (size_t)2 * 16 * mt * (Kx + 8);
 }
 
-template <int MT, bool kWxSmem>
+template <int U, int MT, bool kWxSmem>
 int launch(const void* xs, int B, int T, int F, int Kx, const void* wxF, const void* whF,
            const float* bias, const float* h0, const float* c0, void* out, float* hN, float* cN
            RV_PHASES_ARG, cudaStream_t stream) {
-  auto kern = bilstm_bf16_kernel<MT, kWxSmem>;
-  const size_t smem = smem_bytes(MT, kWxSmem, Kx);
+  auto kern = bilstm_bf16_kernel<U, MT, kWxSmem>;
+  const size_t smem = smem_bytes(U, MT, kWxSmem, Kx);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((B + 16 * MT - 1) / (16 * MT), 2);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, 4 * U, smem, stream>>>(
       static_cast<const bf16*>(xs), B, T, F, Kx, static_cast<const uint2*>(wxF),
       static_cast<const uint2*>(whF), bias, h0, c0, static_cast<bf16*>(out), hN, cN RV_PHASES_PASS);
   return (int)cudaGetLastError();
 }
 
-template <bool kWxSmem>
-int launch_rows(int mt, const void* xs, int B, int T, int F, int Kx, const void* wxF,
+// The fewest m-tiles a CTA (1 up to max_mtiles(U)) with which both
+// directions' CTAs fit the SMs at once; the most where none does.
+template <int U, bool kWxSmem>
+int launch_rows(int sms, const void* xs, int B, int T, int F, int Kx, const void* wxF,
                 const void* whF, const float* bias, const float* h0, const float* c0, void* out,
                 float* hN, float* cN RV_PHASES_ARG, cudaStream_t stream) {
-  switch (mt) {
-    case 1: return launch<1, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
-    case 2: return launch<2, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
-    case 3: return launch<3, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
-    default: return launch<4, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
+  int mt = 1;
+  while (mt < max_mtiles(U) && 2 * ((B + 16 * mt - 1) / (16 * mt)) > sms) ++mt;
+  if constexpr (max_mtiles(U) >= 4) {
+    switch (mt) {
+      case 2: return launch<U, 2, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
+      case 3: return launch<U, 3, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
+      case 4: return launch<U, 4, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
+    }
   }
+  return launch<U, 1, kWxSmem>(xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, stream);
+}
+
+template <int U>
+int launch_units(int sms, const void* xs, int B, int T, int F, int Kx, const void* wxF,
+                 const void* whF, const float* bias, const float* h0, const float* c0, void* out,
+                 float* hN, float* cN RV_PHASES_ARG, cudaStream_t stream) {
+  if (Kx <= kSmallK)
+    return launch_rows<U, true>(sms, xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN
+                                RV_PHASES_PASS, stream);
+  return launch_rows<U, false>(sms, xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN
+                               RV_PHASES_PASS, stream);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns a cudaError_t (0 = launched). xs [B, T, F]
-// bf16 (F <= 16, or a multiple of 8 up to 256, 16-byte aligned); Kx = F
-// rounded up to 16; wxF, whF the weights in fragment order
-// (ops/rnn_cuda.py:kernel_layout); bias [2, 4U] f32; h0, c0 [2, B, U] f32;
-// out [B, T, 2U] bf16; hN, cN [2, B, U] f32.
+// Launches on `stream`; returns a cudaError_t (0 = launched). U = 64, 128 or
+// 256 units; xs [B, T, F] bf16 (F <= 16, or a multiple of 8 up to 2U,
+// 16-byte aligned); Kx = F rounded up to 16; wxF, whF the weights in
+// fragment order (ops/rnn_cuda.py:kernel_layout); bias [2, 4U] f32; h0, c0
+// [2, B, U] f32; out [B, T, 2U] bf16; hN, cN [2, B, U] f32.
 #ifdef RV_BILSTM_PHASES
 extern "C" const char* rv_bilstm_phase_names() { return RV_BILSTM_PHASE_NAMES; }
-extern "C" int rv_bilstm_layer_bf16_phases(const void* xs, int B, int T, int F, int Kx,
+extern "C" int rv_bilstm_layer_bf16_phases(const void* xs, int B, int T, int F, int Kx, int U,
                                            const void* wxF, const void* whF, const float* bias,
                                            const float* h0, const float* c0, void* out,
                                            float* hN, float* cN, long long* stamps,
                                            void* stream) {
 #else
-extern "C" int rv_bilstm_layer_bf16(const void* xs, int B, int T, int F, int Kx,
+extern "C" int rv_bilstm_layer_bf16(const void* xs, int B, int T, int F, int Kx, int U,
                                     const void* wxF, const void* whF, const float* bias,
                                     const float* h0, const float* c0,
                                     void* out, float* hN, float* cN, void* stream) {
 #endif
-  if (B <= 0 || T <= 0 || F <= 0 || F > kMaxK || Kx != (F + 15) / 16 * 16 ||
-      (F > kSmallK && F % 8 != 0))  // F <= 16, or a multiple of 8
+  if (!rv_bilstm_compiled(U) || B <= 0 || T <= 0 || F <= 0 || F > 2 * U ||
+      Kx != (F + 15) / 16 * 16 || (F > kSmallK && F % 8 != 0))  // F <= 16, or a multiple of 8
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  int mt = 1;  // the fewest rows a CTA with which both directions' CTAs fit the SMs at once
-  while (mt < 4 && 2 * ((B + 16 * mt - 1) / (16 * mt)) > sms) ++mt;
-  if (Kx <= kSmallK)
-    return launch_rows<true>(mt, xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN
-                             RV_PHASES_PASS, (cudaStream_t)stream);
-  return launch_rows<false>(mt, xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN
-                            RV_PHASES_PASS, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (U) {  // one case a compiled width (bilstm_units.cuh)
+#define RV_UNIT_CASE(u) \
+    case u: return launch_units<u>(sms, xs, B, T, F, Kx, wxF, whF, bias, h0, c0, out, hN, cN RV_PHASES_PASS, s);
+    RV_BILSTM_UNITS(RV_UNIT_CASE)
+#undef RV_UNIT_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

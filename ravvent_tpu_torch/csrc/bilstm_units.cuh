@@ -1,0 +1,15 @@
+// The unit counts U that the BiLSTM kernels (bilstm.cu, bilstm_bf16.cu) are
+// compiled for, listed once: each C entry instantiates its kernel for each of
+// them and refuses any other U, and ops/rnn_cuda.py:KERNEL_UNITS reads the
+// list from the #define line below. A width joins by being added there, where
+// both kernels' templates take it (their headers state the rules).
+
+#pragma once
+
+#define RV_BILSTM_UNITS(X) X(64) X(128) X(256)
+
+#define RV_BILSTM_UNIT_EQ(u) || U == (u)
+__host__ __device__ constexpr bool rv_bilstm_compiled(int U) {
+  return false RV_BILSTM_UNITS(RV_BILSTM_UNIT_EQ);
+}
+#undef RV_BILSTM_UNIT_EQ

@@ -6,17 +6,18 @@
   targets, gen, draws=None) -> (loss, acc)``, at B = 16 on the JAX entry's
   numpy-seeded inputs.
 - :func:`dryrun_multichip` spawns n gloo ranks on tiny shapes (16 units on
-  the CPU; on the card 128, the width the f32 BiLSTM kernel is built for,
-  so that each rank's validation runs its encoder on that kernel rather
-  than on the plain route other widths take). As the JAX dry run does, at
-  n >= 4 and n even the ranks form a grid of n / 2 data shards by 2 model
-  ranks (``model_shards=2``: the attention memory's positions sharded over
-  each model row), else n data shards. Each rank runs one train step and
-  one validation on that grid; then rank 0 decodes one simulated read with
-  a :class:`ShardedBasecallEngine` over the same mesh (rows split over
-  ``'data'``), on the i8dev wire (4-bit probabilities, packed result,
-  pre-projected values) and on the signal-only wire, and requires both to
-  equal a single-device engine bit for bit.
+  the CPU; on the card the flagship's 128, one of the widths the f32 BiLSTM
+  kernel is built for, so that each rank's validation runs its encoder on
+  that kernel rather than on the plain route other widths take). As the JAX
+  dry run does, at n >= 4 and n even the ranks form a grid of n / 2 data
+  shards by 2 model ranks (``model_shards=2``: the attention memory's
+  positions sharded over each model row), else n data shards. Each rank
+  runs one train step and one validation on that grid; then rank 0 decodes
+  one simulated read with a :class:`ShardedBasecallEngine` over the same
+  mesh (rows split over ``'data'``), on the i8dev wire (4-bit
+  probabilities, packed result, pre-projected values) and on the
+  signal-only wire, and requires both to equal a single-device engine bit
+  for bit.
 
 Usage: ``python -m ravvent_tpu_torch.entry [multichip N] [--cpu]``; the card
 unless ``--cpu`` (a dry run's ranks then share the card's devices
@@ -157,12 +158,11 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None, timeout: floa
     checks (the module's docstring); ranks
     on the card's devices round-robin unless ``device`` (e.g. "cpu") is
     given. Raises when a rank fails."""
-    from ravvent_tpu_torch.ops.rnn_cuda import UNITS
     from ravvent_tpu_torch.parallel.distributed import spawn
 
     if device is None:
         resolve_device(None)  # raises when there is no card
-    units = UNITS if device is None or torch.device(device).type == "cuda" else 16
+    units = 128 if device is None or torch.device(device).type == "cuda" else 16  # the flagship's
     spawn(_dryrun_rank, n_devices, (device, units), timeout=timeout)
 
 

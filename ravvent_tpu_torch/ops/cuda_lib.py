@@ -118,8 +118,8 @@ def build(force: bool = False) -> str:
 # int and cuts it)
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 ENTRIES = {
-    "rv_bilstm_layer": [_P, _I, _I, _I, _I] + [_P] * 8 + [_P],
-    "rv_bilstm_layer_bf16": [_P, _I, _I, _I, _I] + [_P] * 8 + [_P],
+    "rv_bilstm_layer": [_P] + [_I] * 5 + [_P] * 8 + [_P],
+    "rv_bilstm_layer_bf16": [_P] + [_I] * 5 + [_P] * 8 + [_P],
     "rv_beam_cell": [_I] * 2 + [_P] * 12,
     "rv_beam_attend": [_I] * 7 + [_P] * 18,
     "rv_beam_attend_i8": [_I] * 7 + [_P] * 20,

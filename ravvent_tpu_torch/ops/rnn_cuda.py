@@ -15,18 +15,29 @@ Layouts (batch-major, as the model passes them):
   first —, h [2, B, U] f32, c [2, B, U] f32).
   Each kernel reads its weights in its own layout (:func:`kernel_layout`:
   f32 grouped by unit, bf16 in mma-fragment order), which the engine makes
-  once and passes as ``layout``.
+  once and passes as ``layout``. Both kernels are compiled for U in
+  :data:`KERNEL_UNITS`; :func:`kernel_takes` states the shapes they take.
 """
 
 from __future__ import annotations
 
+import re
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ravvent_tpu_torch.ops import cuda_lib
 
-UNITS = 128  # the kernels' compiled unit count
+
+def _compiled_units() -> Tuple[int, ...]:
+    """The unit counts the kernels are compiled for, from their one list
+    (``RV_BILSTM_UNITS`` in ``csrc/bilstm_units.cuh``)."""
+    text = (cuda_lib.CSRC / "bilstm_units.cuh").read_text()
+    line = re.search(r"^#define RV_BILSTM_UNITS\(X\) (.*)$", text, re.M).group(1)
+    return tuple(int(u) for u in re.findall(r"X\((\d+)\)", line))
+
+
+KERNEL_UNITS = _compiled_units()  # (64, 128, 256)
 STREAMS = (torch.float32, torch.bfloat16)
 
 
@@ -62,7 +73,7 @@ class KernelLayout(NamedTuple):
     (:func:`kernel_layout`). f32 (``csrc/bilstm.cu``): ``kx`` is F rounded up
     to 4; ``wx`` [2, kx, U, 4] and ``wh`` [2, U, U, 4] f32, row k's gate
     columns i, f, g, o grouped by unit. bf16 (``csrc/bilstm_bf16.cu``):
-    ``kx`` is F rounded up to 16; ``wx`` and ``wh`` bf16 [2, 16 warps,
+    ``kx`` is F rounded up to 16; ``wx`` and ``wh`` bf16 [2, U / 8 warps,
     k-tiles, 4 gates, 32 lanes, 4] in mma-fragment order. Wx's rows past F
     are zero."""
     kx: int
@@ -79,20 +90,20 @@ def padded_k(F: int, dtype) -> int:
 
 def _by_unit(w: torch.Tensor) -> torch.Tensor:
     """[2, K, 4U] as [2, K, U, 4]: row k's four gates of unit u adjacent."""
-    return w.reshape(2, w.shape[1], 4, UNITS).transpose(2, 3).contiguous()
+    return w.reshape(2, w.shape[1], 4, w.shape[2] // 4).transpose(2, 3).contiguous()
 
 
 def _fragments(w: torch.Tensor) -> torch.Tensor:
     """[2, K, 4U] (K a multiple of 16) as mma.m16n8k16 B fragments: for warp
-    w (units [8w, 8w + 8)), k-tile kt, gate and lane (g = lane // 4,
+    w of U / 8 (units [8w, 8w + 8)), k-tile kt, gate and lane (g = lane // 4,
     tg = lane % 4), 4 bf16 = registers b0, b1; register r holds rows
     k = 16 kt + 2 tg + 8 r + e (e = 0, 1) of column n = gate * U + 8 w + g."""
-    kt_n = w.shape[1] // 16
+    kt_n, U = w.shape[1] // 16, w.shape[2] // 4
     ar = lambda n, dim: torch.arange(n, device=w.device).view([n if i == dim else 1 for i in range(6)])
-    warp, kt, gate, lane, r, e = (ar(n, i) for i, n in enumerate((16, kt_n, 4, 32, 2, 2)))
+    warp, kt, gate, lane, r, e = (ar(n, i) for i, n in enumerate((U // 8, kt_n, 4, 32, 2, 2)))
     k = 16 * kt + 2 * (lane % 4) + 8 * r + e
-    n = gate * UNITS + 8 * warp + lane // 4
-    return w[:, k, n].reshape(2, 16, kt_n, 4, 32, 4).contiguous()
+    n = gate * U + 8 * warp + lane // 4
+    return w[:, k, n].reshape(2, U // 8, kt_n, 4, 32, 4).contiguous()
 
 
 def kernel_layout(wx: torch.Tensor, wh: torch.Tensor) -> KernelLayout:
@@ -101,8 +112,8 @@ def kernel_layout(wx: torch.Tensor, wh: torch.Tensor) -> KernelLayout:
     :func:`padded_k` rows. Made once per engine (models/rnn.py:kernel_weights);
     the wrapper makes it on each call when it is not given."""
     F, U = wx.shape[1], wh.shape[1]
-    if U != UNITS:
-        raise ValueError(f"bilstm kernel is compiled for {UNITS} units, got {U}")
+    if U not in KERNEL_UNITS:
+        raise ValueError(f"bilstm kernels are compiled for {KERNEL_UNITS} units, got {U}")
     kx = padded_k(F, wx.dtype)
     wx = torch.nn.functional.pad(wx, (0, 0, 0, kx - F))
     if wx.dtype == torch.float32:
@@ -115,19 +126,21 @@ def launch(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> i
     arguments) on PyTorch's current stream; ``extra`` pointers go before the
     stream (the timing build's stamps)."""
     B, T, F = xs.shape
-    return entry(xs.data_ptr(), B, T, F, layout.kx, layout.wx.data_ptr(), layout.wh.data_ptr(),
-                 b.data_ptr(), h0.data_ptr(), c0.data_ptr(), out.data_ptr(), hN.data_ptr(),
-                 cN.data_ptr(), *extra, torch.cuda.current_stream(xs.device).cuda_stream)
+    return entry(xs.data_ptr(), B, T, F, layout.kx, h0.shape[-1], layout.wx.data_ptr(),
+                 layout.wh.data_ptr(), b.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                 out.data_ptr(), hN.data_ptr(), cN.data_ptr(), *extra,
+                 torch.cuda.current_stream(xs.device).cuda_stream)
 
 
 def kernel_takes(U: int, F: int, dtype) -> bool:
     """Whether the kernels take a layer of ``U`` units on ``F`` input
     features on a stream of ``dtype``: the shapes :func:`bilstm_layer`
-    accepts on a CUDA tensor (it raises on any other). U = 128, F <= 256, an
-    f32 or bf16 stream, and on bf16 F <= 16 or a multiple of 8 (the bf16
-    kernel also needs such an input 16-byte aligned, which a contiguous
-    tensor of its own allocation is)."""
-    return (U == UNITS and F <= 2 * UNITS and dtype in STREAMS
+    accepts on a CUDA tensor (it raises on any other), those the C entries
+    take. U in :data:`KERNEL_UNITS`, F <= 2U, an f32 or bf16 stream, and on
+    bf16 F <= 16 or a multiple of 8 (the bf16 kernel also needs such an
+    input 16-byte aligned, which a contiguous tensor of its own allocation
+    is)."""
+    return (U in KERNEL_UNITS and 0 < F <= 2 * U and dtype in STREAMS
             and (dtype == torch.float32 or F <= 16 or F % 8 == 0))
 
 
@@ -144,7 +157,8 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
     dt, f32 = xs.dtype, torch.float32
     if not kernel_takes(U, F, dt):
         raise ValueError(f"bilstm: the kernels take no layer of U = {U} units on F = {F} "
-                         f"features of {dt} (see kernel_takes)")
+                         f"features of {dt} (kernel_takes: U in {KERNEL_UNITS}, F <= {2 * U}, an "
+                         f"f32 or bf16 stream, on bf16 F <= 16 or a multiple of 8)")
     cuda_lib.check_tensors("bilstm", xs.device, [
         ("xs", xs, dt, (B, T, F)), ("wx", wx, dt, (2, F, 4 * U)), ("wh", wh, dt, (2, U, 4 * U)),
         ("b", b, f32, (2, 4 * U)), ("h0", h0, f32, (2, B, U)), ("c0", c0, f32, (2, B, U)),
@@ -157,7 +171,8 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
     name = "bilstm" if dt == f32 else "bilstm_bf16"
     if layout.kx != kx:
         raise ValueError(f"{name}: the layout was made for kx {layout.kx}, F = {F} needs {kx}")
-    lay_shape = (lambda k: (2, k, U, 4)) if dt == f32 else (lambda k: (2, 16, k // 16, 4, 32, 4))
+    lay_shape = ((lambda k: (2, k, U, 4)) if dt == f32
+                 else (lambda k: (2, U // 8, k // 16, 4, 32, 4)))
     cuda_lib.check_tensors(name, xs.device, [
         ("layout.wx", layout.wx, dt, lay_shape(kx)), ("layout.wh", layout.wh, dt, lay_shape(U)),
     ])

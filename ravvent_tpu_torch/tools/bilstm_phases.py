@@ -6,14 +6,16 @@ Builds the kernel of one stream a second time with ``-DRV_BILSTM_PHASES``
 beside the production library, which it leaves alone. In that build lane 0
 of every warp sums ``clock64()`` cycles over the phases of each time step
 that the source names (``rv_bilstm_phase_names``) and writes its sums when
-the loop ends. For each of a chunk's four layer shapes (raw layers 0 and 1
-at T = 200, event layers 0 and 1 at T = 30) and each batch size it prints
+the loop ends. For each of a chunk's four layer shapes at ``--units`` U
+(the flagship's 128 by default; the kernels take 64, 128 and 256): raw
+layers 0 and 1 at T = 200 on F = 1 and 2U, event layers 0 and 1 at T = 30 on
+F = 5 and 2U; and each batch size it prints
 the mean cycles per step of each phase (mean over all warps), the
 production kernel's time and the timing build's (CUDA events), and the
 card's SM clock that the two imply. Needs a CUDA device and nvcc.
 
 Usage: python -m ravvent_tpu_torch.tools.bilstm_phases [--stream bf16|f32]
-       [--batch 4096 2858] [--json out.json]
+       [--units 64|128|256] [--batch 4096 2858] [--json out.json]
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ import torch
 
 from ravvent_tpu_torch.ops import cuda_lib, rnn_cuda
 
-SHAPES = (("raw L0", 1, 200, False), ("raw L1", 256, 200, True), ("event L0", 5, 30, False),
-          ("event L1", 256, 30, True))
+# (layer, F of U units, T, seeded state)
+SHAPES = (("raw L0", lambda U: 1, 200, False), ("raw L1", lambda U: 2 * U, 200, True),
+          ("event L0", lambda U: 5, 30, False), ("event L1", lambda U: 2 * U, 30, True))
 # stream: (source, production entry, dtype)
 STREAMS = {"bf16": ("bilstm_bf16.cu", "rv_bilstm_layer_bf16", torch.bfloat16),
            "f32": ("bilstm.cu", "rv_bilstm_layer", torch.float32)}
@@ -80,11 +83,12 @@ def time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def split(entry, names, dtype, B: int, F: int, T: int, seeded: bool, seed: int) -> dict:
-    """One layer shape at batch B: phase cycles per step, both builds' ms."""
+def split(entry, names, dtype, B: int, U: int, F: int, T: int, seeded: bool, seed: int) -> dict:
+    """One layer shape of U units at batch B: phase cycles per step, both
+    builds' ms."""
     from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
 
-    dev, U = torch.device("cuda"), rnn_cuda.UNITS
+    dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed)
     wx, wh, b = stream_weights(init_encoder(gen, U, 1, F, dev), dtype)[0]
     layout = rnn_cuda.kernel_layout(wx, wh)
@@ -114,7 +118,7 @@ def split(entry, names, dtype, B: int, F: int, T: int, seeded: bool, seed: int) 
     ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)
     err = (out.float() - ref[0].float()).abs().max().item()
     total = sum(cycles)
-    return {"B": B, "F": F, "T": T, "ms": ms, "ms_timing_build": ms_timed,
+    return {"B": B, "U": U, "F": F, "T": T, "ms": ms, "ms_timing_build": ms_timed,
             "cycles_per_step": dict(zip(names, cycles)), "cycles_per_step_total": total,
             "warps": int(per_warp.shape[0]),
             "implied_sm_ghz": total * T / (ms_timed * 1e6), "timing_build_out_err": err}
@@ -123,6 +127,7 @@ def split(entry, names, dtype, B: int, F: int, T: int, seeded: bool, seed: int) 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stream", choices=sorted(STREAMS), default="bf16")
+    ap.add_argument("--units", type=int, choices=rnn_cuda.KERNEL_UNITS, default=128)
     ap.add_argument("--batch", type=int, nargs="+", default=[4096, 2858])
     ap.add_argument("--json", help="also write the rows to this file")
     args = ap.parse_args(argv)
@@ -137,22 +142,25 @@ def main(argv=None) -> int:
     smi = smi_line()
     rows = []
     for B in args.batch:
-        for i, (name, F, T, seeded) in enumerate(SHAPES):
-            r = split(entry, names, dtype, B, F, T, seeded, seed=i)
+        for i, (name, width, T, seeded) in enumerate(SHAPES):
+            F = width(args.units)
+            r = split(entry, names, dtype, B, args.units, F, T, seeded, seed=i)
             r["layer"] = name
             rows.append(r)
             ph = "  ".join(f"{k} {v:.0f}" for k, v in r["cycles_per_step"].items())
-            print(f"{args.stream} B={B} {name} (F={F}, T={T}): {r['ms']:.3f} ms (timing build "
+            print(f"{args.stream} U={args.units} B={B} {name} (F={F}, T={T}): {r['ms']:.3f} ms "
+                  f"(timing build "
                   f"{r['ms_timing_build']:.3f} ms); cycles a step: {ph}; total "
                   f"{r['cycles_per_step_total']:.0f} over {r['warps']} warps, "
                   f"{r['implied_sm_ghz']:.3f} GHz implied; out err {r['timing_build_out_err']:.2e}",
                   flush=True)
         chunk = sum(r["ms"] for r in rows if r["B"] == B)
-        print(f"{args.stream} B={B}: the chunk's four layers {chunk:.3f} ms")
+        print(f"{args.stream} U={args.units} B={B}: the chunk's four layers {chunk:.3f} ms")
     print(smi)
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"stream": args.stream, "card": smi, "rows": rows}, f, indent=1)
+            json.dump({"stream": args.stream, "units": args.units, "card": smi, "rows": rows}, f,
+                      indent=1)
     return 0
 
 

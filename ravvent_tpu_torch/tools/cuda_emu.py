@@ -1,6 +1,6 @@
 """Run a kernel source of ``csrc/`` on the CPU, to rehearse its logic.
 
-The source and ``csrc/common.cuh`` are translated into C++ against
+The source and the ``csrc/*.cuh`` headers are translated into C++ against
 ``tools/cuda_emu.h``, compiled with g++ into a shared library in the
 gitignored ``ravvent_tpu_torch/build/emu/``, and loaded with ctypes. The
 library has the source's C entry points, bound as ``ops/cuda_lib.py`` binds
@@ -99,7 +99,7 @@ def translate(text: str) -> str:
     as ``emu_launch(k, grid, threads, smem, stream, ...)``, the dynamic
     shared buffer from the emulated CTA."""
     text = text.replace("#include <cuda_bf16.h>", "").replace("#include <cuda_runtime.h>", "")
-    text = text.replace('#include "common.cuh"', '#include "common_emu.cuh"')
+    text = re.sub(r'#include "(\w+)\.cuh"', r'#include "\1_emu.cuh"', text)
     text = _cluster_ptx(text)
     text = re.sub(_CP_ASYNC, r"memcpy(dst, src, \1); (void)s;", text)
     text = _MMA.sub(_mma_call, text)
@@ -129,7 +129,7 @@ def load(source: str) -> ctypes.CDLL:
         tag = f"{src.stem}.{os.getpid()}"
         work = BUILD / tag
         work.mkdir(parents=True, exist_ok=True)
-        for h in cuda_lib.headers():  # the shared header, translated alike
+        for h in cuda_lib.headers():  # the shared headers, translated alike
             (work / f"{h.stem}_emu.cuh").write_text(translate(h.read_text()))
         cpp = work / f"{src.stem}.cpp"
         cpp.write_text(translate(src.read_text()))

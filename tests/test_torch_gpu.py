@@ -30,6 +30,15 @@ pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
 
 
+# (U, F, T, seeded) of the BiLSTM kernels' card tests: each compiled width
+# (ops/rnn_cuda.py:KERNEL_UNITS) on raw (1), event (5) and a stacked layer's
+# input (2U); the flagship's 128 units keep their ids
+LAYERS = [(128, 1, 200, False), (128, 5, 30, False), (128, 256, 40, True),
+          (64, 1, 200, False), (64, 5, 30, False), (64, 128, 40, True),
+          (256, 1, 200, False), (256, 5, 30, False), (256, 512, 40, True)]
+LAYER_IDS = [("" if U == 128 else f"U{U}-") + f"{F}-{T}-{seeded}" for U, F, T, seeded in LAYERS]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -40,15 +49,14 @@ def cuda():
 
 
 @pytest.mark.parametrize("B", [37, 130, 2858], ids=["one ragged tile", "ragged tiles", "2858 rows"])
-@pytest.mark.parametrize("F,T,seeded", [(1, 200, False), (5, 30, False), (256, 40, True)])
-def test_bilstm_kernel_matches_plain(cuda, F, T, seeded, B):
-    """The f32 stream within 1e-4 (chip_smoke.py phase 2's bar). 37, 130 and
-    2858 rows run 3, 9 and 60 tiles of 16, 16 and 48 rows, the last one
-    ragged. The
+@pytest.mark.parametrize("U,F,T,seeded", LAYERS, ids=LAYER_IDS)
+def test_bilstm_kernel_matches_plain(cuda, U, F, T, seeded, B):
+    """The f32 stream within 1e-4 (chip_smoke.py phase 2's bar). At 64 and
+    128 units 37, 130 and 2858 rows run 3, 9 and 60 tiles of 16, 16 and 48
+    rows; at 256, 3 and 9 of 16 and 90 of 32; the last one ragged. The
     weights laid out once (kernel_layout, as the engine does) give the same
     result as the layout the wrapper makes."""
     gen = torch.Generator().manual_seed(F)
-    U = 128
     wx, wh, b = stacked_weights(init_encoder(gen, U, 1, F, cuda)[0])
     xs = torch.randn(B, T, F, generator=gen).to(cuda)
     h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)).to(cuda) if seeded
@@ -108,15 +116,16 @@ def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("B", [37, 130, 2858], ids=["one ragged tile", "three tiles", "2858 rows"])
-@pytest.mark.parametrize("F,T,seeded", [(1, 200, False), (5, 30, False), (256, 40, True)])
-def test_bilstm_bf16_kernel_matches_plain(cuda, F, T, seeded, B):
+@pytest.mark.parametrize("U,F,T,seeded", LAYERS, ids=LAYER_IDS)
+def test_bilstm_bf16_kernel_matches_plain(cuda, U, F, T, seeded, B):
     """The bf16 stream: outputs within two bf16 ulps, f32 final states 1e-3
-    (chip_smoke.py phase 9's bars). 37, 130 and 2858 rows run 3, 9 and 60
-    tiles of 16, 16 and 48 rows (the ids name the 64-row tiles of an earlier design), the
-    last one ragged. The weights laid out once (kernel_layout, as the
-    engine passes them) give the same bits."""
+    (chip_smoke.py phase 9's bars). At 64 and 128 units 37, 130 and 2858
+    rows run 3, 9 and 60 tiles of 16, 16 and 48 rows (the ids name the
+    64-row tiles of an earlier design); at 256, 3, 9 and 179 tiles of 16;
+    the last one ragged. At 256 units Wh streams from L2. The weights laid
+    out once (kernel_layout, as the engine passes them) give the same
+    bits."""
     gen = torch.Generator().manual_seed(100 + F)
-    U = 128
     wx, wh, b = stream_weights([init_encoder(gen, U, 1, F, cuda)[0]], torch.bfloat16)[0]
     xs = torch.randn(B, T, F, generator=gen).to(cuda, torch.bfloat16)
     h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)).to(cuda) if seeded
@@ -213,9 +222,11 @@ def test_beam_step_decode_on_card_matches_cpu(cuda):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    B, T, F, U = 2, 3, 4, 64
+    """The BiLSTM wrapper raises for a width the kernels are not compiled
+    for (48 units; they take 64, 128 and 256), naming the shape."""
+    B, T, F, U = 2, 3, 4, 48
     xs = torch.zeros(B, T, F, device=cuda)
-    with pytest.raises(ValueError, match="128 units"):
+    with pytest.raises(ValueError, match="U = 48 units on F = 4 features"):
         rnn_cuda.bilstm_layer(xs, torch.zeros(2, F, 4 * U, device=cuda),
                               torch.zeros(2, U, 4 * U, device=cuda),
                               torch.zeros(2, 4 * U, device=cuda),

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from ravvent_tpu.models import rnn as jrnn
+from ravvent_tpu.ops import rnn_pallas
 from ravvent_tpu.ops.rnn_pallas import run_bidi_lstm_pallas
 from ravvent_tpu_torch.models import rnn as trnn
 from ravvent_tpu_torch.ops import rnn_cuda
@@ -25,6 +26,26 @@ def _layer(F, U, seed):
     return jl, from_jax_params(jax.tree_util.tree_map(np.asarray, jl))
 
 
+# (U, F) of the layers held against the TPU kernel: the kernels' compiled
+# widths (ops/rnn_cuda.py:KERNEL_UNITS), each on raw (1), event (5) and a
+# stacked layer's input (2U). The flagship's 128 units keep their ids.
+WIDTHS = [(128, 1), (128, 5), (128, 256), (64, 1), (64, 5), (64, 128), (256, 1), (256, 5),
+          (256, 512)]
+WIDTH_IDS = [str(F) if U == 128 else f"U{U}-{F}" for U, F in WIDTHS]
+
+
+def pallas_layer(jl, xs, state):
+    """What the JAX encoder computes for one layer: the TPU kernel,
+    run_bidi_lstm_pallas(interpret=True), where a batch tile fits the TPU's
+    VMEM, and else its scan (models/rnn.py:encoder_apply takes
+    run_bidi_layer where _pick_tile is None: 256 units on f32 at F = 512)."""
+    B, T, F = xs.shape
+    U = jl["fwd"]["recurrent"].shape[0]
+    if rnn_pallas._pick_tile(B, T, F, U, xs.dtype.itemsize) is None:
+        return jrnn.run_bidi_layer(jl, "lstm", xs, initial_state=state)
+    return run_bidi_lstm_pallas(jl, xs, state, interpret=True)
+
+
 def test_lstm_step_matches_jax():
     rng = np.random.default_rng(0)
     p = jrnn.init_lstm_cell(jax.random.PRNGKey(1), 9, 16)
@@ -37,10 +58,10 @@ def test_lstm_step_matches_jax():
 
 
 @pytest.mark.parametrize("seeded", [False, True], ids=["zero_state", "initial_state"])
-@pytest.mark.parametrize("F", [1, 5, 256])
-def test_run_bidi_layer_matches_pallas_interpret(F, seeded):
-    U, B, T = 128, 8, 12
-    rng = np.random.default_rng(F)
+@pytest.mark.parametrize("U,F", WIDTHS, ids=WIDTH_IDS)
+def test_run_bidi_layer_matches_pallas_interpret(U, F, seeded):
+    B, T = (8, 12) if U == 128 else (8, 6)
+    rng = np.random.default_rng(F + (U != 128) * U)
     jl, tl = _layer(F, U, F)
     xs = rng.normal(size=(B, T, F)).astype(np.float32)
     state = None
@@ -48,9 +69,8 @@ def test_run_bidi_layer_matches_pallas_interpret(F, seeded):
         h0, c0 = (0.5 * rng.normal(size=(2, B, U))).astype(np.float32), (
             0.5 * rng.normal(size=(2, B, U))).astype(np.float32)
         state = (h0, c0)
-    jout, (jh, jc) = run_bidi_lstm_pallas(
-        jl, jnp.asarray(xs), None if state is None else tuple(map(jnp.asarray, state)),
-        interpret=True)
+    jout, (jh, jc) = pallas_layer(
+        jl, jnp.asarray(xs), None if state is None else tuple(map(jnp.asarray, state)))
     tout, (th, tc) = trnn.run_bidi_layer(
         tl, torch.from_numpy(xs), None if state is None else tuple(map(torch.from_numpy, state)))
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
@@ -102,19 +122,19 @@ BF16_OUT, BF16_STATE = 1e-2, 1e-3
 
 
 @pytest.mark.parametrize("seeded", [False, True], ids=["zero_state", "initial_state"])
-@pytest.mark.parametrize("F", [1, 5, 256])
-def test_bf16_layer_matches_pallas_interpret(F, seeded):
+@pytest.mark.parametrize("U,F", WIDTHS, ids=WIDTH_IDS)
+def test_bf16_layer_matches_pallas_interpret(U, F, seeded):
     """The plain version on a bf16 stream against the TPU kernel run on the
     same bf16 input (weights cast to bf16 inside it, f32 state)."""
-    U, B, T = 128, 8, 12
-    rng = np.random.default_rng(100 + F)
+    B, T = (8, 12) if U == 128 else (8, 6)
+    rng = np.random.default_rng(100 + F + (U != 128) * U)
     jl, tl = _layer(F, U, F)
     xs = jnp.asarray(rng.normal(size=(B, T, F)).astype(np.float32)).astype(jnp.bfloat16)
     state = None
     if seeded:
         state = tuple((0.5 * rng.normal(size=(2, B, U))).astype(np.float32) for _ in range(2))
-    jout, (jh, jc) = run_bidi_lstm_pallas(
-        jl, xs, None if state is None else tuple(map(jnp.asarray, state)), interpret=True)
+    jout, (jh, jc) = pallas_layer(
+        jl, xs, None if state is None else tuple(map(jnp.asarray, state)))
     wx, wh, b = trnn.stream_weights([tl], torch.bfloat16)[0]
     h0, c0 = (torch.zeros(2, B, U), torch.zeros(2, B, U)) if state is None else map(
         torch.from_numpy, state)
@@ -124,7 +144,7 @@ def test_bf16_layer_matches_pallas_interpret(F, seeded):
     err_out = np.abs(tout.float().numpy() - np.asarray(jout, dtype=np.float32)).max()
     err_state = max(np.abs(th.numpy() - np.asarray(jh)).max(),
                     np.abs(tc.numpy() - np.asarray(jc)).max())
-    print(f"bf16 layer F={F} {'seeded' if seeded else 'zero state'}: out {err_out:.3e}, "
+    print(f"bf16 layer U={U} F={F} {'seeded' if seeded else 'zero state'}: out {err_out:.3e}, "
           f"final states {err_state:.3e}")
     assert err_out <= BF16_OUT and err_state <= BF16_STATE
 
@@ -187,22 +207,24 @@ def test_engine_encoder_unchanged_with_kernel_layout():
     assert got.dtype == torch.bfloat16 and torch.equal(got, ref) and torch.equal(mask, ref_mask)
 
 
-@pytest.mark.parametrize("F", [1, 5, 256])
-def test_kernel_layout_holds_each_weight_once_in_fragment_order(F):
+@pytest.mark.parametrize("U,F", WIDTHS, ids=WIDTH_IDS)
+def test_kernel_layout_holds_each_weight_once_in_fragment_order(U, F):
     """kernel_layout's Wx and Wh fragments: each plain weight appears once,
-    at the (warp, k-tile, gate, lane, tile, register, half) the mma.m16n8k16
-    B fragment reads it from; Wx's rows past F are zero."""
-    U = 128
+    at the (warp of U / 8, k-tile, gate, lane, tile, register, half) the
+    mma.m16n8k16 B fragment reads it from; Wx's rows past F are zero."""
     gen = torch.Generator().manual_seed(F)
     wx = torch.randn(2, F, 4 * U, generator=gen).to(torch.bfloat16)
     wh = torch.randn(2, U, 4 * U, generator=gen).to(torch.bfloat16)
     lay = rnn_cuda.kernel_layout(wx, wh)
-    kx = -(-F // 16) * 16
-    assert lay.kx == kx and lay.wx.shape == (2, 16, kx // 16, 4, 32, 4)
+    kx, warps = -(-F // 16) * 16, U // 8
+    assert lay.kx == kx and lay.wx.shape == (2, warps, kx // 16, 4, 32, 4)
+    assert lay.wh.shape == (2, warps, U // 16, 4, 32, 4)
     for plain, frag, K in ((wx, lay.wx, F), (wh, lay.wh, U)):
-        f = frag.reshape(2, 16, -1, 4, 8, 4, 2, 2)  # [.., g, tg, r, e]
+        f = frag.reshape(2, warps, -1, 4, 8, 4, 2, 2)  # [.., g, tg, r, e]
+        last_kt = max(K // 16 - 1, 0)
         for warp, kt, gate, g, tg, r, e in [(0, 0, 0, 0, 0, 0, 0), (3, 0, 2, 5, 1, 0, 1),
-                                            (15, 0, 3, 7, 3, 1, 1)]:
+                                            (warps - 1, 0, 3, 7, 3, 1, 1),
+                                            (warps // 2, last_kt, 1, 2, 2, 1, 0)]:
             k, n = 16 * kt + 2 * tg + 8 * r + e, gate * U + 8 * warp + g
             want = plain[:, k, n] if k < K else torch.zeros(2, dtype=torch.bfloat16)
             assert torch.equal(f[:, warp, kt, gate, g, tg, r, e], want)
@@ -211,12 +233,11 @@ def test_kernel_layout_holds_each_weight_once_in_fragment_order(F):
                            torch.sort(padded.float().reshape(2, -1)).values)
 
 
-@pytest.mark.parametrize("F", [1, 5, 256])
-def test_f32_kernel_layout_holds_each_weight_once_by_unit(F):
+@pytest.mark.parametrize("U,F", WIDTHS, ids=WIDTH_IDS)
+def test_f32_kernel_layout_holds_each_weight_once_by_unit(U, F):
     """kernel_layout of f32 weights (csrc/bilstm.cu's order): Wx padded to F
     rounded up to 4 rows, row k's gates i, f, g, o of unit u at [d, k, u],
     each plain weight once; the padding rows zero."""
-    U = 128
     gen = torch.Generator().manual_seed(F)
     wx = torch.randn(2, F, 4 * U, generator=gen)
     wh = torch.randn(2, U, 4 * U, generator=gen)
@@ -225,7 +246,7 @@ def test_f32_kernel_layout_holds_each_weight_once_by_unit(F):
     assert lay.kx == kx and lay.wx.shape == (2, kx, U, 4) and lay.wh.shape == (2, U, U, 4)
     assert lay.wx.is_contiguous() and lay.wh.is_contiguous()
     for plain, laid, K in ((wx, lay.wx, F), (wh, lay.wh, U)):
-        for k, u, gate in [(0, 0, 0), (K - 1, 77, 2), (K // 2, 127, 3)]:
+        for k, u, gate in [(0, 0, 0), (K - 1, U // 2 + 13, 2), (K // 2, U - 1, 3)]:
             assert torch.equal(laid[:, k, u, gate], plain[:, k, gate * U + u])
         assert torch.equal(laid[:, :K], plain.reshape(2, K, 4, U).transpose(2, 3))
         assert not laid[:, K:].any()
@@ -279,9 +300,10 @@ class Launched(Exception):
 
 def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
     """``bilstm_layer`` on a card's tensor gets past its checks to the launch
-    on the flagship's shapes, and raises a ValueError naming the shape where
-    ``kernel_takes`` is false: another width, too many features, an
-    unaligned bf16 feature count, another dtype."""
+    on the compiled widths' shapes (64, 128 and 256 units, F <= 2U), and
+    raises a ValueError naming the shape where ``kernel_takes`` is false: an
+    uncompiled width (16, 48), too many features, an unaligned bf16 feature
+    count, another dtype."""
     from ravvent_tpu_torch.ops import cuda_lib
 
     def launch():
@@ -291,9 +313,10 @@ def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
     monkeypatch.setattr(cuda_lib, "lib", launch)
     B, T = 3, 2
     f32, bf16 = torch.float32, torch.bfloat16
-    taken = [(128, 1, f32), (128, 5, bf16), (128, 24, bf16), (128, 256, f32), (128, 256, bf16)]
-    refused = [(16, 5, f32), (64, 256, bf16), (128, 264, f32), (128, 17, bf16),
-               (128, 5, torch.float16)]
+    taken = [(128, 1, f32), (128, 5, bf16), (128, 24, bf16), (128, 256, f32), (128, 256, bf16),
+             (64, 5, f32), (64, 128, bf16), (256, 1, bf16), (256, 512, f32)]
+    refused = [(16, 5, f32), (48, 96, bf16), (64, 256, bf16), (64, 136, f32), (128, 264, f32),
+               (128, 17, bf16), (256, 520, bf16), (128, 5, torch.float16)]
     for U, F, dt in taken + refused:
         wx, wh = torch.zeros(2, F, 4 * U, dtype=dt), torch.zeros(2, U, 4 * U, dtype=dt)
         b, z = torch.zeros(2, 4 * U), torch.zeros(2, B, U)
@@ -309,16 +332,17 @@ def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_encoder_apply_routes_other_widths_to_the_plain_layer(dtype, monkeypatch):
-    """On a card (the predicate patched), a 16-unit encoder runs every layer
-    on the plain version and counts each under ``bilstm_plain_route``, with
-    the CPU encoder's output bit for bit; a 128-unit one calls the kernels'
+    """On a card (the predicate patched), a 16- or 48-unit encoder, widths
+    the kernels are not compiled for, runs every layer on the plain version
+    and counts each under ``bilstm_plain_route``, with the CPU encoder's
+    output bit for bit; a 64-, 128- or 256-unit one calls the kernels'
     wrapper and counts nothing."""
     from ravvent_tpu_torch.ops import cuda_lib
 
     gen = torch.Generator().manual_seed(4)
     xs = torch.randn(6, 9, 5, generator=gen).to(dtype)
     cases = []
-    for U, routed in ((16, 2), (128, 0)):
+    for U, routed in ((16, 2), (48, 2), (64, 0), (128, 0), (256, 0)):
         layers = trnn.init_encoder(gen, U, 2, 5)
         weights = trnn.kernel_weights(trnn.stream_weights(layers, dtype))
         cases.append((layers, weights, routed, trnn.encoder_apply(layers, xs, weights)))
