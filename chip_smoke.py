@@ -32,7 +32,11 @@ hand-written kernel against its plain PyTorch version on the card:
      over 40 steps, each kernel also against its own plain version on the
      same inputs, then f32 memory over 10 steps, each step fed the plain
      version's state; the pair and each kernel timed beside its bound, and
-     the step at S=8 beside S=232;
+     the step at S=8 beside S=232; then the same holds at the other compiled
+     widths (csrc/beam_step_shapes.cuh): U=64 and 256 at W=5 on bf16 (40
+     steps) and f32 (10 steps), and W=6, 7, 10 and 16 at U=128 on bf16, each
+     timed beside its bound with its attend CTA's threads, shared memory and
+     occupancy;
   4. end to end: 4 simulated reads through the CLI's read path, with each
      kernel's launch count, then a check against the CPU (plain) engine on
      the first 64 snippets of the first read;
@@ -69,7 +73,8 @@ hand-written kernel against its plain PyTorch version on the card:
      "i8") memory, 40 steps each, the attend kernel also against its own
      plain version fed the plain cell; the step and the attend kernel timed
      at S=232 and S=8 beside their bounds, the bf16 step and the
-     quantization's time per chunk;
+     quantization's time per chunk; then both branches at U=64 and 256 (W=5,
+     40 steps) as phase 3 holds the other widths;
  12. end to end, bench.py's path on int8 memory (--memory i8, then i8mxu):
      PerformanceEvaluator.evaluate_files and MappingEvaluator.evaluate_files
      over the same 4 reads; only beam_cell and the int8 attend kernel of the
@@ -172,6 +177,19 @@ hand-written kernel against its plain PyTorch version on the card:
      and CPU on 64 snippets, same memory >= 0.998, end to end >= 0.99; then
      the same model on the f32 stream and memory (bilstm 4 a chunk at 256
      units, the same bars).
+ 18 (f). the beam step's kernels on the main path at other widths (seeded
+     weights): a joint model with dec_units=256 at the bench's settings
+     (i8dev, bf16 encoder, bf16 memory, 4-bit probs, beam 5, "step") through
+     PerformanceEvaluator.run_pipelined over the 4 reads, beam_cell and
+     beam_attend once a step, bilstm_bf16 4 a chunk, no other kernel and no
+     plain route; card and CPU on 64 snippets (the kernels' decode of the
+     card's memory >= 0.998 against the plain step, end to end >= 0.99); the
+     same model and a dec_units=64 one on f32 memory and encoder over the
+     first read (the same memory 1.00000, and >= 0.998 with the pad, end and
+     start logits pushed down so that every step decodes whole rows); the
+     flagship through tools/basecall.py's read path at --beam 10 over the 4
+     reads, the same checks (the live decoder on f32 memory at W=10);
+     beam_impl="loop" refuses dec_units=256, the step W=17.
  20. the user tools (ravvent_tpu_torch/tools/), each CLI's main(argv) in
      process in a temporary directory at the flagship's width (batch 128,
      seeded): (a) make_dataset, 2 train and 4 eval reads of 1.5-1.8 kb (the
@@ -274,11 +292,16 @@ def phase_device() -> str:
 def phase_build() -> None:
     from ravvent_tpu_torch.ops import cuda_lib
 
+    t0 = time.perf_counter()
     log = cuda_lib.build(force=True)
+    wall = time.perf_counter() - t0
     for line in log.splitlines():
         spills = "spill stores" in line and " 0 bytes spill stores" not in line
         if line.startswith("==") or "Compiling entry" in line or "Used" in line or spills:
             print("  " + line.strip())
+    print(f"  build wall {wall:.2f} s: {len(cuda_lib.sources())} sources, one nvcc each, in "
+          f"parallel (need <= 60 s)")
+    require(wall <= 60.0, f"the kernels' build took {wall:.2f} s (> 60 s)")
     cuda_lib.lib()
 
 
@@ -500,7 +523,9 @@ def phase_beam_step() -> list:
     each kernel against its own plain version on the same inputs, then f32
     memory over 10 steps, and over 10 steps at the evaluate-side tools'
     B=1024, W=5 and W=1; each step fed the plain version's state. Times
-    the pair and each kernel beside its bound, and the step at S=8."""
+    the pair and each kernel beside its bound, and the step at S=8. Then
+    the other widths (beam_step_width_case). Returns the kernels line's
+    entries of the flagship's kernels and of width_entries."""
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
     from ravvent_tpu_torch.ops.beam_step_cuda import (
@@ -608,14 +633,131 @@ def phase_beam_step() -> list:
     print(f"  f32 memory: the step {f32_ms:.4f} ms/step, plain {f32_plain_ms:.4f} ms/step, bound "
           f"{f32_bound:.4f} ms/step ({f32_by}); beam_attend {f32_att_ms:.4f} ms, bound "
           f"{f32_att_bound:.4f} ms")
+    del keys, values, mem
     src = "ravvent_tpu_torch/csrc/beam_step_f.cu"
     replaces = "ravvent_tpu/ops/beam_loop_pallas.py:333"
+    # the other decoder widths (bf16 40 steps, f32 10) and beam widths
+    # (128 units, bf16, 40 steps)
+    cases = {}
+    for U, W, mode, n in ((64, 5, "bf16", 40), (64, 5, "f32", 10), (256, 5, "bf16", 40),
+                          (256, 5, "f32", 10), (128, 6, "bf16", 40), (128, 7, "bf16", 40),
+                          (128, 10, "bf16", 40), (128, 16, "bf16", 40)):
+        cases[(U, W, mode)] = beam_step_width_case(U, W, mode, n)
+        torch.cuda.empty_cache()
     return [{"name": "beam_cell", "route": "cuda", "source": src, "replaces": replaces,
              "max_abs_err": cell_err[0], "ms": cell_ms, "plain_ms": cell_plain_ms,
              "bound_ms": cell_bound, "bound_by": cell_by, "library_ms": None},
-            {"name": "beam_attend", "route": "cuda", "source": src, "replaces": replaces,
-             "max_abs_err": attend["err"], "ms": att_ms, "plain_ms": att_plain_ms,
-             "bound_ms": att_bound, "bound_by": att_by, "library_ms": None}]
+            {"name": "beam_attend", "route": "cuda",
+             "source": "ravvent_tpu_torch/csrc/beam_attend.cuh", "replaces": replaces, "max_abs_err": attend["err"], "ms": att_ms,
+             "plain_ms": att_plain_ms, "bound_ms": att_bound, "bound_by": att_by,
+             "library_ms": None}] + width_entries(cases, replaces)
+
+
+def beam_step_width_case(U: int, W: int, mode: str, steps: int) -> dict:
+    """The beam step's two kernels at U units and W beams on ``mode`` memory
+    (bf16, f32, quant, quant_mxu) at B=4096, S=232: ``steps`` steps against
+    beam_step_plain, each fed the plain state, with beam_cell against
+    cell_plain and the attend kernel against attend_plain fed the plain cell
+    (phase 3's bars); the step, each kernel and their plain versions timed
+    on the last state beside the bounds; the attend instance's shared memory,
+    threads and CTAs an SM (ops/beam_step_cuda.py:attend_info). Returns the
+    figures."""
+    from ravvent_tpu_torch.models import attention as attn
+    from ravvent_tpu_torch.models.decoder import init_decoder
+    from ravvent_tpu_torch.ops.beam_step_cuda import (
+        attend_info, attend_plain, beam_attend, beam_cell, beam_step, beam_step_plain,
+        cell_plain, initial_state, pack_decoder_weights,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    B, S, V, E = 4096, 232, 7, 256
+    dec_p = init_decoder(gen, V, 1, U, E, dev)
+    memory, mask = encoder_like_memory(gen, B, S, E, dev)
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}.get(mode, "i8")
+    mem = attn.setup_memory(dec_p["attention"], memory, mask, dtype,
+                            attention_layer=dec_p["attention_layer"])
+    del memory
+    w = pack_decoder_weights(dec_p, mem)
+    keys, values = mem.keys.contiguous(), mem.values.contiguous()
+    scales = (mem.kscale.contiguous(), mem.vscale.contiguous()) if mem.quantized else None
+    mxu = mode == "quant_mxu"
+    tol, tol_cell = 1e-2, 1e-4  # phase 3's bars
+    cell_err = [0.0]
+    attend = {"tok": 0, "par": 0, "n": 0, "err": 0.0}
+
+    def kernels_alone(st, ref, rpar):
+        plain_cell = cell_plain(st, w)
+        cell_err[0] = max([cell_err[0]] + [(g - r).abs().max().item()
+                                           for g, r in zip(beam_cell(st, w), plain_cell)])
+        got, gpar = beam_attend(st, *plain_cell, keys, values, mask, w, 1, scales, mxu)
+        tok_eq = got.tok.reshape(B, W) == ref.tok.reshape(B, W)
+        both = tok_eq & (gpar == rpar)
+        attend["tok"] += tok_eq.sum().item()
+        attend["par"] += (gpar == rpar).sum().item()
+        attend["n"] += B * W
+        if both.any():
+            attend["err"] = max(attend["err"], (got.cum - ref.cum).abs()[both].max().item())
+
+    name = f"U={U} W={W} {mode}"
+    tok, par, err, st = check_steps(
+        f"beam_step {name}", lambda st: beam_step(st, keys, values, mask, w, 1, scales, mxu),
+        lambda st: beam_step_plain(st, keys, values, mask, w, 1, scales, mxu),
+        initial_state(B, W, U, 2, dev), steps, B, W, tol, extra=kernels_alone)
+    a_tok, a_par = attend["tok"] / attend["n"], attend["par"] / attend["n"]
+    require(cell_err[0] <= tol_cell, f"beam_cell {name}: error {cell_err[0]:.3e} > {tol_cell}")
+    require(a_tok >= 0.998 and a_par >= 0.998, f"beam_attend {name}: agreement < 0.998")
+    require(attend["err"] <= tol, f"beam_attend {name}: score error {attend['err']:.3e} > {tol}")
+    hn, cn, ah = beam_cell(st, w)
+    t = {"step": time_ms(lambda: beam_step(st, keys, values, mask, w, 1, scales, mxu), reps=40),
+         "step_plain": time_ms(lambda: beam_step_plain(st, keys, values, mask, w, 1, scales, mxu),
+                               reps=3),
+         "cell": time_ms(lambda: beam_cell(st, w), reps=40),
+         "cell_plain": time_ms(lambda: cell_plain(st, w), reps=10),
+         "att": time_ms(lambda: beam_attend(st, hn, cn, ah, keys, values, mask, w, 1, scales, mxu),
+                        reps=40),
+         "att_plain": time_ms(lambda: attend_plain(st, hn, cn, ah, keys, values, mask, w, 1,
+                                                   scales, mxu), reps=3)}
+    mem_bytes = {"bf16": 2, "f32": 4}.get(mode, 1)
+    scale_bytes = 8 if scales is not None else 0
+    peak = H100_F32_FLOPS if mode == "f32" else H100_INT8_OPS if mxu else H100_BF16_FLOPS
+    bound, by = beam_step_bounds(B, S, U, W, V, mem_bytes, scale_bytes, peak)
+    cell_bound, cell_by = beam_cell_bounds(B * W, U, V)
+    att_bound, att_by = beam_attend_bounds(B, S, U, W, V, mem_bytes, scale_bytes, peak)
+    info = attend_info(mode, U, W, S, V)
+    print(f"  {name}, {steps} steps: tokens agree {tok:.5f}, parents {par:.5f}, score max_abs_err "
+          f"{err:.3e}; beam_cell alone {cell_err[0]:.3e}; the attend alone tokens {a_tok:.5f}, "
+          f"parents {a_par:.5f}, score {attend['err']:.3e}; the step {t['step']:.4f} ms (plain "
+          f"{t['step_plain']:.4f}, bound {bound:.4f}, {by}); beam_cell {t['cell']:.4f} ms "
+          f"(plain {t['cell_plain']:.4f}, bound {cell_bound:.4f}, {cell_by}); attend "
+          f"{t['att']:.4f} ms (plain {t['att_plain']:.4f}, bound {att_bound:.4f}, {att_by}); "
+          f"attend CTA {info.threads} threads, {info.smem} B of shared memory, {info.per_sm} "
+          f"an SM", flush=True)
+    return {"cell_err": cell_err[0], "att_err": attend["err"], "t": t, "bound": bound,
+            "cell_bound": (cell_bound, cell_by), "att_bound": (att_bound, att_by)}
+
+
+def width_entries(cases: dict, replaces: str) -> list:
+    """The ``kernels`` line's entries of the beam step's kernels at other
+    widths: beam_cell and beam_attend at 64 and 256 units (bf16 memory),
+    beam_attend at W = 10 (128 units, bf16)."""
+    src = "ravvent_tpu_torch/csrc/beam_step_f.cu"
+    att_src = "ravvent_tpu_torch/csrc/beam_attend.cuh"
+    out = []
+    for U in (64, 256):
+        c = cases[(U, 5, "bf16")]
+        out.append({"name": f"beam_cell_u{U}", "route": "cuda", "source": src,
+                    "replaces": replaces, "max_abs_err": c["cell_err"], "ms": c["t"]["cell"],
+                    "plain_ms": c["t"]["cell_plain"], "bound_ms": c["cell_bound"][0],
+                    "bound_by": c["cell_bound"][1], "library_ms": None})
+    for name, key in (("beam_attend_u64", (64, 5, "bf16")), ("beam_attend_u256", (256, 5, "bf16")),
+                      ("beam_attend_w10", (128, 10, "bf16"))):
+        c = cases[key]
+        out.append({"name": name, "route": "cuda", "source": att_src, "replaces": replaces,
+                    "max_abs_err": c["att_err"], "ms": c["t"]["att"],
+                    "plain_ms": c["t"]["att_plain"], "bound_ms": c["att_bound"][0],
+                    "bound_by": c["att_bound"][1], "library_ms": None})
+    return out
 
 
 def simulated_reads() -> list:
@@ -1183,11 +1325,18 @@ def phase_beam_step_i8() -> list:
               f"{t['att_plain8']:.4f} ms, bound {att_bound8:.4f} ms", flush=True)
         variant = "quant_mxu" if mxu else "quant"
         out.append({"name": name, "route": "cuda",
-                    "source": "ravvent_tpu_torch/csrc/beam_step_f.cu",
+                    "source": f"ravvent_tpu_torch/csrc/beam_attend_{'i8mxu' if mxu else 'i8'}.cu",
                     "replaces": f"ravvent_tpu/ops/beam_loop_pallas.py:333 ({variant})",
                     "max_abs_err": attend["err"], "ms": t["att232"],
                     "plain_ms": t["att_plain232"], "bound_ms": att_bound, "bound_by": att_by,
                     "library_ms": None})
+    del keys, values, mem, k8, v8, scales, scales8
+    torch.cuda.empty_cache()
+    # the other decoder widths on both int8 branches, 40 steps each
+    for U in (64, 256):
+        for mode in ("quant", "quant_mxu"):
+            beam_step_width_case(U, 5, mode, 40)
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1536,15 +1685,18 @@ def phase_signal_wire(smi: str) -> tuple:
              "library_ms": None}, counts)
 
 
-def top_beam_tokens(engine, mem, max_len: int, beams: int = 1) -> torch.Tensor:
-    """The engine's beam decode of ``mem`` (beam 5, ``max_len - 1`` live
-    steps): the top ``beams`` beams' tokens over the live steps, on the host
-    ([N, max_len - 1, beams])."""
+def top_beam_tokens(engine, mem, max_len: int, beams: int = 1, width: int = 5,
+                    dec=None) -> torch.Tensor:
+    """The engine's beam decode of ``mem`` (beam ``width``, ``max_len - 1``
+    live steps; the engine's decoder or ``dec``): the top ``beams`` beams'
+    tokens over the live steps, on the host ([N, max_len - 1, beams])."""
     from ravvent_tpu_torch.evaluation.basecall import TOTAL_STEPS
     from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
     from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
 
-    res = fused_beam_decode(engine.params["decoder"], mem, engine.cfg.vocab_size, 5, TOTAL_STEPS,
+    dec = engine.params["decoder"] if dec is None else dec
+    res = fused_beam_decode(dec, mem, engine.cfg.vocab_size, width,
+                            TOTAL_STEPS,
                             max_len - 1, start_token=NUC_TOKENIZER.start_id,
                             end_token=NUC_TOKENIZER.end_id, loop=beam_step_loop,
                             quant_mxu=engine.quant_mxu)
@@ -2004,8 +2156,11 @@ def phase_configs(smi: str) -> dict:
     at 64 units (f32, then bf16) beside the beam kernels, then a 48-unit
     one on the counted plain route, card against CPU on 64 snippets; (e) a
     256-unit encoder at the bench's settings (bf16 kernel at 256 units),
-    then on the f32 stream, card against CPU on 64 snippets. Returns the launch counts of (a) ("cli", "bench"), (d)
-    ("enc64", "enc64_bf16", "enc48") and (e) ("enc256", "enc256_f32")."""
+    then on the f32 stream, card against CPU on 64 snippets; (f) the beam
+    step's kernels at other decoder and beam widths (phase_decoder_widths).
+    Returns the launch counts of (a) ("cli", "bench"), (d) ("enc64",
+    "enc64_bf16", "enc48"), (e) ("enc256", "enc256_f32") and (f) ("dec256",
+    "dec64", "beam10")."""
     import dataclasses
     import tempfile
     from pathlib import Path
@@ -2244,6 +2399,10 @@ def phase_configs(smi: str) -> dict:
             "the 256-unit f32 engine did not run the beam kernels")
     require(same >= 0.998 and e2e >= 0.99, "card and CPU disagree on the 256-unit f32 encoder")
 
+    # (f) the slice's path at full width: the beam step's kernels at other
+    # decoder and beam widths
+    out.update(phase_decoder_widths(smi, reads))
+
     # (c) the kernels' beam loops refuse flagship32's shape
     for impl in ("step", "loop"):
         try:
@@ -2253,6 +2412,194 @@ def phase_configs(smi: str) -> dict:
         else:
             raise SmokeFailure(f"beam_impl={impl!r} accepted a depth-2 decoder")
     print("  beam_impl='step' and 'loop' refuse flagship32's shape (ValueError naming 'xla')")
+    return out
+
+
+def live_decoder(dec: dict) -> dict:
+    """A copy of decoder parameters whose pad, end and start tokens' logits
+    are pushed down by 20, so that no beam ends and every step picks among
+    the bases: seeded weights as drawn end most beams within a few steps
+    (phase 5), and at beam 10 every top beam at the first (the end token
+    among a row's first 10 candidates outscores any longer beam)."""
+    from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER as tk
+
+    bias = dec["fc"]["bias"].clone()
+    bias[[tk.pad_id, tk.end_id, tk.start_id]] -= 20.0
+    return dict(dec, fc=dict(dec["fc"], bias=bias))
+
+
+def kernel_vs_plain(card, cpu, snippets, max_len: int, aux, beams: int,
+                    live: bool = False) -> tuple:
+    """The beam-step kernels' decode of ``card``'s memory of the first 64
+    snippets against the plain step's decode of the same memory on the CPU
+    (top beam, ``max_len - 1`` live steps), with the engines' decoder or, if
+    ``live``, its :func:`live_decoder`. Returns (the share of equal tokens,
+    the share of base tokens in the card's)."""
+    sig, rr, ev, er = snippets
+    with torch.inference_mode():
+        raw_c, event_c = next(iter(card.compact_snippets(sig, rr[:64], ev, er[:64], aux)))
+        mem = card.memory(raw_c, event_c)
+        decs = [e.params["decoder"] for e in (card, cpu)]
+        if live:
+            decs = [live_decoder(d) for d in decs]
+        t_card = top_beam_tokens(card, mem, max_len, width=beams, dec=decs[0])
+        t_host = top_beam_tokens(cpu, mem.to("cpu"), max_len, width=beams, dec=decs[1])
+    return float((t_card == t_host).float().mean()), float((t_card > 2).float().mean())
+
+
+def phase_decoder_widths(smi: str, reads: list) -> dict:
+    """Phase 18 (f), the beam step's kernels on the main path at other
+    widths, seeded weights: (1) a joint model with dec_units=256 (2 x
+    BiLSTM(128), LSTM(256) + Luong) at the bench's settings (i8dev, bf16
+    encoder, bf16 memory, 4-bit probs, beam 5, "step") through
+    PerformanceEvaluator.run_pipelined over the 4 reads: beam_cell and
+    beam_attend once a step, bilstm_bf16 4 a chunk, no other kernel, no
+    plain route; card against CPU on 64 snippets (the kernels' decode of the
+    card's memory >= 0.998, end to end >= 0.99); then the same model on f32
+    memory and encoder over the first read (the same memory 1.00000); (2)
+    the same at dec_units=64 over the first read; (3) the flagship through
+    tools/basecall.py's read path at --beam 10 over the 4 reads, the same
+    checks; (4) beam_impl="loop" refuses dec_units=256 on the card, and the
+    step's wrapper W = 17. Returns the launch counts ("dec256", "dec64",
+    "beam10")."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.assembly.merger import Merger
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.data.snippets import load_read_compact_ex, prepare_compact
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
+    from ravvent_tpu_torch.models.basecaller import init_basecaller
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.tools import profile_decode as pd
+    from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN, basecall_read
+
+    chunks = lambda n: -(-n // 4096)  # noqa: E731
+    others = ("beam_step_i8", "beam_step_i8mxu", "beam_attend_i8", "beam_attend_i8mxu",
+              "beam_loop", "decode_step", "bilstm_plain_route")
+    bench = dict(chunk_size=4096, memory_dtype=torch.bfloat16, beam_impl="step",
+                 project_values=True, encoder_dtype=torch.bfloat16, pack_u8=True,
+                 transport_dtype="i8dev", prob_bits=4)
+    f32 = dict(chunk_size=4096, memory_dtype=None, encoder_dtype=None, transport_dtype="f32")
+    out = {}
+
+    def steps_once(c, what, encoder, n_chunks):
+        """beam_cell and beam_attend once a step, the encoder's kernel 4 times
+        a chunk, and nothing else: no other decode kernel, no plain route."""
+        require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] > 0,
+                f"{what}: beam_cell and beam_attend did not launch once a step")
+        require(c[encoder] == 4 * n_chunks, f"{what}: {encoder} not 4 a chunk")
+        unused = ("bilstm_bf16" if encoder == "bilstm" else "bilstm",) + others
+        require(sum(c[k] for k in unused) == 0, f"{what}: another kernel or a plain route ran")
+
+    cfg = ModelConfig(dec_units=256)
+    params = init_basecaller(cfg, torch.Generator().manual_seed(SEED))
+    engine = BasecallEngine(params, cfg, **bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        paths = pd.write_reads(reads, d)
+        pe = PerformanceEvaluator(engine, beam_width=5, cache_dir=str(d / "cache"))
+        pe.run(paths[0])  # warm-up; fills the read cache
+        loaded = [load_read_compact_ex(p, Path(p).with_suffix(".label"), 6,
+                                       cache_dir=str(d / "cache")) for p in paths]
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        rec = pe.run_pipelined(paths, inflight=8, finishers=4)
+        torch.cuda.synchronize()
+        c = out["dec256"] = dict(cuda_lib.launches)
+    n_chunks = sum(chunks(x[1].shape[0]) for x in loaded)
+    print(f"  dec_units=256, bench settings (i8dev, bf16 encoder, bf16 memory, 4-bit probs, "
+          f"step), run_pipelined inflight 8, finishers 4: {rec['bases_per_s']:.1f} bases/s, wall "
+          f"{rec['wall_s']:.3f} s; launches {dict((k, v) for k, v in c.items() if v)} "
+          f"(bilstm_bf16 need 4 a chunk over {n_chunks}) [{smi}]")
+    steps_once(c, "dec_units=256", "bilstm_bf16", n_chunks)
+    require(rec["bases_num"] > 0, "dec_units=256: the pipelined run called no bases")
+    sig, rr, ev, er, nuc, aux = loaded[0]
+    max_len = int((nuc != 0).sum(axis=1).max())
+    cpu = BasecallEngine(params, cfg, device="cpu", **bench)
+    same, _ = kernel_vs_plain(engine, cpu, (sig, rr, ev, er), max_len, aux, 5)
+    _, e2e = card_vs_cpu(engine, cpu, sig, rr, ev, er, max_len, aux)
+    print(f"  dec_units=256, bench settings, card vs CPU on 64 snippets: the kernels' decode of "
+          f"the card's memory against the plain step's {same:.5f} (need >= 0.998); end to end "
+          f"{e2e:.5f} (need >= 0.99)")
+    require(same >= 0.998 and e2e >= 0.99, "dec_units=256: card and CPU disagree")
+    sig, rr, ev, er, _, _ = prepare_compact(reads[0][0], reads[0][1],
+                                            np.array(["a"] * len(reads[0][1])), 6)
+    for U in (256, 64):
+        wcfg = ModelConfig(dec_units=U)
+        wparams = params if U == 256 else init_basecaller(wcfg, torch.Generator().manual_seed(SEED))
+        card, host = (BasecallEngine(wparams, wcfg, device=dv, **f32) for dv in (None, "cpu"))
+        c, secs, _, e2e = width_run(card, host, (sig, rr, ev, er), MAX_OUTPUT_LEN, None)
+        same, _ = kernel_vs_plain(card, host, (sig, rr, ev, er), MAX_OUTPUT_LEN, None, 5)
+        live, bases = kernel_vs_plain(card, host, (sig, rr, ev, er), MAX_OUTPUT_LEN, None, 5,
+                                      live=True)
+        print(f"  dec_units={U}, f32 memory and encoder (step): the first read, {rr.shape[0]} "
+              f"snippets, {secs:.3f} s; launches {dict((k, v) for k, v in c.items() if v)}; "
+              f"card vs CPU on 64 snippets: the kernels' decode of the same memory {same:.5f} "
+              f"(need 1.00000), with the live decoder {live:.5f} (need >= 0.998; bases "
+              f"{bases:.3f} of its tokens), end to end {e2e:.5f} (need >= 0.99) [{smi}]")
+        steps_once(c, f"dec_units={U} f32", "bilstm", chunks(rr.shape[0]))
+        require(same == 1.0 and live >= 0.998 and e2e >= 0.99,
+                f"dec_units={U} f32: card and CPU disagree")
+        if U == 64:
+            out["dec64"] = c
+
+    # the flagship through the CLI's read path at --beam 10
+    fcfg, fparams = flagship_params()
+    cli = BasecallEngine(fparams, fcfg, chunk_size=4096, project_values=True)
+    merger = Merger()
+    basecall_read(cli, merger, reads[0][0][:3000], reads[0][1][reads[0][1][:, 1] <= 3000],
+                  beam=10)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    n_bases = n_chunks = 0
+    for raw, ranges, _ in reads:
+        call = basecall_read(cli, merger, raw, ranges, beam=10)
+        require(call is not None, "a simulated read gave no snippets")
+        n_bases += len(call.merged.seq)
+        n_chunks += chunks(call.n_snippets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = out["beam10"] = dict(cuda_lib.launches)
+    cpu = BasecallEngine(fparams, fcfg, chunk_size=4096, project_values=True, device="cpu")
+    same, _ = kernel_vs_plain(cli, cpu, (sig, rr, ev, er), MAX_OUTPUT_LEN, None, 10)
+    rr64, er64 = rr[:64], er[:64]
+    t_gpu, p_gpu = cli.predict_beam_compact(sig, rr64, ev, er64, MAX_OUTPUT_LEN, 10)
+    t_cpu, _ = cpu.predict_beam_compact(sig, rr64, ev, er64, MAX_OUTPUT_LEN, 10)
+    e2e = float((t_gpu == t_cpu).mean())
+    # as drawn, every top beam at beam 10 ends at once (live_decoder); the
+    # live decoder on f32 memory holds the kernels at W = 10 on full rows
+    live, bases = kernel_vs_plain(*(BasecallEngine(fparams, fcfg, device=dv, **f32)
+                                    for dv in (None, "cpu")),
+                                  (sig, rr, ev, er), MAX_OUTPUT_LEN, None, 10, live=True)
+    print(f"  flagship, CLI read path at --beam 10, 4 reads: {n_bases} bases in {wall:.3f} s "
+          f"(seeded weights: the top beams end at once); launches "
+          f"{dict((k, v) for k, v in c.items() if v)}; card vs CPU on 64 snippets: the kernels' "
+          f"decode of the same memory {same:.5f} (need >= 0.998), end to end {e2e:.5f} (need "
+          f">= 0.99); f32 memory with the live decoder {live:.5f} (need >= 0.998; bases "
+          f"{bases:.3f} of its tokens) [{smi}]")
+    steps_once(c, "--beam 10", "bilstm", n_chunks)
+    require(np.isfinite(p_gpu).all() and same >= 0.998 and e2e >= 0.99 and live >= 0.998,
+            "--beam 10: card and CPU disagree")
+
+    # what stays refused: the loop kernel at 256 decoder units, the step's
+    # kernels at 17 beams (a CUDA tensor raises, naming the shape)
+    try:
+        BasecallEngine(params, cfg, beam_impl="loop")
+    except ValueError as e:
+        require("128 units" in str(e), "the loop's refusal does not name its units")
+    else:
+        raise SmokeFailure("beam_impl='loop' accepted dec_units=256")
+    try:
+        cli.predict_beam_compact(sig, rr64, ev, er64, MAX_OUTPUT_LEN, 17)
+    except ValueError as e:
+        require("W = 17" in str(e), "the step's refusal does not name W = 17")
+    else:
+        raise SmokeFailure("the beam step accepted 17 beams")
+    print("  beam_impl='loop' refuses dec_units=256; the step's kernels refuse W = 17 "
+          "(ValueError naming the shape)")
     return out
 
 
@@ -2833,8 +3180,8 @@ def main() -> int:
     k_bilstm = phase_bilstm(torch.float32)
     phase("2 bilstm kernel", t0)
     t0 = time.perf_counter()
-    k_cell, k_attend = phase_beam_step()
-    phase("3 beam_step: beam_cell + beam_attend", t0)
+    k_step = phase_beam_step()
+    phase("3 beam_step: beam_cell + beam_attend, at 64, 128 and 256 units and W = 1-16", t0)
     t0 = time.perf_counter()
     counts = phase_end_to_end()
     require(counts["beam_loop"] == 0 and counts["decode_step"] == 0,
@@ -2881,7 +3228,8 @@ def main() -> int:
     phase("17 training: Trainer at the flagship's width", t0)
     t0 = time.perf_counter()
     counts_cfg = phase_configs(smi)
-    phase("18 the non-flagship configurations, beam_impl=xla; other encoder widths", t0)
+    phase("18 the non-flagship configurations, beam_impl=xla; other encoder widths; the beam "
+          "step at other decoder and beam widths", t0)
     t0 = time.perf_counter()
     phase_multidevice(smi)
     phase("19 multi-device: the sharded engine, data-parallel training, the 'model' "
@@ -2907,8 +3255,14 @@ def main() -> int:
     for kd in k_bilstm + k_bf16:
         kd["launches"] = runs[kd["name"]][kd["name"].partition("_u")[0]]
         require(kd["launches"] > 0, f"{kd['name']} did not launch on its path's run")
-    k_cell["launches"] = counts["beam_cell"]
-    k_attend["launches"] = counts["beam_attend"]
+    # the beam step's kernels: the flagship's on phase 4, the other widths' on
+    # phase 18 (f)
+    runs = {"": counts, "_u64": counts_cfg["dec64"], "_u256": counts_cfg["dec256"],
+            "_w10": counts_cfg["beam10"]}
+    for kd in k_step:
+        kernel, width = re.fullmatch(r"(beam_cell|beam_attend)(\w*)", kd["name"]).groups()
+        kd["launches"] = runs[width][kernel]
+        require(kd["launches"] > 0, f"{kd['name']} did not launch on its path's run")
     k_loop["launches"] = counts_loop["beam_loop"]
     k_dstep["launches"] = counts_greedy["decode_step"]
     k_i8["launches"] = counts_i8["i8"]["beam_attend_i8"]
@@ -2917,7 +3271,7 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (
-        *k_bilstm, k_cell, k_attend, k_loop, k_dstep, *k_bf16, k_i8, k_i8mxu, k_peak)]}))
+        *k_bilstm, *k_step, k_loop, k_dstep, *k_bf16, k_i8, k_i8mxu, k_peak)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

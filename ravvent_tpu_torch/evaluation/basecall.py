@@ -71,11 +71,12 @@ from ravvent_tpu_torch.decode.greedy import greedy_decode
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.models.basecaller import check_config, encode_input
 from ravvent_tpu_torch.models.rnn import kernel_weights, stream_weights
-from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
+from ravvent_tpu_torch.ops.beam_loop_cuda import LOOP_BEAMS, LOOP_UNITS, beam_loop
 from ravvent_tpu_torch.ops.beam_step_cuda import (
-    KERNEL_BEAMS, UNITS as DECODER_UNITS, beam_step_loop, fused_beam_decode,
+    STEP_BEAMS, STEP_UNITS, beam_step_loop, fused_beam_decode, widths,
 )
 from ravvent_tpu_torch.ops.decode_step_cuda import MEMORY_DIM as GREEDY_MEMORY_DIM
+from ravvent_tpu_torch.ops.decode_step_cuda import UNITS as GREEDY_UNITS
 from ravvent_tpu_torch.ops.event_detect import detect_boundaries_device, fired_to_event_lens
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
 from ravvent_tpu_torch.parallel.mesh import Mesh, replicate, row_bounds, shard_batch
@@ -93,20 +94,29 @@ _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
                  np.dtype(np.float32): torch.float32}
 
 
+# the decoder units and beam widths each implementation's kernels are
+# compiled for: the beam step's two kernels, the whole-loop kernel, and the
+# fused greedy step (one width, no beams)
+KERNEL_SHAPES = {"step": (STEP_UNITS, STEP_BEAMS), "loop": (LOOP_UNITS, LOOP_BEAMS),
+                 "greedy": ((GREEDY_UNITS,), ())}
+
+
 def kernels_serve(cfg: ModelConfig, beams: Iterable[int] = (),
-                  device: Union[str, torch.device, None] = None, greedy: bool = False) -> bool:
-    """Whether the decode kernels (the beam step, the beam loop, the fused
-    greedy step) serve ``cfg``'s decoder, a depth-1 LSTM with Luong
-    attention, and the beam step every width in ``beams`` (``KERNEL_BEAMS``).
-    On a CUDA ``device`` the kernels' compiled widths too: ``dec_units`` =
-    128, and for the fused greedy step (``greedy``) an encoder output of
-    256 (``enc_out_dim``); their plain versions, which a CPU tensor runs,
-    take any width."""
+                  device: Union[str, torch.device, None] = None, greedy: bool = False,
+                  impl: str = "step") -> bool:
+    """Whether the decode kernels of ``impl`` ("step", the beam step; "loop",
+    the whole-loop kernel; or, with ``greedy``, the fused greedy step) serve
+    ``cfg``'s decoder, a depth-1 LSTM with Luong attention, and every beam
+    width in ``beams`` (:data:`KERNEL_SHAPES`). On a CUDA ``device`` the
+    kernels' compiled decoder widths too, and for the fused greedy step an
+    encoder output of 256 (``enc_out_dim``); their plain versions, which a
+    CPU tensor runs, take any width."""
+    units, kernel_beams = KERNEL_SHAPES["greedy" if greedy else impl]
     serve = (cfg.cell_type == "lstm" and cfg.effective_attention == "luong"
-             and cfg.decoder_depth == 1 and all(b in KERNEL_BEAMS for b in beams))
+             and cfg.decoder_depth == 1 and all(b in kernel_beams for b in beams))
     if device is None or torch.device(device).type != "cuda":
         return serve
-    return (serve and cfg.dec_units == DECODER_UNITS
+    return (serve and cfg.dec_units in units
             and (not greedy or cfg.enc_out_dim == GREEDY_MEMORY_DIM))
 
 
@@ -399,13 +409,14 @@ class BasecallEngine:
         self.device = resolve_device(device)
         # the JAX engine asserts the same for the cell, attention and depth
         # (basecall.py:334-337 there); on a card the width is the kernels' too
-        if beam_impl != "xla" and not kernels_serve(cfg, device=self.device):
+        if beam_impl != "xla" and not kernels_serve(cfg, device=self.device, impl=beam_impl):
+            units, beams = KERNEL_SHAPES[beam_impl]
             raise ValueError(
                 f"beam_impl={beam_impl!r} runs the beam kernels, which take a depth-1 LSTM "
-                f"decoder with Luong attention, of {DECODER_UNITS} units on a card; got "
-                f"rnn_type={cfg.rnn_type!r}, attention {cfg.effective_attention!r}, "
-                f"decoder_depth={cfg.decoder_depth}, dec_units={cfg.dec_units} on "
-                f"{self.device}: use beam_impl='xla'")
+                f"decoder with Luong attention, of {widths(units)} units on a card (beam "
+                f"widths {widths(beams)}); got rnn_type={cfg.rnn_type!r}, attention "
+                f"{cfg.effective_attention!r}, decoder_depth={cfg.decoder_depth}, "
+                f"dec_units={cfg.dec_units} on {self.device}: use beam_impl='xla'")
         self.params = to_device(params, self.device)
         self.cfg = cfg
         self.chunk_size = chunk_size

@@ -32,11 +32,14 @@ import torch
 from ravvent_tpu_torch.decode.beam import NEG_INF, top_w
 from ravvent_tpu_torch.ops import cuda_lib
 from ravvent_tpu_torch.ops.beam_step_cuda import (
-    VP, DecoderWeights, advance, beam_step_plain, check_aligned, check_kernel_inputs,
+    SMEM_LIMIT, VP, DecoderWeights, advance, beam_step_plain, check_aligned, check_kernel_inputs,
     fused_beam_decode, initial_state, step_candidates, step_loop,
 )
 
-SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (227 KB)
+# the shapes csrc/beam_loop.cu is compiled for: the flagship's 128 units and
+# these beam widths (its own sets; the step's kernels take more)
+LOOP_UNITS = (128,)
+LOOP_BEAMS = (1, 2, 3, 4, 5, 8)
 MAX_CANDIDATES = 32  # V + W: a beam's candidates that can win lie on one warp's lanes
 
 
@@ -62,7 +65,8 @@ def beam_loop(keys, values, mask, w: DecoderWeights, W: int, total_steps: int, e
         return beam_loop_plain(keys, values, mask, w, W, total_steps, eff, start_token, end_token)
     B, S, _ = keys.shape
     V = w.wfc.shape[1]
-    check_kernel_inputs("beam_loop", keys, values, mask, w, W, end_token)
+    check_kernel_inputs("beam_loop", keys, values, mask, w, W, end_token, units=LOOP_UNITS,
+                        beams=LOOP_BEAMS)
     check_aligned("beam_loop", w.wx, w.wh, w.b, w.watt_h)
     if not 0 <= start_token < VP:
         raise ValueError(f"beam_loop: need 0 <= start_token < {VP}")

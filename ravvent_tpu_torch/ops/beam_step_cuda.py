@@ -5,14 +5,17 @@ kernel (ops/beam_loop_cuda.py).
 Counterpart of ravvent_tpu/ops/beam_loop_pallas.py (the TPU kernel
 ``_beam_step_kernel`` and its loop ``beam_step_decode``, bf16, f32 or int8
 memory) and of ``pack_decoder_weights`` (ops/decode_step_pallas.py). A step
-is two kernels of ``csrc/beam_step_f.cu`` on every memory: :func:`beam_cell`
-(the LSTM cell and ``h'.watt_h`` of every hypothesis, plain version
+is two kernels on every memory: :func:`beam_cell` (``csrc/beam_step_f.cu``,
+the LSTM cell and ``h'.watt_h`` of every hypothesis, plain version
 :func:`cell_plain`; it never reads the memory) and then :func:`beam_attend`
-(attention, logits, top-W and the permutation of each batch row, plain
-version :func:`attend_plain`), whose kernel is templated on the memory
-mode. :func:`beam_step` launches them for CUDA tensors and runs
-:func:`beam_step_plain`, the composition of the two plain versions, for
-CPU tensors only.
+(``csrc/beam_attend.cuh``, one source a memory mode: attention, logits,
+top-W and the permutation of each batch row, plain version
+:func:`attend_plain`), whose kernel is templated on the memory mode. Both
+are compiled for the decoder units :data:`STEP_UNITS` and the beam widths
+:data:`STEP_BEAMS` (``csrc/beam_step_shapes.cuh``). :func:`beam_step`
+launches them for CUDA tensors and runs :func:`beam_step_plain`, the
+composition of the two plain versions, for CPU tensors only; a CUDA tensor
+of another shape raises ValueError, naming it.
 
 int8 memory (``setup_memory(dtype="i8")``) comes with its per-(row,
 position) scales ``scales = (kscale, vscale)`` and runs one of the
@@ -33,8 +36,10 @@ tokens ``idx % VP`` exactly as in the reference.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import NamedTuple, Optional
+import re
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,9 +49,21 @@ from ravvent_tpu_torch.decode.beam import (
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.ops import cuda_lib
 
-UNITS = 128  # the kernel's compiled unit count
+
+def _compiled_shapes() -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The decoder units and beam widths the step's kernels are compiled
+    for, from their one list (``csrc/beam_step_shapes.cuh``)."""
+    text = (cuda_lib.CSRC / "beam_step_shapes.cuh").read_text()
+    units = re.search(r"^#define RV_STEP_UNITS\(X\) (.*)$", text, re.M).group(1)
+    max_beams = int(re.search(r"^#define RV_STEP_MAX_BEAMS (\d+)$", text, re.M).group(1))
+    return (tuple(int(u) for u in re.findall(r"X\((\d+)\)", units)),
+            tuple(range(1, max_beams + 1)))
+
+
+STEP_UNITS, STEP_BEAMS = _compiled_shapes()  # (64, 128, 256), (1, ..., 16)
 VP = 128  # padded vocabulary width of the flattened top-W row
-KERNEL_BEAMS = (1, 2, 3, 4, 5, 8)  # beam widths the kernel is compiled for
+SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (227 KB)
+ATTEND_MODES = ("bf16", "f32", "quant", "quant_mxu")  # rv_beam_attend_info's mode numbers
 
 
 class DecoderWeights(NamedTuple):
@@ -101,7 +118,7 @@ def attend_quantized(query, keys, values, mask, kscale, vscale, mxu: bool):
     scores = (rn(q * 127) . codes) * (1/127) * kscale, then the mask;
     af = align * vscale, amax = max(max_s af, 1e-30), context =
     (rn(af * (127 / amax)) . codes) * (amax / 127). Every product of two
-    codes is at most 127^2 and a sum over U = 128 or S = 232 of them stays
+    codes is at most 127^2 and a sum over U <= 256 or S = 232 of them stays
     below 2^24, so the f32 products of integer codes here are exact in any
     order, as the kernel's integer dots are. Returns context [B, W, U]."""
     f32 = torch.float32
@@ -200,18 +217,29 @@ def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_to
     return attend_plain(st, *cell_plain(st, w), keys, values, mask, w, end_token, scales, mxu)
 
 
+def widths(sizes) -> str:
+    """A set of compiled sizes as a message names it: ``1-16`` for a run."""
+    sizes = tuple(sizes)
+    if len(sizes) > 2 and sizes == tuple(range(sizes[0], sizes[-1] + 1)):
+        return f"{sizes[0]}-{sizes[-1]}"
+    return ", ".join(map(str, sizes))
+
+
 def check_kernel_inputs(name: str, keys, values, mask, w: DecoderWeights, W: int,
-                        end_token: int, state=(), scales=None) -> None:
-    """What the beam kernels (step and loop) take: U = 128, a compiled beam
-    width, bf16 or f32 memory, or int8 memory with f32 [B, S] ``scales``
-    (kscale, vscale), contiguous tensors on the memory's device, 16-byte
-    aligned keys and values. Raises ValueError otherwise."""
+                        end_token: int, state=(), scales=None, units=STEP_UNITS,
+                        beams=STEP_BEAMS) -> None:
+    """What a beam kernel (the step's, or the loop's with its own ``units``
+    and ``beams``) takes: U in ``units``, W in ``beams``, bf16 or f32
+    memory, or int8 memory with f32 [B, S] ``scales`` (kscale, vscale),
+    contiguous tensors on the memory's device, 16-byte aligned keys and
+    values. Raises ValueError otherwise, naming the shape."""
     B, S, U = keys.shape
     V = w.wfc.shape[1]
-    if U != UNITS:
-        raise ValueError(f"{name} kernel is compiled for {UNITS} units, got {U}")
-    if W not in KERNEL_BEAMS:
-        raise ValueError(f"{name} kernel is compiled for beam widths {KERNEL_BEAMS}, got {W}")
+    if U not in units:
+        raise ValueError(f"{name} kernel is compiled for {widths(units)} units, got U = {U}")
+    if W not in beams:
+        raise ValueError(f"{name} kernel is compiled for beam widths {widths(beams)}, "
+                         f"got W = {W}")
     mem_dtypes = (torch.int8,) if scales is not None else (torch.bfloat16, torch.float32)
     if keys.dtype not in mem_dtypes or values.dtype != keys.dtype:
         raise ValueError(f"{name}: keys and values must both be bf16 or both f32, or both int8 "
@@ -232,6 +260,44 @@ def check_kernel_inputs(name: str, keys, values, mask, w: DecoderWeights, W: int
         raise ValueError(f"{name}: keys and values must be 16-byte aligned")
 
 
+class AttendInfo(NamedTuple):
+    """An attend instance's CTA on the card: shared memory in bytes (dynamic
+    and static), threads, and the CTAs an SM holds (0: it does not fit)."""
+
+    smem: int
+    threads: int
+    per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def attend_info(mode: str, U: int, W: int, S: int, V: int) -> AttendInfo:
+    """What the attend kernel's instance for ``mode`` (one of
+    :data:`ATTEND_MODES`), U units and W beams needs at S positions
+    (rv_beam_attend_info; on the card)."""
+    info = (ctypes.c_int * 3)()
+    rc = cuda_lib.lib().rv_beam_attend_info(ATTEND_MODES.index(mode), U, W, S, V,
+                                            ctypes.addressof(info))
+    cuda_lib.check(rc, "beam_attend (info)")
+    return AttendInfo(*info)
+
+
+def attend_mode(keys, scales, mxu: bool) -> str:
+    if scales is not None:
+        return "quant_mxu" if mxu else "quant"
+    return "bf16" if keys.dtype == torch.bfloat16 else "f32"
+
+
+def check_attend_fits(name: str, keys, W: int, V: int, scales=None, mxu: bool = False) -> None:
+    """Raise ValueError, naming the shape, when the attend kernel's CTA for
+    these inputs needs more shared memory than a block has (long S)."""
+    _, S, U = keys.shape
+    mode = attend_mode(keys, scales, mxu)
+    info = attend_info(mode, U, W, S, V)
+    if info.smem > SMEM_LIMIT or info.per_sm < 1:
+        raise ValueError(f"{name}: the attend kernel at U = {U}, W = {W}, S = {S} on {mode} "
+                         f"memory needs {info.smem} B of shared memory a CTA (> {SMEM_LIMIT})")
+
+
 def check_aligned(name: str, *tensors) -> None:
     """csrc/beam_step_f.cu reads the weights and the [B*W, U] state 16 bytes
     at a time. Raises ValueError unless each tensor is 16-byte aligned."""
@@ -246,9 +312,10 @@ def _stream(dev) -> int:
 def _launch_cell(st: StepState, w: DecoderWeights):
     h_new, c_new, att_h = (torch.empty_like(st.h) for _ in range(3))
     rc = cuda_lib.lib().rv_beam_cell(
-        st.h.shape[0], w.wfc.shape[1], st.tok.data_ptr(), st.att.data_ptr(), st.h.data_ptr(),
-        st.c.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
-        h_new.data_ptr(), c_new.data_ptr(), att_h.data_ptr(), _stream(st.h.device))
+        st.h.shape[1], st.h.shape[0], w.wfc.shape[1], st.tok.data_ptr(), st.att.data_ptr(),
+        st.h.data_ptr(), st.c.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+        w.watt_h.data_ptr(), h_new.data_ptr(), c_new.data_ptr(), att_h.data_ptr(),
+        _stream(st.h.device))
     cuda_lib.check(rc, "beam_cell")
     cuda_lib.launches["beam_cell"] += 1
     return h_new, c_new, att_h
@@ -256,7 +323,7 @@ def _launch_cell(st: StepState, w: DecoderWeights):
 
 def _launch_attend(st: StepState, h_new, c_new, att_h, keys, values, mask, w: DecoderWeights,
                    end_token: int, scales=None, mxu: bool = False):
-    B, S, _ = keys.shape
+    B, S, U = keys.shape
     W = st.cum.shape[1]
     dev = keys.device
     nxt = StepState(torch.empty(B * W, dtype=torch.int32, device=dev), torch.empty_like(h_new),
@@ -271,13 +338,13 @@ def _launch_attend(st: StepState, h_new, c_new, att_h, keys, values, mask, w: De
     V = w.wfc.shape[1]
     if scales is None:
         name = "beam_attend"
-        rc = cuda_lib.lib().rv_beam_attend(int(keys.dtype == torch.bfloat16), W, B, S, V, VP,
-                                           end_token, *state_in, mask.data_ptr(), *out)
+        rc = cuda_lib.lib().rv_beam_attend(int(keys.dtype == torch.bfloat16), U, W, B, S, V,
+                                           VP, end_token, *state_in, mask.data_ptr(), *out)
     else:
         name = "beam_attend_i8mxu" if mxu else "beam_attend_i8"
-        rc = cuda_lib.lib().rv_beam_attend_i8(int(mxu), W, B, S, V, VP, end_token, *state_in,
-                                              scales[0].data_ptr(), scales[1].data_ptr(),
-                                              mask.data_ptr(), *out)
+        rc = cuda_lib.lib().rv_beam_attend_i8(int(mxu), U, W, B, S, V, VP, end_token,
+                                              *state_in, scales[0].data_ptr(),
+                                              scales[1].data_ptr(), mask.data_ptr(), *out)
     cuda_lib.check(rc, name)
     cuda_lib.launches[name] += 1
     return nxt, parent
@@ -291,8 +358,9 @@ def beam_cell(st: StepState, w: DecoderWeights):
     N, U = st.h.shape
     V = w.wfc.shape[1]
     f32 = torch.float32
-    if U != UNITS:
-        raise ValueError(f"beam_cell kernel is compiled for {UNITS} units, got {U}")
+    if U not in STEP_UNITS:
+        raise ValueError(f"beam_cell kernel is compiled for {widths(STEP_UNITS)} units, "
+                         f"got U = {U}")
     cuda_lib.check_tensors("beam_cell", st.h.device, [
         ("tok", st.tok, torch.int32, (N,)), ("h", st.h, f32, (N, U)), ("c", st.c, f32, (N, U)),
         ("att", st.att, f32, (N, U)), ("wx", w.wx, f32, (V + U, 4 * U)),
@@ -319,6 +387,7 @@ def beam_attend(st: StepState, h_new, c_new, att_h, keys, values, mask, w: Decod
         ("att_h", att_h, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)),
         ("fin", st.fin, torch.bool, (B, W))], scales)
     check_aligned("beam_attend", h_new, c_new, att_h)
+    check_attend_fits("beam_attend", keys, W, w.wfc.shape[1], scales, mxu)
     return _launch_attend(st, h_new, c_new, att_h, keys, values, mask, w, end_token, scales, mxu)
 
 
@@ -339,6 +408,7 @@ def beam_step(st: StepState, keys, values, mask, w: DecoderWeights, end_token: i
         ("att", st.att, f32, (B * W, U)), ("cum", st.cum, f32, (B, W)), ("fin", st.fin, b8, (B, W)),
     ], scales)
     check_aligned("beam_step", st.h, st.c, st.att, w.wx, w.wh, w.b, w.watt_h)
+    check_attend_fits("beam_step", keys, W, w.wfc.shape[1], scales, mxu)
     nxt, parent = _launch_attend(st, *_launch_cell(st, w), keys, values, mask, w, end_token,
                                  scales, mxu)
     step = "beam_step" if scales is None else "beam_step_i8mxu" if mxu else "beam_step_i8"

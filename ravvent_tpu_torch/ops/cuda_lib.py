@@ -120,9 +120,10 @@ _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 ENTRIES = {
     "rv_bilstm_layer": [_P] + [_I] * 5 + [_P] * 8 + [_P],
     "rv_bilstm_layer_bf16": [_P] + [_I] * 5 + [_P] * 8 + [_P],
-    "rv_beam_cell": [_I] * 2 + [_P] * 12,
-    "rv_beam_attend": [_I] * 7 + [_P] * 18,
-    "rv_beam_attend_i8": [_I] * 7 + [_P] * 20,
+    "rv_beam_cell": [_I] * 3 + [_P] * 12,
+    "rv_beam_attend": [_I] * 8 + [_P] * 18,
+    "rv_beam_attend_i8": [_I] * 8 + [_P] * 20,
+    "rv_beam_attend_info": [_I] * 5 + [_P],
     "rv_beam_loop": [_I] * 9 + [_P] * 13,
     "rv_beam_loop_smem": [_I] * 4,
     "rv_beam_loop_clusters": [_I] * 4 + [_P] * 2,

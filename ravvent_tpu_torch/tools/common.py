@@ -69,8 +69,9 @@ def load_params(path) -> dict:
 def default_beam_impl(cfg: ModelConfig, beams: Iterable[int],
                       device: Union[str, torch.device, None] = None) -> str:
     """``"step"`` (the beam-step kernels) where ``kernels_serve(cfg, beams,
-    device)``, ``"xla"`` (the plain beam decode) otherwise: on a CUDA
-    device, also for decoder widths the kernels are not compiled for."""
+    device)``, ``"xla"`` (the plain beam decode) otherwise: for beam widths
+    outside ``STEP_BEAMS`` and, on a CUDA device, for decoder widths outside
+    ``STEP_UNITS`` (ops/beam_step_cuda.py)."""
     return "step" if kernels_serve(cfg, beams, device) else "xla"
 
 

@@ -25,7 +25,7 @@ tensor maps).
 
 Usage::
 
-    lib = cuda_emu.load("beam_step_f.cu")
+    lib = cuda_emu.load(*cuda_emu.STEP_SOURCES)  # the beam step's five sources
     rc = lib.rv_beam_attend_i8(...)  # as cuda_lib.lib().rv_beam_attend_i8
 """
 
@@ -41,6 +41,10 @@ from pathlib import Path
 from ravvent_tpu_torch.ops import cuda_lib
 
 HEADER = Path(__file__).resolve().with_name("cuda_emu.h")
+# the beam step's sources: the cell and the C entries, then the attend
+# kernel's instances a memory mode
+STEP_SOURCES = ("beam_step_f.cu", "beam_attend_bf16.cu", "beam_attend_f32.cu",
+                "beam_attend_i8.cu", "beam_attend_i8mxu.cu")
 BUILD = cuda_lib.BUILD / "emu"
 
 # csrc/'s cp.async helpers: "cp.async.c{a,g}.shared.global [dst], [src], bytes"
@@ -116,30 +120,42 @@ def translate(text: str) -> str:
     return f'#include "{HEADER}"\n' + text
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The emulation of ``csrc/<source>``, built when the source, the
-    shared header or the emulation header is newer than the library."""
+def load(source: str, *more: str) -> ctypes.CDLL:
+    """The emulation of ``csrc/<source>``, linked with the sources ``more``
+    whose entry points it calls (the beam step: ``load(*STEP_SOURCES)``),
+    built when a source, the shared headers or the emulation header is newer
+    than the library. Each source is compiled by its own g++ process, all
+    started together."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the emulation is built with g++")
-    src = cuda_lib.CSRC / source
-    lib_path = BUILD / f"lib{src.stem}_emu.so"
-    inputs = [src, HEADER, Path(__file__)] + cuda_lib.headers()
+    srcs = [cuda_lib.CSRC / s for s in (source, *more)]
+    lib_path = BUILD / f"lib{'+'.join(s.stem for s in srcs)}_emu.so"
+    inputs = srcs + [HEADER, Path(__file__)] + cuda_lib.headers()
     if not lib_path.exists() or any(p.stat().st_mtime > lib_path.stat().st_mtime for p in inputs):
-        tag = f"{src.stem}.{os.getpid()}"
-        work = BUILD / tag
+        work = BUILD / f"{srcs[0].stem}.{os.getpid()}"
         work.mkdir(parents=True, exist_ok=True)
         for h in cuda_lib.headers():  # the shared headers, translated alike
             (work / f"{h.stem}_emu.cuh").write_text(translate(h.read_text()))
-        cpp = work / f"{src.stem}.cpp"
-        cpp.write_text(translate(src.read_text()))
+        flags = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-fsanitize=alignment",
+                 "-fno-sanitize-recover=alignment", "-Wno-unknown-pragmas", f"-I{work}"]
+        objs, procs = [], []
+        for src in srcs:
+            cpp, obj = work / f"{src.stem}.cpp", work / f"{src.stem}.o"
+            cpp.write_text(translate(src.read_text()))
+            objs.append(obj)
+            procs.append(subprocess.Popen([gxx, *flags, "-c", "-o", str(obj), str(cpp)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        errors = [f"{s.name}:\n{out}" for s, p, out in zip(srcs, procs, outs) if p.returncode]
+        if errors:
+            raise RuntimeError("g++ failed for the emulation of " + "\n".join(errors))
         tmp = work / lib_path.name
-        res = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-                              "-fsanitize=alignment", "-fno-sanitize-recover=alignment",
-                              "-Wno-unknown-pragmas", f"-I{work}", "-o", str(tmp), str(cpp)],
+        res = subprocess.run([gxx, *flags, "-shared", "-o", str(tmp), *map(str, objs)],
                              capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
-            raise RuntimeError(f"g++ failed for the emulation of {source}:\n{res.stderr}")
+            raise RuntimeError(f"g++ failed to link the emulation of {source}:\n{res.stderr}")
         os.replace(tmp, lib_path)  # atomic: a concurrent process never sees half a file
         shutil.rmtree(work)
     return cuda_lib.bind(ctypes.CDLL(str(lib_path)))

@@ -78,6 +78,55 @@ def test_plain_beam_decode_matches_jax(memories, max_steps):
     np.testing.assert_array_equal(fused.tokens.numpy(), got.tokens.numpy())
 
 
+@pytest.fixture(scope="module")
+def width_memories():
+    """Per decoder width U: a raw-input model with a 128-unit encoder and a
+    U-unit decoder (JAX init, carried across by from_jax_params), and the
+    encoder output of memories()'s rows, as f32 and bf16 memory for both
+    packages; built on first use."""
+    cache = {}
+
+    def get(U: int, mem: str):
+        if U not in cache:
+            cfg = JConfig(enc_units=128, dec_units=U, encoder_depth=1, decoder_depth=1,
+                          data_type="raw")
+            jp = j_init(jax.random.PRNGKey(U), cfg)
+            tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp))
+            raw = np.random.default_rng(U).normal(size=(B, 45, 1)).astype(np.float32)
+            raw[6] = 0.0  # an all-padding row
+            enc, mask = j_encode(jp, jnp.asarray(raw), jnp.zeros((B, 6, 5)), cfg)
+            enc = jnp.pad(enc, ((0, 0), (0, S - enc.shape[1]), (0, 0)))
+            mask = jnp.pad(mask, ((0, 0), (0, S - mask.shape[1])))
+            cache[U] = (jp["decoder"], tp["decoder"], enc, mask)
+        jd, td, enc, mask = cache[U]
+        jdt, tdt = (None, None) if mem == "f32" else (jnp.bfloat16, torch.bfloat16)
+        jm = jattn.setup_memory(jd["attention"], enc, mask, jdt,
+                                attention_layer=jd["attention_layer"])
+        tm = tattn.setup_memory(td["attention"], torch.from_numpy(np.array(enc)),
+                                torch.from_numpy(np.array(mask)), tdt,
+                                attention_layer=td["attention_layer"])
+        return jd, jm, td, tm
+
+    return get
+
+
+@pytest.mark.parametrize("mem", ["f32", "bf16"])
+@pytest.mark.parametrize("U,W", [(64, 5), (256, 5), (128, 10), (64, 16)],
+                         ids=["U64-W5", "U256-W5", "U128-W10", "U64-W16"])
+def test_beam_step_decode_at_other_widths_matches_pallas_interpret(width_memories, U, W, mem):
+    """The plain step, which the kernels are held to on the card, against
+    the TPU kernel in interpret mode at the decoder and beam widths the
+    port's kernels take besides the flagship's (ops/beam_step_cuda.py:
+    STEP_UNITS, STEP_BEAMS): equal tokens, scores within 1e-5. At W > V = 7
+    both re-pick a finfo.min candidate at the first step."""
+    jd, jm, td, tm = width_memories(U, mem)
+    assert tm.keys.shape == (B, S, U)
+    ref = j_step_decode(jd, jm, 7, W, TOTAL, TOTAL, b_tile=8, interpret=True)
+    got = tstep.beam_step_decode(td, tm, 7, W, TOTAL, TOTAL)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(ref.scores), rtol=1e-5, atol=1e-5)
+
+
 def test_beam_step_wrapper_uses_plain_version_on_cpu(memories):
     _, _, td, tm = memories["bf16"]
     w = tstep.pack_decoder_weights(td, tm)

@@ -251,16 +251,40 @@ def test_sweep_epochs_matches_jax(trained, tmp_path, monkeypatch):
     assert best["epoch"] == got["best"]
 
 
-def test_default_beam_impl_takes_the_kernels_where_they_serve():
+def test_default_beam_impl_takes_the_kernels_where_they_serve(monkeypatch):
     """The tools' default follows the engine's own rule, ``kernels_serve``:
-    "step" where it holds, and the engine refuses "step" where it does not."""
+    "step" where it holds, and the engine refuses "step" where it does not.
+    The beam step's kernels take beam widths 1-16 and, on a card, 64, 128 or
+    256 decoder units; the beam loop's kernel keeps its own sets (128 units,
+    widths 1-5 and 8), and the engine's refusal names the sets."""
     from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.evaluation import basecall
     from ravvent_tpu_torch.evaluation.basecall import BasecallEngine, kernels_serve
     from ravvent_tpu_torch.tools.common import default_beam_impl
 
     assert default_beam_impl(ModelConfig(), [5, 1]) == "step"
-    assert default_beam_impl(ModelConfig(), [5, 6]) == "xla"  # 6 is not a kernel width
-    assert kernels_serve(ModelConfig()) and not kernels_serve(ModelConfig(), [6])
+    assert default_beam_impl(ModelConfig(), [5, 6]) == "step"
+    assert default_beam_impl(ModelConfig(), [5, 20]) == "xla"  # 20 is not a kernel width
+    assert kernels_serve(ModelConfig()) and not kernels_serve(ModelConfig(), [17])
+    assert kernels_serve(ModelConfig(), [1, 6, 7, 10, 16])
+    for U in (64, 256):  # the step's other decoder widths, and beam 10, on a card
+        assert default_beam_impl(ModelConfig(dec_units=U), [5], "cuda") == "step", U
+        assert not kernels_serve(ModelConfig(dec_units=U), device="cuda", impl="loop"), U
+    assert default_beam_impl(ModelConfig(), [10], "cuda") == "step"
+    assert default_beam_impl(ModelConfig(dec_units=16), [5], "cuda") == "xla"
+    assert default_beam_impl(ModelConfig(), [20], "cuda") == "xla"
+    assert kernels_serve(ModelConfig(), [8], device="cuda", impl="loop")
+    for beams in ([6], [10], [16]):  # the loop's widths stay 1-5 and 8
+        assert not kernels_serve(ModelConfig(), beams, device="cuda", impl="loop"), beams
+        assert not kernels_serve(ModelConfig(), beams, impl="loop"), beams
+    monkeypatch.setattr(basecall, "resolve_device", lambda device: torch.device("cuda", 0))
+    with pytest.raises(ValueError, match=r"of 128 units on a card \(beam widths 1, 2, 3, 4, 5, "
+                                         r"8\).*dec_units=256"):
+        BasecallEngine({}, ModelConfig(dec_units=256), beam_impl="loop")
+    with pytest.raises(ValueError, match=r"of 64, 128, 256 units on a card \(beam widths "
+                                         r"1-16\).*dec_units=96"):
+        BasecallEngine({}, ModelConfig(dec_units=96), beam_impl="step")
+    monkeypatch.undo()
     for cfg in (ModelConfig(decoder_depth=2), ModelConfig(rnn_type="bigru"),
                 ModelConfig(attention_type="bahdanau")):
         assert default_beam_impl(cfg, [5]) == "xla", cfg

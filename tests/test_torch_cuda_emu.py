@@ -1,4 +1,5 @@
-"""The beam step's CUDA kernels (csrc/beam_step_f.cu), the BiLSTM-layer
+"""The beam step's CUDA kernels (csrc/beam_step_f.cu's cell, the attend
+kernel of csrc/beam_attend.cuh in its four memory modes), the BiLSTM-layer
 kernels (csrc/bilstm.cu, f32; csrc/bilstm_bf16.cu, bf16), the whole-loop
 beam kernel (csrc/beam_loop.cu, clusters of 2 CTAs on the emulated card)
 and the peak scan of event detection (csrc/peak_scan.cu), run on the CPU by
@@ -15,6 +16,7 @@ not the host's, so the card-only tests in test_torch_gpu.py stay the
 yardstick of the kernels themselves. Needs g++; the emulated library is
 built once into ravvent_tpu_torch/build/emu/."""
 
+import ctypes
 import shutil
 
 import numpy as np
@@ -38,7 +40,7 @@ def emu():
         pytest.skip("needs g++ to build the emulation")
     from ravvent_tpu_torch.tools import cuda_emu
 
-    return cuda_emu.load("beam_step_f.cu")
+    return cuda_emu.load(*cuda_emu.STEP_SOURCES)
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +70,7 @@ def emu_loop():
     return cuda_emu.load("beam_loop.cu")
 
 
-def decoder_weights(rng) -> tstep.DecoderWeights:
+def decoder_weights(rng, U: int = U) -> tstep.DecoderWeights:
     def f(*shape, s=0.1):
         return torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32))
 
@@ -76,7 +78,7 @@ def decoder_weights(rng) -> tstep.DecoderWeights:
                                 f(V))
 
 
-def mid_decode_state(rng, B: int, W: int) -> tstep.StepState:
+def mid_decode_state(rng, B: int, W: int, U: int = U) -> tstep.StepState:
     """Tokens in [0, V + 2) (ids >= V embed to zeros), spread h, c, att and
     scores, a fifth of the beams finished."""
     def f(*shape):
@@ -88,7 +90,7 @@ def mid_decode_state(rng, B: int, W: int) -> tstep.StepState:
                            torch.from_numpy(rng.random((B, W)) < 0.2))
 
 
-def memory(rng, B: int, S: int, mode: str, E: int = 32) -> tattn.AttnMemory:
+def memory(rng, B: int, S: int, mode: str, E: int = 32, U: int = U) -> tattn.AttnMemory:
     """setup_memory of a seeded encoder-like memory [B, S, E] in the mode's
     dtype, with pre-projected values; row 1 all padding."""
     def f(*shape, s=1.0):
@@ -101,65 +103,94 @@ def memory(rng, B: int, S: int, mode: str, E: int = 32) -> tattn.AttnMemory:
                               dtype, attention_layer={"kernel": f(U + E, U, s=0.1)})
 
 
-def emu_attend(lib, st, cell, mem, w, mode: str):
+def emu_attend(lib, st, cell, mem, w, mode: str, W=None, U=None) -> tuple:
     """The attend kernel's C entry on host tensors, as ops/beam_step_cuda.py
-    launches it. Returns (next state, parents)."""
-    B, S, _ = mem.keys.shape
-    W = st.cum.shape[1]
+    launches it (``W``, ``U``: what the entry is told, the inputs' by
+    default). Returns (return code, next state, parents)."""
+    B, S, Um = mem.keys.shape
+    Ws = st.cum.shape[1]
     h_new, c_new, att_h = cell
-    nxt = tstep.StepState(torch.empty(B * W, dtype=torch.int32), torch.empty_like(h_new),
+    nxt = tstep.StepState(torch.empty(B * Ws, dtype=torch.int32), torch.empty_like(h_new),
                           torch.empty_like(c_new), torch.empty_like(att_h),
                           torch.empty_like(st.cum), torch.empty_like(st.fin))
-    parent = torch.empty(B, W, dtype=torch.int32)
+    parent = torch.empty(B, Ws, dtype=torch.int32)
     state_in = (h_new.data_ptr(), c_new.data_ptr(), att_h.data_ptr(), st.cum.data_ptr(),
                 st.fin.data_ptr(), mem.keys.data_ptr(), mem.values.data_ptr())
     out = (w.wfc.data_ptr(), w.bfc.data_ptr(), nxt.tok.data_ptr(), parent.data_ptr(),
            nxt.h.data_ptr(), nxt.c.data_ptr(), nxt.att.data_ptr(), nxt.cum.data_ptr(),
            nxt.fin.data_ptr(), None)
+    shape = (Um if U is None else U, Ws if W is None else W, B, S, V, tstep.VP, 1)
     if mode in ("bf16", "f32"):
-        rc = lib.rv_beam_attend(int(mode == "bf16"), W, B, S, V, tstep.VP, 1, *state_in,
-                                mem.mask.data_ptr(), *out)
+        rc = lib.rv_beam_attend(int(mode == "bf16"), *shape, *state_in, mem.mask.data_ptr(),
+                                *out)
     else:
-        rc = lib.rv_beam_attend_i8(int(mode == "quant_mxu"), W, B, S, V, tstep.VP, 1, *state_in,
+        rc = lib.rv_beam_attend_i8(int(mode == "quant_mxu"), *shape, *state_in,
                                    mem.kscale.data_ptr(), mem.vscale.data_ptr(),
                                    mem.mask.data_ptr(), *out)
-    assert rc == 0
-    return nxt, parent
+    return rc, nxt, parent
 
 
-@pytest.mark.parametrize("B,W", [(9, 1), (7, 5), (4, 8)])
-def test_emulated_beam_cell_matches_plain(emu, B, W):
+def emu_cell(lib, st, w, U=None) -> tuple:
+    """The cell kernel's C entry on host tensors into NaN-filled scratch.
+    Returns (return code, (h', c', att_h))."""
+    got = tuple(torch.full_like(st.h, float("nan")) for _ in range(3))
+    rc = lib.rv_beam_cell(st.h.shape[1] if U is None else U, st.h.shape[0], V, st.tok.data_ptr(),
+                          st.att.data_ptr(), st.h.data_ptr(), st.c.data_ptr(), w.wx.data_ptr(),
+                          w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
+                          *(g.data_ptr() for g in got), None)
+    return rc, got
+
+
+# (U, B, W) of the cell: the flagship's 128 units keep their ids; at 64
+# units a CTA has 128 threads, at 256 it has 512 (Cell in beam_step_f.cu)
+CELL_CASES = [(128, 9, 1), (128, 7, 5), (128, 4, 8), (64, 7, 5), (256, 9, 5)]
+CELL_IDS = [("" if u == 128 else f"U{u}-") + f"{b}-{w}" for u, b, w in CELL_CASES]
+
+
+@pytest.mark.parametrize("U,B,W", CELL_CASES, ids=CELL_IDS)
+def test_emulated_beam_cell_matches_plain(emu, U, B, W):
     """h', c' and att_h of the cell kernel against cell_plain: f32 sums of
-    256 and 128 terms in another order, within 1e-5; the last 32-hypothesis
+    2U and U terms in another order, within 1e-5; the last 32-hypothesis
     tile is ragged."""
     rng = np.random.default_rng(10 * B + W)
-    w = decoder_weights(rng)
-    st = mid_decode_state(rng, B, W)
-    got = tuple(torch.full_like(st.h, float("nan")) for _ in range(3))
-    rc = emu.rv_beam_cell(B * W, V, st.tok.data_ptr(), st.att.data_ptr(), st.h.data_ptr(),
-                          st.c.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
-                          w.watt_h.data_ptr(), *(g.data_ptr() for g in got), None)
+    w = decoder_weights(rng, U)
+    st = mid_decode_state(rng, B, W, U)
+    rc, got = emu_cell(emu, st, w)
     assert rc == 0
     for g, r in zip(got, tstep.cell_plain(st, w)):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,W,S", [(5, 5, 8), (6, 8, 70), (9, 1, 232), (5, 3, 300)],
-                         ids=["S8", "S70", "S232", "S300"])
+# (U, B, W, S) of the attend kernel: the flagship's 128 units at the exact
+# and the bucket instances keep their ids (S = 70 and 300 end in a partial
+# block, 300 in more blocks than 232); 64 and 256 units at W = 5 (at 64 an
+# int8 row is 4 chunks, at 256 an f32 row 64, one position group); W = 6,
+# 10 and 16 run the instances of 8 and 16 beams on a runtime W, over 2 and
+# 4 hypothesis groups on int8, 1 and 2 on bf16/f32; B > 4 rows walk the
+# emulated card's 4 CTAs, the last tile ragged
+ATTEND_CASES = [(128, 5, 5, 8), (128, 6, 8, 70), (128, 9, 1, 232), (128, 5, 3, 300),
+                (64, 6, 5, 70), (256, 5, 5, 40), (128, 6, 6, 40), (128, 5, 10, 70),
+                (128, 6, 16, 24)]
+ATTEND_IDS = ["S8", "S70", "S232", "S300", "U64-S70", "U256-S40", "W6-S40", "W10-S70",
+              "W16-S24"]
+
+
+@pytest.mark.parametrize("U,B,W,S", ATTEND_CASES, ids=ATTEND_IDS)
 @pytest.mark.parametrize("mode", ["bf16", "f32", "quant", "quant_mxu"])
-def test_emulated_beam_attend_matches_plain(emu, mode, B, W, S):
+def test_emulated_beam_attend_matches_plain(emu, mode, U, B, W, S):
     """The attend kernel in each memory mode against attend_plain on the
-    same cell outputs (row 1 all padding; S = 70 and 300 end in a partial
-    block, 300 in more blocks than 232): the picks, parents and finished
+    same cell outputs (row 1 all padding): the picks, parents and finished
     flags equal, the state rows copied exactly, att and the scores within
     1e-5 (f32 sums in another order; at these seeds no alignment crosses a
-    bf16 or int8 rounding boundary)."""
-    rng = np.random.default_rng(1000 * W + S)
-    mem = memory(rng, B, S, mode)
-    w = decoder_weights(rng)._replace(watt_h=mem.watt_h)
-    st = mid_decode_state(rng, B, W)
+    bf16 or int8 rounding boundary). W > V = 7 re-picks a finfo.min column,
+    as decode/beam.py:top_w does."""
+    rng = np.random.default_rng(1000 * W + S + (U != 128) * U)
+    mem = memory(rng, B, S, mode, U=U)
+    w = decoder_weights(rng, U)._replace(watt_h=mem.watt_h)
+    st = mid_decode_state(rng, B, W, U)
     cell = tstep.cell_plain(st, w)
-    got, gpar = emu_attend(emu, st, cell, mem, w, mode)
+    rc, got, gpar = emu_attend(emu, st, cell, mem, w, mode)
+    assert rc == 0
     scales = (mem.kscale, mem.vscale) if mem.quantized else None
     ref, rpar = tstep.attend_plain(st, *cell, mem.keys, mem.values, mem.mask, w, 1, scales,
                                    mode == "quant_mxu")
@@ -168,6 +199,30 @@ def test_emulated_beam_attend_matches_plain(emu, mode, B, W, S):
     assert torch.equal(got.h, ref.h) and torch.equal(got.c, ref.c)
     torch.testing.assert_close(got.att, ref.att, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.cum, ref.cum, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "quant"])
+def test_emulated_beam_step_refuses_shapes_not_compiled(emu, mode):
+    """The C entries return cudaErrorInvalidValue (1 in the emulation),
+    launching nothing, for what beam_step_shapes.cuh does not list: 96 units
+    (the cell and the attend) and 17 or 0 beams; rv_beam_attend_info says
+    a CTA of S = 4000 positions at 256 units and 16 beams does not fit."""
+    rng = np.random.default_rng(3)
+    mem = memory(rng, 3, 16, mode)
+    w = decoder_weights(rng)._replace(watt_h=mem.watt_h)
+    st = mid_decode_state(rng, 3, 5)
+    cell = tstep.cell_plain(st, w)
+    for u, beams in ((96, None), (None, 17), (None, 0)):
+        rc, got, _ = emu_attend(emu, st, cell, mem, w, mode, W=beams, U=u)
+        assert rc == 1, (u, beams)
+    rc, got = emu_cell(emu, st, w, U=96)
+    assert rc == 1 and all(g.isnan().all() for g in got)
+    info = (ctypes.c_int * 3)()
+    for mode_no, (u, beams, S, fits) in enumerate(((128, 5, 232, True), (256, 16, 232, True),
+                                                    (256, 16, 4000, False), (64, 1, 8, True))):
+        assert emu.rv_beam_attend_info(mode_no, u, beams, S, V, ctypes.addressof(info)) == 0
+        assert (info[0] <= tstep.SMEM_LIMIT) == fits and (info[2] > 0) == fits, (u, beams, S)
+    assert emu.rv_beam_attend_info(0, 96, 5, 8, V, ctypes.addressof(info)) == 1
 
 
 # (U, F, T, B, seeded state): the emulated card has 2 SMs, so at 64 and 128

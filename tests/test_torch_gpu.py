@@ -233,9 +233,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                               torch.zeros(2, B, U, device=cuda), torch.zeros(2, B, U, device=cuda))
 
 
-def _decoder_and_memory(seed, B, S, mem_dtype, projected, device):
+def _decoder_and_memory(seed, B, S, mem_dtype, projected, device, U=128):
     gen = torch.Generator().manual_seed(seed)
-    dec_p = init_decoder(gen, 7, 1, 128, 256, device)
+    dec_p = init_decoder(gen, 7, 1, U, 256, device)
     memory = torch.tanh(torch.randn(B, S, 256, generator=gen)).to(device)
     mask = (torch.rand(B, S, generator=gen) > 0.2).to(device)
     mask[3] = False  # all padding: uniform alignments
@@ -323,8 +323,13 @@ def test_fused_greedy_decode_on_card_matches_cpu(cuda):
 def test_loop_and_decode_step_wrappers_reject_what_the_kernels_do_not_take(cuda):
     dec_p, mem = _decoder_and_memory(0, 4, 16, torch.bfloat16, True, cuda)
     w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
-    with pytest.raises(ValueError, match="beam widths"):
-        beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, 6, 5, 5, 2, 1)
+    for W in (6, 10, 16):  # the step's kernels take these widths, the loop's does not
+        with pytest.raises(ValueError, match=f"beam widths 1, 2, 3, 4, 5, 8, got W = {W}"):
+            beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, W, 5, 5, 2, 1)
+    dec_w, mem_w = _decoder_and_memory(0, 4, 16, torch.bfloat16, True, cuda, U=256)
+    with pytest.raises(ValueError, match="compiled for 128 units, got U = 256"):
+        beam_loop_cuda.beam_loop(mem_w.keys, mem_w.values, mem_w.mask,
+                                 beam_step_cuda.pack_decoder_weights(dec_w, mem_w), 5, 5, 5, 2, 1)
     with pytest.raises(ValueError, match="both be bf16 or both f32"):
         beam_loop_cuda.beam_loop(mem.keys, mem.values.float(), mem.mask, w, 5, 5, 5, 2, 1)
     with pytest.raises(ValueError, match="shared memory"):
@@ -427,16 +432,16 @@ def test_int8_step_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="both int8"):
         step(st)  # int8 memory without its scales
     with pytest.raises(ValueError, match="beam widths"):
-        step(beam_step_cuda.initial_state(B, 6, 128, 2, cuda), scales=(ks, vs))
+        step(beam_step_cuda.initial_state(B, 17, 128, 2, cuda), scales=(ks, vs))
     with pytest.raises(ValueError, match="int8 memory"):
         beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, 5, 5, 5, 2, 1, (ks, vs))
 
 
-def _mid_decode_state(gen, B: int, W: int, V: int, device) -> beam_step_cuda.StepState:
+def _mid_decode_state(gen, B: int, W: int, V: int, device, U: int = 128
+                      ) -> beam_step_cuda.StepState:
     """A state in the middle of a decode: tokens in [0, V + 2) (ids >= V embed
     to zeros), spread h, c, att and cumulative scores, a fifth of the beams
     finished."""
-    U = 128
     st = beam_step_cuda.StepState(
         torch.randint(0, V + 2, (B * W,), generator=gen, dtype=torch.int32),
         torch.tanh(torch.randn(B * W, U, generator=gen)), torch.randn(B * W, U, generator=gen),
@@ -445,45 +450,54 @@ def _mid_decode_state(gen, B: int, W: int, V: int, device) -> beam_step_cuda.Ste
     return beam_step_cuda.StepState(*(t.to(device) for t in st))
 
 
-@pytest.mark.parametrize("W", [1, 5, 8])
-@pytest.mark.parametrize("B", [9, 37, 130])
-def test_beam_cell_kernel_matches_plain(cuda, B, W):
-    """h', c' and att_h against cell_plain: f32 sums of 256 (cell) and 128
+# (U, B, W) of the beam step's kernels on the card: the flagship's 128 units
+# at W 1, 5, 8 keep their ids "B-W"; the other compiled decoder widths (ids
+# U64-, U256-) and beam widths (W10-, W16-: the attend kernel's instance of
+# 16 beams on a runtime W)
+STEP_CASES = ([(128, B, W) for B in (9, 37, 130) for W in (1, 5, 8)]
+              + [(64, 37, 5), (64, 130, 5), (256, 37, 5), (256, 130, 5), (128, 37, 10),
+                 (128, 130, 16)])
+STEP_IDS = [f"{B}-{W}" if U == 128 and W <= 8 else
+            (f"U{U}-{B}-{W}" if U != 128 else f"W{W}-{B}") for U, B, W in STEP_CASES]
+
+
+@pytest.mark.parametrize("U,B,W", STEP_CASES, ids=STEP_IDS)
+def test_beam_cell_kernel_matches_plain(cuda, U, B, W):
+    """h', c' and att_h against cell_plain: f32 sums of 2U (cell) and U
     (att_h) terms in another order, within 1e-5; the last tile is ragged."""
-    gen = torch.Generator().manual_seed(10 * B + W)
-    dec_p, mem = _decoder_and_memory(B, B, 8, torch.float32, True, cuda)
+    gen = torch.Generator().manual_seed(10 * B + W + (U != 128) * U)
+    dec_p, mem = _decoder_and_memory(B, B, 8, torch.float32, True, cuda, U=U)
     w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
-    st = _mid_decode_state(gen, B, W, 7, cuda)
+    st = _mid_decode_state(gen, B, W, 7, cuda, U)
     before = dict(cuda_lib.launches)
     got = beam_step_cuda.beam_cell(st, w)
     assert cuda_lib.launches["beam_cell"] == before["beam_cell"] + 1
     assert cuda_lib.launches["beam_step"] == before["beam_step"]
     ref = beam_step_cuda.cell_plain(st, w)
     for g, r in zip(got, ref):  # the kernel's scratch
-        assert g.shape == (B * W, 128) and g.dtype == torch.float32 and g.is_contiguous()
+        assert g.shape == (B * W, U) and g.dtype == torch.float32 and g.is_contiguous()
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("S", [8, 232, 300], ids=["S8", "S232", "S300 (position loop)"])
 @pytest.mark.parametrize("mem_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("W", [1, 5, 8])
-@pytest.mark.parametrize("B", [9, 37, 130])
-def test_beam_attend_kernel_matches_plain(cuda, B, W, mem_dtype, S):
+@pytest.mark.parametrize("U,B,W", STEP_CASES, ids=STEP_IDS)
+def test_beam_attend_kernel_matches_plain(cuda, U, B, W, mem_dtype, S):
     """beam_attend against attend_plain on the same cell outputs. Picks may
     part on a near-tie, at most one in a hundred (and one at least); where
     the parents agree the state rows are copied exactly and att within
     1e-4 (f32 memory) or 1e-3 (bf16: an alignment may round the other way
     after sums in another order); where the picks agree the scores within
     the same bars. Row 3 is all padding."""
-    gen = torch.Generator().manual_seed(1000 + 10 * B + W)
-    dec_p = init_decoder(gen, 7, 1, 128, 256, cuda)
+    gen = torch.Generator().manual_seed(1000 + 10 * B + W + (U != 128) * U)
+    dec_p = init_decoder(gen, 7, 1, U, 256, cuda)
     memory = torch.tanh(torch.randn(B, S, 256, generator=gen)).to(cuda)
     mask = (torch.rand(B, S, generator=gen) > 0.2).to(cuda)
     mask[3] = False
     mem = attn.setup_memory(dec_p["attention"], memory, mask, mem_dtype,
                             attention_layer=dec_p["attention_layer"])
     w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
-    st = _mid_decode_state(gen, B, W, 7, cuda)
+    st = _mid_decode_state(gen, B, W, 7, cuda, U)
     cell = beam_step_cuda.cell_plain(st, w)
     before = dict(cuda_lib.launches)
     got, gpar = beam_step_cuda.beam_attend(st, *cell, mem.keys, mem.values, mask, w, 1)
@@ -492,7 +506,7 @@ def test_beam_attend_kernel_matches_plain(cuda, B, W, mem_dtype, S):
     par_eq = gpar == rpar
     same = (got.tok.reshape(B, W) == ref.tok.reshape(B, W)) & par_eq
     assert (~same).sum().item() <= max(1, B * W // 100)
-    rows = lambda t: t.reshape(B, W, 128)[par_eq]  # noqa: E731
+    rows = lambda t: t.reshape(B, W, U)[par_eq]  # noqa: E731
     assert torch.equal(rows(got.h), rows(ref.h)) and torch.equal(rows(got.c), rows(ref.c))
     tol = 1e-3 if mem_dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(rows(got.att), rows(ref.att), rtol=0, atol=tol)
@@ -502,9 +516,8 @@ def test_beam_attend_kernel_matches_plain(cuda, B, W, mem_dtype, S):
 
 @pytest.mark.parametrize("S", [8, 232, 300], ids=["S8", "S232", "S300 (position loop)"])
 @pytest.mark.parametrize("mxu", [False, True], ids=["quant", "quant_mxu"])
-@pytest.mark.parametrize("W", [1, 5, 8])
-@pytest.mark.parametrize("B", [9, 37, 130])
-def test_beam_attend_int8_kernel_matches_plain(cuda, B, W, mxu, S):
+@pytest.mark.parametrize("U,B,W", STEP_CASES, ids=STEP_IDS)
+def test_beam_attend_int8_kernel_matches_plain(cuda, U, B, W, mxu, S):
     """The int8 attend kernel against attend_plain with the scales, on the
     same cell outputs. The scores are computed in the reference's order, so
     picks part only on a near-tie, at most one in a hundred (and one at
@@ -514,8 +527,8 @@ def test_beam_attend_int8_kernel_matches_plain(cuda, B, W, mxu, S):
     bf16 ulp for quant, one int8 code for quant_mxu), which moves a unit of
     the context by at most the row's largest folded alignment. Row 3 is
     all padding."""
-    gen = torch.Generator().manual_seed(2000 + 10 * B + W)
-    dec_p = init_decoder(gen, 7, 1, 128, 256, cuda)
+    gen = torch.Generator().manual_seed(2000 + 10 * B + W + (U != 128) * U)
+    dec_p = init_decoder(gen, 7, 1, U, 256, cuda)
     memory = torch.tanh(torch.randn(B, S, 256, generator=gen)).to(cuda)
     mask = (torch.rand(B, S, generator=gen) > 0.2).to(cuda)
     mask[3] = False
@@ -523,7 +536,7 @@ def test_beam_attend_int8_kernel_matches_plain(cuda, B, W, mxu, S):
                             attention_layer=dec_p["attention_layer"])
     w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
     scales = (mem.kscale, mem.vscale)
-    st = _mid_decode_state(gen, B, W, 7, cuda)
+    st = _mid_decode_state(gen, B, W, 7, cuda, U)
     cell = beam_step_cuda.cell_plain(st, w)
     name = "beam_attend_i8mxu" if mxu else "beam_attend_i8"
     before = dict(cuda_lib.launches)
@@ -536,7 +549,7 @@ def test_beam_attend_int8_kernel_matches_plain(cuda, B, W, mxu, S):
     par_eq = gpar == rpar
     same = (got.tok.reshape(B, W) == ref.tok.reshape(B, W)) & par_eq
     assert (~same).sum().item() <= max(1, B * W // 100)
-    rows = lambda t: t.reshape(B, W, 128)[par_eq]  # noqa: E731
+    rows = lambda t: t.reshape(B, W, U)[par_eq]  # noqa: E731
     assert torch.equal(rows(got.h), rows(ref.h)) and torch.equal(rows(got.c), rows(ref.c))
     torch.testing.assert_close(rows(got.att), rows(ref.att), rtol=0, atol=1e-2)
     torch.testing.assert_close(got.cum[same], ref.cum[same], rtol=0, atol=1e-2)
@@ -559,15 +572,18 @@ def test_beam_step_launches_cell_then_attend(cuda):
 
 
 def test_beam_cell_and_attend_launch_failures_raise(cuda):
-    """The C entry points refuse what they do not take, and cuda_lib.check
-    raises on their return code; the wrappers refuse it before launching."""
+    """The C entry points refuse what they do not take (no rows, 96 units,
+    beam widths 17 and 0, an end token outside the vocabulary), and
+    cuda_lib.check raises on their return code; the wrappers refuse it
+    before launching, naming the shape, and never take a plain route."""
     lib = cuda_lib.lib()
-    with pytest.raises(RuntimeError, match="beam_cell"):
-        cuda_lib.check(lib.rv_beam_cell(0, 7, *[None] * 12), "beam_cell")
-    with pytest.raises(RuntimeError, match="beam_attend"):  # no beam width 6
-        cuda_lib.check(lib.rv_beam_attend(1, 6, 2, 8, 7, 128, 1, *[None] * 18), "beam_attend")
-    with pytest.raises(RuntimeError, match="beam_attend"):  # end token outside the vocabulary
-        cuda_lib.check(lib.rv_beam_attend(1, 5, 2, 8, 7, 128, 7, *[None] * 18), "beam_attend")
+    for U, N in ((128, 0), (96, 5)):
+        with pytest.raises(RuntimeError, match="beam_cell"):
+            cuda_lib.check(lib.rv_beam_cell(U, N, 7, *[None] * 12), "beam_cell")
+    for U, W, end in ((128, 17, 1), (128, 0, 1), (96, 5, 1), (128, 5, 7)):
+        with pytest.raises(RuntimeError, match="beam_attend"):
+            cuda_lib.check(lib.rv_beam_attend(1, U, W, 2, 8, 7, 128, end, *[None] * 18),
+                           "beam_attend")
     B = 4
     dec_p, mem = _decoder_and_memory(0, B, 16, torch.bfloat16, True, cuda)
     w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
@@ -578,32 +594,47 @@ def test_beam_cell_and_attend_launch_failures_raise(cuda):
                                    w, 1)
     with pytest.raises(ValueError, match="both be bf16"):
         beam_step_cuda.beam_attend(st, *cell, mem.keys, mem.values.float(), mem.mask, w, 1)
-    with pytest.raises(ValueError, match="128 units"):
-        beam_step_cuda.beam_cell(st._replace(h=st.h[:, :64].contiguous()), w)
+    with pytest.raises(ValueError, match="64, 128, 256 units, got U = 96"):
+        beam_step_cuda.beam_cell(st._replace(h=st.h[:, :96].contiguous()), w)
+    before = dict(cuda_lib.launches)
+    wide = beam_step_cuda.initial_state(B, 17, 128, 2, cuda)
+    with pytest.raises(ValueError, match="beam widths 1-16, got W = 17"):
+        beam_step_cuda.beam_step(wide, mem.keys, mem.values, mem.mask, w, 1)
+    long_keys = torch.zeros(B, 4000, 256, dtype=torch.float32, device=cuda)
+    dec_w, mem_w = _decoder_and_memory(0, B, 16, torch.float32, True, cuda, U=256)
+    w_w = beam_step_cuda.pack_decoder_weights(dec_w, mem_w)
+    with pytest.raises(ValueError, match="U = 256, W = 16, S = 4000 on f32 memory needs"):
+        beam_step_cuda.beam_step(beam_step_cuda.initial_state(B, 16, 256, 2, cuda), long_keys,
+                                 long_keys, torch.ones(B, 4000, dtype=torch.bool, device=cuda),
+                                 w_w, 1)
+    assert cuda_lib.launches == before  # nothing launched, no plain route taken
     shifted = torch.zeros(st.h.numel() + 1, device=cuda)[1:].view_as(st.h)  # 4 bytes off
     with pytest.raises(ValueError, match="16-byte aligned"):
         beam_step_cuda.beam_cell(st._replace(h=shifted), w)
 
 
 def test_beam_attend_int8_launch_failures_raise(cuda):
-    """The int8 attend's C entry refuses beam width 6, an end token outside
-    the vocabulary, missing scales and a state that is not 16-byte aligned
-    (none of these launches); the wrapper refuses missing or misshapen
-    scales and a misaligned state before launching."""
+    """The int8 attend's C entry refuses beam width 17, 96 units, an end token
+    outside the vocabulary, missing scales and a state that is not 16-byte
+    aligned (none of these launches); the wrapper refuses missing or
+    misshapen scales and a misaligned state before launching."""
     B = 4
     dec_p, mem = _decoder_and_memory(0, B, 16, "i8", True, cuda)
     ks, vs = mem.kscale, mem.vscale
     lib = cuda_lib.lib()
     P = [None] * 5  # h_new, c_new, att_h, cum_in, fin_in
 
-    def entry(W, end, kscale, vscale, h_new=None):
-        # mxu, W, B, S, V, VP, end; the state, keys, values, the scales, mask,
-        # wfc, bfc, the seven outputs, the stream
-        return lib.rv_beam_attend_i8(1, W, B, 16, 7, 128, end, h_new, *P[1:], mem.keys.data_ptr(),
-                                     mem.values.data_ptr(), kscale, vscale, *[None] * 11)
+    def entry(W, end, kscale, vscale, h_new=None, U=128):
+        # mxu, U, W, B, S, V, VP, end; the state, keys, values, the scales,
+        # mask, wfc, bfc, the seven outputs, the stream
+        return lib.rv_beam_attend_i8(1, U, W, B, 16, 7, 128, end, h_new, *P[1:],
+                                     mem.keys.data_ptr(), mem.values.data_ptr(), kscale, vscale,
+                                     *[None] * 11)
 
     scales = (ks.data_ptr(), vs.data_ptr())
-    for args, why in (((6, 1, *scales), "no beam width 6"),
+    with pytest.raises(RuntimeError, match="beam_attend_i8"):  # no 96-unit instance
+        cuda_lib.check(entry(5, 1, *scales, U=96), "beam_attend_i8")
+    for args, why in (((17, 1, *scales), "no beam width 17"),
                       ((5, 7, *scales), "end token outside the vocabulary"),
                       ((5, 1, None, vs.data_ptr()), "no key scales"),
                       ((5, 1, ks.data_ptr(), None), "no value scales")):

@@ -118,6 +118,28 @@ def test_plain_int8_step_matches_pallas_interpret(model, mxu):
     assert (tres.tokens[:, :, 0].numpy() == np.asarray(jres.tokens[:, :, 0])).mean() >= 0.998
 
 
+@pytest.mark.parametrize("mxu", [False, True], ids=["quant", "quant_mxu"])
+@pytest.mark.parametrize("U", [64, 256], ids=["U64", "U256"])
+def test_plain_int8_step_at_other_widths_matches_pallas_interpret(model, U, mxu):
+    """The plain int8 steps at the decoder widths the port's kernels take
+    besides the flagship's (ops/beam_step_cuda.py:STEP_UNITS), on a U-unit
+    decoder (JAX init, carried across) over the same quantized memory: the
+    decode entry points' tokens equal, scores within 1e-5."""
+    _, _, enc, mask = model
+    cfg = JConfig(enc_units=128, dec_units=U, encoder_depth=1, decoder_depth=1, data_type="raw")
+    jd = j_init(jax.random.PRNGKey(U), cfg)["decoder"]
+    td = from_jax_params(jax.tree_util.tree_map(np.asarray, {"decoder": jd}))["decoder"]
+    jm = jattn.setup_memory(jd["attention"], jnp.asarray(enc), jnp.asarray(mask), "i8",
+                            attention_layer=jd["attention_layer"])
+    tm = _to_torch(jm)
+    assert tm.keys.shape == (B, S, U)
+    jres = jbl.beam_step_decode(jd, jm, 7, W, TOTAL, TOTAL, interpret=True, quant_mxu=mxu)
+    tres = tstep.beam_step_decode(td, tm, 7, W, TOTAL, TOTAL, quant_mxu=mxu)
+    np.testing.assert_array_equal(tres.tokens.numpy(), np.asarray(jres.tokens))
+    np.testing.assert_allclose(tres.scores.numpy(), np.asarray(jres.scores), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_int8_wrapper_uses_plain_version_on_cpu(model):
     jd, td, enc, mask = model
     tm = tattn.setup_memory(td["attention"], torch.from_numpy(enc), torch.from_numpy(mask), "i8",
