@@ -49,8 +49,15 @@ hand-written kernel against its plain PyTorch version on the card:
      memory at B=4096 and f32 memory at B=256. Each live step of the
      kernel's result is replayed through the plain step
      (beam_loop_cuda.replay_plain), and the free-running loops are compared;
+     then the other widths of the step's sets, which the kernel runs on its
+     streamed layout: U=64 and 256 (W=5, bf16 and f32) and W=6, 10, 16
+     (U=128, bf16; W=16 also f32), B=4096, no beam ending, each replayed
+     through the plain step and timed beside its bound and the beam step's
+     39 launches, with its layout, cluster size and clusters at once;
   6. the decode-step kernel against its plain version at B=4096, S=232,
-     E=256, f32 memory, 40 chained steps, each fed the plain version's state;
+     f32 memory, 40 chained steps, each fed the plain version's state, at
+     every (U, E) of csrc/decode_step_shapes.cuh (U=64, 128, 256; E=64,
+     128, 256, 512), each timed beside its byte bound;
   7. end to end: the same 4 reads through the read path with
      beam_impl="loop" (one beam-loop launch per chunk, no beam-step launch),
      checked against the step path and the CPU on 64 snippets;
@@ -189,7 +196,12 @@ hand-written kernel against its plain PyTorch version on the card:
      start logits pushed down so that every step decodes whole rows); the
      flagship through tools/basecall.py's read path at --beam 10 over the 4
      reads, the same checks (the live decoder on f32 memory at W=10);
-     beam_impl="loop" refuses dec_units=256, the step W=17.
+     the same three runs with beam_impl="loop" (the loop kernel once a
+     chunk, no beam_cell; its decode of the card's memory against the plain
+     step, and end to end against the step path and the CPU on 64
+     snippets); fused greedy decode of an enc_units=64 (E=128) and the
+     dec_units=256 model against the CPU; beam_impl="loop" refuses
+     dec_units=96, the step and the loop W=17.
  20. the user tools (ravvent_tpu_torch/tools/), each CLI's main(argv) in
      process in a temporary directory at the flagship's width (batch 128,
      seeded): (a) make_dataset, 2 train and 4 eval reads of 1.5-1.8 kb (the
@@ -873,9 +885,7 @@ def compare_loops(got, ref, eff: int, end_token: int = 1) -> tuple:
 def phase_beam_loop() -> dict:
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
-    from ravvent_tpu_torch.ops.beam_loop_cuda import (
-        beam_loop, beam_loop_plain, clusters, replay_plain,
-    )
+    from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop, beam_loop_plain, plan, replay_plain
     from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, pack_decoder_weights
 
     dev = torch.device("cuda")
@@ -936,9 +946,11 @@ def phase_beam_loop() -> dict:
             require(err <= tol, f"beam_loop {name}: score error {err:.3e} > {tol}")
         err = max(rep.rank_err, rep.score_err, err if free else 0.0)
         if first:
-            size, active = clusters(dtype, W, 232, V)
-            print(f"  beam_loop: clusters of {size} CTAs, {active} at once "
-                  f"(cudaOccupancyMaxActiveClusters)")
+            p = plan(dtype, U, W, 232, V)
+            require(p.layout == "resident", f"beam_loop {name}: the {p.layout} layout, not the "
+                    "resident one, at the flagship's shape")
+            print(f"  beam_loop: {p.layout} layout, clusters of {p.cluster} CTAs, {p.active} at "
+                  f"once (cudaOccupancyMaxActiveClusters), {p.smem} B of shared memory a CTA")
             ms = time_ms(lambda: beam_loop(keys, values, mask, w, W, T, eff, 2, end), reps=5)
             plain_ms = time_ms(lambda: beam_loop_plain(keys, values, mask, w, W, T, eff, 2, end),
                                reps=1)
@@ -962,7 +974,68 @@ def phase_beam_loop() -> dict:
         else:
             out["max_abs_err"] = max(out["max_abs_err"], err)
         del mem, keys, values, got, ref
-    return out
+    # the other widths: 64 and 256 units (W = 5), W = 6, 10 and 16 (128
+    # units), on the layout the C entry picks
+    widths = {}
+    for U_, W_, dtype in ((64, 5, torch.bfloat16), (64, 5, torch.float32),
+                          (256, 5, torch.bfloat16), (256, 5, torch.float32),
+                          (128, 6, torch.bfloat16), (128, 10, torch.bfloat16),
+                          (128, 16, torch.bfloat16), (128, 16, torch.float32)):
+        widths[(U_, W_, dtype)] = beam_loop_width_case(U_, W_, dtype)
+        torch.cuda.empty_cache()
+    return out, widths
+
+
+def beam_loop_width_case(U: int, W: int, dtype, B: int = 4096, S: int = 232) -> dict:
+    """The whole-loop kernel at U units and W beams on ``dtype`` memory, on
+    the layout the C entry picks (beam_loop_cuda.plan, printed with its
+    cluster size, the clusters or CTAs the card holds at once and its shared
+    memory): phase 5's decoder at that width with the end token pushed down
+    (every live step runs the whole cell), 39 live steps of 47 at B rows;
+    every live step replayed through the plain step (picks equal the plain
+    top-W >= 0.99, distinct, score errors <= 1e-2), the dead steps zero; the
+    kernel, the plain loop and the beam step's 39-step loop on the same
+    memory timed beside the loop's bound. Returns the figures."""
+    from ravvent_tpu_torch.models import attention as attn
+    from ravvent_tpu_torch.models.decoder import init_decoder
+    from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop, beam_loop_plain, plan, replay_plain
+    from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, pack_decoder_weights
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    V, E, T, eff, end = 7, 256, 47, 39, 1
+    dec = init_decoder(gen, V, 1, U, E, dev)
+    dec["fc"]["bias"][end] -= 20.0
+    memory, mask = encoder_like_memory(gen, B, S, E, dev)
+    mem = attn.setup_memory(dec["attention"], memory, mask, dtype,
+                            attention_layer=dec["attention_layer"])
+    del memory
+    w = pack_decoder_weights(dec, mem)
+    keys, values = mem.keys.contiguous(), mem.values.contiguous()
+    p = plan(dtype, U, W, S, V)
+    got = beam_loop(keys, values, mask, w, W, T, eff, 2, end)
+    rep = replay_plain(*got, keys, values, mask, w, eff, 2, end)
+    torch.cuda.synchronize()
+    err = max(rep.rank_err, rep.score_err)
+    mem_name = "bf16" if dtype == torch.bfloat16 else "f32"
+    name = f"U={U} W={W} {mem_name}"
+    require(not any(x[eff:].any() for x in got), f"beam_loop {name}: dead steps not zero")
+    require(rep.distinct and rep.exact >= 0.99,
+            f"beam_loop {name}: picks equal the plain top-W {rep.exact:.5f} < 0.99")
+    require(err <= 1e-2, f"beam_loop {name}: replayed score error {err:.3e} > 0.01")
+    ms = time_ms(lambda: beam_loop(keys, values, mask, w, W, T, eff, 2, end), reps=2)
+    plain_ms = time_ms(lambda: beam_loop_plain(keys, values, mask, w, W, T, eff, 2, end), reps=1,
+                       warmup=0)
+    step_ms = time_ms(lambda: beam_step_loop(keys, values, mask, w, W, T, eff, 2, end), reps=1)
+    bound, by = beam_loop_bounds(B, S, U, W, V, 2 if dtype == torch.bfloat16 else 4, eff)
+    print(f"  beam_loop B={B} S={S} {name}, no beam ending, {eff} live steps: {p.layout} layout, "
+          f"clusters of {p.cluster}, {p.active} at once, {p.smem} B of shared memory a CTA; each "
+          f"step replayed through the plain step: picks equal the plain top-W {rep.exact:.5f} "
+          f"(need >= 0.99), distinct {rep.distinct}, score error {err:.3e} (tol 0.01); kernel "
+          f"{ms:.3f} ms/chunk, plain {plain_ms:.3f}, beam_step kernel x {eff} {step_ms:.3f}, "
+          f"bound {bound:.3f} ({by})", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "step_ms": step_ms, "bound": bound,
+            "by": by, "layout": p.layout}
 
 
 def decode_step_bounds(B: int, S: int, U: int, E: int, V: int) -> tuple:
@@ -974,7 +1047,29 @@ def decode_step_bounds(B: int, S: int, U: int, E: int, V: int) -> tuple:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_decode_step() -> dict:
+def phase_decode_step() -> tuple:
+    """The decode-step kernel against its plain version at each (U, E) of its
+    set (csrc/decode_step_shapes.cuh), B=4096, S=232, f32 memory, 40 chained
+    steps, each fed the plain version's state; timed beside its byte bound.
+    Returns (the flagship's (128, 256) kernels-line entry, every shape's
+    figures by (U, E))."""
+    from ravvent_tpu_torch.ops.decode_step_cuda import GREEDY_MEMORY_DIMS, GREEDY_UNITS
+
+    shapes = [(128, 256)] + [(u, e) for u in GREEDY_UNITS for e in GREEDY_MEMORY_DIMS
+                             if (u, e) != (128, 256)]
+    figures = {}
+    for U, E in shapes:
+        figures[(U, E)] = decode_step_case(U, E)
+        torch.cuda.empty_cache()
+    f = figures[(128, 256)]
+    return ({"name": "decode_step", "route": "cuda",
+             "source": "ravvent_tpu_torch/csrc/decode_step.cu",
+             "replaces": "ravvent_tpu/ops/decode_step_pallas.py:41", "max_abs_err": f["err"],
+             "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound"], "bound_by": f["by"],
+             "library_ms": None}, figures)
+
+
+def decode_step_case(U: int, E: int) -> dict:
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
     from ravvent_tpu_torch.ops.decode_step_cuda import (
@@ -983,7 +1078,7 @@ def phase_decode_step() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 3)
-    B, S, U, V, E, steps = 4096, 232, 128, 7, 256, 40
+    B, S, V, steps = 4096, 232, 7, 40
     dec_p = init_decoder(gen, V, 1, U, E, dev)
     memory, mask = encoder_like_memory(gen, B, S, E, dev)
     mem = attn.setup_memory(dec_p["attention"], memory, mask, torch.float32)  # un-projected
@@ -1011,17 +1106,13 @@ def phase_decode_step() -> dict:
     plain_ms = time_ms(lambda: fused_decode_step_plain(w, t0, a0, h0, c0, keys, values, mask),
                        reps=3)
     bound, by = decode_step_bounds(B, S, U, E, V)
-    print(f"  decode_step B={B} S={S} E={E} f32, {steps} chained steps: argmax agree "
+    print(f"  decode_step B={B} S={S} U={U} E={E} f32, {steps} chained steps: argmax agree "
           f"{share:.5f} (need >= 0.998); h/c/att/logits max_abs_err {err:.3e} (tol {tol:g}); "
           f"kernel {ms:.4f} ms/step, plain {plain_ms:.4f} ms/step, bound {bound:.4f} ms/step "
-          f"({by})")
-    require(share >= 0.998, f"decode_step: argmax agreement {share:.5f} < 0.998")
-    require(err <= tol, f"decode_step: error {err:.3e} > {tol}")
-    return {"name": "decode_step", "route": "cuda",
-            "source": "ravvent_tpu_torch/csrc/decode_step.cu",
-            "replaces": "ravvent_tpu/ops/decode_step_pallas.py:41", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+          f"({by})", flush=True)
+    require(share >= 0.998, f"decode_step U={U} E={E}: argmax agreement {share:.5f} < 0.998")
+    require(err <= tol, f"decode_step U={U} E={E}: error {err:.3e} > {tol}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound, "by": by}
 
 
 def phase_end_to_end_loop() -> dict:
@@ -1076,7 +1167,12 @@ def phase_end_to_end_loop() -> dict:
     return counts
 
 
-def phase_greedy() -> dict:
+def phase_greedy(cfg=None, params=None, what: str = "fused greedy") -> dict:
+    """Phase 8 (the flagship), and in phase 18 (f) a model of another
+    width: the first read's snippets encoded on the card as un-projected f32
+    memory, decoded by fused_greedy_decode (the decode-step kernel once a
+    step), against plain greedy_decode on the CPU on 64 snippets. Returns
+    the launches of the whole read's decode."""
     from ravvent_tpu_torch.data.snippets import prepare_compact
     from ravvent_tpu_torch.decode.greedy import greedy_decode
     from ravvent_tpu_torch.evaluation.basecall import TOTAL_STEPS, BasecallEngine
@@ -1085,7 +1181,8 @@ def phase_greedy() -> dict:
     from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
     from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN
 
-    cfg, params = flagship_params()
+    if cfg is None:
+        cfg, params = flagship_params()
     card = BasecallEngine(params, cfg, chunk_size=4096)
     cpu = BasecallEngine(params, cfg, chunk_size=4096, device="cpu")
 
@@ -1110,19 +1207,19 @@ def phase_greedy() -> dict:
         wall = time.perf_counter() - t0
         counts = dict(cuda_lib.launches)
         n = raw_c.shape[0]
-        print(f"  fused greedy on one read: snippets {n}, wall {wall:.3f} s; launches: bilstm "
+        print(f"  {what} on one read: snippets {n}, wall {wall:.3f} s; launches: bilstm "
               f"{counts['bilstm']}, decode_step {counts['decode_step']}")
         require(counts["bilstm"] > 0 and counts["decode_step"] > 0,
-                "fused greedy decode did not launch its kernels")
+                f"{what} did not launch its kernels")
         require(tuple(tok.shape) == (n, TOTAL_STEPS) and bool(torch.isfinite(logits).all()),
-                "bad greedy result shape or logits")
+                f"{what}: bad greedy result shape or logits")
         # all_done couples a batch's rows: card and CPU decode the same 64 rows
         t_card, _ = greedy(card, raw_c[:64], event_c[:64], fused_greedy_decode)
         t_cpu, _ = greedy(cpu, raw_c[:64].cpu(), event_c[:64].cpu(), greedy_decode)
     agree = (t_card.cpu() == t_cpu).float().mean().item()
-    print(f"  fused greedy on the card vs plain greedy_decode on the CPU, 64 snippets: "
+    print(f"  {what} on the card vs plain greedy_decode on the CPU, 64 snippets: "
           f"tokens agree {agree:.5f} (need >= 0.99)")
-    require(agree >= 0.99, "fused greedy decode on the card disagrees with the CPU")
+    require(agree >= 0.99, f"{what} on the card disagrees with the CPU")
     return counts
 
 
@@ -1686,10 +1783,11 @@ def phase_signal_wire(smi: str) -> tuple:
 
 
 def top_beam_tokens(engine, mem, max_len: int, beams: int = 1, width: int = 5,
-                    dec=None) -> torch.Tensor:
+                    dec=None, loop=None) -> torch.Tensor:
     """The engine's beam decode of ``mem`` (beam ``width``, ``max_len - 1``
-    live steps; the engine's decoder or ``dec``): the top ``beams`` beams'
-    tokens over the live steps, on the host ([N, max_len - 1, beams])."""
+    live steps; the engine's decoder or ``dec``; the beam step's loop, or
+    ``loop``): the top ``beams`` beams' tokens over the live steps, on the
+    host ([N, max_len - 1, beams])."""
     from ravvent_tpu_torch.evaluation.basecall import TOTAL_STEPS
     from ravvent_tpu_torch.ops.beam_step_cuda import beam_step_loop, fused_beam_decode
     from ravvent_tpu_torch.tokenizer import NUC_TOKENIZER
@@ -1698,7 +1796,7 @@ def top_beam_tokens(engine, mem, max_len: int, beams: int = 1, width: int = 5,
     res = fused_beam_decode(dec, mem, engine.cfg.vocab_size, width,
                             TOTAL_STEPS,
                             max_len - 1, start_token=NUC_TOKENIZER.start_id,
-                            end_token=NUC_TOKENIZER.end_id, loop=beam_step_loop,
+                            end_token=NUC_TOKENIZER.end_id, loop=loop or beam_step_loop,
                             quant_mxu=engine.quant_mxu)
     return res.tokens[:, :max_len - 1, :beams].cpu()
 
@@ -2172,6 +2270,7 @@ def phase_configs(smi: str) -> dict:
     from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
     from ravvent_tpu_torch.models.basecaller import init_basecaller
     from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
     from ravvent_tpu_torch.tools import profile_decode as pd
     from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN, basecall_read
 
@@ -2429,12 +2528,13 @@ def live_decoder(dec: dict) -> dict:
 
 
 def kernel_vs_plain(card, cpu, snippets, max_len: int, aux, beams: int,
-                    live: bool = False) -> tuple:
-    """The beam-step kernels' decode of ``card``'s memory of the first 64
-    snippets against the plain step's decode of the same memory on the CPU
-    (top beam, ``max_len - 1`` live steps), with the engines' decoder or, if
-    ``live``, its :func:`live_decoder`. Returns (the share of equal tokens,
-    the share of base tokens in the card's)."""
+                    live: bool = False, loop=None) -> tuple:
+    """The beam-step kernels' decode (or ``loop``'s, the whole-loop kernel's)
+    of ``card``'s memory of the first 64 snippets against the plain step's
+    decode of the same memory on the CPU (top beam, ``max_len - 1`` live
+    steps), with the engines' decoder or, if ``live``, its
+    :func:`live_decoder`. Returns (the share of equal tokens, the share of
+    base tokens in the card's)."""
     sig, rr, ev, er = snippets
     with torch.inference_mode():
         raw_c, event_c = next(iter(card.compact_snippets(sig, rr[:64], ev, er[:64], aux)))
@@ -2442,7 +2542,7 @@ def kernel_vs_plain(card, cpu, snippets, max_len: int, aux, beams: int,
         decs = [e.params["decoder"] for e in (card, cpu)]
         if live:
             decs = [live_decoder(d) for d in decs]
-        t_card = top_beam_tokens(card, mem, max_len, width=beams, dec=decs[0])
+        t_card = top_beam_tokens(card, mem, max_len, width=beams, dec=decs[0], loop=loop)
         t_host = top_beam_tokens(cpu, mem.to("cpu"), max_len, width=beams, dec=decs[1])
     return float((t_card == t_host).float().mean()), float((t_card > 2).float().mean())
 
@@ -2459,9 +2559,20 @@ def phase_decoder_widths(smi: str, reads: list) -> dict:
     memory and encoder over the first read (the same memory 1.00000); (2)
     the same at dec_units=64 over the first read; (3) the flagship through
     tools/basecall.py's read path at --beam 10 over the 4 reads, the same
-    checks; (4) beam_impl="loop" refuses dec_units=256 on the card, and the
-    step's wrapper W = 17. Returns the launch counts ("dec256", "dec64",
-    "beam10")."""
+    checks; (4) beam_impl="loop" on the same runs: dec_units=256 at the
+    bench's settings through run_pipelined, dec_units=64 on f32 over the
+    first read, the flagship through the CLI's read path at --beam 10: the
+    whole-loop kernel once a chunk, no beam-step kernel, the encoder's kernel
+    4 a chunk; the loop kernel's decode of the card's memory against the
+    plain step on the CPU (>= 0.998; at --beam 10 also with the live decoder
+    on f32 memory) and, on 64 snippets, against the step path on the card
+    and the CPU end to end (>= 0.99); (5) fused_greedy_decode of an
+    enc_units=64 model (memory width 128) and of the dec_units=256 model
+    against plain greedy_decode on the CPU (phase 8's check); (6)
+    beam_impl="loop" refuses dec_units=96 on the card, the step's and the
+    loop's wrappers W = 17. Returns the launch counts ("dec256", "dec64",
+    "beam10", "loop256", "loop64", "loop_beam10", "greedy_e128",
+    "greedy_u256")."""
     import tempfile
     from pathlib import Path
 
@@ -2472,6 +2583,7 @@ def phase_decoder_widths(smi: str, reads: list) -> dict:
     from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
     from ravvent_tpu_torch.models.basecaller import init_basecaller
     from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
     from ravvent_tpu_torch.tools import profile_decode as pd
     from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN, basecall_read
 
@@ -2493,6 +2605,28 @@ def phase_decoder_widths(smi: str, reads: list) -> dict:
         unused = ("bilstm_bf16" if encoder == "bilstm" else "bilstm",) + others
         require(sum(c[k] for k in unused) == 0, f"{what}: another kernel or a plain route ran")
 
+    def loop_once(c, what, encoder, n_chunks):
+        """The whole-loop kernel once a chunk, the encoder's kernel 4 times a
+        chunk, and nothing else: no beam-step kernel, no plain route."""
+        require(c["beam_loop"] == n_chunks, f"{what}: the loop kernel did not launch once a chunk")
+        require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] == 0,
+                f"{what}: the beam step's kernels launched")
+        require(c[encoder] == 4 * n_chunks, f"{what}: {encoder} not 4 a chunk")
+        unused = (("bilstm_bf16" if encoder == "bilstm" else "bilstm",)
+                  + tuple(k for k in others if k != "beam_loop"))
+        require(sum(c[k] for k in unused) == 0, f"{what}: another kernel or a plain route ran")
+
+    def loop_vs(loop_card, step_card, loop_cpu, snippets, max_len, aux, beams):
+        """End to end on the first 64 snippets: the loop on the card against
+        the step path on the card and against the loop on the CPU."""
+        sig, rr, ev, er = snippets
+        rr, er = rr[:64], er[:64]
+        t_loop, p_loop = loop_card.predict_beam_compact(sig, rr, ev, er, max_len, beams, aux=aux)
+        t_step, _ = step_card.predict_beam_compact(sig, rr, ev, er, max_len, beams, aux=aux)
+        t_cpu, _ = loop_cpu.predict_beam_compact(sig, rr, ev, er, max_len, beams, aux=aux)
+        require(np.isfinite(p_loop).all(), "the loop's probabilities are not finite")
+        return float((t_loop == t_step).mean()), float((t_loop == t_cpu).mean())
+
     cfg = ModelConfig(dec_units=256)
     params = init_basecaller(cfg, torch.Generator().manual_seed(SEED))
     engine = BasecallEngine(params, cfg, **bench)
@@ -2508,6 +2642,15 @@ def phase_decoder_widths(smi: str, reads: list) -> dict:
         rec = pe.run_pipelined(paths, inflight=8, finishers=4)
         torch.cuda.synchronize()
         c = out["dec256"] = dict(cuda_lib.launches)
+        # the same model and reads with beam_impl="loop" (the streamed layout)
+        engine_l = BasecallEngine(params, cfg, **dict(bench, beam_impl="loop"))
+        pe_l = PerformanceEvaluator(engine_l, beam_width=5, cache_dir=str(d / "cache"))
+        pe_l.run(paths[0])  # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        rec_l = pe_l.run_pipelined(paths, inflight=8, finishers=4)
+        torch.cuda.synchronize()
+        out["loop256"] = dict(cuda_lib.launches)
     n_chunks = sum(chunks(x[1].shape[0]) for x in loaded)
     print(f"  dec_units=256, bench settings (i8dev, bf16 encoder, bf16 memory, 4-bit probs, "
           f"step), run_pipelined inflight 8, finishers 4: {rec['bases_per_s']:.1f} bases/s, wall "
@@ -2524,6 +2667,20 @@ def phase_decoder_widths(smi: str, reads: list) -> dict:
           f"the card's memory against the plain step's {same:.5f} (need >= 0.998); end to end "
           f"{e2e:.5f} (need >= 0.99)")
     require(same >= 0.998 and e2e >= 0.99, "dec_units=256: card and CPU disagree")
+    c = out["loop256"]
+    cpu_l = BasecallEngine(params, cfg, device="cpu", **dict(bench, beam_impl="loop"))
+    same, _ = kernel_vs_plain(engine_l, cpu_l, (sig, rr, ev, er), max_len, aux, 5, loop=beam_loop)
+    vs_step, vs_cpu = loop_vs(engine_l, engine, cpu_l, (sig, rr, ev, er), max_len, aux, 5)
+    print(f"  dec_units=256, bench settings, beam_impl=loop, run_pipelined: "
+          f"{rec_l['bases_per_s']:.1f} bases/s, wall {rec_l['wall_s']:.3f} s; launches "
+          f"{dict((k, v) for k, v in c.items() if v)} (beam_loop need 1 a chunk over {n_chunks}); "
+          f"the loop kernel's decode of the card's memory against the plain step {same:.5f} "
+          f"(need >= 0.998); on 64 snippets against the step path {vs_step:.5f}, the CPU "
+          f"{vs_cpu:.5f} (need >= 0.99) [{smi}]")
+    loop_once(c, "dec_units=256 loop", "bilstm_bf16", n_chunks)
+    require(rec_l["bases_num"] > 0, "dec_units=256 loop: the pipelined run called no bases")
+    require(same >= 0.998 and vs_step >= 0.99 and vs_cpu >= 0.99,
+            "dec_units=256 loop: the loop disagrees with the step or the CPU")
     sig, rr, ev, er, _, _ = prepare_compact(reads[0][0], reads[0][1],
                                             np.array(["a"] * len(reads[0][1])), 6)
     for U in (256, 64):
@@ -2544,6 +2701,22 @@ def phase_decoder_widths(smi: str, reads: list) -> dict:
                 f"dec_units={U} f32: card and CPU disagree")
         if U == 64:
             out["dec64"] = c
+            card_l, host_l = (BasecallEngine(wparams, wcfg, device=dv, beam_impl="loop", **f32)
+                              for dv in (None, "cpu"))
+            c, secs, _, _ = width_run(card_l, host_l, (sig, rr, ev, er), MAX_OUTPUT_LEN, None)
+            same, _ = kernel_vs_plain(card_l, host_l, (sig, rr, ev, er), MAX_OUTPUT_LEN, None, 5,
+                                      live=True, loop=beam_loop)
+            vs_step, vs_cpu = loop_vs(card_l, card, host_l, (sig, rr, ev, er), MAX_OUTPUT_LEN,
+                                      None, 5)
+            out["loop64"] = c
+            print(f"  dec_units=64, f32 memory and encoder, beam_impl=loop: the first read "
+                  f"{secs:.3f} s; launches {dict((k, v) for k, v in c.items() if v)}; the loop "
+                  f"kernel's decode of the same memory with the live decoder {same:.5f} (need "
+                  f">= 0.998); on 64 snippets against the step path {vs_step:.5f}, the CPU "
+                  f"{vs_cpu:.5f} (need >= 0.99) [{smi}]")
+            loop_once(c, "dec_units=64 loop", "bilstm", chunks(rr.shape[0]))
+            require(same >= 0.998 and vs_step >= 0.99 and vs_cpu >= 0.99,
+                    "dec_units=64 loop: the loop disagrees with the step or the CPU")
 
     # the flagship through the CLI's read path at --beam 10
     fcfg, fparams = flagship_params()
@@ -2584,22 +2757,64 @@ def phase_decoder_widths(smi: str, reads: list) -> dict:
     require(np.isfinite(p_gpu).all() and same >= 0.998 and e2e >= 0.99 and live >= 0.998,
             "--beam 10: card and CPU disagree")
 
-    # what stays refused: the loop kernel at 256 decoder units, the step's
-    # kernels at 17 beams (a CUDA tensor raises, naming the shape)
+    # the same read path with --beam-impl loop at --beam 10
+    cli_l = BasecallEngine(fparams, fcfg, chunk_size=4096, project_values=True, beam_impl="loop")
+    basecall_read(cli_l, merger, reads[0][0][:3000], reads[0][1][reads[0][1][:, 1] <= 3000],
+                  beam=10)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    n_bases = 0
+    for raw, ranges, _ in reads:
+        call = basecall_read(cli_l, merger, raw, ranges, beam=10)
+        require(call is not None, "a simulated read gave no snippets")
+        n_bases += len(call.merged.seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = out["loop_beam10"] = dict(cuda_lib.launches)
+    cpu_l = BasecallEngine(fparams, fcfg, chunk_size=4096, project_values=True, device="cpu",
+                           beam_impl="loop")
+    same, _ = kernel_vs_plain(cli_l, cpu_l, (sig, rr, ev, er), MAX_OUTPUT_LEN, None, 10,
+                              loop=beam_loop)
+    vs_step, vs_cpu = loop_vs(cli_l, cli, cpu_l, (sig, rr, ev, er), MAX_OUTPUT_LEN, None, 10)
+    live, bases = kernel_vs_plain(*(BasecallEngine(fparams, fcfg, device=dv, beam_impl="loop",
+                                                   **f32) for dv in (None, "cpu")),
+                                  (sig, rr, ev, er), MAX_OUTPUT_LEN, None, 10, live=True,
+                                  loop=beam_loop)
+    print(f"  flagship, CLI read path at --beam 10 --beam-impl loop, 4 reads: {n_bases} bases in "
+          f"{wall:.3f} s; launches {dict((k, v) for k, v in c.items() if v)}; the loop kernel's "
+          f"decode of the card's memory against the plain step {same:.5f} (need >= 0.998), f32 "
+          f"memory with the live decoder {live:.5f} (need >= 0.998; bases {bases:.3f} of its "
+          f"tokens); on 64 snippets against the step path {vs_step:.5f}, the CPU {vs_cpu:.5f} "
+          f"(need >= 0.99) [{smi}]")
+    loop_once(c, "--beam 10 loop", "bilstm", n_chunks)
+    require(same >= 0.998 and live >= 0.998 and vs_step >= 0.99 and vs_cpu >= 0.99,
+            "--beam 10 loop: the loop disagrees with the step or the CPU")
+
+    # fused greedy decode at other widths: a 64-unit encoder (memory width
+    # 128) and the 256-unit decoder
+    ecfg = ModelConfig(enc_units=64)
+    out["greedy_e128"] = phase_greedy(ecfg, init_basecaller(ecfg, torch.Generator().manual_seed(SEED)),
+                                      "fused greedy, enc_units=64 (E = 128)")
+    out["greedy_u256"] = phase_greedy(cfg, params, "fused greedy, dec_units=256")
+
+    # what stays refused: both beam kernels' loops at 96 decoder units, and
+    # at 17 beams (a CUDA tensor raises, naming the shape)
     try:
-        BasecallEngine(params, cfg, beam_impl="loop")
+        BasecallEngine({}, ModelConfig(dec_units=96), beam_impl="loop")
     except ValueError as e:
-        require("128 units" in str(e), "the loop's refusal does not name its units")
+        require("64, 128, 256 units" in str(e), "the loop's refusal does not name its units")
     else:
-        raise SmokeFailure("beam_impl='loop' accepted dec_units=256")
-    try:
-        cli.predict_beam_compact(sig, rr64, ev, er64, MAX_OUTPUT_LEN, 17)
-    except ValueError as e:
-        require("W = 17" in str(e), "the step's refusal does not name W = 17")
-    else:
-        raise SmokeFailure("the beam step accepted 17 beams")
-    print("  beam_impl='loop' refuses dec_units=256; the step's kernels refuse W = 17 "
-          "(ValueError naming the shape)")
+        raise SmokeFailure("beam_impl='loop' accepted dec_units=96")
+    for engine_, what in ((cli, "step"), (cli_l, "loop")):
+        try:
+            engine_.predict_beam_compact(sig, rr64, ev, er64, MAX_OUTPUT_LEN, 17)
+        except ValueError as e:
+            require("W = 17" in str(e), f"the {what}'s refusal does not name W = 17")
+        else:
+            raise SmokeFailure(f"the beam {what} accepted 17 beams")
+    print("  beam_impl='loop' refuses dec_units=96; the step's and the loop's kernels refuse "
+          "W = 17 (ValueError naming the shape)")
     return out
 
 
@@ -3188,11 +3403,11 @@ def main() -> int:
             "the step path launched a kernel of another path")
     phase("4 end to end", t0)
     t0 = time.perf_counter()
-    k_loop = phase_beam_loop()
-    phase("5 beam_loop kernel", t0)
+    k_loop, loop_widths = phase_beam_loop()
+    phase("5 beam_loop kernel, at 64, 128 and 256 units and W = 1-16", t0)
     t0 = time.perf_counter()
-    k_dstep = phase_decode_step()
-    phase("6 decode_step kernel", t0)
+    k_dstep, dstep_widths = phase_decode_step()
+    phase("6 decode_step kernel, at 64, 128 and 256 units and memory widths 64-512", t0)
     t0 = time.perf_counter()
     counts_loop = phase_end_to_end_loop()
     phase("7 end to end, beam_impl=loop", t0)
@@ -3265,13 +3480,33 @@ def main() -> int:
         require(kd["launches"] > 0, f"{kd['name']} did not launch on its path's run")
     k_loop["launches"] = counts_loop["beam_loop"]
     k_dstep["launches"] = counts_greedy["decode_step"]
+    # the loop and decode-step kernels at other widths: the figures of phases
+    # 5 and 6 at the shape of each path of phase 18 (f), its launches
+    k_widths = []
+    for name, key, count in (
+            ("beam_loop_u64", (64, 5, torch.float32), counts_cfg["loop64"]),
+            ("beam_loop_u256", (256, 5, torch.bfloat16), counts_cfg["loop256"]),
+            ("beam_loop_w10", (128, 10, torch.bfloat16), counts_cfg["loop_beam10"])):
+        f = loop_widths[key]
+        src = f"ravvent_tpu_torch/csrc/beam_loop{'_streamed' if f['layout'] == 'streamed' else ''}.cu"
+        k_widths.append(dict(k_loop, name=name, source=src, launches=count["beam_loop"],
+                             max_abs_err=f["err"], ms=f["ms"], plain_ms=f["plain_ms"],
+                             bound_ms=f["bound"], bound_by=f["by"]))
+    for name, key, count in (("decode_step_e128", (128, 128), counts_cfg["greedy_e128"]),
+                             ("decode_step_u256", (256, 256), counts_cfg["greedy_u256"])):
+        f = dstep_widths[key]
+        k_widths.append(dict(k_dstep, name=name, launches=count["decode_step"],
+                             max_abs_err=f["err"], ms=f["ms"], plain_ms=f["plain_ms"],
+                             bound_ms=f["bound"], bound_by=f["by"]))
+    for kd in k_widths:
+        require(kd["launches"] > 0, f"{kd['name']} did not launch on its path's run")
     k_i8["launches"] = counts_i8["i8"]["beam_attend_i8"]
     k_i8mxu["launches"] = counts_i8["i8mxu"]["beam_attend_i8mxu"]
     k_peak["launches"] = counts_sig["peak_scan"]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (
-        *k_bilstm, *k_step, k_loop, k_dstep, *k_bf16, k_i8, k_i8mxu, k_peak)]}))
+        *k_bilstm, *k_step, k_loop, k_dstep, *k_widths, *k_bf16, k_i8, k_i8mxu, k_peak)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

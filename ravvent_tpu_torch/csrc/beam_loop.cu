@@ -68,6 +68,15 @@
 // its distributed-shared-memory reads part of that; the cluster barriers'
 // waits ~7k; the attention and the tail, one row a CTA, ~20k.
 //
+// Layouts. This design (the resident layout) is compiled for 128 units and
+// the beam widths 1-5 and 8, whose instances are exact. Every other shape of
+// beam_step_shapes.cuh (64 and 256 units, W up to 16), and a shape whose
+// resident layout does not fit the card (S far above 232), runs the streamed
+// layout of beam_loop_streamed.cu: one CTA a row, no cluster, the weights
+// and the memory read from global memory every step. rv_beam_loop picks the
+// layout (or takes the one asked for), rv_beam_loop_clusters says which, and
+// a shape that no layout fits is refused, never launched.
+//
 // Timing build (-DRV_BEAM_LOOP_PHASES, tools/beam_loop_phases.py): lane 0 of
 // each warp sums clock64() cycles per phase of the step and writes them at
 // the end; the production build compiles none of it.
@@ -75,11 +84,21 @@
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
 
+#include "beam_step_shapes.cuh"
 #include "common.cuh"
+
+// The streamed layout's entry (beam_loop_streamed.cu), which rv_beam_loop
+// launches where this source's resident layout does not exist or fit.
+extern "C" int rv_beam_loop_streamed(int mem_bf16, int U, int W, int B, int S, int V, int eff,
+                                     int start_token, int end_token, const void* keys,
+                                     const void* values, const void* mask, const void* wx,
+                                     const void* wh, const void* bias, const void* watt_h,
+                                     const void* wfc, const void* bfc, void* tok_out,
+                                     void* par_out, void* score_out, int* info, void* stream);
 
 namespace {
 
-constexpr int kU = 128;                 // decoder units (the wrapper checks)
+constexpr int kU = 128;                 // decoder units of the resident layout
 constexpr int kG = 4 * kU;              // gate columns
 constexpr int kK = 2 * kU;              // rows of the stacked cell kernel
 constexpr int kVP = 128;                // padded vocabulary width of the top-W row
@@ -224,15 +243,6 @@ __device__ __forceinline__ void reduce_scatter4(const float (&acc)[W][4], int q,
     const float keep = lo ? r[j][1] : r[j][0];
     out[j] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
   }
-}
-
-// A float's order as an unsigned key (larger float, larger key), and back.
-__device__ __forceinline__ unsigned order_key(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-__device__ __forceinline__ float from_key(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 template <typename M, int W>
@@ -792,58 +802,119 @@ int dispatch_w(int W, int B, int S, int V, int T, int eff, int start_token, int 
 #undef RV_LOOP_CASE
 }
 
-bool takes(int W, int B, int S, int V, int T, int eff, int start_token, int end_token) {
-  return B > 0 && S > 0 && V > 0 && V + W <= kMaxCand && end_token >= 0 &&
-         end_token < V && start_token >= 0 && start_token < kVP && eff >= 0 && eff <= T;
+// The layouts: 1, resident (this source's kernel: 128 units, the beam
+// widths dispatch_w has an instance of, a cluster's shared memory holding
+// the row's memory and the weights' slices); 2, streamed
+// (beam_loop_streamed.cu: every U of beam_step_shapes.cuh and W up to
+// RV_STEP_MAX_BEAMS, nothing resident). 0 asks for the resident layout
+// where it exists and fits the card, else the streamed one.
+enum { kLayoutAuto = 0, kLayoutResident = 1, kLayoutStreamed = 2 };
+
+#define RV_LOOP_UNIT_EQ(u) || U == (u)
+bool takes(int U, int W, int B, int S, int V, int T, int eff, int start_token, int end_token) {
+  return (false RV_STEP_UNITS(RV_LOOP_UNIT_EQ)) && W >= 1 && W <= RV_STEP_MAX_BEAMS && B > 0 &&
+         S > 0 && V > 0 && V + W <= kMaxCand && end_token >= 0 && end_token < V &&
+         start_token >= 0 && start_token < kVP && eff >= 0 && eff <= T;
+}
+#undef RV_LOOP_UNIT_EQ
+
+// The layout a launch takes (the one asked for, or by kLayoutAuto's rule):
+// info = {layout, cluster size (1 when streamed), clusters (CTAs when
+// streamed) the card holds at once, dynamic shared memory a CTA}.
+// cudaErrorInvalidValue when the layout asked for does not exist for the
+// shape or no layout fits the card.
+int plan(int mem_bf16, int U, int W, int S, int V, int layout, int* info) {
+  if (layout != kLayoutAuto && layout != kLayoutResident && layout != kLayoutStreamed)
+    return (int)cudaErrorInvalidValue;
+  if (layout != kLayoutStreamed && U == kU) {
+    int C = 0, n = 0;
+    const int e = mem_bf16
+        ? dispatch_w<__nv_bfloat16>(W, 1, S, V, 1, 0, 0, 0, nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, nullptr RV_PHASES_NULL, nullptr, &C, &n)
+        : dispatch_w<float>(W, 1, S, V, 1, 0, 0, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr RV_PHASES_NULL, nullptr, &C, &n);
+    if (e == 0) {
+      info[0] = kLayoutResident;
+      info[1] = C;
+      info[2] = n;
+      info[3] = loop_smem_layout(mem_bf16 ? 2 : 4, W, S, C).total;
+      return 0;
+    }
+    // no instance of W, or no cluster fits: the streamed layout, unless the
+    // resident one was asked for; any other code is a fault
+    if (e != (int)cudaErrorInvalidValue) return e;
+  }
+  if (layout == kLayoutResident) return (int)cudaErrorInvalidValue;
+#ifdef RV_BEAM_LOOP_PHASES
+  return (int)cudaErrorInvalidValue;  // the timing build times the resident layout alone
+#else
+  int q[2] = {0, 0};
+  const int e = rv_beam_loop_streamed(mem_bf16, U, W, 1, S, V, 0, 0, 0, nullptr, nullptr,
+                                      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                      nullptr, nullptr, nullptr, nullptr, q, nullptr);
+  if (e != 0) return e;
+  info[0] = kLayoutStreamed;
+  info[1] = 1;
+  info[2] = q[1];
+  info[3] = q[0];
+  return 0;
+#endif
 }
 
 }  // namespace
 
-// Dynamic shared memory, in bytes, that one CTA of rv_beam_loop needs in a
-// cluster of 8 (the H100's: a cluster of 4 holds 144 KiB of weights a CTA).
-extern "C" int rv_beam_loop_smem(int mem_bf16, int W, int S, int V) {
-  (void)V;
-  return loop_smem_layout(mem_bf16 ? 2 : 4, W, S, kMaxCluster).total;
+// The layout rv_beam_loop takes for this shape with `layout` (0 auto, 1
+// resident, 2 streamed): info[4] = {layout, cluster size, clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters; CTAs when streamed), dynamic
+// shared memory a CTA in bytes}. cudaErrorInvalidValue, launching nothing,
+// for a shape the kernels do not take or that no layout fits, as
+// rv_beam_loop refuses it.
+extern "C" int rv_beam_loop_clusters(int mem_bf16, int U, int W, int S, int V, int layout,
+                                     int* info) {
+  if (!takes(U, W, 1, S, V, 1, 0, 0, 0)) return (int)cudaErrorInvalidValue;
+  return plan(mem_bf16, U, W, S, V, layout, info);
 }
 
-// The cluster size rv_beam_loop launches with, and how many such clusters
-// the card holds at once (cudaOccupancyMaxActiveClusters).
-extern "C" int rv_beam_loop_clusters(int mem_bf16, int W, int S, int V, int* size, int* active) {
-  if (S <= 0 || V <= 0 || V + W > kMaxCand) return (int)cudaErrorInvalidValue;
-  if (mem_bf16)
-    return dispatch_w<__nv_bfloat16>(W, 1, S, V, 1, 0, 0, 0, nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr RV_PHASES_NULL, nullptr, size, active);
-  return dispatch_w<float>(W, 1, S, V, 1, 0, 0, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                           nullptr RV_PHASES_NULL, nullptr, size, active);
-}
-
-// mem_bf16: 1 when keys/values are bf16, 0 when f32. Beam widths 1-5 and 8;
-// V + W <= 32; S such that a cluster's layout fits the card's shared
-// memory; keys, values, wx, wh, bias and watt_h 16-byte aligned. Outputs
-// [T, B, W]: steps [0, eff) are written, the rest left as they are.
-// Launches on `stream`; returns a cudaError_t (0 = launched).
+// mem_bf16: 1 when keys/values are bf16, 0 when f32. U in
+// beam_step_shapes.cuh, beam widths 1 to RV_STEP_MAX_BEAMS; V + W <= 32; S
+// such that a layout fits the card's shared memory; keys, values, wx, wh,
+// bias and watt_h 16-byte aligned; layout as rv_beam_loop_clusters takes it.
+// Outputs [T, B, W]: steps [0, eff) are written, the rest left as they are.
+// Launches on `stream`; returns a cudaError_t (0 = launched). The timing
+// build's entry (rv_beam_loop_phases) takes the same arguments and the
+// stamps before the stream, and runs the resident layout alone.
 #ifdef RV_BEAM_LOOP_PHASES
 extern "C" const char* rv_beam_loop_phase_names() { return RV_BEAM_LOOP_PHASE_NAMES; }
-extern "C" int rv_beam_loop_phases(int mem_bf16, int W, int B, int S, int V, int T, int eff,
-                                   int start_token, int end_token, const void* keys,
-                                   const void* values, const void* mask, const void* wx,
-                                   const void* wh, const void* bias, const void* watt_h,
-                                   const void* wfc, const void* bfc, void* tok_out, void* par_out,
-                                   void* score_out, long long* stamps, void* stream) {
+extern "C" int rv_beam_loop_phases(int mem_bf16, int U, int W, int B, int S, int V, int T,
+                                   int eff, int start_token, int end_token, int layout,
+                                   const void* keys, const void* values, const void* mask,
+                                   const void* wx, const void* wh, const void* bias,
+                                   const void* watt_h, const void* wfc, const void* bfc,
+                                   void* tok_out, void* par_out, void* score_out,
+                                   long long* stamps, void* stream) {
 #else
-extern "C" int rv_beam_loop(int mem_bf16, int W, int B, int S, int V, int T, int eff,
-                            int start_token, int end_token, const void* keys, const void* values,
-                            const void* mask, const void* wx, const void* wh, const void* bias,
-                            const void* watt_h, const void* wfc, const void* bfc, void* tok_out,
-                            void* par_out, void* score_out, void* stream) {
+extern "C" int rv_beam_loop(int mem_bf16, int U, int W, int B, int S, int V, int T, int eff,
+                            int start_token, int end_token, int layout, const void* keys,
+                            const void* values, const void* mask, const void* wx, const void* wh,
+                            const void* bias, const void* watt_h, const void* wfc, const void* bfc,
+                            void* tok_out, void* par_out, void* score_out, void* stream) {
 #endif
-  if (!takes(W, B, S, V, T, eff, start_token, end_token) ||
+  if (!takes(U, W, B, S, V, T, eff, start_token, end_token) ||
       ((uintptr_t)wx | (uintptr_t)wh | (uintptr_t)bias | (uintptr_t)watt_h | (uintptr_t)keys |
        (uintptr_t)values) % 16)
     return (int)cudaErrorInvalidValue;
+  int info[4];
+  const int e = plan(mem_bf16, U, W, S, V, layout, info);
+  if (e != 0) return e;
   cudaStream_t st = (cudaStream_t)stream;
+#ifndef RV_BEAM_LOOP_PHASES
+  if (info[0] == kLayoutStreamed)
+    return rv_beam_loop_streamed(mem_bf16, U, W, B, S, V, eff, start_token, end_token, keys,
+                                 values, mask, wx, wh, bias, watt_h, wfc, bfc, tok_out, par_out,
+                                 score_out, nullptr, stream);
+#endif
   if (mem_bf16)
     return dispatch_w<__nv_bfloat16>(W, B, S, V, T, eff, start_token, end_token, keys, values,
                                      mask, wx, wh, bias, watt_h, wfc, bfc, tok_out, par_out,

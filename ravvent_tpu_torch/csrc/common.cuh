@@ -1,6 +1,7 @@
 // Device helpers shared by the port's decoder kernels (beam_step_f.cu,
-// beam_loop.cu, decode_step.cu). Each source includes this header and is
-// compiled on its own, so everything here is internal to each object.
+// beam_loop.cu, beam_loop_streamed.cu, decode_step.cu). Each source includes
+// this header and is compiled on its own, so everything here is internal to
+// each object.
 
 #pragma once
 
@@ -86,6 +87,15 @@ __device__ __forceinline__ void warp_softmax(float* srow, int n, int lane) {
   }
   sum = warp_sum(sum);
   for (int s = lane; s < n; s += 32) srow[s] = round_to<M>(srow[s] / sum);
+}
+
+// A float's order as an unsigned key (larger float, larger key), and back.
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float from_key(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 // First-index argmax of n values in shared memory by one warp: every lane

@@ -12,54 +12,92 @@
 //
 // What bounds it on the H100: memory bytes. A step reads every row's f32 keys
 // and values once: B x S x (U + E) x 4 B, 1.46 GB at B = 4096, S = 232,
-// U = 128, E = 256 (0.44 ms at 3.35 TB/s), against ~2.2 GFLOP of f32 work.
+// U = 128, E = 256 (0.44 ms at 3.35 TB/s), against ~2.2 GFLOP of f32 work;
+// 2.92 GB (0.87 ms) at U = 256, E = 512.
 // Design: one CTA per kRows batch rows. The TPU kernel pipelined batch tiles
 // of memory through VMEM; here each CTA streams its rows' keys and values
-// from HBM exactly once with coalesced loads (a warp reads one 512-byte key
-// row per position; 256 threads read one 1 KiB value row per position, eight
-// rows' loads in flight per thread) and keeps every intermediate in shared
-// memory. The decoder weights (~0.7 MB f32) are read through L2 once per CTA
-// and shared by its kRows rows: two gate columns per thread in the cell, one
-// unit and half the input rows per thread in the attention layer.
+// from HBM exactly once with coalesced loads (a warp reads one key row per
+// position, U / 32 units a lane; the value rows are read by the threads'
+// columns, eight rows' loads in flight per thread) and keeps every
+// intermediate in shared memory. The decoder weights (~0.7 MB f32 at
+// U = 128, E = 256) are read through L2 once per CTA and shared by its kRows
+// rows: 4U / 256 gate columns per thread in the cell, one unit and 256 / U
+// of the input rows per thread in the attention layer.
+//
+// Widths (decode_step_shapes.cuh lists them): the kernel is a template on
+// (U, E) and a CTA has 256 threads at every width. The context gives each
+// thread E / 256 memory columns where E >= 256; where E < 256 the CTA's
+// threads split the positions into 256 / E groups, whose partial sums meet
+// in shared memory. At (128, 256) the kernel computes what it computed when
+// it was compiled for that width alone, in the same order.
 //
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
 
 #include "common.cuh"
+#include "decode_step_shapes.cuh"
 
 namespace {
 
-constexpr int kU = 128;        // decoder units (the wrapper checks)
-constexpr int kG = 4 * kU;     // gate columns
-constexpr int kE = 256;        // memory width (2 x 128 encoder units)
 constexpr int kRows = 8;       // batch rows per CTA
-constexpr int kThreads = 256;  // == kE: one memory column per thread in the context
+constexpr int kThreads = 256;  // at every width
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = kG / kThreads;  // gate columns per thread
-constexpr int kHalves = kThreads / kU;
 
-static_assert(kThreads == kE, "the context product gives each thread one memory column");
+template <int U, int E>
+struct StepShape {
+  static constexpr int kU = U;
+  static constexpr int kG = 4 * U;                 // gate columns
+  static constexpr int kE = E;
+  static constexpr int kCols = kG / kThreads;      // gate columns per thread
+  static constexpr int kHalves = kThreads / U;     // input-row groups of the attention layer
+  static constexpr int kUPL = U / 32;              // key units a lane in the scores
+  static constexpr int kCtxCols = E < kThreads ? E : kThreads;  // columns a pass of the context
+  static constexpr int kEPer = E / kCtxCols;                    // columns a thread
+  static constexpr int kPosGroups = kThreads / kCtxCols;        // position groups
+  static_assert(kG % kThreads == 0 && kThreads % U == 0, "U divides the CTA");
+  static_assert((U + E) % kHalves == 0, "the attention layer's input rows split evenly");
+  static_assert(kUPL == 2 || kUPL % 4 == 0, "a lane's key units load 8 or 16 bytes at a time");
+  static_assert(E % kCtxCols == 0 && kThreads % kCtxCols == 0, "the context's columns");
+  // the context's partial sums of each position group, and the attention
+  // layer's of each input-row group, lie in the gates' buffer
+  static_assert((kPosGroups == 1 || kPosGroups * kE <= kG) && kHalves * kU <= kG,
+                "partial sums fit the gates");
+};
 
 // float offsets into the dynamic shared buffer
 struct StepSmem {
   int attp, hp, hn, cn, an, z, ctx, sc, total;
 };
 
+template <class Sh>
 __host__ __device__ inline StepSmem step_smem_layout(int S) {
   StepSmem L;
   int o = 0;
-  L.attp = o; o += kRows * kU;  // [R][U] previous attention vector
-  L.hp = o;   o += kRows * kU;  // [R][U] previous h
-  L.hn = o;   o += kRows * kU;  // [R][U] new h
-  L.cn = o;   o += kRows * kU;  // [R][U] new c
-  L.an = o;   o += kRows * kU;  // [R][U] new attention vector
-  L.z = o;    o += kRows * kG;  // [R][4U] gates, then [halves][R][U] partial att
-  L.ctx = o;  o += kRows * kE;  // [R][E] context
-  L.sc = o;   o += kRows * S;   // [R][S] scores, then alignments
+  L.attp = o; o += kRows * Sh::kU;  // [R][U] previous attention vector
+  L.hp = o;   o += kRows * Sh::kU;  // [R][U] previous h
+  L.hn = o;   o += kRows * Sh::kU;  // [R][U] new h
+  L.cn = o;   o += kRows * Sh::kU;  // [R][U] new c
+  L.an = o;   o += kRows * Sh::kU;  // [R][U] new attention vector
+  L.z = o;    o += kRows * Sh::kG;  // [R][4U] gates; then [groups][R][E] partial context,
+                                    // then [halves][R][U] partial att
+  L.ctx = o;  o += kRows * Sh::kE;  // [R][E] context
+  L.sc = o;   o += kRows * S;       // [R][S] scores, then alignments
   L.total = o;
   return L;
 }
 
+// n consecutive f32 elements from global memory (n = 2, or a multiple of 4)
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float* v) {
+  if constexpr (N == 2) {
+    load2(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) load4(p + i, v + i);
+  }
+}
+
+template <int U, int E>
 __global__ void __launch_bounds__(kThreads)
 decode_step_kernel(int B, int S, int V,
                    const int32_t* __restrict__ tok,      // [B]
@@ -79,8 +117,11 @@ decode_step_kernel(int B, int S, int V,
                    float* __restrict__ c_out,            // [B, U]
                    float* __restrict__ att_out,          // [B, U]
                    float* __restrict__ logits) {         // [B, V]
+  using Sh = StepShape<U, E>;
+  constexpr int kU = Sh::kU, kG = Sh::kG, kE = Sh::kE, kCols = Sh::kCols;
+  constexpr int kHalves = Sh::kHalves, kUPL = Sh::kUPL;
   extern __shared__ __align__(16) float smem[];
-  const StepSmem L = step_smem_layout(S);
+  const StepSmem L = step_smem_layout<Sh>(S);
   float* attp = smem + L.attp;
   float* hp = smem + L.hp;
   float* hn = smem + L.hn;
@@ -130,10 +171,10 @@ decode_step_kernel(int B, int S, int V,
       }
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
-        const float a = attp[j * kU + k], hv = hp[j * kU + k];
+        const float x = attp[j * kU + k], hv = hp[j * kU + k];
 #pragma unroll
         for (int q = 0; q < kCols; ++q) {
-          acc[q][j] = fmaf(a, wa[q], acc[q][j]);
+          acc[q][j] = fmaf(x, wa[q], acc[q][j]);
           acc[q][j] = fmaf(hv, wr[q], acc[q][j]);
         }
       }
@@ -159,18 +200,17 @@ decode_step_kernel(int B, int S, int V,
   }
   __syncthreads();
 
-  // ---- scores: one warp per (row, position), 4 units a lane
+  // ---- scores: one warp per (row, position), U / 32 units a lane
 #pragma unroll 4
   for (int i = warp; i < nrows * S; i += kWarps) {
     const int r = i / S, s = i - r * S;
     const size_t brow = (size_t)(row0 + r);
-    float kv[4];
-    load4(keys + (brow * S + s) * kU + 4 * lane, kv);
-    const float* q = hn + r * kU + 4 * lane;
+    float kv[kUPL];
+    load_n<kUPL>(keys + (brow * S + s) * kU + kUPL * lane, kv);
+    const float* q = hn + r * kU + kUPL * lane;
     float p = q[0] * kv[0];
-    p = fmaf(q[1], kv[1], p);
-    p = fmaf(q[2], kv[2], p);
-    p = fmaf(q[3], kv[3], p);
+#pragma unroll
+    for (int c = 1; c < kUPL; ++c) p = fmaf(q[c], kv[c], p);
     p = warp_sum(p);
     if (lane == 0) sc[r * S + s] = mask[brow * S + s] ? p : kNegMax;
   }
@@ -178,26 +218,46 @@ decode_step_kernel(int B, int S, int V,
   for (int r = warp; r < nrows; r += kWarps) warp_softmax<float>(sc + r * S, S, lane);
   __syncthreads();
 
-  // ---- context: thread e sums column e of every row's values
+  // ---- context: thread (column e0, position group pg) sums columns
+  // e0 + q * kCtxCols of every row's values over its group's positions
   {
-    const int e = tid;
-    float acc[kRows];
+    constexpr int kCC = Sh::kCtxCols, kEP = Sh::kEPer, kPG = Sh::kPosGroups;
+    const int e0 = tid % kCC, pg = kPG == 1 ? 0 : tid / kCC;
+    float acc[kEP][kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    const float* vbase = values + (size_t)row0 * S * kE + e;
+    for (int q = 0; q < kEP; ++q)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[q][r] = 0.f;
+    const float* vbase = values + (size_t)row0 * S * kE + e0;
 #pragma unroll 2
-    for (int s = 0; s < S; ++s) {
+    for (int s = pg; s < S; s += kPG) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
         if (r < nrows)
-          acc[r] = fmaf(sc[r * S + s], __ldg(vbase + ((size_t)r * S + s) * kE), acc[r]);
-    }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) ctx[r * kE + e] = acc[r];
+          for (int q = 0; q < kEP; ++q)
+            acc[q][r] = fmaf(sc[r * S + s], __ldg(vbase + ((size_t)r * S + s) * kE + q * kCC),
+                             acc[q][r]);
+    }
+    float* out = kPG == 1 ? ctx : z + pg * kRows * kE;  // the group's partial sums
+#pragma unroll
+    for (int q = 0; q < kEP; ++q)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) out[r * kE + e0 + q * kCC] = acc[q][r];
+    if constexpr (kPG > 1) {
+      __syncthreads();
+      for (int i = tid; i < kRows * kE; i += kThreads) {
+        float c = z[i];
+#pragma unroll
+        for (int g = 1; g < kPG; ++g) c += z[g * kRows * kE + i];
+        ctx[i] = c;
+      }
+    }
   }
   __syncthreads();
 
-  // ---- att = [h; context].watt: thread (unit, half of the U+E input rows)
+  // ---- att = [h; context].watt: thread (unit, one of the U / 256 groups of
+  // the U+E input rows)
   {
     const int u = tid & (kU - 1), half = tid / kU;
     constexpr int kIn = kU + kE, kPer = kIn / kHalves;
@@ -218,11 +278,11 @@ decode_step_kernel(int B, int S, int V,
   }
   __syncthreads();
   for (int i = tid; i < kRows * kU; i += kThreads) {
-    float a = 0.f;
+    float s = 0.f;
 #pragma unroll
-    for (int hh = 0; hh < kHalves; ++hh) a += z[hh * kRows * kU + i];
-    an[i] = a;
-    if (i / kU < nrows) att_out[(size_t)row0 * kU + i] = a;
+    for (int hh = 0; hh < kHalves; ++hh) s += z[hh * kRows * kU + i];
+    an[i] = s;
+    if (i / kU < nrows) att_out[(size_t)row0 * kU + i] = s;
   }
   __syncthreads();
 
@@ -236,27 +296,69 @@ decode_step_kernel(int B, int S, int V,
   }
 }
 
-}  // namespace
+// The arguments of one launch, as rv_decode_step receives them.
+struct StepArgs {
+  const int32_t* tok;
+  const float *att_in, *h_in, *c_in, *keys, *values;
+  const uint8_t* mask;
+  const float *wx, *wh, *bias, *watt, *wfc, *bfc;
+  float *h_out, *c_out, *att_out, *logits;
+};
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
-extern "C" int rv_decode_step(int B, int S, int V, const void* tok, const void* att_in,
-                              const void* h_in, const void* c_in, const void* keys,
-                              const void* values, const void* mask, const void* wx,
-                              const void* wh, const void* bias, const void* watt, const void* wfc,
-                              const void* bfc, void* h_out, void* c_out, void* att_out,
-                              void* logits, void* stream) {
-  if (B <= 0 || S <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)step_smem_layout(S).total * sizeof(float);
+template <int U, int E>
+int launch(int B, int S, int V, const StepArgs& a, cudaStream_t stream) {
+  const size_t smem = (size_t)step_smem_layout<StepShape<U, E>>(S).total * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_step_kernel,
+    cudaError_t e = cudaFuncSetAttribute(decode_step_kernel<U, E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = (B + kRows - 1) / kRows;
-  decode_step_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      B, S, V, (const int32_t*)tok, (const float*)att_in, (const float*)h_in, (const float*)c_in,
-      (const float*)keys, (const float*)values, (const uint8_t*)mask, (const float*)wx,
-      (const float*)wh, (const float*)bias, (const float*)watt, (const float*)wfc,
-      (const float*)bfc, (float*)h_out, (float*)c_out, (float*)att_out, (float*)logits);
+  decode_step_kernel<U, E><<<grid, kThreads, smem, stream>>>(
+      B, S, V, a.tok, a.att_in, a.h_in, a.c_in, a.keys, a.values, a.mask, a.wx, a.wh, a.bias,
+      a.watt, a.wfc, a.bfc, a.h_out, a.c_out, a.att_out, a.logits);
   return (int)cudaGetLastError();
+}
+
+template <int U>
+int dispatch_e(int E, int B, int S, int V, const StepArgs& a, cudaStream_t stream) {
+#define RV_E_CASE(e) \
+  case e:            \
+    return launch<U, e>(B, S, V, a, stream);
+  switch (E) {
+    RV_GREEDY_MEMORY_DIMS(RV_E_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RV_E_CASE
+}
+
+}  // namespace
+
+// U, E: the decoder units and the memory width, a pair of
+// decode_step_shapes.cuh's sets (cudaErrorInvalidValue otherwise). Launches
+// on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int rv_decode_step(int U, int E, int B, int S, int V, const void* tok,
+                              const void* att_in, const void* h_in, const void* c_in,
+                              const void* keys, const void* values, const void* mask,
+                              const void* wx, const void* wh, const void* bias, const void* watt,
+                              const void* wfc, const void* bfc, void* h_out, void* c_out,
+                              void* att_out, void* logits, void* stream) {
+  if (B <= 0 || S <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
+  const StepArgs a = {(const int32_t*)tok, (const float*)att_in, (const float*)h_in,
+                      (const float*)c_in, (const float*)keys, (const float*)values,
+                      (const uint8_t*)mask, (const float*)wx, (const float*)wh,
+                      (const float*)bias, (const float*)watt, (const float*)wfc,
+                      (const float*)bfc, (float*)h_out, (float*)c_out, (float*)att_out,
+                      (float*)logits};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define RV_U_CASE(u) \
+  case u:            \
+    return dispatch_e<u>(E, B, S, V, a, st);
+  switch (U) {
+    RV_GREEDY_UNITS(RV_U_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RV_U_CASE
 }

@@ -75,8 +75,7 @@ from ravvent_tpu_torch.ops.beam_loop_cuda import LOOP_BEAMS, LOOP_UNITS, beam_lo
 from ravvent_tpu_torch.ops.beam_step_cuda import (
     STEP_BEAMS, STEP_UNITS, beam_step_loop, fused_beam_decode, widths,
 )
-from ravvent_tpu_torch.ops.decode_step_cuda import MEMORY_DIM as GREEDY_MEMORY_DIM
-from ravvent_tpu_torch.ops.decode_step_cuda import UNITS as GREEDY_UNITS
+from ravvent_tpu_torch.ops.decode_step_cuda import GREEDY_MEMORY_DIMS, GREEDY_UNITS
 from ravvent_tpu_torch.ops.event_detect import detect_boundaries_device, fired_to_event_lens
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
 from ravvent_tpu_torch.parallel.mesh import Mesh, replicate, row_bounds, shard_batch
@@ -96,9 +95,9 @@ _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
 
 # the decoder units and beam widths each implementation's kernels are
 # compiled for: the beam step's two kernels, the whole-loop kernel, and the
-# fused greedy step (one width, no beams)
+# fused greedy step (no beams; its memory widths are GREEDY_MEMORY_DIMS)
 KERNEL_SHAPES = {"step": (STEP_UNITS, STEP_BEAMS), "loop": (LOOP_UNITS, LOOP_BEAMS),
-                 "greedy": ((GREEDY_UNITS,), ())}
+                 "greedy": (GREEDY_UNITS, ())}
 
 
 def kernels_serve(cfg: ModelConfig, beams: Iterable[int] = (),
@@ -109,15 +108,15 @@ def kernels_serve(cfg: ModelConfig, beams: Iterable[int] = (),
     ``cfg``'s decoder, a depth-1 LSTM with Luong attention, and every beam
     width in ``beams`` (:data:`KERNEL_SHAPES`). On a CUDA ``device`` the
     kernels' compiled decoder widths too, and for the fused greedy step an
-    encoder output of 256 (``enc_out_dim``); their plain versions, which a
-    CPU tensor runs, take any width."""
+    encoder output (``enc_out_dim``) in :data:`GREEDY_MEMORY_DIMS`; their
+    plain versions, which a CPU tensor runs, take any width."""
     units, kernel_beams = KERNEL_SHAPES["greedy" if greedy else impl]
     serve = (cfg.cell_type == "lstm" and cfg.effective_attention == "luong"
              and cfg.decoder_depth == 1 and all(b in kernel_beams for b in beams))
     if device is None or torch.device(device).type != "cuda":
         return serve
     return (serve and cfg.dec_units in units
-            and (not greedy or cfg.enc_out_dim == GREEDY_MEMORY_DIM))
+            and (not greedy or cfg.enc_out_dim in GREEDY_MEMORY_DIMS))
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:

@@ -11,13 +11,18 @@ Counterpart of ravvent_tpu/ops/beam_loop_pallas.py (the TPU kernel
 Each step has the semantics of the per-step kernel (ops/beam_step_cuda.py):
 the two TPU kernels compute the same step, one launch per step or one launch
 for the whole loop. So the plain version is ``eff`` steps of
-``beam_step_plain``. The kernel runs one batch row per CTA with the row's
-keys (and, for bf16 memory, its values) resident in shared memory for all
-``eff = min(max_steps, total_steps)`` steps; the CTAs of a thread-block
-cluster keep the decoder weights resident between them, each computing its
-slice of the products for every row of the cluster. It writes the token,
-parent and cumulative score of every live step, and leaves the steps from
-``eff`` on at zero, as the per-step loop does. The reference kernel also recomputed
+``beam_step_plain``. The kernel runs one batch row per CTA for all ``eff =
+min(max_steps, total_steps)`` steps, in one of two layouts (:data:`LAYOUTS`):
+"resident" (csrc/beam_loop.cu, 128 units and W in 1-5 or 8), the row's keys
+(and, for bf16 memory, its values) resident in shared memory and the decoder
+weights resident across the CTAs of a thread-block cluster, each computing
+its slice of the products for every row of the cluster; "streamed"
+(csrc/beam_loop_streamed.cu, every width of :data:`LOOP_UNITS` and
+:data:`LOOP_BEAMS`), nothing resident but the step's state. The C entry
+takes the resident layout where it exists and fits the card, else the
+streamed one, unless the caller asks for one. It writes the token, parent
+and cumulative score of every live step, and leaves the steps from ``eff``
+on at zero, as the per-step loop does. The reference kernel also recomputed
 those dead steps from frozen state; the backtracked tokens do not read them.
 """
 
@@ -32,15 +37,46 @@ import torch
 from ravvent_tpu_torch.decode.beam import NEG_INF, top_w
 from ravvent_tpu_torch.ops import cuda_lib
 from ravvent_tpu_torch.ops.beam_step_cuda import (
-    SMEM_LIMIT, VP, DecoderWeights, advance, beam_step_plain, check_aligned, check_kernel_inputs,
-    fused_beam_decode, initial_state, step_candidates, step_loop,
+    STEP_BEAMS, STEP_UNITS, VP, DecoderWeights, advance, beam_step_plain, check_aligned,
+    check_kernel_inputs, fused_beam_decode, initial_state, step_candidates, step_loop,
 )
 
-# the shapes csrc/beam_loop.cu is compiled for: the flagship's 128 units and
-# these beam widths (its own sets; the step's kernels take more)
-LOOP_UNITS = (128,)
-LOOP_BEAMS = (1, 2, 3, 4, 5, 8)
+# the shapes the loop's kernels are compiled for: the beam step's one list
+# (csrc/beam_step_shapes.cuh), so that the two cannot drift
+LOOP_UNITS, LOOP_BEAMS = STEP_UNITS, STEP_BEAMS
 MAX_CANDIDATES = 32  # V + W: a beam's candidates that can win lie on one warp's lanes
+# the C entry's layout numbers: "auto" is the resident layout where it exists
+# and fits the card, else the streamed one
+LAYOUTS = ("auto", "resident", "streamed")
+
+
+class LoopPlan(NamedTuple):
+    """The layout a launch takes on the card: its name, the cluster size (1
+    when streamed), the clusters (CTAs when streamed) the card holds at once
+    and the dynamic shared memory a CTA in bytes."""
+
+    layout: str
+    cluster: int
+    active: int
+    smem: int
+
+
+def plan(mem_dtype, U: int, W: int, S: int, V: int, layout: str = "auto") -> LoopPlan:
+    """The layout rv_beam_loop takes on memory of ``mem_dtype`` for this
+    shape (rv_beam_loop_clusters, with cudaOccupancyMaxActiveClusters; on
+    the card). Raises ValueError, naming the shape, where the layout asked
+    for does not exist or no layout fits the card."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"beam_loop: layout must be one of {LAYOUTS}, got {layout!r}")
+    info = (ctypes.c_int * 4)()
+    rc = cuda_lib.lib().rv_beam_loop_clusters(int(mem_dtype == torch.bfloat16), U, W, S, V,
+                                              LAYOUTS.index(layout), ctypes.addressof(info))
+    if rc != 0:
+        raise ValueError(f"beam_loop: no {'' if layout == 'auto' else layout + ' '}layout of the "
+                         f"kernel takes U = {U}, W = {W}, S = {S}, V = {V} on "
+                         f"{str(mem_dtype).replace('torch.', '')} memory on this card (cudaError "
+                         f"{rc}); use the per-step kernels (beam_impl='step')")
+    return LoopPlan(LAYOUTS[info[0]], info[1], info[2], info[3])
 
 
 def beam_loop_plain(keys, values, mask, w: DecoderWeights, W: int, total_steps: int, eff: int,
@@ -53,17 +89,19 @@ def beam_loop_plain(keys, values, mask, w: DecoderWeights, W: int, total_steps: 
 
 
 def beam_loop(keys, values, mask, w: DecoderWeights, W: int, total_steps: int, eff: int,
-              start_token: int, end_token: int, scales=None, mxu: bool = False):
-    """The whole loop: the CUDA kernel (one launch) for CUDA tensors, the
-    plain version for CPU tensors. Returns tokens, parents, scores
-    [T, B, W]. int8 memory (``scales`` given) raises ValueError: the
-    reference has no int8 loop (beam_loop_pallas.py:297)."""
+              start_token: int, end_token: int, scales=None, mxu: bool = False,
+              layout: str = "auto"):
+    """The whole loop: the CUDA kernel (one launch, in ``layout``, one of
+    :data:`LAYOUTS`) for CUDA tensors, the plain version for CPU tensors.
+    Returns tokens, parents, scores [T, B, W]. int8 memory (``scales``
+    given) raises ValueError: the reference has no int8 loop
+    (beam_loop_pallas.py:297)."""
     if scales is not None or keys.dtype == torch.int8:
         raise ValueError("beam_loop: int8 memory runs only on the beam step "
                          "(beam_step_decode, beam_impl='step')")
     if not keys.is_cuda:
         return beam_loop_plain(keys, values, mask, w, W, total_steps, eff, start_token, end_token)
-    B, S, _ = keys.shape
+    B, S, U = keys.shape
     V = w.wfc.shape[1]
     check_kernel_inputs("beam_loop", keys, values, mask, w, W, end_token, units=LOOP_UNITS,
                         beams=LOOP_BEAMS)
@@ -74,36 +112,21 @@ def beam_loop(keys, values, mask, w: DecoderWeights, W: int, total_steps: int, e
         raise ValueError(f"beam_loop: the kernel takes V + W <= {MAX_CANDIDATES}, got {V + W}")
     if not 0 <= eff <= total_steps:
         raise ValueError(f"beam_loop: need 0 <= eff <= total_steps, got {eff}, {total_steps}")
-    mem_bf16 = int(keys.dtype == torch.bfloat16)
-    lib = cuda_lib.lib()
-    smem = lib.rv_beam_loop_smem(mem_bf16, W, S, V)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"beam_loop: one row of S={S} needs {smem} B of shared memory "
-                         f"(> {SMEM_LIMIT}); use the per-step kernel (beam_impl='step')")
+    plan(keys.dtype, U, W, S, V, layout)  # raises, naming the shape, where none fits
     dev = keys.device
     tokens = torch.zeros(total_steps, B, W, dtype=torch.int32, device=dev)
     parents = torch.zeros_like(tokens)
     scores = torch.zeros(total_steps, B, W, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rv_beam_loop(
-        mem_bf16, W, B, S, V, total_steps, eff, start_token, end_token,
-        keys.data_ptr(), values.data_ptr(), mask.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(),
-        w.b.data_ptr(), w.watt_h.data_ptr(), w.wfc.data_ptr(), w.bfc.data_ptr(),
-        tokens.data_ptr(), parents.data_ptr(), scores.data_ptr(), stream,
+    rc = cuda_lib.lib().rv_beam_loop(
+        int(keys.dtype == torch.bfloat16), U, W, B, S, V, total_steps, eff, start_token,
+        end_token, LAYOUTS.index(layout), keys.data_ptr(), values.data_ptr(), mask.data_ptr(),
+        w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(), w.wfc.data_ptr(),
+        w.bfc.data_ptr(), tokens.data_ptr(), parents.data_ptr(), scores.data_ptr(), stream,
     )
     cuda_lib.check(rc, "beam_loop")
     cuda_lib.launches["beam_loop"] += 1
     return tokens, parents, scores
-
-
-def clusters(mem_dtype, W: int, S: int, V: int) -> Tuple[int, int]:
-    """(cluster size, clusters the card holds at once) with which the kernel
-    launches on memory of ``mem_dtype`` (cudaOccupancyMaxActiveClusters)."""
-    size, active = ctypes.c_int(0), ctypes.c_int(0)
-    rc = cuda_lib.lib().rv_beam_loop_clusters(int(mem_dtype == torch.bfloat16), W, S, V,
-                                              ctypes.addressof(size), ctypes.addressof(active))
-    cuda_lib.check(rc, "beam_loop (occupancy)")
-    return size.value, active.value
 
 
 # counterpart of beam_loop_pallas.py:beam_loop_decode: pre-projected,

@@ -124,10 +124,9 @@ ENTRIES = {
     "rv_beam_attend": [_I] * 8 + [_P] * 18,
     "rv_beam_attend_i8": [_I] * 8 + [_P] * 20,
     "rv_beam_attend_info": [_I] * 5 + [_P],
-    "rv_beam_loop": [_I] * 9 + [_P] * 13,
-    "rv_beam_loop_smem": [_I] * 4,
-    "rv_beam_loop_clusters": [_I] * 4 + [_P] * 2,
-    "rv_decode_step": [_I] * 3 + [_P] * 18,
+    "rv_beam_loop": [_I] * 11 + [_P] * 13,
+    "rv_beam_loop_clusters": [_I] * 6 + [_P],
+    "rv_decode_step": [_I] * 5 + [_P] * 18,
     "rv_peak_scan_blocks": [_I] * 4 + [_F] * 3 + [_P] * 6,
     "rv_peak_scan_check": [_I] * 4 + [_F] * 3 + [_P] * 7,
     "rv_peak_scan_state_bytes": [],

@@ -3,9 +3,13 @@ plain version, and the greedy loop that launches it once per step.
 
 Counterpart of ravvent_tpu/ops/decode_step_pallas.py (the TPU kernel
 ``_fused_step_kernel``, its entry ``fused_decode_step`` and the loop
-``fused_greedy_decode``). The kernel is ``csrc/decode_step.cu``;
-:func:`fused_decode_step` launches it for CUDA tensors and runs
-:func:`fused_decode_step_plain` for CPU tensors only.
+``fused_greedy_decode``). The kernel is ``csrc/decode_step.cu``, compiled
+for every pair of the decoder units :data:`GREEDY_UNITS` and the memory
+widths :data:`GREEDY_MEMORY_DIMS` (``csrc/decode_step_shapes.cuh``);
+:func:`fused_decode_step` launches it for CUDA tensors, raises ValueError
+naming the shape for a CUDA tensor of another width, and runs
+:func:`fused_decode_step_plain`, which takes any width, for CPU tensors
+only.
 
 Per row: LSTM cell on [one-hot token | previous attention vector], Luong
 scores of h against the keys [S, U], softmax masked with finfo(f32).min,
@@ -20,6 +24,7 @@ f32 before the loop.
 
 from __future__ import annotations
 
+import re
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -27,10 +32,24 @@ import torch
 from ravvent_tpu_torch.decode.greedy import greedy_loop
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.ops import cuda_lib
-from ravvent_tpu_torch.ops.beam_step_cuda import lstm_cell_plain
+from ravvent_tpu_torch.ops.beam_step_cuda import lstm_cell_plain, widths
 
-UNITS = 128  # the kernel's compiled decoder unit count
-MEMORY_DIM = 256  # the kernel's compiled memory width E (2 x 128 encoder units)
+
+def _compiled_shapes() -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The decoder units and memory widths the kernel is compiled for, from
+    their one list (``csrc/decode_step_shapes.cuh``)."""
+    text = (cuda_lib.CSRC / "decode_step_shapes.cuh").read_text()
+
+    def listed(name: str) -> Tuple[int, ...]:
+        line = re.search(rf"^#define {name}\(X\) (.*)$", text, re.M).group(1)
+        return tuple(int(x) for x in re.findall(r"X\((\d+)\)", line))
+
+    return listed("RV_GREEDY_UNITS"), listed("RV_GREEDY_MEMORY_DIMS")
+
+
+# the decoder units U and memory widths E (enc_out_dim) the kernel is
+# compiled for, every pair of them: (64, 128, 256), (64, 128, 256, 512)
+GREEDY_UNITS, GREEDY_MEMORY_DIMS = _compiled_shapes()
 
 
 class FusedDecodeWeights(NamedTuple):
@@ -75,9 +94,9 @@ def fused_decode_step(w: FusedDecodeWeights, tok, att, h, c, keys, values, mask
     B, S, U = keys.shape
     E = values.shape[2]
     V = w.wfc.shape[1]
-    if U != UNITS or E != MEMORY_DIM:
-        raise ValueError(f"decode_step kernel is compiled for U={UNITS}, E={MEMORY_DIM}; "
-                         f"got U={U}, E={E}")
+    if U not in GREEDY_UNITS or E not in GREEDY_MEMORY_DIMS:
+        raise ValueError(f"decode_step kernel is compiled for {widths(GREEDY_UNITS)} units and "
+                         f"memory widths {widths(GREEDY_MEMORY_DIMS)}; got U = {U}, E = {E}")
     f32 = torch.float32
     expect = [
         ("tok", tok, torch.int32, (B,)), ("att", att, f32, (B, U)), ("h", h, f32, (B, U)),
@@ -93,7 +112,7 @@ def fused_decode_step(w: FusedDecodeWeights, tok, att, h, c, keys, values, mask
     logits = torch.empty(B, V, dtype=f32, device=keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     rc = cuda_lib.lib().rv_decode_step(
-        B, S, V, tok.data_ptr(), att.data_ptr(), h.data_ptr(), c.data_ptr(), keys.data_ptr(),
+        U, E, B, S, V, tok.data_ptr(), att.data_ptr(), h.data_ptr(), c.data_ptr(), keys.data_ptr(),
         values.data_ptr(), mask.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
         w.watt.data_ptr(), w.wfc.data_ptr(), w.bfc.data_ptr(), h_out.data_ptr(),
         c_out.data_ptr(), att_out.data_ptr(), logits.data_ptr(), stream,

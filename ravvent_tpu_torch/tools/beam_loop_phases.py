@@ -34,6 +34,7 @@ from ravvent_tpu_torch.tools.bilstm_phases import (
 
 U, V, W, E, S, T, EFF, START, END = 128, 7, 5, 256, 232, 47, 39, 2, 1
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+RESIDENT = 1  # the C entries' number of the resident layout, the one the timing build times
 
 
 def decoder_and_memory(B: int, dtype, seed: int = 2):
@@ -59,14 +60,14 @@ def decoder_and_memory(B: int, dtype, seed: int = 2):
 
 def clusters(handle, mem: str):
     """(cluster size, clusters the card holds at once) with which the
-    library ``handle`` launches, or None where its source has no clusters."""
+    library ``handle`` launches the resident layout, or None where its
+    source has no clusters."""
     if not hasattr(handle, "rv_beam_loop_clusters"):
         return None
-    size, active = ctypes.c_int(0), ctypes.c_int(0)
-    cuda_lib.check(handle.rv_beam_loop_clusters(int(mem == "bf16"), W, S, V,
-                                                ctypes.addressof(size), ctypes.addressof(active)),
-                   "beam_loop (occupancy)")
-    return size.value, active.value
+    info = (ctypes.c_int * 4)()  # layout, cluster size, clusters at once, shared memory
+    cuda_lib.check(handle.rv_beam_loop_clusters(int(mem == "bf16"), U, W, S, V, RESIDENT,
+                                                ctypes.addressof(info)), "beam_loop (occupancy)")
+    return info[1], info[2]
 
 
 def split(entry, names, handle, mem: str, B: int) -> dict:
@@ -83,13 +84,15 @@ def split(entry, names, handle, mem: str, B: int) -> dict:
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def timed():
-        cuda_lib.check(entry(mem_bf16, W, B, S, V, T, EFF, START, END, keys.data_ptr(),
-                             values.data_ptr(), mask.data_ptr(), w.wx.data_ptr(),
-                             w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
-                             w.wfc.data_ptr(), w.bfc.data_ptr(), *(o.data_ptr() for o in out),
-                             stamps.data_ptr(), stream), "beam_loop (timing build)")
+        cuda_lib.check(entry(mem_bf16, U, W, B, S, V, T, EFF, START, END, RESIDENT,
+                             keys.data_ptr(), values.data_ptr(), mask.data_ptr(),
+                             w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
+                             w.watt_h.data_ptr(), w.wfc.data_ptr(), w.bfc.data_ptr(),
+                             *(o.data_ptr() for o in out), stamps.data_ptr(), stream),
+                       "beam_loop (timing build)")
 
-    ms = time_ms(lambda: beam_loop(keys, values, mask, w, W, T, EFF, START, END), reps=3)
+    ms = time_ms(lambda: beam_loop(keys, values, mask, w, W, T, EFF, START, END,
+                                   layout="resident"), reps=3)
     step_ms = time_ms(lambda: beam_step_loop(keys, values, mask, w, W, T, EFF, START, END),
                       reps=2)
     stamps.zero_()

@@ -27,6 +27,8 @@ Usage::
 
     lib = cuda_emu.load(*cuda_emu.STEP_SOURCES)  # the beam step's five sources
     rc = lib.rv_beam_attend_i8(...)  # as cuda_lib.lib().rv_beam_attend_i8
+    loop = cuda_emu.load(*cuda_emu.LOOP_SOURCES)  # the whole-loop kernel's two layouts
+    step = cuda_emu.load("decode_step.cu")  # the greedy decode step
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ HEADER = Path(__file__).resolve().with_name("cuda_emu.h")
 # kernel's instances a memory mode
 STEP_SOURCES = ("beam_step_f.cu", "beam_attend_bf16.cu", "beam_attend_f32.cu",
                 "beam_attend_i8.cu", "beam_attend_i8mxu.cu")
+# the whole-loop kernel's sources: the resident layout and the C entries,
+# then the streamed layout
+LOOP_SOURCES = ("beam_loop.cu", "beam_loop_streamed.cu")
 BUILD = cuda_lib.BUILD / "emu"
 
 # csrc/'s cp.async helpers: "cp.async.c{a,g}.shared.global [dst], [src], bytes"

@@ -1,14 +1,17 @@
-"""Hold this checkout's beam-step kernels against another checkout's, on the card.
+"""Hold this checkout's decoder kernels against another checkout's, on the card.
 
 Runs the two kernels of the beam step (``beam_cell``, then ``beam_attend`` in
-each memory mode: bf16, f32, int8 quant and quant_mxu) of two checkouts of
-the repository on the same inputs: chip_smoke.py phase 3's decoder and
-encoder-like memory (seed 1, B = 4096, S = 232, U = 128) and a seeded
-mid-decode state, at the beam widths 1 and 5. Each checkout runs in a
-process of its own, in the order other, this, this, other, and prints a
-digest (sha256) of every output tensor and each kernel's mean time by CUDA
-events over 100 launches. The result says whether the outputs are equal bit
-for bit and how far the times moved, within this one call on one card.
+each memory mode: bf16, f32, int8 quant and quant_mxu), the whole-loop
+kernel (``beam_loop``, bf16 and f32 memory, 39 live steps of 47, at the beam
+widths 1-5 and 8) and the greedy decode step (``decode_step``, f32 memory,
+E = 256) of two checkouts of the repository on the same inputs: chip_smoke.py
+phase 3's decoder and encoder-like memory (seed 1, B = 4096, S = 232,
+U = 128) and a seeded mid-decode state, the beam step at the beam widths 1
+and 5. Each checkout runs in a process of its own, in the order other, this,
+this, other, and prints a digest (sha256) of every output tensor and each
+kernel's mean time by CUDA events over 100 launches (10 for the loop). The
+result says whether the outputs are equal bit for bit and how far the times
+moved, within this one call on one card.
 
   python -m ravvent_tpu_torch.tools.step_parity --other DIR
 
@@ -31,6 +34,7 @@ HERE = Path(__file__).resolve()
 THIS = HERE.parents[2]
 WIDTHS = (5, 1)
 MODES = ("bf16", "f32", "quant", "quant_mxu")
+LOOP_WIDTHS = (1, 2, 3, 4, 5, 8)  # the whole-loop kernel's exact instances
 
 
 def run_checkout(root: Path) -> dict:
@@ -43,8 +47,10 @@ def run_checkout(root: Path) -> dict:
 
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
+    from ravvent_tpu_torch.ops import beam_loop_cuda as bl
     from ravvent_tpu_torch.ops import beam_step_cuda as bs
     from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.ops import decode_step_cuda as ds
 
     if not Path(bs.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {bs.__file__}, not the checkout at {root}")
@@ -108,6 +114,26 @@ def run_checkout(root: Path) -> dict:
             nxt, parents = attend()
             digests[f"beam_attend {mode} W={W}"] = digest(list(nxt) + [parents])
             times[f"beam_attend {mode} W={W}"] = ms(attend)
+    for mode in ("bf16", "f32"):
+        m = mems[mode]
+        for W in LOOP_WIDTHS:
+            def loop():
+                return bl.beam_loop(m.keys, m.values, m.mask, w, W, 47, 39, 2, 1)
+
+            digests[f"beam_loop {mode} W={W}"] = digest(loop())
+            times[f"beam_loop {mode} W={W}"] = ms(loop, reps=10, warmup=1)
+    # the greedy step on un-projected f32 memory of the same encoder output
+    raw = attn.setup_memory(dec_p["attention"], memory, mask, torch.float32)
+    wg = ds.pack_decoder_weights(dec_p)
+    g = torch.Generator().manual_seed(7)
+    tok = torch.randint(0, V + 2, (B,), generator=g, dtype=torch.int32).to(dev)
+    att, h, c = ((0.5 * torch.randn(B, U, generator=g)).to(dev) for _ in range(3))
+
+    def step():
+        return ds.fused_decode_step(wg, tok, att, h, c, raw.keys, raw.values, raw.mask)
+
+    digests["decode_step E=256"] = digest(step())
+    times["decode_step E=256"] = ms(step)
     return {"build_s": build_s, "digests": digests, "ms": times}
 
 

@@ -5,7 +5,9 @@ JAX's whole-loop kernel runs in interpret mode
 (flagship decoder widths, B = 8, 40 raw samples, S a multiple of 8); the
 port's CPU path is the loop kernel's plain version. f32 memory: equal tokens
 and parents, scores within 2e-4 over the live steps. bf16 memory: >= 99.8%
-token agreement. Scores past max_steps are dead outputs and are not
+token agreement. The decoder widths 64 and 256 and the beam widths 10 and
+16 that the kernel also takes: one b_tile of 16 rows at S = 8, tokens equal
+and scores within 1e-5 on both memories. Scores past max_steps are dead outputs and are not
 compared. Then the engine's ``beam_impl="loop"`` compact path against the
 JAX engine on the trained flagship checkpoint, and the CLI's --beam-impl."""
 
@@ -35,6 +37,7 @@ from ravvent_tpu_torch.weights import from_jax_params
 
 torch.set_num_threads(1)
 B, TOTAL, W, V = 8, 12, 5, 7
+WIDTH_B, WIDTH_STEPS = 16, 5  # the other widths' cases: one b_tile of rows, steps
 
 
 @pytest.fixture(scope="module")
@@ -63,17 +66,68 @@ def memories():
     return out
 
 
-@pytest.mark.parametrize("max_steps", [12, 7])
-@pytest.mark.parametrize("mem", ["f32", "bf16"])
-def test_beam_loop_decode_matches_pallas_interpret(memories, mem, max_steps):
-    jd, jm, td, tm = memories[mem]
-    ref = jloop.beam_loop_decode(jd, jm, V, W, TOTAL, max_steps, b_tile=8, interpret=True)
-    got = tloop.beam_loop_decode(td, tm, V, W, TOTAL, max_steps)
+@pytest.fixture(scope="module")
+def width_memories():
+    """Per decoder width U: a raw-input model with a 64-unit encoder and a
+    U-unit decoder (JAX init, carried across by from_jax_params), on one
+    b_tile of 16 rows of 8 raw samples (S = 8; row 3 partly and row 11
+    wholly padding), as f32 or bf16 memory for both packages; built on first
+    use."""
+    cache = {}
+
+    def get(U: int, mem: str):
+        if U not in cache:
+            cfg = JConfig(enc_units=64, dec_units=U, encoder_depth=1, decoder_depth=1,
+                          data_type="raw")
+            jp = j_init(jax.random.PRNGKey(U), cfg)
+            tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp))
+            raw = np.random.default_rng(U).normal(size=(WIDTH_B, 8, 1)).astype(np.float32)
+            raw[3, 5:] = 0.0
+            raw[11] = 0.0
+            enc, mask = j_encode(jp, jnp.asarray(raw), jnp.zeros((WIDTH_B, 6, 5)), cfg)
+            assert enc.shape[1] == 8
+            cache[U] = (jp["decoder"], tp["decoder"], enc, mask)
+        jd, td, enc, mask = cache[U]
+        jdt, tdt = (None, None) if mem == "f32" else (jnp.bfloat16, torch.bfloat16)
+        jm = jattn.setup_memory(jd["attention"], enc, mask, jdt,
+                                attention_layer=jd["attention_layer"])
+        tm = tattn.setup_memory(td["attention"], torch.from_numpy(np.array(enc)),
+                                torch.from_numpy(np.array(mask)), tdt,
+                                attention_layer=td["attention_layer"])
+        return jd, jm, td, tm
+
+    return get
+
+
+# (memory, max_steps, U, W): the flagship's widths on memories()'s setup
+# keep their ids; the other decoder widths (W = 5) and beam widths (U = 128)
+# that the kernel takes (ops/beam_loop_cuda.py: LOOP_UNITS, LOOP_BEAMS) run
+# on width_memories()'s one b_tile of 16 rows, S = 8, WIDTH_STEPS steps
+LOOP_CASES = ([(m, s, 128, W) for m in ("f32", "bf16") for s in (12, 7)]
+              + [(m, WIDTH_STEPS, u, w) for u, w in ((64, 5), (256, 5), (128, 10), (128, 16))
+                 for m in ("f32", "bf16")])
+LOOP_IDS = [f"{m}-{s}" if (u, w) == (128, W) else f"U{u}-W{w}-{m}" for m, s, u, w in LOOP_CASES]
+
+
+@pytest.mark.parametrize("mem,max_steps,U,Wc", LOOP_CASES, ids=LOOP_IDS)
+def test_beam_loop_decode_matches_pallas_interpret(memories, width_memories, mem, max_steps, U,
+                                                   Wc):
+    """The flagship's widths: f32 tokens equal and scores within 2e-4, bf16
+    tokens >= 99.8% equal. The other widths: tokens equal and scores within
+    1e-5 on both memories (at W > V = 7 both re-pick a finfo.min candidate
+    at the first step)."""
+    flagship = (U, Wc) == (128, W)
+    jd, jm, td, tm = memories[mem] if flagship else width_memories(U, mem)
+    total, b_tile = (TOTAL, 8) if flagship else (WIDTH_STEPS, WIDTH_B)
+    assert tm.keys.shape[2] == U
+    ref = jloop.beam_loop_decode(jd, jm, V, Wc, total, max_steps, b_tile=b_tile, interpret=True)
+    got = tloop.beam_loop_decode(td, tm, V, Wc, total, max_steps)
     ref_tokens = np.asarray(ref.tokens)
-    if mem == "f32":
+    if mem == "f32" or not flagship:
         np.testing.assert_array_equal(got.tokens.numpy(), ref_tokens)
+        tol = 2e-4 if flagship else 1e-5
         np.testing.assert_allclose(got.scores[:, :max_steps].numpy(),
-                                   np.asarray(ref.scores[:, :max_steps]), rtol=2e-4, atol=2e-4)
+                                   np.asarray(ref.scores[:, :max_steps]), rtol=tol, atol=tol)
     else:
         assert (got.tokens.numpy() == ref_tokens).mean() >= 0.998
     # the dead tail is never computed: zeros, as the per-step loop leaves it

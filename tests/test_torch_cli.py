@@ -254,9 +254,10 @@ def test_sweep_epochs_matches_jax(trained, tmp_path, monkeypatch):
 def test_default_beam_impl_takes_the_kernels_where_they_serve(monkeypatch):
     """The tools' default follows the engine's own rule, ``kernels_serve``:
     "step" where it holds, and the engine refuses "step" where it does not.
-    The beam step's kernels take beam widths 1-16 and, on a card, 64, 128 or
-    256 decoder units; the beam loop's kernel keeps its own sets (128 units,
-    widths 1-5 and 8), and the engine's refusal names the sets."""
+    The beam step's kernels and the beam loop's take beam widths 1-16 and,
+    on a card, 64, 128 or 256 decoder units (one list), and the engine's
+    refusal names the sets; the fused greedy step takes those decoder widths
+    and the memory widths 64-512."""
     from ravvent_tpu_torch.config import ModelConfig
     from ravvent_tpu_torch.evaluation import basecall
     from ravvent_tpu_torch.evaluation.basecall import BasecallEngine, kernels_serve
@@ -267,20 +268,22 @@ def test_default_beam_impl_takes_the_kernels_where_they_serve(monkeypatch):
     assert default_beam_impl(ModelConfig(), [5, 20]) == "xla"  # 20 is not a kernel width
     assert kernels_serve(ModelConfig()) and not kernels_serve(ModelConfig(), [17])
     assert kernels_serve(ModelConfig(), [1, 6, 7, 10, 16])
-    for U in (64, 256):  # the step's other decoder widths, and beam 10, on a card
+    for U in (64, 256):  # the other decoder widths, and beam 10, on a card
         assert default_beam_impl(ModelConfig(dec_units=U), [5], "cuda") == "step", U
-        assert not kernels_serve(ModelConfig(dec_units=U), device="cuda", impl="loop"), U
+        assert kernels_serve(ModelConfig(dec_units=U), device="cuda", impl="loop"), U
     assert default_beam_impl(ModelConfig(), [10], "cuda") == "step"
     assert default_beam_impl(ModelConfig(dec_units=16), [5], "cuda") == "xla"
     assert default_beam_impl(ModelConfig(), [20], "cuda") == "xla"
     assert kernels_serve(ModelConfig(), [8], device="cuda", impl="loop")
-    for beams in ([6], [10], [16]):  # the loop's widths stay 1-5 and 8
-        assert not kernels_serve(ModelConfig(), beams, device="cuda", impl="loop"), beams
-        assert not kernels_serve(ModelConfig(), beams, impl="loop"), beams
+    for beams in ([6], [10], [16]):  # the loop's widths are the step's, 1-16
+        assert kernels_serve(ModelConfig(), beams, device="cuda", impl="loop"), beams
+        assert kernels_serve(ModelConfig(), beams, impl="loop"), beams
+    assert not kernels_serve(ModelConfig(), [17], device="cuda", impl="loop")
+    assert not kernels_serve(ModelConfig(dec_units=16), device="cuda", impl="loop")
     monkeypatch.setattr(basecall, "resolve_device", lambda device: torch.device("cuda", 0))
-    with pytest.raises(ValueError, match=r"of 128 units on a card \(beam widths 1, 2, 3, 4, 5, "
-                                         r"8\).*dec_units=256"):
-        BasecallEngine({}, ModelConfig(dec_units=256), beam_impl="loop")
+    with pytest.raises(ValueError, match=r"of 64, 128, 256 units on a card \(beam widths "
+                                         r"1-16\).*dec_units=96"):
+        BasecallEngine({}, ModelConfig(dec_units=96), beam_impl="loop")
     with pytest.raises(ValueError, match=r"of 64, 128, 256 units on a card \(beam widths "
                                          r"1-16\).*dec_units=96"):
         BasecallEngine({}, ModelConfig(dec_units=96), beam_impl="step")
@@ -301,15 +304,22 @@ def test_default_beam_impl_takes_the_kernels_where_they_serve(monkeypatch):
     assert kernels_serve(ModelConfig(), device="cuda", greedy=True)
     for cfg in (narrow, ModelConfig(enc_units=16), ModelConfig(rnn_type="lstm")):
         assert kernels_serve(cfg, device="cpu", greedy=True), cfg
-        assert not kernels_serve(cfg, device="cuda", greedy=True), cfg
+        # memory widths 32 and 32 are refused on a card; a unidirectional
+        # 128-unit encoder's 128 is taken
+        assert kernels_serve(cfg, device="cuda", greedy=True) == (cfg.enc_out_dim == 128), cfg
     assert kernels_serve(ModelConfig(rnn_type="lstm", enc_units=256), device="cuda", greedy=True)
+    for cfg in (ModelConfig(dec_units=64), ModelConfig(enc_units=64), ModelConfig(enc_units=256),
+                ModelConfig(dec_units=256, enc_units=32)):
+        assert kernels_serve(cfg, device="cuda", greedy=True), cfg
 
 
 def test_tools_take_the_plain_decode_on_a_card_for_other_widths(monkeypatch):
     """On a card, eval_token_acc decodes a 16-unit model greedily with the
-    plain decode and the flagship's widths with the fused step; the engine
-    refuses "step" for a 16-unit decoder at construction, naming the width
-    (the card stood in for: the checks run before anything reaches it)."""
+    plain decode, and the flagship's widths, a 64-unit decoder and a 64-unit
+    encoder (memory width 128) with the fused step; the engine refuses
+    "step" and "loop" for a 16-unit decoder at construction, naming the
+    width (the card stood in for: the checks run before anything reaches
+    it)."""
     from types import SimpleNamespace
 
     from ravvent_tpu_torch.config import ModelConfig
@@ -324,9 +334,10 @@ def test_tools_take_the_plain_decode_on_a_card_for_other_widths(monkeypatch):
     params = {"decoder": {}}
     for cfg, mem in ((ModelConfig(enc_units=16, dec_units=16), on_card),
                      (ModelConfig(dec_units=16), on_card), (ModelConfig(enc_units=16), on_card),
-                     (ModelConfig(), on_card), (ModelConfig(enc_units=16, dec_units=16), on_cpu)):
+                     (ModelConfig(), on_card), (ModelConfig(enc_units=16, dec_units=16), on_cpu),
+                     (ModelConfig(dec_units=64), on_card), (ModelConfig(enc_units=64), on_card)):
         eval_token_acc.greedy_tokens(params, cfg, mem, 3)
-    assert picked == ["plain", "plain", "plain", "fused", "fused"]
+    assert picked == ["plain", "plain", "plain", "fused", "fused", "fused", "fused"]
 
     monkeypatch.setattr(basecall, "resolve_device", lambda device: torch.device("cuda", 0))
     for impl in ("step", "loop"):

@@ -3,7 +3,9 @@
 ``greedy_decode`` (plain, over the model's decoder step) against JAX's
 ``greedy_decode``: f32 tokens equal, logits within 1e-5 relative. The fused
 step's plain version against JAX's ``fused_decode_step(interpret=True)``
-over 3 chained steps, at tests/test_pallas_decode.py's tolerances. The
+over 3 chained steps, at tests/test_pallas_decode.py's tolerances, and at
+the other decoder units and memory widths the kernel takes within 1e-5
+relative. The
 fused loop against JAX's ``fused_greedy_decode(interpret=True, b_tile=8)``
 on the trained flagship's memory of a read's snippets, where rows finish at
 different steps, once to the all-finished point and once cut by max_steps.
@@ -98,15 +100,47 @@ def test_greedy_decode_matches_jax_on_trained_decoder(trained):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
 
 
-def test_fused_decode_step_plain_matches_pallas_interpret(small):
-    jd, td, mems = small
+@pytest.fixture(scope="module")
+def widths():
+    """Per (decoder units U, memory width E): a raw-input model with a
+    BiLSTM of E / 2 units and a U-unit decoder (JAX init, carried across by
+    from_jax_params), on B rows of 8 raw samples (S = 8, row 2 partly and
+    row 6 wholly padding), as un-projected f32 memory for both packages;
+    built on first use."""
+    cache = {}
+
+    def get(U: int, E: int):
+        if (U, E) not in cache:
+            cfg = JConfig(enc_units=E // 2, dec_units=U, encoder_depth=1, decoder_depth=1,
+                          data_type="raw")
+            jp = j_init(jax.random.PRNGKey(U + E), cfg)
+            tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp))
+            raw = np.random.default_rng(U + E).normal(size=(B, 8, 1)).astype(np.float32)
+            raw[2, 5:] = 0.0
+            raw[6] = 0.0
+            enc, mask = j_encode(jp, jnp.asarray(raw), jnp.zeros((B, 6, 5)), cfg)
+            assert enc.shape == (B, 8, E)
+            mems = _memories(jp["decoder"], tp["decoder"], np.array(enc), np.array(mask))
+            cache[(U, E)] = (jp["decoder"], tp["decoder"], mems)
+        return cache[(U, E)]
+
+    return get
+
+
+def _fused_step_matches_pallas(jd, td, mems, U: int, E: int, flagship: bool) -> None:
+    """3 chained steps of the fused step's plain version against the TPU
+    kernel in interpret mode, each from the reference's state and argmax.
+    The flagship's widths at test_pallas_decode.py's tolerances; the others
+    within 1e-5 relative (1e-6 absolute near zero), the logits' argmax
+    equal."""
     jm, tm = mems["raw"]
+    assert tm.keys.shape[2] == U and tm.values.shape[2] == E
     jw = jstep.pack_decoder_weights(jd, V)
     tw = tstep.pack_decoder_weights(td)
-    state = jdec.zero_state(jd, B, 128, "lstm")
+    state = jdec.zero_state(jd, B, U, "lstm")
     tok = np.full(B, 2, np.int32)
     tok[5] = V  # an id >= V embeds to zeros, as an all-zero one-hot does
-    att, h, c = (torch.zeros(B, 128) for _ in range(3))
+    att, h, c = (torch.zeros(B, U) for _ in range(3))
     for _ in range(3):  # chained steps: the state handoff too
         emb = jdec.embed(jnp.asarray(tok), V)
         jh, jc, ja, jlog = jstep.fused_decode_step(
@@ -114,14 +148,34 @@ def test_fused_decode_step_plain_matches_pallas_interpret(small):
             jm.values, jm.mask.astype(jnp.float32), b_tile=8, interpret=True)
         th, tc, ta, tlog = tstep.fused_decode_step_plain(
             tw, torch.from_numpy(tok), att, h, c, tm.keys, tm.values, tm.mask)
-        np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=2e-4, atol=2e-5)
-        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=2e-4, atol=2e-4)
+        if flagship:
+            np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=2e-5, atol=2e-5)
+            np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=2e-5, atol=2e-5)
+            np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=2e-4, atol=2e-5)
+            np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=2e-4, atol=2e-4)
+        else:
+            for got, ref in ((th, jh), (tc, jc), (ta, ja), (tlog, jlog)):
+                np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+            np.testing.assert_array_equal(tlog.argmax(dim=1).numpy(),
+                                          np.asarray(jnp.argmax(jlog, axis=-1)))
         # the next step from the reference's state and argmax
         state = jdec.DecoderState(cells=((jh, jc),), attention=ja)
         att, h, c = (torch.from_numpy(np.array(x)) for x in (ja, jh, jc))
         tok = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)
+
+
+def test_fused_decode_step_plain_matches_pallas_interpret(small):
+    _fused_step_matches_pallas(*small, 128, 256, flagship=True)
+
+
+# (U, E) the kernel also takes (ops/decode_step_cuda.py: GREEDY_UNITS,
+# GREEDY_MEMORY_DIMS) besides the flagship's (128, 256)
+OTHER_WIDTHS = [(64, 128), (256, 512), (128, 64)]
+
+
+@pytest.mark.parametrize("U,E", OTHER_WIDTHS, ids=[f"U{u}-E{e}" for u, e in OTHER_WIDTHS])
+def test_fused_decode_step_plain_at_other_widths_matches_pallas_interpret(widths, U, E):
+    _fused_step_matches_pallas(*widths(U, E), U, E, flagship=False)
 
 
 @pytest.mark.parametrize("case", ["to_all_finished", "cut_by_max_steps"])
