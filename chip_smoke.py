@@ -225,8 +225,24 @@ hand-written kernel against its plain PyTorch version on the card:
      beam_cell = beam_attend = beam_step, peak_scan on the signal-only
      wires, no other kernel, each pipelined record's bases those of the
      stream reads; its seconds, its per-read and its three pipelined
-     bases/s. After it, no phase that ran the flagship's shape (4, 7, 8,
-     10, 12, 13, 21) took the BiLSTM's plain route.
+     bases/s.
+ 22. the bench-side tools (ravvent_tpu_torch/tools/{sweep_pipeline,
+     floor_probe, bench_scaling, train_profile}.py), each main(argv) in
+     process on seeded weights at the flagship's width, on bench.py's reads
+     made into a temporary directory: floor_probe over the 12 stream reads
+     (link probes, passes A, B and C, the sigdev pipeline and its
+     begin/finish split); sweep_pipeline at one pair (8:4) and one pass over
+     the 12 stream reads, their snippet cache warm from floor_probe's
+     passes; bench_scaling --sizes 1,2 as shards of cuda:0
+     (its own 2 reads of 6-8 kb, chunks of 512); train_profile --data-types
+     joint --steps 3 at batch 128 on the bench's 4 reads. Each one's last
+     line is its JSON; the engine tools launch bilstm_bf16 4 times a chunk
+     encoded and beam_cell = beam_attend, floor_probe's sigdev pass
+     peak_scan, and no other kernel; train_profile's steps launch no kernel
+     and its validation batch bilstm 4 times; bench_scaling's meshes of 1
+     and 2 shards count and call the same bases; their figures printed.
+     After it, no phase that ran the flagship's shape (4, 7, 8, 10, 12, 13,
+     21, 22) took the BiLSTM's plain route.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -1577,7 +1593,7 @@ def profiled_ms(fn, calls: int = 20) -> str:
 
 def failing_traces() -> list:
     """Two t-statistic traces whose blocked check fails
-    (tests/test_torch_cuda_emu.py's): an ancient dip no warm-up sees, and a
+    (tests/cuda_emu_cases.py's): an ancient dip no warm-up sees, and a
     slow rise that hides a valid peak from every block after the first,
     whose sequential fire at sample 1503 the blocked scan misses."""
     dip = np.full(4096, 1.0, np.float32)
@@ -3380,6 +3396,159 @@ def phase_bench_tool(smi: str, identity: bool = True) -> dict:
             "pipelined": {w: r["bases_per_s"] for w, r in pipes.items()}}
 
 
+def run_tool(module, argv: list) -> tuple:
+    """A bench-side tool's main(argv) in process, its stdout captured, the
+    launches counted from 0 and the chunks encoded (BasecallEngine.memory
+    calls, each encodes one, on any shard). Requires its last printed line
+    to be the JSON object main returns. Returns (that object, the launch
+    counts, the chunks encoded, seconds)."""
+    import contextlib
+    import io
+
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.ops import cuda_lib
+
+    encoded = [0]
+    memory = BasecallEngine.memory
+
+    def counting(self, *a, **k):
+        encoded[0] += 1
+        return memory(self, *a, **k)
+
+    out = io.StringIO()
+    BasecallEngine.memory = counting
+    try:
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = module.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        BasecallEngine.memory = memory
+    printed = out.getvalue().strip().splitlines()
+    name = module.__name__.rpartition(".")[2]
+    require(bool(printed) and json.loads(printed[-1]) == res,
+            f"{name}'s last line is not its JSON object")
+    return res, dict(cuda_lib.launches), encoded[0], secs
+
+
+def require_engine_launches(name: str, counts: dict, encoded: int, sigdev: bool) -> None:
+    """The bench's engine path: bilstm_bf16 4 a chunk encoded, beam_cell =
+    beam_attend, peak_scan on a signal-only run only, no other kernel and
+    no BiLSTM layer on the plain route."""
+    others = {k: v for k, v in counts.items()
+              if k not in ("bilstm_bf16", "beam_cell", "beam_attend", "beam_step", "peak_scan")}
+    print(f"  {name} launches: bilstm_bf16 {counts['bilstm_bf16']} over {encoded} chunks "
+          f"encoded, beam_cell {counts['beam_cell']}, beam_attend {counts['beam_attend']}, "
+          f"peak_scan {counts['peak_scan']}; others {others}")
+    require(encoded > 0 and counts["bilstm_bf16"] == 4 * encoded,
+            f"{name}: bilstm_bf16 did not launch 4 times a chunk encoded")
+    require(counts["beam_cell"] > 0 and counts["beam_cell"] == counts["beam_attend"]
+            == counts["beam_step"], f"{name}: a step did not launch beam_cell and beam_attend once")
+    require((counts["peak_scan"] > 0) == sigdev,
+            f"{name}: peak_scan launched {counts['peak_scan']} times")
+    require(not any(others.values()), f"{name} launched a kernel of another path, or took the "
+            "BiLSTM's plain route")
+
+
+def phase_bench_side_tools(smi: str) -> dict:
+    """Phase 22 (the module's docstring). Returns each tool's launch
+    counts."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.data import chiron
+    from ravvent_tpu_torch.tools import (
+        bench, bench_scaling, floor_probe, sweep_pipeline, train_profile,
+    )
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        _, fi_stream = bench.ensure_dataset(data)
+        print(f"  the bench's reads made in {time.perf_counter() - t0:.2f} s")
+        stream = [v["signal_path"] for v in json.loads(fi_stream.read_text())]
+        stream_bases = sum(chiron.load_label(Path(p).with_suffix(".label"))[0].shape[0]
+                           for p in stream)
+        common = ["--seed", str(SEED), "--data-dir", str(data)]
+
+        out, c, enc, secs = run_tool(floor_probe, common)
+        a, s = out["A_pipeline"], out["S_sigdev_pipeline"]
+        print(f"  floor_probe ({out['reads']} reads): {secs:.2f} s; link rtt "
+              f"{out['link_rtt_ms']} ms, upload {out['upload_MBps']} MB/s; A (pipeline) wall "
+              f"{a['wall_s']:.4f} s, {a['bases_per_s']:.1f} bases/s, stages {a['stages_s']}; "
+              f"B (load + dispatch) {out['B_device_stream_wall_s']} s; C (host work) "
+              f"{out['C_host_work_s']} s; sigdev wall {s['wall_s']:.4f} s, "
+              f"{s['bases_per_s']:.1f} bases/s, stages {s['stages_s']}; begin "
+              f"{out['sigdev_begin_ms_per_read']} ms, finish "
+              f"{out['sigdev_finish_ms_per_read']} ms a read, "
+              f"{out['sigdev_slabs_per_read']} chunks a read [{smi}]")
+        require(out["device"] == smi and out["reads"] == len(stream),
+                "floor_probe's line names another device or read count")
+        require(out["link_rtt_ms"] > 0 and out["upload_MBps"] > 0,
+                "floor_probe's link probes measured nothing")
+        require(a["bases_num"] == s["bases_num"] == stream_bases,
+                "floor_probe's pipelines counted other bases than the stream reads'")
+        require(out["B_device_stream_wall_s"] > 0 and out["C_host_work_s"] > 0
+                and out["sigdev_slabs_per_read"] >= 1, "floor_probe's passes measured nothing")
+        require_engine_launches("floor_probe", c, enc, sigdev=True)
+        counts["floor_probe"] = c
+
+        out, c, enc, secs = run_tool(sweep_pipeline, common + ["--configs", "8:4", "--mults",
+                                                               "1", "--passes", "1"])
+        (row,) = out["rows"]
+        print(f"  sweep_pipeline (8:4, one pass, {row['reads']} reads): {secs:.2f} s; "
+              f"{row['bases_per_s']:.1f} bases/s, wall {row['wall_s']:.4f} s [{smi}]")
+        require(out["metric"] == "pipeline depth sweep" and out["device"] == smi,
+                "sweep_pipeline's line names another metric or device")
+        require(row["bases_num"] == stream_bases and row["reads"] == len(stream),
+                "sweep_pipeline counted other bases than the stream reads'")
+        require_engine_launches("sweep_pipeline", c, enc, sigdev=False)
+        counts["sweep_pipeline"] = c
+
+        out, c, enc, secs = run_tool(bench_scaling, [
+            "--seed", str(SEED), "--sizes", "1,2", "--device", "cuda:0", "--data-dir",
+            str(Path(tmp) / "scaling")])
+        rows = out["rows"]
+        print(f"  bench_scaling (shards of cuda:0): {secs:.2f} s; "
+              + ", ".join(f"mesh {r['mesh']} {r['bases_per_s']:.1f} bases/s (speedup "
+                          f"{r['speedup']}, efficiency {r['efficiency']}, called "
+                          f"{r['called_bases']} bases)" for r in rows) + f" [{smi}]")
+        require([(r["mesh"], r["devices"]) for r in rows]
+                == [(1, ["cuda:0"]), (2, ["cuda:0", "cuda:0"])],
+                "bench_scaling did not run meshes of 1 and 2 shards of cuda:0")
+        require(rows[0]["bases_num"] == rows[1]["bases_num"] > 0
+                and rows[0]["called_bases"] == rows[1]["called_bases"] > 0
+                and rows[0]["called_sha1"] == rows[1]["called_sha1"],
+                "bench_scaling's meshes of 1 and 2 shards called other bases")
+        require_engine_launches("bench_scaling", c, enc, sigdev=False)
+        counts["bench_scaling"] = c
+
+        out, c, enc, secs = run_tool(train_profile, common + [
+            "--data-types", "joint", "--steps", "3", "--batch-size", "128"])
+        (r,) = out["results"]
+        (mem,) = r["device_memory"].values()
+        print(f"  train_profile (joint, batch 128, 3 steps): {secs:.2f} s; "
+              f"{r['steps_per_s']:.4f} steps/s ({r['examples_per_s']:.1f} examples/s), first "
+              f"step {r['compile_plus_first_step_s']:.3f} s, validation batch "
+              f"{r['validation_step_s']:.3f} s, loss {r['final_loss']:.5f}; device memory "
+              f"{mem['bytes_in_use']} B in use, peak {mem['peak_bytes_in_use']} B [{smi}]")
+        others = {k: v for k, v in c.items() if k != "bilstm"}
+        print(f"  train_profile launches: bilstm {c['bilstm']}; others {others}")
+        require(out["device"] == smi and r["data_type"] == "joint" and r["steps"] == 3,
+                "train_profile's line names another device or run")
+        require(np.isfinite(r["final_loss"]) and r["steps_per_s"] > 0
+                and mem["peak_bytes_in_use"] > 0, "train_profile measured nothing")
+        require(c["bilstm"] == 4 and not any(others.values()),
+                "train_profile: its steps launched a kernel, or its validation batch did not "
+                "launch bilstm 4 times alone")
+        counts["train_profile"] = c
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3455,11 +3624,16 @@ def main() -> int:
     t0 = time.perf_counter()
     tool = phase_bench_tool(smi)
     phase("21 the bench's entry point, tools/bench.py", t0)
+    t0 = time.perf_counter()
+    side = phase_bench_side_tools(smi)
+    phase("22 the bench-side tools: sweep_pipeline, floor_probe, bench_scaling, "
+          "train_profile", t0)
     # no BiLSTM layer of the flagship's shape takes the plain route
     for name, c in (("4", counts), ("7", counts_loop), ("8", counts_greedy),
                     ("10", counts_bench), ("12 i8", counts_i8["i8"]),
                     ("12 i8mxu", counts_i8["i8mxu"]), ("13", counts_sig),
-                    ("21", tool["counts"])):
+                    ("21", tool["counts"]),
+                    *((f"22 {k}", v) for k, v in side.items())):
         require(c["bilstm_plain_route"] == 0, f"phase {name} ran a BiLSTM layer of the "
                 "flagship's shape on its plain route")
     # launches of each kernel on its own path's run; the BiLSTM kernels' at

@@ -68,7 +68,9 @@ from ravvent_tpu_torch.evaluation.basecall import BasecallEngine, resolve_device
 from ravvent_tpu_torch.evaluation.mapping import MappingEvaluator
 from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
 from ravvent_tpu_torch.models.basecaller import init_basecaller
+from ravvent_tpu_torch.parallel.inference import ShardedBasecallEngine
 from ravvent_tpu_torch.tools import profile_decode
+from ravvent_tpu_torch.tools.common import stream_paths
 from ravvent_tpu_torch.weights import load_npz
 
 REPO = Path(__file__).resolve().parents[2]
@@ -193,6 +195,35 @@ def traced_evaluate(pe: PerformanceEvaluator, fi: Path, out: Path, trace_dir,
     return results, summary
 
 
+def model_params(cfg: ModelConfig, params=None, weights: Optional[str] = None,
+                 seed: int = 0) -> Tuple[dict, str]:
+    """The model's parameters and where they came from: ``params`` (tensors
+    in the JAX tree's layout), else ``weights`` (an npz of that tree), else
+    weights seeded from ``seed``, with a warning on stderr."""
+    if params is not None:
+        return params, "the caller's"
+    if weights:
+        return load_npz(weights), f"npz {weights}"
+    print(f"WARNING: no --weights — using random weights from seed {seed}", file=sys.stderr)
+    return init_basecaller(cfg, torch.Generator().manual_seed(seed)), f"seed {seed}"
+
+
+def bench_engine(params, cfg: ModelConfig, device, chunk_size: int = 4096, memory: str = "bf16",
+                 project_values: bool = True, beam_impl: str = "step", bf16_encoder: bool = True,
+                 pack_u8: bool = True, transport: str = "i8dev", prob_bits: int = 4,
+                 mesh=None) -> BasecallEngine:
+    """The engine on the bench's settings (bench.py's flags and defaults);
+    with a ``mesh`` (parallel/mesh.py) a ``ShardedBasecallEngine`` over it,
+    ``device`` unused."""
+    kw = dict(chunk_size=chunk_size, memory_dtype=MEMORY[memory],
+              project_values=project_values, beam_impl=beam_impl,
+              encoder_dtype=torch.bfloat16 if bf16_encoder else None, pack_u8=pack_u8,
+              transport_dtype=transport, prob_bits=prob_bits)
+    if mesh is not None:
+        return ShardedBasecallEngine(params, cfg, mesh, **kw)
+    return BasecallEngine(params, cfg, device=device, **kw)
+
+
 def run_bench(data_dir=DATA_DIR, beam_width: int = 5, chunk_size: int = 4096,
               with_identity: bool = True, memory: str = "bf16", project_values: bool = True,
               beam_impl: str = "step", bf16_encoder: bool = True, pack_u8: bool = True,
@@ -212,18 +243,9 @@ def run_bench(data_dir=DATA_DIR, beam_width: int = 5, chunk_size: int = 4096,
     data_dir = Path(data_dir)
     fi, fi_stream = ensure_dataset(data_dir, n_reads, n_stream_reads, read_len)
     cfg = cfg or FLAGSHIP
-    source = ("the caller's" if params is not None
-              else f"npz {weights}" if weights else f"seed {seed}")
-    if params is None and weights:
-        params = load_npz(weights)
-    elif params is None:
-        print(f"WARNING: no --weights — using random weights from seed {seed}", file=sys.stderr)
-        params = init_basecaller(cfg, torch.Generator().manual_seed(seed))
-    engine = BasecallEngine(
-        params, cfg, chunk_size=chunk_size, memory_dtype=MEMORY[memory],
-        project_values=project_values, beam_impl=beam_impl,
-        encoder_dtype=torch.bfloat16 if bf16_encoder else None, pack_u8=pack_u8,
-        transport_dtype=transport, prob_bits=prob_bits, device=device)
+    params, source = model_params(cfg, params, weights, seed)
+    engine = bench_engine(params, cfg, device, chunk_size, memory, project_values, beam_impl,
+                          bf16_encoder, pack_u8, transport, prob_bits)
     warm_up(engine, chunk_size, beam_width, transport)
 
     cache = str(data_dir / "cache")
@@ -240,7 +262,7 @@ def run_bench(data_dir=DATA_DIR, beam_width: int = 5, chunk_size: int = 4096,
 
     # pipelined (production) throughput over the stream of distinct reads,
     # the fastest of the passes, on the compact wire and the signal-only ones
-    stream = [v["signal_path"] for v in json.loads(Path(fi_stream).read_text())]
+    stream = stream_paths(fi_stream)
     cpu = device.type == "cpu"
     passes = 1 if cpu else 3
     if cpu:

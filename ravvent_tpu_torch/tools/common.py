@@ -15,13 +15,14 @@ the engine enforces), else with the plain decode (``"xla"``):
 from __future__ import annotations
 
 import argparse
+import json
 from pathlib import Path
 from typing import Iterable, Optional, Union
 
 import torch
 
 from ravvent_tpu_torch.config import ModelConfig
-from ravvent_tpu_torch.evaluation.basecall import BasecallEngine, kernels_serve
+from ravvent_tpu_torch.evaluation.basecall import BasecallEngine, kernels_serve, resolve_device
 from ravvent_tpu_torch.training.checkpoints import PARAMS_FILE
 from ravvent_tpu_torch.weights import load_npz
 
@@ -87,3 +88,27 @@ def eval_engine(params, cfg: ModelConfig, device: torch.device, beams: Iterable[
 
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def add_bench_flags(ap: argparse.ArgumentParser, data_dir) -> None:
+    """The bench-side tools' shared flags (tools/{sweep_pipeline,
+    floor_probe, bench_scaling, train_profile}.py): ``--weights w.npz |
+    --seed N``, ``--data-dir`` and ``--cpu | --device``."""
+    src = ap.add_mutually_exclusive_group()
+    src.add_argument("--weights", help="npz of the JAX parameter tree (ravvent_tpu_torch.weights)")
+    src.add_argument("--seed", type=int, default=0, help="seeded random weights (no --weights)")
+    ap.add_argument("--data-dir", default=str(data_dir), help="the reads, made there when missing")
+    dev = ap.add_mutually_exclusive_group()
+    dev.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
+    dev.add_argument("--device", default=None, help="a torch device, e.g. cuda:1")
+
+
+def bench_device(args: argparse.Namespace) -> torch.device:
+    """The device of :func:`add_bench_flags`' flags: the first card unless
+    ``--cpu`` or ``--device``."""
+    return resolve_device("cpu" if args.cpu else args.device)
+
+
+def stream_paths(files_info) -> list:
+    """The signal paths of a files-info JSON, in its order."""
+    return [v["signal_path"] for v in json.loads(Path(files_info).read_text())]

@@ -2,11 +2,23 @@
 // rehearsing a kernel's logic against its plain version without a card
 // (ravvent_tpu_torch/tools/cuda_emu.py translates a csrc/ source against
 // this header). One CTA at a time (1-D or 2-D grids), or one thread-block
-// cluster at a time (cudaLaunchKernelEx with a cluster dimension), one
-// std::thread per CUDA thread; __syncthreads, the cluster barrier and the
-// warp exchanges are barriers; shared memory starts as NaNs, so that a read
-// of what no thread wrote shows; the card has 2 SMs that hold 2 CTAs each,
-// and clusters of at most 2 CTAs. mma.sync.m16n8k16 on bf16 with an f32
+// cluster at a time (cudaLaunchKernelEx with a cluster dimension). Each CUDA
+// thread is a fiber (a stack and registers of its own) on the launching
+// host thread, and the fibers of a CTA (of a cluster) run in turn, each until
+// it waits: __syncthreads, the warp exchanges, the cluster barrier and an
+// mbarrier wait are barriers whose waiters yield until the phase completes.
+// A launch makes its fibers once and runs them again for each CTA (cluster),
+// with the CUDA thread's registers of the emulation (threadIdx, blockIdx,
+// the CTA, the cluster, the mma turn) set anew, a fresh CTA (barriers, NaN
+// shared memory) each time; a host thread a CUDA thread would put every
+// barrier through the OS scheduler, which a loaded host makes slow. The
+// fibers run in pass order, forward on even passes and backward on odd
+// ones, so that a read of what another thread writes in the same phase
+// (a missing barrier) sees the unwritten value on one of two orders; a pass
+// in which no fiber moves is a deadlock, and aborts.
+// Shared memory starts as NaNs, so that a read of what no thread wrote
+// shows; the card has 2 SMs that hold 2 CTAs each, and clusters of at most
+// 2 CTAs. mma.sync.m16n8k16 on bf16 with an f32
 // accumulator runs through the same warp exchange as __shfl_sync, its
 // products summed in f32 in k order. A shared-memory address for inline PTX
 // is the byte offset in the CTA's dynamic shared buffer; mapa.u64 moves a
@@ -19,18 +31,18 @@
 // The card's 1 MiB of shared memory a block lets a cluster of 2 hold what
 // a cluster of 8 holds on the H100.
 #pragma once
+#include <sys/mman.h>
 #include <algorithm>
-#include <barrier>
 #include <cmath>
-#include <condition_variable>
-#include <map>
-#include <mutex>
-#include <optional>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <functional>
+#include <map>
 #include <memory>
-#include <thread>
+#include <mutex>
 #include <vector>
 using std::min; using std::max;
 #define __global__
@@ -129,10 +141,27 @@ inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
 inline float __expf(float x) { return std::exp(x); }
 inline float __fdividef(float a, float b) { return a / b; }
 
+// ---- the fibers' barrier: arrive, then yield until the phase completes
+inline void emu_yield();
+inline thread_local unsigned long g_progress = 0;  // arrivals and exits: a deadlock moves none
+struct EmuBarrier {
+  long expected, left;
+  unsigned long phase = 0;
+  explicit EmuBarrier(long n) : expected(n), left(n) {}
+  unsigned long arrive() {
+    ++g_progress;
+    const unsigned long p = phase;
+    if (--left == 0) { left = expected; ++phase; }
+    return p;
+  }
+  void wait(unsigned long p) { while (phase == p) emu_yield(); }
+  void arrive_and_wait() { wait(arrive()); }
+};
+
 // ---- the CTA's barriers and warp exchange
 struct Cta {
-  std::unique_ptr<std::barrier<>> block;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::unique_ptr<EmuBarrier> block;
+  std::vector<std::unique_ptr<EmuBarrier>> warps;
   std::vector<uint64_t> slots;  // a warp exchange's values, one a thread
   std::vector<float> smem;      // the dynamic shared buffer
   std::vector<unsigned> mma[2]; // an mma's fragments, 6 words a thread, two calls in turn
@@ -172,15 +201,12 @@ inline unsigned __cvta_generic_to_shared(const void* p) {
 // memory), mbarriers and the multicast bulk copy
 struct Cluster {
   std::vector<Cta*> ctas;
-  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<EmuBarrier> bar;
 };
 inline thread_local Cluster* g_cluster = nullptr;
-inline thread_local std::optional<std::barrier<>::arrival_token> g_cluster_token;
-inline void emu_cluster_arrive() { g_cluster_token.emplace(g_cluster->bar->arrive()); }
-inline void emu_cluster_wait() {
-  g_cluster->bar->wait(std::move(*g_cluster_token));
-  g_cluster_token.reset();
-}
+inline thread_local unsigned long g_cluster_token = 0;  // the phase arrived at
+inline void emu_cluster_arrive() { g_cluster_token = g_cluster->bar->arrive(); }
+inline void emu_cluster_wait() { g_cluster->bar->wait(g_cluster_token); }
 // a shared-memory address of this CTA, or of the rank emu_rank names
 inline unsigned emu_rank(unsigned addr, unsigned rank) { return (addr & 0xffffffu) | ((rank + 1) << 24); }
 inline unsigned char* emu_shared(unsigned addr) {
@@ -196,14 +222,13 @@ inline uint64_t emu_mapa(const void* p, unsigned rank) {
       (reinterpret_cast<const char*>(p) - mine));
 }
 struct EmuMbar { long long expected = 0, pending = 0, tx = 0; unsigned phase = 0; };
-inline std::mutex g_mbar_mu;
-inline std::condition_variable g_mbar_cv;
+inline std::mutex g_mbar_mu;  // the map, for launches from several host threads
 inline std::map<const void*, EmuMbar> g_mbars;
 inline void emu_mbar_complete(EmuMbar& m) {  // with g_mbar_mu held
+  ++g_progress;
   if (m.pending == 0 && m.tx == 0) {
     m.phase ^= 1u;
     m.pending = m.expected;
-    g_mbar_cv.notify_all();
   }
 }
 inline void emu_mbar_init(unsigned addr, unsigned count) {
@@ -218,10 +243,13 @@ inline void emu_mbar_arrive_tx(unsigned addr, unsigned bytes) {
   emu_mbar_complete(m);
 }
 inline unsigned emu_mbar_try_wait(unsigned addr, unsigned parity) {
-  std::unique_lock<std::mutex> lk(g_mbar_mu);
-  EmuMbar& m = g_mbars.at(emu_shared(addr));
-  g_mbar_cv.wait(lk, [&] { return (m.phase & 1u) != (parity & 1u); });
-  return 1u;
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> lk(g_mbar_mu);
+      if ((g_mbars.at(emu_shared(addr)).phase & 1u) != (parity & 1u)) return 1u;
+    }
+    emu_yield();
+  }
 }
 inline void emu_bulk_multicast(unsigned dst, const void* src, unsigned bytes, unsigned bar,
                                unsigned short mask) {
@@ -268,9 +296,9 @@ inline void emu_mma_m16n8k16_bf16(float& d0, float& d1, float& d2, float& d3, un
 
 inline std::unique_ptr<Cta> emu_cta(int threads, size_t smem) {
   auto cta = std::make_unique<Cta>();
-  cta->block = std::make_unique<std::barrier<>>(threads);
+  cta->block = std::make_unique<EmuBarrier>(threads);
   for (int w = 0; w < (threads + 31) / 32; ++w)
-    cta->warps.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
+    cta->warps.push_back(std::make_unique<EmuBarrier>(std::min(32, threads - 32 * w)));
   cta->slots.assign(threads, 0);
   cta->mma[0].assign(6 * threads, 0u);
   cta->mma[1].assign(6 * threads, 0u);
@@ -278,20 +306,151 @@ inline std::unique_ptr<Cta> emu_cta(int threads, size_t smem) {
   return cta;
 }
 
+// ---- the fibers: a CUDA thread's stack, context and registers of the
+// emulation, saved when it yields and set again when it resumes. A switch
+// saves the callee-saved registers and the FP control words on the stack it
+// leaves and loads the other stack's (x86-64; no system call, unlike
+// swapcontext, which sets the signal mask on every switch).
+#if !defined(__x86_64__)
+#error "cuda_emu: the fibers' context switch is written for x86-64"
+#endif
+extern "C" void emu_ctx_switch(void** save_sp, void* load_sp);
+asm(R"(
+  .text
+  .weak emu_ctx_switch
+  .hidden emu_ctx_switch
+  .type emu_ctx_switch, @function
+emu_ctx_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  subq $8, %rsp
+  stmxcsr (%rsp)
+  fnstcw 4(%rsp)
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  ldmxcsr (%rsp)
+  fldcw 4(%rsp)
+  addq $8, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_ctx_switch, .-emu_ctx_switch
+)");
+struct EmuFiber {
+  void* sp = nullptr;  // its stack pointer while it waits
+  void* stack = nullptr;
+  bool done = true;
+  dim3 tid, bid;
+  Cta* cta = nullptr;
+  Cluster* cluster = nullptr;
+  unsigned mma_turn = 0;
+  unsigned long cluster_token = 0;
+};
+constexpr size_t kEmuStack = 1u << 20;  // bytes a fiber, a guard page below
+inline thread_local void* g_sched = nullptr;  // the launching thread's stack pointer
+inline thread_local EmuFiber* g_fiber = nullptr;
+inline thread_local const std::function<void()>* g_body = nullptr;
+inline void emu_resume_state(const EmuFiber* f) {
+  threadIdx = f->tid; blockIdx = f->bid; g_cta = f->cta; g_cluster = f->cluster;
+  emu_mma_turn = f->mma_turn; g_cluster_token = f->cluster_token;
+}
+inline void emu_yield() {
+  EmuFiber* f = g_fiber;
+  f->mma_turn = emu_mma_turn; f->cluster_token = g_cluster_token;
+  emu_ctx_switch(&f->sp, g_sched);
+  emu_resume_state(f);
+}
+[[noreturn]] inline void emu_fiber_main() {
+  emu_resume_state(g_fiber);
+  (*g_body)();
+  g_fiber->done = true;
+  ++g_progress;
+  emu_ctx_switch(&g_fiber->sp, g_sched);
+  abort();  // a finished fiber is never resumed
+}
+inline void emu_fiber_start(EmuFiber& f) {
+  char* top = static_cast<char*>(f.stack) + 4096 + kEmuStack;
+  // the frame emu_ctx_switch pops: FP control words, six registers, then
+  // emu_fiber_main as its return address, entered as if called (rsp = 8
+  // mod 16)
+  void** sp = reinterpret_cast<void**>(top) - 1;  // top is 16-aligned; *sp a dummy return
+  *--sp = reinterpret_cast<void*>(&emu_fiber_main);
+  for (int r = 0; r < 6; ++r) *--sp = nullptr;
+  --sp;
+  unsigned ctl[2];
+  asm volatile("stmxcsr %0\n\tfnstcw %1" : "=m"(ctl[0]), "=m"(ctl[1]));
+  memcpy(sp, ctl, 8);
+  f.sp = sp;
+}
+
+// A launch's fibers, one a CUDA thread of a CTA (of a cluster), made once and
+// run again for each CTA (cluster) by run().
+struct EmuFibers {
+  std::vector<EmuFiber> fs;
+  explicit EmuFibers(size_t n) : fs(n) {
+    for (auto& f : fs) {
+      void* m = mmap(nullptr, kEmuStack + 4096, PROT_READ | PROT_WRITE,
+                     MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+      if (m == MAP_FAILED) { perror("cuda_emu: mmap of a fiber's stack"); abort(); }
+      mprotect(m, 4096, PROT_NONE);  // an overflow faults
+      f.stack = m;
+    }
+  }
+  ~EmuFibers() {
+    for (auto& f : fs) munmap(f.stack, kEmuStack + 4096);
+  }
+  // every fiber runs body with fiber k's registers from set(k, fiber), in
+  // passes until all have returned
+  template <class Set>
+  void run(const std::function<void()>& body, Set set) {
+    for (size_t k = 0; k < fs.size(); ++k) {
+      EmuFiber& f = fs[k];
+      void* stack = f.stack;
+      f = EmuFiber{};
+      f.stack = stack;
+      f.done = false;
+      set(k, f);
+      emu_fiber_start(f);
+    }
+    g_body = &body;
+    size_t live = fs.size();
+    for (unsigned pass = 0; live; ++pass) {
+      const unsigned long before = g_progress;
+      for (size_t i = 0; i < fs.size(); ++i) {
+        EmuFiber& f = fs[pass & 1 ? fs.size() - 1 - i : i];
+        if (f.done) continue;
+        g_fiber = &f;
+        emu_ctx_switch(&g_sched, f.sp);
+        if (f.done) --live;
+      }
+      if (live && g_progress == before) {
+        fprintf(stderr, "cuda_emu: deadlock, %zu CUDA threads wait on a barrier no thread "
+                "will complete\n", live);
+        abort();
+      }
+    }
+  }
+};
+
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t, A... args) {
   gridDim = grid; blockDim.x = threads;
+  EmuFibers fibers(threads);
+  const std::function<void()> body = [&] { kernel(args...); };
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       auto cta = emu_cta(threads, smem);
-      std::vector<std::thread> ts;
-      for (int t = 0; t < threads; ++t)
-        ts.emplace_back([&, t] {
-          threadIdx.x = t; blockIdx.x = bx; blockIdx.y = by; emu_mma_turn = 0;
-          g_cta = cta.get();
-          kernel(args...);
-        });
-      for (auto& t : ts) t.join();
+      fibers.run(body, [&](size_t t, EmuFiber& f) {
+        f.tid.x = (unsigned)t; f.bid.x = bx; f.bid.y = by; f.cta = cta.get();
+      });
     }
 }
 template <class K, class... A>
@@ -307,6 +466,8 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
   const int threads = (int)cfg->blockDim.x;
   if (cfg->gridDim.x % C != 0 || cfg->gridDim.y != 1) return cudaErrorInvalidValue;
   gridDim = cfg->gridDim; blockDim.x = threads;
+  EmuFibers fibers((size_t)C * threads);
+  const std::function<void()> body = [&] { kernel(args...); };
   for (unsigned cl = 0; cl < cfg->gridDim.x / C; ++cl) {
     std::vector<std::unique_ptr<Cta>> ctas;
     Cluster cluster;
@@ -314,17 +475,12 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
       ctas.push_back(emu_cta(threads, cfg->dynamicSmemBytes));
       cluster.ctas.push_back(ctas.back().get());
     }
-    cluster.bar = std::make_unique<std::barrier<>>((std::ptrdiff_t)C * threads);
-    std::vector<std::thread> ts;
-    for (unsigned r = 0; r < C; ++r)
-      for (int t = 0; t < threads; ++t)
-        ts.emplace_back([&, r, t] {
-          threadIdx.x = t; blockIdx.x = cl * C + r; blockIdx.y = 0; emu_mma_turn = 0;
-          g_cta = ctas[r].get();
-          g_cluster = &cluster;
-          kernel(args...);
-        });
-    for (auto& t : ts) t.join();
+    cluster.bar = std::make_unique<EmuBarrier>((long)C * threads);
+    fibers.run(body, [&](size_t k, EmuFiber& f) {
+      const unsigned r = (unsigned)(k / threads);
+      f.tid.x = (unsigned)(k % threads); f.bid.x = cl * C + r; f.bid.y = 0;
+      f.cta = ctas[r].get(); f.cluster = &cluster;
+    });
   }
   return cudaSuccess;
 }

@@ -5,10 +5,16 @@ The source and the ``csrc/*.cuh`` headers are translated into C++ against
 gitignored ``ravvent_tpu_torch/build/emu/``, and loaded with ctypes. The
 library has the source's C entry points, bound as ``ops/cuda_lib.py`` binds
 them, and takes host pointers (CPU tensors' ``data_ptr()``; the stream is
-ignored). Each CTA runs as one thread per CUDA thread, one CTA at a time,
-or one cluster at a time, its CTAs together (``cudaLaunchKernelEx`` with a
-cluster dimension; the emulated card holds clusters of 2 CTAs at most, and
-1 MiB of shared memory a block); ``cp.async`` copies at once, and so does a
+ignored). Each CUDA thread is a fiber on the launching host thread (its
+own stack; a switch saves registers, with no system call), and a CTA's
+fibers run in turn, each until it waits at a barrier; a launch makes its
+fibers once and runs them again for each CTA, one CTA at a time, or one
+cluster at a time, its CTAs' fibers together (``cudaLaunchKernelEx`` with
+a cluster dimension; the emulated card holds clusters of 2 CTAs at most,
+and 1 MiB of shared memory a block). A launch so takes one core, whatever
+the CTA's threads, and a loaded host does not stall its barriers; a
+barrier no thread can complete aborts the process with
+``cuda_emu: deadlock`` on stderr; ``cp.async`` copies at once, and so does a
 1-D bulk copy (TMA, ``cp.async.bulk`` on an mbarrier), whose mbarrier wait
 returns at once. The cluster kernel's PTX (csrc/beam_loop.cu: the cluster
 barrier, ``mapa.u64`` to a peer CTA's shared memory, read and written as

@@ -10,7 +10,7 @@ sums, the attention layer's input-row groups) one CTA at a time, so these
 tests hold the source's indexing on a machine without a card; the card-only
 tests in test_torch_gpu.py stay the yardstick of the kernel itself. They
 live in a file of their own so that a test run's workers take them beside
-test_torch_cuda_emu.py's. Needs g++; the emulated library is built once
+the other test_torch_cuda_emu_*.py files. Needs g++; the emulated library is built once
 into ravvent_tpu_torch/build/emu/."""
 
 import shutil

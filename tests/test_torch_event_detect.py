@@ -8,7 +8,7 @@ reference's formula in IEEE f32, as the JAX functions do when run op by op,
 the way the JAX package's own tests call ``detect_boundaries_device``. On the
 CPU the port's peak scan runs its plain version (the blocked scan, its check
 and the sequential fallback in tensor code); the kernel of
-csrc/peak_scan.cu is held against it in tests/test_torch_cuda_emu.py and on
+csrc/peak_scan.cu is held against it in tests/test_torch_cuda_emu_peak_scan.py and on
 the card in tests/test_torch_gpu.py.
 
 Under ``jax.jit`` XLA's CPU backend rewrites ``x / w`` as ``x * (1/w)`` and
@@ -25,7 +25,7 @@ import torch
 from ravvent_tpu.data.event_detector import StreamingEventDetector
 from ravvent_tpu.ops import event_detect as jed
 from ravvent_tpu_torch.ops import event_detect as ted
-from test_torch_cuda_emu import coupling_failure_trace, memory_trace, synth
+from cuda_emu_cases import coupling_failure_trace, memory_trace, synth
 
 torch.set_num_threads(1)
 

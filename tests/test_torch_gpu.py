@@ -24,7 +24,7 @@ from ravvent_tpu_torch.ops import (
     rnn_cuda,
 )
 from ravvent_tpu_torch.weights import to_device
-from test_torch_cuda_emu import peak_scan_inputs, synth
+from cuda_emu_cases import peak_scan_inputs, synth
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)

@@ -43,10 +43,13 @@ TOOL_MODULES = sorted(f"ravvent_tpu_torch.tools.{p.stem}"
 USER_TOOLS = ["make_dataset", "train", "evaluate", "train_curriculum", "sweep_epochs",
               "eval_token_acc", "analyse_accuracies", "params_search", "event_max_estimation",
               "fix_invalid_reads", "plots"]
+# the bench-side tools (the repo root's tools/{sweep_pipeline,floor_probe,
+# bench_scaling,train_profile}.py)
+BENCH_TOOLS = ["bench", "sweep_pipeline", "floor_probe", "bench_scaling", "train_profile"]
 
 
 def test_scan_covers_the_tools():
-    for name in USER_TOOLS:
+    for name in USER_TOOLS + BENCH_TOOLS:
         assert REPO / "ravvent_tpu_torch" / "tools" / f"{name}.py" in FILES, name
     for rel in ("evaluation/guppy.py", "utils/shape_checker.py"):
         assert REPO / "ravvent_tpu_torch" / rel in FILES, rel
@@ -66,4 +69,4 @@ def test_tools_import_without_matplotlib_or_h5py(monkeypatch):
         importlib.import_module(mod)
     with pytest.raises(ImportError):
         importlib.import_module("matplotlib")
-    assert len(TOOL_MODULES) >= len(USER_TOOLS) + 3
+    assert len(TOOL_MODULES) >= len(USER_TOOLS) + len(BENCH_TOOLS) + 3

@@ -40,7 +40,7 @@ from ravvent_tpu_torch.data.event_detector import StreamingEventDetector
 from ravvent_tpu_torch.evaluation.basecall import BasecallEngine, PendingSignal
 from ravvent_tpu_torch.ops import event_detect as ted
 from ravvent_tpu_torch.weights import from_jax_params
-from test_torch_cuda_emu import synth
+from cuda_emu_cases import synth
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
