@@ -12,12 +12,13 @@ mapping evaluator's beam selection, tools/profile_decode.py with a
 torch.profiler trace of the bench's pipelined path, training
 (training/loop.py:Trainer), the multi-device runs, the user CLIs
 (tools/{make_dataset, train, evaluate, train_curriculum, sweep_epochs,
-eval_token_acc}.py) and the bench's entry point (tools/bench.py), and the
-engine's plain decode
+eval_token_acc}.py), the bench's entry point (tools/bench.py), the
+bench-side and the accuracy tools, and the engine's plain decode
 (beam_impl="xla") on flagship32's shape and on GRU, unidirectional and
 Bahdanau configurations — at the flagship's full width (joint raw+event
 input, 2-layer BiLSTM encoder of 128 units, 1-layer LSTM decoder with Luong
-attention, vocab 7, beam 5) on seeded random weights, and holds each
+attention, vocab 7, beam 5) on seeded random weights (phases 15 and 23 also
+on the trained flagship), and holds each
 hand-written kernel against its plain PyTorch version on the card:
 
   0. device: the card, torch, CUDA and nvcc versions; TF32 off;
@@ -26,12 +27,15 @@ hand-written kernel against its plain PyTorch version on the card:
   2. the f32-stream BiLSTM kernel against its plain version for the four
      layer shapes of one chunk (F = 1, 2U, 5, 2U) at each compiled width
      (U = 64, 128, 256) at B=4096, and at 128 units also at B=2858 (the
-     first read's rows), timed beside torch.nn.LSTM in f32;
+     first read's rows) and B=1024 (the accuracy tools' chunk), timed
+     beside torch.nn.LSTM in f32;
   3. the bf16/f32 beam step, two kernels (beam_cell, then beam_attend),
      against its plain version at B=4096, S=232, U=128, W=5: bf16 memory
      over 40 steps, each kernel also against its own plain version on the
      same inputs, then f32 memory over 10 steps, each step fed the plain
-     version's state; the pair and each kernel timed beside its bound, and
+     version's state, and at the evaluate-side tools' B=1024 (W=5 and 1,
+     each kernel also alone; at W=5 each timed beside its bound); the pair
+     and each kernel timed beside its bound, and
      the step at S=8 beside S=232; then the same holds at the other compiled
      widths (csrc/beam_step_shapes.cuh): U=64 and 256 at W=5 on bf16 (40
      steps) and f32 (10 steps), and W=6, 7, 10 and 16 at U=128 on bf16, each
@@ -110,7 +114,13 @@ hand-written kernel against its plain PyTorch version on the card:
      a step); the 3 beams on the card and the CPU on 64 snippets, decoding
      the card's memory and end to end; MappingEvaluator over the reads on
      the compact wire (the phase-aware beam selection) and on sigdev (the
-     top beam);
+     top beam); then the same card-against-CPU check on the trained
+     flagship (ravvent_tpu_torch/assets/flagship.npz) over the first 64
+     snippets of bench.py's first read (tools/bench.py:ensure_dataset):
+     each beam >= 0.998 decoding the card's memory, beam 0 end to end at
+     least the JAX reference's agreement with itself moved by 1e-7 on that
+     input (TRAINED_BF16_NOISE), the lower beams' end-to-end agreement
+     printed;
  16. tools/profile_decode.py: the legs of the first read's decode on the
      compact wire and on sigdev (host pack and unpack, H2D, device compute
      on resident inputs, D2H, end to end; on sigdev also begin, the meta
@@ -242,7 +252,23 @@ hand-written kernel against its plain PyTorch version on the card:
      and its validation batch bilstm 4 times; bench_scaling's meshes of 1
      and 2 shards count and call the same bases; their figures printed.
      After it, no phase that ran the flagship's shape (4, 7, 8, 10, 12, 13,
-     21, 22) took the BiLSTM's plain route.
+     21, 22, 23) took the BiLSTM's plain route.
+ 23. the accuracy tools (ravvent_tpu_torch/tools/{make_results_table,
+     analyze_beam1_gap, exp_conf_gate, crosscheck_mapper}.py) on the
+     trained flagship (weights.load_flagship; no seeded substitute), each
+     main(argv) in process on the card and then with --cpu, over 2 eval
+     reads of 0.8-1.2 kb that tools/make_dataset.py builds:
+     make_results_table (joint:2:1, beams 1 and 5, the npz as a registry's
+     flagship.npz), analyze_beam1_gap and exp_conf_gate on the npz, and
+     crosscheck_mapper's self-check (host code, once). Card against CPU:
+     every (read, beam)'s merged identity and each tool's per-snippet and merged identity means
+     within 0.3 points, the same files, keys and rows, the merged reads
+     equal or banded identity >= 0.999 (phase 20's bar);
+     crosscheck_mapper returns 0 with 8 cases OK. On the card the engine
+     tools launch bilstm 4 times a chunk encoded and beam_cell =
+     beam_attend = beam_step, and no other kernel (bilstm_bf16, beam_loop,
+     decode_step 0, no plain route); the --cpu runs none. The flagship's
+     identities on the card are printed.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -267,6 +293,11 @@ H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores
 H100_INT8_OPS = 1979e12  # dense int8 tensor cores
 SEED = 0
+# phase 15's end-to-end bar for the trained flagship's top beam, card against
+# CPU: the JAX reference's tokens against its own with its encoders' biases
+# moved by 1e-7 on the same input agree on 2030 of 2048 (measured on the CPU
+# by tests/test_torch_bf16_beam_gap.py, which holds this bar no looser)
+TRAINED_BF16_NOISE = 2030 / 2048
 
 
 class SmokeFailure(RuntimeError):
@@ -381,7 +412,8 @@ def phase_bilstm(dtype) -> list:
     f32 = dtype == torch.float32
     gen = torch.Generator().manual_seed(SEED if f32 else SEED + 4)
     # the flagship's width first, so that its draws are those of earlier runs
-    return [bilstm_width(dtype, U, gen, (4096, 2858) if U == 128 else (4096,))
+    flagship = (4096, 2858, 1024) if f32 else (4096, 2858)
+    return [bilstm_width(dtype, U, gen, flagship if U == 128 else (4096,))
             for U in sorted(KERNEL_UNITS, key=lambda u: u != 128)]
 
 
@@ -403,8 +435,9 @@ def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
     names = ["raw L0", "raw L1", "event L0", "event L1"]
     shapes = [(1, 200, False), (2 * U, 200, True), (5, 30, False), (2 * U, 30, True)]
     layers = [stream_weights(init_encoder(gen, U, 1, F, dev), dtype)[0] for F, _, _ in shapes]
-    chunks, err = {}, 0.0
+    chunks, errs = {}, {}
     for B in batches:
+        err = 0.0
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         bound_by = set()
         for lname, (F, T, seeded), (wx, wh, b) in zip(names, shapes, layers):
@@ -445,12 +478,23 @@ def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
               f"{tot['plain_ms']:.3f} ms, torch.nn.LSTM {tot['library_ms']:.3f} ms, bound "
               f"{tot['bound_ms']:.3f} ms", flush=True)
         chunks[B] = (tot, bound_by)
-    tot, bound_by = chunks[4096]
-    return {"name": name, "route": "cuda", "source": f"ravvent_tpu_torch/csrc/{source}.cu",
-            "replaces": "ravvent_tpu/ops/rnn_pallas.py:33", "max_abs_err": err,
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": "operations" if "operations" in bound_by else "bytes",
-            "library_ms": tot["library_ms"]}
+        errs[B] = err
+
+    def entry(B: int, entry_name: str) -> dict:
+        tot, bound_by = chunks[B]
+        return {"name": entry_name, "route": "cuda",
+                "source": f"ravvent_tpu_torch/csrc/{source}.cu",
+                "replaces": "ravvent_tpu/ops/rnn_pallas.py:33", "max_abs_err": errs[B],
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": "operations" if "operations" in bound_by else "bytes",
+                "library_ms": tot["library_ms"]}
+
+    # the 4096-row entry carries the largest error of every chunk; the
+    # 1024-row one (the accuracy tools' chunk) rides along
+    out = dict(entry(4096, name), max_abs_err=max(errs.values()))
+    if 1024 in chunks:
+        out["accuracy_tools"] = entry(1024, f"{name}_accuracy_tools")
+    return out
 
 
 def cell_flops(U: int, V: int, att_rows: int) -> int:
@@ -545,7 +589,7 @@ def check_steps(name: str, step, plain, st, steps: int, B: int, W: int, tol: flo
     return tok_share, par_share, err, st
 
 
-def phase_beam_step() -> list:
+def phase_beam_step() -> tuple:
     """The bf16/f32 beam step (beam_cell, then beam_attend) against
     beam_step_plain at B=4096, S=232, W=5: bf16 memory over 40 steps, with
     each kernel against its own plain version on the same inputs, then f32
@@ -553,7 +597,8 @@ def phase_beam_step() -> list:
     B=1024, W=5 and W=1; each step fed the plain version's state. Times
     the pair and each kernel beside its bound, and the step at S=8. Then
     the other widths (beam_step_width_case). Returns the kernels line's
-    entries of the flagship's kernels and of width_entries."""
+    entries of the flagship's kernels and of width_entries, and those at the
+    accuracy tools' shape (tools_shape_entries)."""
     from ravvent_tpu_torch.models import attention as attn
     from ravvent_tpu_torch.models.decoder import init_decoder
     from ravvent_tpu_torch.ops.beam_step_cuda import (
@@ -573,23 +618,26 @@ def phase_beam_step() -> list:
     keys, values = mem.keys.contiguous(), mem.values.contiguous()
     tol = 1e-2  # cumulative log-prob; h and alignments round to bf16 in both versions
     tol_cell = 1e-4  # h', c', att_h: f32 sums of 256 and 128 terms in another order
-    cell_err = [0.0]
-    attend = {"tok": 0, "par": 0, "n": 0, "err": 0.0}
 
-    def kernels_alone(st, ref, rpar):
-        """Each kernel against its plain version on the same inputs."""
-        plain_cell = cell_plain(st, w)
-        got_cell = beam_cell(st, w)
-        cell_err[0] = max([cell_err[0]] + [(g - r).abs().max().item()
-                                           for g, r in zip(got_cell, plain_cell)])
-        got, gpar = beam_attend(st, *plain_cell, keys, values, mask, w, 1)
-        tok_eq = got.tok.reshape(B, W) == ref.tok.reshape(B, W)
-        both = tok_eq & (gpar == rpar)
-        attend["tok"] += tok_eq.sum().item()
-        attend["par"] += (gpar == rpar).sum().item()
-        attend["n"] += B * W
-        if both.any():
-            attend["err"] = max(attend["err"], (got.cum - ref.cum).abs()[both].max().item())
+    def kernels_alone(k, v, m, Bk: int, Wk: int) -> tuple:
+        """An ``extra`` for check_steps that holds each kernel against its
+        plain version on the same inputs, and the figures it gathers."""
+        stats = {"cell": 0.0, "tok": 0, "par": 0, "n": 0, "err": 0.0}
+
+        def extra(st, ref, rpar):
+            plain_cell = cell_plain(st, w)
+            got_cell = beam_cell(st, w)
+            stats["cell"] = max([stats["cell"]] + [(g - r).abs().max().item()
+                                                   for g, r in zip(got_cell, plain_cell)])
+            got, gpar = beam_attend(st, *plain_cell, k, v, m, w, 1)
+            tok_eq = got.tok.reshape(Bk, Wk) == ref.tok.reshape(Bk, Wk)
+            both = tok_eq & (gpar == rpar)
+            stats["tok"] += tok_eq.sum().item()
+            stats["par"] += (gpar == rpar).sum().item()
+            stats["n"] += Bk * Wk
+            if both.any():
+                stats["err"] = max(stats["err"], (got.cum - ref.cum).abs()[both].max().item())
+        return extra, stats
 
     def step_on(k, v, m):
         return lambda st: beam_step(st, k, v, m, w, 1)
@@ -598,17 +646,19 @@ def phase_beam_step() -> list:
         return lambda st: beam_step_plain(st, k, v, m, w, 1)
 
     st0 = initial_state(B, W, U, 2, dev)
+    extra, attend = kernels_alone(keys, values, mask, B, W)
     tok_share, par_share, err, st_mid = check_steps(
         "beam_step bf16", step_on(keys, values, mask), plain_on(keys, values, mask), st0, steps,
-        B, W, tol, extra=kernels_alone)
+        B, W, tol, extra=extra)
+    cell_err = attend["cell"]
     a_tok, a_par = attend["tok"] / attend["n"], attend["par"] / attend["n"]
     print(f"  beam_step B={B} S={S} W={W} bf16, {steps} steps: tokens agree {tok_share:.5f}, "
           f"parents agree {par_share:.5f} (need >= 0.998); score max_abs_err {err:.3e} "
           f"(tol {tol:g})")
-    print(f"  beam_cell alone: h', c', att_h max_abs_err {cell_err[0]:.3e} (tol {tol_cell:g}); "
+    print(f"  beam_cell alone: h', c', att_h max_abs_err {cell_err:.3e} (tol {tol_cell:g}); "
           f"beam_attend alone, fed the plain cell: tokens agree {a_tok:.5f}, parents agree "
           f"{a_par:.5f} (need >= 0.998), score max_abs_err {attend['err']:.3e} (tol {tol:g})")
-    require(cell_err[0] <= tol_cell, f"beam_cell: error {cell_err[0]:.3e} > {tol_cell}")
+    require(cell_err <= tol_cell, f"beam_cell: error {cell_err:.3e} > {tol_cell}")
     require(a_tok >= 0.998 and a_par >= 0.998, "beam_attend: token/parent agreement < 0.998")
     require(attend["err"] <= tol, f"beam_attend: score error {attend['err']:.3e} > {tol}")
 
@@ -618,15 +668,24 @@ def phase_beam_step() -> list:
     print(f"  beam_step B={B} S={S} W={W} f32, 10 steps: tokens agree {f_tok:.5f}, parents agree "
           f"{f_par:.5f} (need >= 0.998); score max_abs_err {f_err:.3e} (tol {tol:g})")
     # the evaluate-side tools' shapes: chunks of 1024 rows on f32 memory, at
-    # beam widths 5 and 1 (tools/evaluate.py --beams 5,1)
+    # beam widths 5 and 1 (tools/evaluate.py --beams 5,1); at W=5 each kernel
+    # also alone, and timed there beside its bound (the accuracy tools' entries)
     Bc = 1024
     kc, vc, mc = kf[:Bc].contiguous(), vf[:Bc].contiguous(), mask[:Bc].contiguous()
     for Wc in (5, 1):
-        c_tok, c_par, c_err, _ = check_steps(
+        extra, alone = kernels_alone(kc, vc, mc, Bc, Wc)
+        c_tok, c_par, c_err, st_c = check_steps(
             f"beam_step f32 B={Bc} W={Wc}", step_on(kc, vc, mc), plain_on(kc, vc, mc),
-            initial_state(Bc, Wc, U, 2, dev), 10, Bc, Wc, tol)
+            initial_state(Bc, Wc, U, 2, dev), 10, Bc, Wc, tol, extra=extra)
+        a_tok_c, a_par_c = alone["tok"] / alone["n"], alone["par"] / alone["n"]
         print(f"  beam_step B={Bc} S={S} W={Wc} f32, 10 steps: tokens agree {c_tok:.5f}, parents "
-              f"agree {c_par:.5f} (need >= 0.998); score max_abs_err {c_err:.3e} (tol {tol:g})")
+              f"agree {c_par:.5f} (need >= 0.998); score max_abs_err {c_err:.3e} (tol {tol:g}); "
+              f"beam_cell alone {alone['cell']:.3e} (tol {tol_cell:g}); beam_attend alone "
+              f"tokens {a_tok_c:.5f}, parents {a_par_c:.5f}, score {alone['err']:.3e}")
+        require(alone["cell"] <= tol_cell and a_tok_c >= 0.998 and a_par_c >= 0.998
+                and alone["err"] <= tol, f"beam_cell / beam_attend alone, f32 B={Bc} W={Wc}")
+        if Wc == 5:
+            tools = tools_shape_entries(st_c, kc, vc, mc, w, alone, Bc, S, U, Wc, V)
     del kc, vc, mc
 
     # times on a mid-decode state
@@ -673,12 +732,44 @@ def phase_beam_step() -> list:
         cases[(U, W, mode)] = beam_step_width_case(U, W, mode, n)
         torch.cuda.empty_cache()
     return [{"name": "beam_cell", "route": "cuda", "source": src, "replaces": replaces,
-             "max_abs_err": cell_err[0], "ms": cell_ms, "plain_ms": cell_plain_ms,
+             "max_abs_err": cell_err, "ms": cell_ms, "plain_ms": cell_plain_ms,
              "bound_ms": cell_bound, "bound_by": cell_by, "library_ms": None},
             {"name": "beam_attend", "route": "cuda",
              "source": "ravvent_tpu_torch/csrc/beam_attend.cuh", "replaces": replaces, "max_abs_err": attend["err"], "ms": att_ms,
              "plain_ms": att_plain_ms, "bound_ms": att_bound, "bound_by": att_by,
-             "library_ms": None}] + width_entries(cases, replaces)
+             "library_ms": None}] + width_entries(cases, replaces), tools
+
+
+def tools_shape_entries(st, k, v, m, w, alone: dict, B: int, S: int, U: int, W: int,
+                        V: int) -> list:
+    """beam_cell and beam_attend at the accuracy tools' shape (a 1024-row
+    chunk, W=5, f32 memory): each timed on ``st`` beside its plain version
+    and its bound (the attend's dots on f32 memory at the f32 peak), with
+    the errors of each alone (``alone``). Returns their kernels-line entries,
+    named ``<kernel>_accuracy_tools``."""
+    from ravvent_tpu_torch.ops.beam_step_cuda import (
+        attend_plain, beam_attend, beam_cell, cell_plain,
+    )
+
+    cell_ms = time_ms(lambda: beam_cell(st, w), reps=40)
+    cell_plain_ms = time_ms(lambda: cell_plain(st, w), reps=10)
+    hn, cn, ah = beam_cell(st, w)
+    att_ms = time_ms(lambda: beam_attend(st, hn, cn, ah, k, v, m, w, 1), reps=40)
+    att_plain_ms = time_ms(lambda: attend_plain(st, hn, cn, ah, k, v, m, w, 1), reps=5)
+    cell_bound, cell_by = beam_cell_bounds(B * W, U, V)
+    att_bound, att_by = beam_attend_bounds(B, S, U, W, V, 4, mem_peak=H100_F32_FLOPS)
+    print(f"  the accuracy tools' shape, B={B} W={W} f32 memory: beam_cell {cell_ms:.4f} ms, "
+          f"plain {cell_plain_ms:.4f} ms, bound {cell_bound:.4f} ms ({cell_by}); beam_attend "
+          f"{att_ms:.4f} ms, plain {att_plain_ms:.4f} ms, bound {att_bound:.4f} ms ({att_by})")
+    replaces = "ravvent_tpu/ops/beam_loop_pallas.py:333"
+    return [{"name": "beam_cell_accuracy_tools", "route": "cuda",
+             "source": "ravvent_tpu_torch/csrc/beam_step_f.cu", "replaces": replaces,
+             "max_abs_err": alone["cell"], "ms": cell_ms, "plain_ms": cell_plain_ms,
+             "bound_ms": cell_bound, "bound_by": cell_by, "library_ms": None},
+            {"name": "beam_attend_accuracy_tools", "route": "cuda",
+             "source": "ravvent_tpu_torch/csrc/beam_attend.cuh", "replaces": replaces,
+             "max_abs_err": alone["err"], "ms": att_ms, "plain_ms": att_plain_ms,
+             "bound_ms": att_bound, "bound_by": att_by, "library_ms": None}]
 
 
 def beam_step_width_case(U: int, W: int, mode: str, steps: int) -> dict:
@@ -1939,34 +2030,14 @@ def phase_multibeam(smi: str) -> dict:
         require(counts[K]["beam_cell"] == counts[K]["beam_attend"] == counts[K]["beam_step"] > 0,
                 "a step did not launch beam_cell and beam_attend once each")
 
-        # the card against the CPU on 64 snippets: the card's memory, and end to end
-        cpu = BasecallEngine(params, cfg, device="cpu", n_beams=K, **bench)
-        with torch.inference_mode():
-            (raw_c, event_c), = top_k.compact_snippets(sig, rr[:64], ev, er[:64], aux)
-            mem = top_k.memory(raw_c, event_c)
-            same_mem = (top_beam_tokens(top_k, mem, max_len, K)
-                        == top_beam_tokens(cpu, mem.to("cpu"), max_len, K)).float()
-            same_mem = same_mem.mean(dim=(0, 1)).tolist()
-        t_gpu, p_gpu = top_k.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5, aux=aux)
-        t_cpu, _ = cpu.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5, aux=aux)
-        agree = [float((t_gpu[:, k] == t_cpu[:, k]).mean()) for k in range(K)]
-        # a lower beam's row that differs: is its sequence among the CPU's K
-        # (near-tied hypotheses trading ranks) or a hypothesis of its own?
-        cpu_sets = [set(map(tuple, row)) for row in t_cpu]
-        among = [float(np.mean([tuple(t_gpu[i, k]) in cpu_sets[i] for i in range(64)]))
-                 for k in range(K)]
-        print(f"  n_beams={K}, card vs CPU on 64 snippets, by beam: decoding the card's memory, "
-              f"tokens agree {np.round(same_mem, 5).tolist()} (need >= 0.998 each); end to end "
-              f"{np.round(agree, 5).tolist()} (beam 0 needs >= 0.99); the card's beam among the "
-              f"CPU's {K} on {np.round(among, 5).tolist()} of the rows")
-        require(t_gpu.shape == t_cpu.shape == (64, K, top_k._fetch_width(max_len))
-                and np.isfinite(p_gpu).all(), "bad top-K result shape or probs")
-        require(min(same_mem) >= 0.998, "card and CPU decode the same memory's top-K differently")
+        # the card against the CPU on 64 snippets: the card's memory, and end to end;
         # as phases 4 and 12 (the top beam): the bf16 encoder kernel's
         # last-bit differences from its plain version can flip a near-tie of
         # seeded weights; the lower beams are closer ties still, and their
         # end-to-end figures are printed (ROADMAP.md section C)
-        require(agree[0] >= 0.99, "card and CPU disagree on the top beam's tokens end to end")
+        cpu = BasecallEngine(params, cfg, device="cpu", n_beams=K, **bench)
+        card_against_cpu("seeded weights, the first read's", top_k, cpu,
+                         (sig, rr, ev, er, max_len, aux), 0.99, smi)
 
         # MappingEvaluator: the selection on the compact wire, the top beam on sigdev
         picks, dims = [], []
@@ -1997,7 +2068,68 @@ def phase_multibeam(smi: str) -> dict:
               f"(need one selection a read); sigdev results {dims}-D, no selection there")
         require(len(picks) == len(paths), "the beam selection did not run once a read")
         require(dims == [3] * len(paths), "sigdev did not return the top-K beams")
+    trained_multibeam(smi, cfg, K, bench)
     return counts[K]
+
+
+def card_against_cpu(what: str, card, cpu, read: tuple, bar: float, smi: str) -> None:
+    """Phase 15's top-K check, card against CPU on a read's first 64
+    snippets: decoding the card's memory (>= 0.998 in each beam) and end to
+    end (beam 0 >= ``bar``; the lower beams printed, with how often the
+    card's beam is among the CPU's K)."""
+    sig, rr, ev, er, max_len, aux = read
+    K = card.n_beams
+    with torch.inference_mode():
+        (raw_c, event_c), = card.compact_snippets(sig, rr[:64], ev, er[:64], aux)
+        mem = card.memory(raw_c, event_c)
+        same_mem = (top_beam_tokens(card, mem, max_len, K)
+                    == top_beam_tokens(cpu, mem.to("cpu"), max_len, K)).float()
+        same_mem = same_mem.mean(dim=(0, 1)).tolist()
+    t_gpu, p_gpu = card.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5, aux=aux)
+    t_cpu, _ = cpu.predict_beam_compact(sig, rr[:64], ev, er[:64], max_len, 5, aux=aux)
+    agree = [float((t_gpu[:, k] == t_cpu[:, k]).mean()) for k in range(K)]
+    # a lower beam's row that differs: is its sequence among the CPU's K
+    # (near-tied hypotheses trading ranks) or a hypothesis of its own?
+    cpu_sets = [set(map(tuple, row)) for row in t_cpu]
+    among = [float(np.mean([tuple(t_gpu[i, k]) in cpu_sets[i] for i in range(64)]))
+             for k in range(K)]
+    print(f"  n_beams={K}, {what}, card vs CPU on 64 snippets, by beam: decoding the card's "
+          f"memory, tokens agree {np.round(same_mem, 5).tolist()} (need >= 0.998 each); end to "
+          f"end {np.round(agree, 5).tolist()} (beam 0 needs >= {bar:.5f}); the card's beam "
+          f"among the CPU's {K} on {np.round(among, 5).tolist()} of the rows [{smi}]")
+    require(t_gpu.shape == t_cpu.shape == (64, K, card._fetch_width(max_len))
+            and np.isfinite(p_gpu).all(), f"bad top-K result shape or probs ({what})")
+    require(min(same_mem) >= 0.998,
+            f"card and CPU decode the same memory's top-K differently ({what})")
+    require(agree[0] >= bar, f"card and CPU disagree on the top beam's tokens end to end ({what})")
+
+
+def trained_multibeam(smi: str, cfg, K: int, settings: dict) -> None:
+    """Phase 15 on the trained flagship (assets/flagship.npz): the bench's
+    settings with n_beams=K on the first 64 snippets of the bench's first
+    read (tools/bench.py:ensure_dataset), card against CPU. The flagship
+    maps these reads at chance, and its near-tied decisions follow the bf16
+    stream's rounding of h, which the f32 sums' order moves: beam 0's bar end
+    to end is the JAX reference's agreement with itself moved by 1e-7 on
+    this input (TRAINED_BF16_NOISE, tests/test_torch_bf16_beam_gap.py)."""
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.data.snippets import load_read_compact_ex
+    from ravvent_tpu_torch.evaluation.basecall import BasecallEngine
+    from ravvent_tpu_torch.tools import bench as bench_tool
+    from ravvent_tpu_torch.weights import load_flagship
+
+    params = load_flagship()
+    card = BasecallEngine(params, cfg, n_beams=K, **settings)
+    cpu = BasecallEngine(params, cfg, device="cpu", n_beams=K, **settings)
+    with tempfile.TemporaryDirectory() as tmp:
+        fi, _ = bench_tool.ensure_dataset(Path(tmp) / "bench", n_reads=1, n_stream_reads=1)
+        p = json.loads(fi.read_text())[0]["signal_path"]
+        sig, rr, ev, er, nuc, aux = load_read_compact_ex(p, Path(p).with_suffix(".label"), 6)
+    max_len = int((nuc != 0).sum(axis=1).max())
+    card_against_cpu("the trained flagship, the bench's first read's", card, cpu,
+                     (sig, rr, ev, er, max_len, aux), TRAINED_BF16_NOISE, smi)
 
 
 def phase_profile(smi: str) -> dict:
@@ -3396,12 +3528,11 @@ def phase_bench_tool(smi: str, identity: bool = True) -> dict:
             "pipelined": {w: r["bases_per_s"] for w, r in pipes.items()}}
 
 
-def run_tool(module, argv: list) -> tuple:
-    """A bench-side tool's main(argv) in process, its stdout captured, the
-    launches counted from 0 and the chunks encoded (BasecallEngine.memory
-    calls, each encodes one, on any shard). Requires its last printed line
-    to be the JSON object main returns. Returns (that object, the launch
-    counts, the chunks encoded, seconds)."""
+def call_tool(module, argv: list) -> tuple:
+    """A tool's main(argv) in process, its stdout captured, the launches
+    counted from 0 and the chunks encoded (BasecallEngine.memory calls,
+    each encodes one, on any shard). Returns (what main returns, the launch
+    counts, the chunks encoded, seconds, the printed lines)."""
     import contextlib
     import io
 
@@ -3427,11 +3558,18 @@ def run_tool(module, argv: list) -> tuple:
         secs = time.perf_counter() - t0
     finally:
         BasecallEngine.memory = memory
-    printed = out.getvalue().strip().splitlines()
+    return res, dict(cuda_lib.launches), encoded[0], secs, out.getvalue().strip().splitlines()
+
+
+def run_tool(module, argv: list) -> tuple:
+    """A bench-side tool's :func:`call_tool`, its last printed line required
+    to be the JSON object main returns. Returns (that object, the launch
+    counts, the chunks encoded, seconds)."""
+    res, counts, encoded, secs, printed = call_tool(module, argv)
     name = module.__name__.rpartition(".")[2]
     require(bool(printed) and json.loads(printed[-1]) == res,
             f"{name}'s last line is not its JSON object")
-    return res, dict(cuda_lib.launches), encoded[0], secs
+    return res, counts, encoded, secs
 
 
 def require_engine_launches(name: str, counts: dict, encoded: int, sigdev: bool) -> None:
@@ -3549,6 +3687,167 @@ def phase_bench_side_tools(smi: str) -> dict:
     return counts
 
 
+def phase_accuracy_tools(smi: str) -> dict:
+    """Phase 23 (the module's docstring). Returns the card runs' launch
+    counts by tool."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from ravvent_tpu_torch.assembly.alignment import banded_global_identity
+    from ravvent_tpu_torch.evaluation.mapping import MappingEvaluator
+    from ravvent_tpu_torch.tools import (
+        analyze_beam1_gap, crosscheck_mapper, exp_conf_gate, make_dataset, make_results_table,
+    )
+    from ravvent_tpu_torch.weights import FLAGSHIP_NPZ, load_flagship
+
+    load_flagship()  # raises without the npz: no seeded substitute
+    tol = 0.003  # 0.3 points of identity, as a fraction
+    counts = {}
+    merged = []
+    map_identity = MappingEvaluator.map_identity
+
+    def recording(self, pred_seq, ref_seq):
+        merged.append(pred_seq)
+        return map_identity(self, pred_seq, ref_seq)
+
+    def both(name, module, argv, sides=None):
+        """The tool on the card, then with --cpu (each side's own arguments
+        in ``sides``): the card's and the CPU's results and printed lines;
+        the merged reads of the two runs held together, and the card run's
+        launches to the f32 evaluate path's: bilstm 4 a chunk encoded,
+        beam_cell = beam_attend = beam_step, nothing else."""
+        out = {}
+        for side, extra in (("card", []), ("cpu", ["--cpu"])):
+            start = len(merged)
+            res, c, enc, secs, printed = call_tool(
+                module, argv + extra + (sides or {}).get(side, []))
+            out[side] = (res, merged[start:], printed)
+            if side == "card":
+                counts[name] = c
+                others = {k: v for k, v in c.items() if v and k not in (
+                    "bilstm", "beam_cell", "beam_attend", "beam_step")}
+                print(f"  {name} on the card: {secs:.2f} s; launches bilstm {c['bilstm']} over "
+                      f"{enc} chunks encoded, beam_cell {c['beam_cell']}, beam_attend "
+                      f"{c['beam_attend']}, beam_step {c['beam_step']}; others {others}")
+                require(enc > 0 and c["bilstm"] == 4 * enc,
+                        f"{name}: bilstm did not launch 4 times a chunk encoded")
+                require(c["beam_cell"] > 0 and c["beam_cell"] == c["beam_attend"]
+                        == c["beam_step"], f"{name}: a step did not launch beam_cell and "
+                        "beam_attend once each")
+                require(not others, f"{name} launched bilstm_bf16, beam_loop, "
+                        "decode_step or another kernel, or took the BiLSTM's plain route")
+            else:
+                print(f"  {name} --cpu: {secs:.2f} s")
+                require(not any(c.values()), f"{name} --cpu launched a kernel")
+        card_m, cpu_m = out["card"][1], out["cpu"][1]
+        require(len(card_m) == len(cpu_m), f"{name}: card and CPU mapped other reads")
+        if not card_m:
+            return out["card"][0], out["cpu"][0], out["card"][2], out["cpu"][2]
+        agree = [banded_global_identity(a, b) for a, b in zip(card_m, cpu_m)]
+        same = sum(m for m, _, _ in agree) / max(sum(n for _, n, _ in agree), 1)
+        n_equal = sum(a == b for a, b in zip(card_m, cpu_m))
+        print(f"  {name}: merged reads card vs CPU {n_equal} of {len(agree)} equal, banded "
+              f"identity {same:.5f} (need >= 0.999)")
+        require(n_equal == len(agree) or same >= 0.999,
+                f"{name}: card and CPU merged reads differ (banded identity {same:.5f})")
+        return out["card"][0], out["cpu"][0], out["card"][2], out["cpu"][2]
+
+    def close(a, b, what):
+        require(abs(a - b) <= tol, f"{what}: card {a} and CPU {b} differ by more than 0.3 points")
+
+    MappingEvaluator.map_identity = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            make_dataset.build(d / "ds", 43, genome_len=20_000, train_reads=0, eval_reads=2,
+                               read_len=(800, 1200), seed=11)
+            fi = str(d / "ds" / "eval" / "files_info.snippets.stride_6.json")
+            reg = d / "registry"
+            reg.mkdir()
+            shutil.copyfile(FLAGSHIP_NPZ, reg / "flagship.npz")
+            cache = str(d / "cache")
+
+            # make_results_table: the per-read identities and the tables
+            tables = {side: d / f"table_{side}" for side in ("card", "cpu")}
+            card, cpu, _, _ = both(
+                "make_results_table", make_results_table,
+                ["--configs", "joint:2:1", "--beams", "1,5", "--dataset", f"lambda={fi}",
+                 "--checkpoints-dir", str(reg)],
+                {side: ["--results-dir", str(t)] for side, t in tables.items()})
+            files = {side: sorted(str(p.relative_to(tables[side]))
+                                  for p in tables[side].rglob("*") if p.is_file())
+                     for side in tables}
+            require(files["card"] == files["cpu"] and len(files["card"]) == 5,
+                    f"make_results_table wrote other files on the card and the CPU: {files}")
+            for name in files["card"]:
+                if not name.startswith("per_read/"):
+                    continue
+                rc, rh = (json.loads((tables[side] / name).read_text()) for side in tables)
+                require([(r["path"], sorted(r)) for r in rc]
+                        == [(r["path"], sorted(r)) for r in rh],
+                        f"{name}: card and CPU records differ in reads or keys")
+                for a, b in zip(rc, rh):
+                    close(a["identity"], b["identity"], f"{name} {Path(a['path']).name}")
+            require(sorted(card) == sorted(cpu) == [("lambda", 1), ("lambda", 5)],
+                    "make_results_table's totals name other datasets or beams")
+            for key in card:
+                require(list(card[key]) == list(cpu[key]) == ["(2, 1)"]
+                        and list(card[key]["(2, 1)"]) == list(cpu[key]["(2, 1)"]) == ["joint"],
+                        "make_results_table's rows differ")
+                require(abs(card[key]["(2, 1)"]["joint"][0] - cpu[key]["(2, 1)"]["joint"][0])
+                        <= 0.3, f"make_results_table beam {key[1]}: totals differ by more "
+                        "than 0.3 points")
+            print(f"  the trained flagship, make_results_table over 2 reads of 0.8-1.2 kb: "
+                  f"[total, valid, invalid%] beam 1 {card[('lambda', 1)]['(2, 1)']['joint']}, "
+                  f"beam 5 {card[('lambda', 5)]['(2, 1)']['joint']} on the card; CPU beam 1 "
+                  f"{cpu[('lambda', 1)]['(2, 1)']['joint']}, beam 5 "
+                  f"{cpu[('lambda', 5)]['(2, 1)']['joint']} [{smi}]")
+
+            # analyze_beam1_gap: per (read, beam), merged and per-snippet identity
+            study = ["--checkpoint", str(FLAGSHIP_NPZ), "--data-type", "joint",
+                     "--encoder-depth", "2", "--files-info", fi, "--cache-dir", cache]
+            card, cpu, _, _ = both("analyze_beam1_gap", analyze_beam1_gap, study)
+            require(sorted(card) == sorted(cpu) and card["reads"] == cpu["reads"] == 2
+                    and [r["read"] for r in card["rows"]] == [r["read"] for r in cpu["rows"]],
+                    "analyze_beam1_gap's summaries differ in keys or reads")
+            for a, b in zip(card["rows"], cpu["rows"]):
+                for beam in ("beam5", "beam1"):
+                    require(sorted(a[beam]) == sorted(b[beam]), "analyze_beam1_gap's rows differ")
+                    for k in ("merged_identity", "snippet_identity_mean"):
+                        close(a[beam][k], b[beam][k], f"analyze_beam1_gap {a['read']} {beam} {k}")
+            for k in ("snippet_identity_mean", "merged_identity_mean"):
+                for beam in (5, 1):
+                    close(card[k][beam], cpu[k][beam], f"analyze_beam1_gap {k} beam {beam}")
+            print(f"  the trained flagship, analyze_beam1_gap over 2 reads on the card: "
+                  f"per-snippet identity {card['snippet_identity_mean']}, merged "
+                  f"{card['merged_identity_mean']}, deltas {card['snippet_delta']} / "
+                  f"{card['merged_delta']}; CPU per-snippet {cpu['snippet_identity_mean']}, "
+                  f"merged {cpu['merged_identity_mean']} [{smi}]")
+
+            # exp_conf_gate: the gate grid's mean merged identities
+            card, cpu, _, _ = both("exp_conf_gate", exp_conf_gate, study)
+            require(list(card) == list(cpu) == ["baseline", "g0.12_-0.15_0.12",
+                                                "g0.12_-0.15_0.25_2"]
+                    and all(list(card[k]) == list(cpu[k]) for k in card),
+                    "exp_conf_gate's results differ in keys")
+            for k in card:
+                for beam in ("beam5", "beam1"):
+                    close(card[k][beam], cpu[k][beam], f"exp_conf_gate {k} {beam}")
+            print(f"  exp_conf_gate on the card: {card}; CPU {cpu}")
+
+            # crosscheck_mapper: the self-check, host code, once
+            rc, c, enc, secs, printed = call_tool(crosscheck_mapper, [])
+            counts["crosscheck_mapper"] = c
+            oks = [ln for ln in printed if ln.endswith(" OK")]
+            print(f"  crosscheck_mapper: {secs:.2f} s, returns {rc}, {len(oks)} cases OK")
+            require(rc == 0 and len(oks) == 8, "crosscheck_mapper's self-check failed")
+            require(not any(c.values()) and enc == 0, "crosscheck_mapper launched a kernel")
+    finally:
+        MappingEvaluator.map_identity = map_identity
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3564,7 +3863,7 @@ def main() -> int:
     k_bilstm = phase_bilstm(torch.float32)
     phase("2 bilstm kernel", t0)
     t0 = time.perf_counter()
-    k_step = phase_beam_step()
+    k_step, k_step_tools = phase_beam_step()
     phase("3 beam_step: beam_cell + beam_attend, at 64, 128 and 256 units and W = 1-16", t0)
     t0 = time.perf_counter()
     counts = phase_end_to_end()
@@ -3628,12 +3927,17 @@ def main() -> int:
     side = phase_bench_side_tools(smi)
     phase("22 the bench-side tools: sweep_pipeline, floor_probe, bench_scaling, "
           "train_profile", t0)
+    t0 = time.perf_counter()
+    accuracy = phase_accuracy_tools(smi)
+    phase("23 the accuracy tools on the trained flagship: make_results_table, "
+          "analyze_beam1_gap, exp_conf_gate, crosscheck_mapper", t0)
     # no BiLSTM layer of the flagship's shape takes the plain route
     for name, c in (("4", counts), ("7", counts_loop), ("8", counts_greedy),
                     ("10", counts_bench), ("12 i8", counts_i8["i8"]),
                     ("12 i8mxu", counts_i8["i8mxu"]), ("13", counts_sig),
                     ("21", tool["counts"]),
-                    *((f"22 {k}", v) for k, v in side.items())):
+                    *((f"22 {k}", v) for k, v in side.items()),
+                    *((f"23 {k}", v) for k, v in accuracy.items())):
         require(c["bilstm_plain_route"] == 0, f"phase {name} ran a BiLSTM layer of the "
                 "flagship's shape on its plain route")
     # launches of each kernel on its own path's run; the BiLSTM kernels' at
@@ -3677,10 +3981,19 @@ def main() -> int:
     k_i8["launches"] = counts_i8["i8"]["beam_attend_i8"]
     k_i8mxu["launches"] = counts_i8["i8mxu"]["beam_attend_i8mxu"]
     k_peak["launches"] = counts_sig["peak_scan"]
+    # phase 23's path, the accuracy tools on the card (f32 stream and
+    # memory): the figures of phases 2 and 3 at the tools' shape (a 1024-row
+    # chunk; beam 5), the launches of its card runs
+    k_accuracy = [k_bilstm[0].pop("accuracy_tools"), *k_step_tools]
+    for kd in k_accuracy:
+        kernel = kd["name"].removesuffix("_accuracy_tools")
+        kd["launches"] = sum(c[kernel] for c in accuracy.values())
+        require(kd["launches"] > 0, f"{kernel} did not launch on phase 23's run")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in (
-        *k_bilstm, *k_step, k_loop, k_dstep, *k_widths, *k_bf16, k_i8, k_i8mxu, k_peak)]}))
+        *k_bilstm, *k_step, k_loop, k_dstep, *k_widths, *k_bf16, k_i8, k_i8mxu, k_peak,
+        *k_accuracy)]}))
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

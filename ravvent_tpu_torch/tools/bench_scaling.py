@@ -221,7 +221,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--beam", type=int, default=5)
     add_bench_flags(ap, DATA_DIR)
     args = ap.parse_args(argv)
-    # not common.bench_device: without --device (None) each shard takes a card of its own
+    # not common.tool_device: without --device (None) each shard takes a card of its own
     device = "cpu" if args.cpu else args.device
     out = run_scaling([int(s) for s in args.sizes.split(",")], args.virtual, device,
                       args.pipelined, args.compare_single, args.reads, args.read_len, args.chunk,

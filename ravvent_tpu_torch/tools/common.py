@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from pathlib import Path
 from typing import Iterable, Optional, Union
 
@@ -93,22 +94,57 @@ def device_name(device: torch.device) -> str:
 def add_bench_flags(ap: argparse.ArgumentParser, data_dir) -> None:
     """The bench-side tools' shared flags (tools/{sweep_pipeline,
     floor_probe, bench_scaling, train_profile}.py): ``--weights w.npz |
-    --seed N``, ``--data-dir`` and ``--cpu | --device``."""
+    --seed N``, ``--data-dir`` and :func:`add_device_flags`."""
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--weights", help="npz of the JAX parameter tree (ravvent_tpu_torch.weights)")
     src.add_argument("--seed", type=int, default=0, help="seeded random weights (no --weights)")
     ap.add_argument("--data-dir", default=str(data_dir), help="the reads, made there when missing")
+    add_device_flags(ap)
+
+
+def add_device_flags(ap: argparse.ArgumentParser) -> None:
+    """``--cpu | --device DEV``: where a tool runs, the first card unless
+    one of them is given (:func:`tool_device`)."""
     dev = ap.add_mutually_exclusive_group()
     dev.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     dev.add_argument("--device", default=None, help="a torch device, e.g. cuda:1")
 
 
-def bench_device(args: argparse.Namespace) -> torch.device:
-    """The device of :func:`add_bench_flags`' flags: the first card unless
-    ``--cpu`` or ``--device``."""
+def tool_device(args: argparse.Namespace) -> torch.device:
+    """The device of :func:`add_device_flags`' flags: the first card unless
+    ``--cpu`` or ``--device``; raises when a card is asked for and there is
+    none."""
     return resolve_device("cpu" if args.cpu else args.device)
 
 
 def stream_paths(files_info) -> list:
     """The signal paths of a files-info JSON, in its order."""
     return [v["signal_path"] for v in json.loads(Path(files_info).read_text())]
+
+
+def add_study_flags(ap: argparse.ArgumentParser, reads: int) -> None:
+    """The flags of the studies over a checkpoint (tools/{analyze_beam1_gap,
+    exp_conf_gate}.py), with the JAX tools' defaults: the model's depths
+    and types (at the flagship's widths), the reads, their snippet cache,
+    and :func:`add_device_flags`."""
+    ap.add_argument("--checkpoint", required=True, help="port checkpoint dir or npz of weights")
+    ap.add_argument("--data-type", default="raw")
+    ap.add_argument("--encoder-depth", type=int, default=3)
+    ap.add_argument("--decoder-depth", type=int, default=1)
+    ap.add_argument("--rnn-type", default="bilstm")
+    ap.add_argument("--files-info", required=True)
+    ap.add_argument("--cache-dir", default=None)
+    ap.add_argument("--reads", type=int, default=reads)
+    add_device_flags(ap)
+
+
+def study_engine(args: argparse.Namespace, beams):
+    """The studies' engine: :func:`eval_engine` of ``--checkpoint`` and the
+    flags' model, on the flags' device, for ``beams``."""
+    device = tool_device(args)
+    cfg = ModelConfig(encoder_depth=args.encoder_depth, decoder_depth=args.decoder_depth,
+                      rnn_type=args.rnn_type, data_type=args.data_type)
+    engine = eval_engine(load_params(args.checkpoint), cfg, device, beams)
+    print(f"engine: beam_impl={engine.beam_impl} on {device} ({device_name(device)})",
+          file=sys.stderr)
+    return engine

@@ -57,7 +57,7 @@ from ravvent_tpu_torch.evaluation.performance import (
     PerformanceEvaluator, flatten_calls, merge_snippets,
 )
 from ravvent_tpu_torch.tools import bench
-from ravvent_tpu_torch.tools.common import add_bench_flags, bench_device, stream_paths
+from ravvent_tpu_torch.tools.common import add_bench_flags, stream_paths, tool_device
 
 PIPE_KEYS = ("wall_s", "bases_per_s", "stages_s", "bases_num")
 
@@ -195,7 +195,7 @@ def main(argv=None) -> dict:
     add_bench_flags(ap, bench.DATA_DIR)
     args = ap.parse_args(argv)
     out = run_probe(args.data_dir, args.reads, beam_width=args.beam, chunk_size=args.chunk,
-                    device=bench_device(args), weights=args.weights, seed=args.seed)
+                    device=tool_device(args), weights=args.weights, seed=args.seed)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=2))

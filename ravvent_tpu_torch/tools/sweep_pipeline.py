@@ -37,7 +37,7 @@ from ravvent_tpu_torch.config import ModelConfig
 from ravvent_tpu_torch.evaluation.basecall import resolve_device
 from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
 from ravvent_tpu_torch.tools import bench
-from ravvent_tpu_torch.tools.common import add_bench_flags, bench_device, stream_paths
+from ravvent_tpu_torch.tools.common import add_bench_flags, stream_paths, tool_device
 
 METRIC = "pipeline depth sweep"
 
@@ -89,7 +89,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     configs = [tuple(int(x) for x in pair.split(":")) for pair in args.configs.split(",")]
     out = run_sweep(args.data_dir, configs, [int(m) for m in args.mults.split(",")],
-                    args.passes, args.beam, bench_device(args), args.weights, args.seed)
+                    args.passes, args.beam, tool_device(args), args.weights, args.seed)
     print(json.dumps(out))
     return out
 

@@ -53,7 +53,7 @@ from ravvent_tpu_torch.config import DataConfig, ModelConfig, RunConfig, TrainCo
 from ravvent_tpu_torch.data.generator import SnippetBatchGenerator
 from ravvent_tpu_torch.evaluation.basecall import resolve_device
 from ravvent_tpu_torch.tools import bench
-from ravvent_tpu_torch.tools.common import add_bench_flags, bench_device, load_params
+from ravvent_tpu_torch.tools.common import add_bench_flags, load_params, tool_device
 from ravvent_tpu_torch.training.loop import Trainer
 
 
@@ -176,7 +176,7 @@ def main(argv=None) -> dict:
     files_info = args.files_info or find_files_info(args.data_dir)
     out = run_profile(files_info, str(Path(files_info).parent / ".cache"),
                       args.data_types.split(","), args.steps, args.batch_size,
-                      bench_device(args), weights=args.weights, seed=args.seed)
+                      tool_device(args), weights=args.weights, seed=args.seed)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=2))

@@ -77,3 +77,16 @@ def save_npz(path: Union[str, Path], params) -> None:
 def load_npz(path: Union[str, Path]) -> Params:
     with np.load(path) as z:
         return unflatten({k: z[k] for k in z.files})
+
+
+# the trained flagship (checkpoints/flagship of the JAX package) as
+# save_npz writes it; the card's machine reads no Orbax checkpoint
+FLAGSHIP_NPZ = Path(__file__).resolve().parent / "assets" / "flagship.npz"
+
+
+def load_flagship() -> Params:
+    """The trained flagship's parameters (:data:`FLAGSHIP_NPZ`) as CPU
+    tensors; raises ``FileNotFoundError`` when the file is missing."""
+    if not FLAGSHIP_NPZ.is_file():
+        raise FileNotFoundError(f"the trained flagship's weights are missing: {FLAGSHIP_NPZ}")
+    return load_npz(FLAGSHIP_NPZ)

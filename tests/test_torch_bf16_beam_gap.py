@@ -10,7 +10,14 @@ of (row, step) pairs on an agreeing prefix. The yardstick is the XLA path
 against itself with its memory input moved by 1e-7 relative: f32 noise
 ahead of the bf16 roundings of h and of the alignments. The port's gap must
 stay within that one; the kernel's and XLA's shared summation order keeps
-them closer than either is to an input 1e-7 away."""
+them closer than either is to an input 1e-7 away.
+
+The trained flagship on chip_smoke.py phase 15's input parts the same way:
+its bf16 stream's tokens move with the f32 sums' order as far as the
+card's kernels move them, and the JAX engine's further still."""
+
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -97,3 +104,80 @@ def test_bf16_beam_gap_is_within_the_references_own_noise():
     assert ref_kernel[0] >= 0.998
     assert ported[0] >= noise[0] and ported[1] >= noise[1]
     assert noise[0] < 0.998  # the set-up is as sensitive as claimed
+
+
+def test_trained_flagships_bf16_stream_parts_on_the_bench_read_within_its_own_noise(
+        tmp_path, monkeypatch):
+    """chip_smoke.py phase 15's trained-flagship input: the bench's settings
+    (i8dev wire, bf16 encoder stream and memory, 4-bit probabilities, beam
+    5) over the first 64 snippets of bench.py's first read. The flagship
+    maps these reads at chance, so its decisions are near ties that follow
+    the bf16 rounding of h at each encoder step. The yardstick: the JAX
+    engine against itself with its encoders' f32 biases moved by 1e-7
+    relative. Two things part the port from the JAX engine on the bf16
+    stream: that noise, and the i8dev wire's event features, which the port
+    evaluates exactly (f64) and the reference in f32 (tests/test_torch_wire.py).
+    Given the port's features, the JAX engine stays within its own noise of
+    the port; its own f32 features part it from itself further. The card's
+    end-to-end bar in phase 15 (chip_smoke.TRAINED_BF16_NOISE) is no looser
+    than that noise. On f32 the port and the JAX engine are equal."""
+    import chip_smoke
+    from ravvent_tpu.evaluation import basecall as jbc
+    from ravvent_tpu.training.checkpoints import CheckpointManager
+    from ravvent_tpu_torch.config import ModelConfig
+    from ravvent_tpu_torch.data.snippets import load_read_compact_ex
+    from ravvent_tpu_torch.evaluation import basecall as tbc
+    from ravvent_tpu_torch.tools import bench
+    from ravvent_tpu_torch.weights import load_flagship
+
+    fi, _ = bench.ensure_dataset(tmp_path / "bench", n_reads=1, n_stream_reads=1)
+    p = json.loads(fi.read_text())[0]["signal_path"]
+    sig, rr, ev, er, nuc, aux = load_read_compact_ex(p, p.replace(".signal", ".label"), 6)
+    max_len, n = int((nuc != 0).sum(axis=1).max()), 64
+    repo = Path(__file__).resolve().parents[1]
+    tree = CheckpointManager(str(repo / "checkpoints")).restore_numpy("flagship")["params"]
+    rng = np.random.default_rng(1)
+    moved = {k: [{d: dict(cell, bias=(cell["bias"] * (1 + 1e-7 * rng.normal(
+        size=cell["bias"].shape))).astype(np.float32)) for d, cell in layer.items()}
+        for layer in v] if k.startswith("encoder") else v for k, v in tree.items()}
+
+    def port_features(sig, lens, n_ev, hdr1, ovr):
+        def f(*a):
+            s, l, k, h, o = (torch.from_numpy(np.array(x)) for x in a)
+            return tbc._device_event_features(s, l.long(), int(k), h, o).numpy()
+        return jax.pure_callback(f, jax.ShapeDtypeStruct((lens.shape[0], 5), jnp.float32),
+                                 sig, lens, n_ev, hdr1, ovr)
+
+    def jax_tokens(params, dtype, features=None):
+        if features is not None:
+            monkeypatch.setattr(jbc, "_device_event_features", features)
+        eng = jbc.BasecallEngine(params, JConfig(), chunk_size=n, memory_dtype=dtype,
+                                 project_values=True, beam_impl="xla", encoder_dtype=dtype,
+                                 pack_u8=True, transport_dtype="i8dev", prob_bits=4)
+        out = eng.predict_beam_compact(sig, rr[:n], ev, er[:n], max_len, 5, aux=aux)[0]
+        monkeypatch.undo()
+        return np.asarray(out)
+
+    def port_tokens(dtype):
+        eng = tbc.BasecallEngine(load_flagship(), ModelConfig(), chunk_size=n,
+                                 memory_dtype=dtype, encoder_dtype=dtype,
+                                 transport_dtype="i8dev", prob_bits=4, device="cpu")
+        return eng.predict_beam_compact(sig, rr[:n], ev, er[:n], max_len, 5, aux=aux)[0]
+
+    jax_bf16, port = jax_tokens(tree, jnp.bfloat16), port_tokens(torch.bfloat16)
+    noise = _agreement(jax_tokens(moved, jnp.bfloat16), jax_bf16)
+    given = jax_tokens(tree, jnp.bfloat16, port_features)
+    same_features, jax_features = _agreement(port, given), _agreement(given, jax_bf16)
+    vs_jax = _agreement(port, jax_bf16)
+    print(f"trained flagship, bench settings, bench read 0, 64 snippets, top beam, tokens / "
+          f"prefix: the JAX engine against itself moved 1e-7 {noise[0]:.5f} / {noise[1]:.5f}; "
+          f"the port against the JAX engine given the port's event features "
+          f"{same_features[0]:.5f} / {same_features[1]:.5f}; the JAX engine given them against "
+          f"itself {jax_features[0]:.5f} / {jax_features[1]:.5f}; the port against the JAX "
+          f"engine {vs_jax[0]:.5f} / {vs_jax[1]:.5f} (phase 15's bar on the card "
+          f"{chip_smoke.TRAINED_BF16_NOISE:.5f})")
+    assert np.array_equal(port_tokens(None), jax_tokens(tree, None))
+    assert noise[0] < 0.998  # the input is as sensitive as claimed
+    assert same_features[0] >= noise[0] and same_features[1] >= noise[1]
+    assert jax_features[0] < 1.0  # the reference's f32 features move its tokens
+    assert chip_smoke.TRAINED_BF16_NOISE >= noise[0]

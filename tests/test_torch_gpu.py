@@ -799,3 +799,32 @@ def test_begin_beam_signal_does_not_wait_on_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     tokens, probs = eng.collect_beam_compact(eng.finish_beam_signal(seg, 40, 5))
     assert tokens.shape[0] == eng._signal_meta(seg)[1] > 100 and np.isfinite(probs).all()
+
+
+def test_analyze_beam1_gap_on_card_matches_cpu(cuda, tmp_path):
+    """tools/analyze_beam1_gap.py on the trained flagship (assets/
+    flagship.npz) over one read of 800-1200 bases, on the card and with
+    --cpu: each beam's merged and per-snippet identities within 0.3 points
+    (chip_smoke.py phase 23's bar), the f32 BiLSTM kernel 4 times a chunk
+    and the beam step's kernels once a step."""
+    from ravvent_tpu_torch.tools import analyze_beam1_gap, make_dataset
+    from ravvent_tpu_torch.weights import FLAGSHIP_NPZ
+
+    make_dataset.build(tmp_path / "ds", 43, genome_len=20_000, train_reads=0, eval_reads=2,
+                       read_len=(800, 1200), seed=11)
+    argv = ["--checkpoint", str(FLAGSHIP_NPZ), "--data-type", "joint", "--encoder-depth", "2",
+            "--files-info", str(tmp_path / "ds" / "eval" / "files_info.snippets.stride_6.json"),
+            "--reads", "1", "--cache-dir", str(tmp_path / "cache")]
+    cuda_lib.reset_launches()
+    card = analyze_beam1_gap.main(argv)
+    launches = dict(cuda_lib.launches)
+    cpu = analyze_beam1_gap.main(argv + ["--cpu"])
+    assert card["reads"] == cpu["reads"] == 1
+    for beam in ("beam5", "beam1"):
+        for key in ("snippet_identity_mean", "merged_identity"):
+            assert abs(card["rows"][0][beam][key] - cpu["rows"][0][beam][key]) <= 0.003, \
+                (beam, key)
+    # 2 decodes a beam width (the study's, then the evaluator's), a chunk each
+    assert launches["bilstm"] == 4 * 4 and launches["bilstm_plain_route"] == 0
+    assert launches["beam_cell"] == launches["beam_attend"] == launches["beam_step"] > 0
+    assert launches["bilstm_bf16"] == launches["beam_loop"] == launches["decode_step"] == 0

@@ -46,10 +46,14 @@ USER_TOOLS = ["make_dataset", "train", "evaluate", "train_curriculum", "sweep_ep
 # the bench-side tools (the repo root's tools/{sweep_pipeline,floor_probe,
 # bench_scaling,train_profile}.py)
 BENCH_TOOLS = ["bench", "sweep_pipeline", "floor_probe", "bench_scaling", "train_profile"]
+# the accuracy tools (the repo root's tools/{make_results_table,
+# crosscheck_mapper,analyze_beam1_gap,exp_conf_gate}.py)
+ACCURACY_TOOLS = ["make_results_table", "crosscheck_mapper", "analyze_beam1_gap",
+                  "exp_conf_gate"]
 
 
 def test_scan_covers_the_tools():
-    for name in USER_TOOLS + BENCH_TOOLS:
+    for name in USER_TOOLS + BENCH_TOOLS + ACCURACY_TOOLS:
         assert REPO / "ravvent_tpu_torch" / "tools" / f"{name}.py" in FILES, name
     for rel in ("evaluation/guppy.py", "utils/shape_checker.py"):
         assert REPO / "ravvent_tpu_torch" / rel in FILES, rel
@@ -69,4 +73,6 @@ def test_tools_import_without_matplotlib_or_h5py(monkeypatch):
         importlib.import_module(mod)
     with pytest.raises(ImportError):
         importlib.import_module("matplotlib")
-    assert len(TOOL_MODULES) >= len(USER_TOOLS) + len(BENCH_TOOLS) + 3
+    assert len(TOOL_MODULES) >= len(USER_TOOLS) + len(BENCH_TOOLS) + len(ACCURACY_TOOLS) + 3
+    for name in ACCURACY_TOOLS:
+        assert f"ravvent_tpu_torch.tools.{name}" in TOOL_MODULES, name
