@@ -26,9 +26,11 @@ hand-written kernel against its plain PyTorch version on the card:
      per kernel from -Xptxas -v);
   2. the f32-stream BiLSTM kernel against its plain version for the four
      layer shapes of one chunk (F = 1, 2U, 5, 2U) at each compiled width
-     (U = 64, 128, 256) at B=4096, and at 128 units also at B=2858 (the
-     first read's rows) and B=1024 (the accuracy tools' chunk), timed
-     beside torch.nn.LSTM in f32;
+     (U = 32, 64, 96, 128, 192, 256) at B=4096, and at 128 units also at
+     B=2858 (the first read's rows) and B=1024 (the accuracy tools' chunk),
+     then at the padded widths 48, 80, 160 and 200 (the kernel of 64, 96,
+     192 and 256 units on zero-padded weights) against the plain version at
+     the true width, each timed beside torch.nn.LSTM in f32 at its width;
   3. the bf16/f32 beam step, two kernels (beam_cell, then beam_attend),
      against its plain version at B=4096, S=232, U=128, W=5: bf16 memory
      over 40 steps, each kernel also against its own plain version on the
@@ -69,8 +71,8 @@ hand-written kernel against its plain PyTorch version on the card:
      un-projected f32 memory, decoded by fused_greedy_decode on the card,
      checked against plain greedy_decode on the CPU on 64 snippets;
   9. the bf16-stream BiLSTM kernel against its plain version as phase 2
-     holds the f32 one (each width at B=4096, 128 units also at B=2858),
-     timed beside torch.nn.LSTM in bf16;
+     holds the f32 one (each compiled and padded width at B=4096, 128 units
+     also at B=2858), timed beside torch.nn.LSTM in bf16;
  10. end to end, bench.py's main path: PerformanceEvaluator (evaluate_files,
      then run_pipelined with 8 reads in flight and 4 finishers) over the
      engine with the bench's settings (i8dev wire, bf16 encoder stream on
@@ -182,10 +184,18 @@ hand-written kernel against its plain PyTorch version on the card:
      units (bilstm 4 a chunk, bilstm_plain_route 0), the beam kernels as
      usual; card and CPU tokens on 64 snippets (>= 0.998); then on the bf16
      stream and memory (bilstm_bf16 4 a chunk; same memory >= 0.998, end to
-     end >= 0.99); then a 48-unit encoder, a width the kernels are not
-     compiled for, f32 as the first: every layer on its plain version on the
-     card (bilstm_plain_route 4 a chunk, bilstm and bilstm_bf16 0), the beam
-     kernels, tokens and same memory >= 0.998 against the CPU.
+     end >= 0.99); then encoders of 48, 32, 80, 96, 160, 192 and 200 units,
+     each f32 as the first and bf16 as the second: every layer on the
+     stream's kernel (4 a chunk, bilstm_plain_route 0), at 48, 80, 160 and
+     200 units the next compiled width's kernel on zero-padded weights
+     (bilstm_padded 4 a chunk); against the CPU on 64 snippets the encoder's
+     output within phase 2's / 9's bar (1e-4 f32, 1e-2 bf16), the same
+     memory >= 0.998, and on f32 the tokens end to end >= 0.998 (on bf16
+     printed with the rows that part: near ties); then a
+     264-unit encoder, past the widest compiled width, f32 as the first:
+     every layer on its plain version on the card (bilstm_plain_route 4 a
+     chunk, bilstm and bilstm_bf16 0), the beam kernels, tokens and same
+     memory >= 0.998 against the CPU.
  18 (e). the slice's path at full width: a 256-unit encoder (joint, 2 x
      BiLSTM(256), LSTM(128) + Luong, vocab 7, seeded) through BasecallEngine
      at the bench's settings (i8dev wire, bf16 encoder stream, bf16 memory,
@@ -397,32 +407,46 @@ def cudnn_lstm_ms(F: int, U: int, dtype, wx, wh, b, xs, h0, c0, reps: int) -> tu
     return ms, out
 
 
+# encoder widths between the compiled ones, each run by the next compiled
+# width's kernel on zero-padded weights (ops/rnn_cuda.py:kernel_layout)
+PADDED_UNITS = (48, 80, 160, 200)
+
+
 def phase_bilstm(dtype) -> list:
     """The BiLSTM kernel of one stream (f32: csrc/bilstm.cu, phase 2; bf16:
     csrc/bilstm_bf16.cu, phase 9) against its plain version for the four
     layer shapes of one chunk (raw F = 1 and 2U at T = 200, event F = 5 and
-    2U at T = 30) at each compiled width U (ops/rnn_cuda.py:KERNEL_UNITS), at
-    4096 rows, and at the flagship's 128 units also at 2858 (the first
+    2U at T = 30) at each compiled width U (ops/rnn_cuda.py:KERNEL_UNITS),
+    at 4096 rows, and at the flagship's 128 units also at 2858 (the first
     read's row count, which the CLI and the bench path run as their own
-    chunk), timed beside torch.nn.LSTM in the stream's dtype. The weights
-    are laid out for the kernel once, as the engine lays them out. Returns
-    one kernels-line entry a width, of the 4096-row chunk."""
+    chunk); then at each of PADDED_UNITS through the wrapper's padded route
+    against the plain version at that width. Each timed beside
+    torch.nn.LSTM in the stream's dtype at the layer's own width. The
+    weights are laid out for the kernel once, as the engine lays them out.
+    Returns one kernels-line entry a width, of the 4096-row chunk."""
     from ravvent_tpu_torch.ops.rnn_cuda import KERNEL_UNITS
 
     f32 = dtype == torch.float32
     gen = torch.Generator().manual_seed(SEED if f32 else SEED + 4)
-    # the flagship's width first, so that its draws are those of earlier runs
+    # the widths of earlier runs first, in their order (the flagship's
+    # first), so that their weights are drawn as in earlier runs
+    first = (128, 64, 256)
+    widths = [*first, *(u for u in KERNEL_UNITS if u not in first), *PADDED_UNITS]
     flagship = (4096, 2858, 1024) if f32 else (4096, 2858)
-    return [bilstm_width(dtype, U, gen, flagship if U == 128 else (4096,))
-            for U in sorted(KERNEL_UNITS, key=lambda u: u != 128)]
+    return [bilstm_width(dtype, U, gen, flagship if U == 128 else (4096,)) for U in widths]
 
 
 def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
     """phase_bilstm at one width U: the kernels-line entry of its 4096-row
     chunk, named ``bilstm`` / ``bilstm_bf16`` at 128 units and with
-    ``_u<U>`` after it at another width."""
+    ``_u<U>`` after it at another width. At a width the kernels are not
+    compiled for the wrapper runs the next compiled width's kernel on the
+    layout's padded weights (counted under bilstm_padded) and returns U."""
     from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
-    from ravvent_tpu_torch.ops.rnn_cuda import bilstm_layer, bilstm_layer_plain, kernel_layout
+    from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.ops.rnn_cuda import (
+        KERNEL_UNITS, bilstm_layer, bilstm_layer_plain, kernel_layout, padded_units,
+    )
 
     dev, f32 = torch.device("cuda"), dtype == torch.float32
     source = "bilstm" if f32 else "bilstm_bf16"
@@ -435,23 +459,31 @@ def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
     names = ["raw L0", "raw L1", "event L0", "event L1"]
     shapes = [(1, 200, False), (2 * U, 200, True), (5, 30, False), (2 * U, 30, True)]
     layers = [stream_weights(init_encoder(gen, U, 1, F, dev), dtype)[0] for F, _, _ in shapes]
+    # the inputs, up to 1.3 GB a layer, drawn on the card (a host draw of
+    # them took most of the phase)
+    xgen = torch.Generator(device=dev).manual_seed(SEED + U + (0 if f32 else 4))
     chunks, errs = {}, {}
     for B in batches:
         err = 0.0
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         bound_by = set()
         for lname, (F, T, seeded), (wx, wh, b) in zip(names, shapes, layers):
-            layout = kernel_layout(wx, wh)
-            xs = torch.randn(B, T, F, generator=gen).to(dev, dtype)
+            layout = kernel_layout(wx, wh, b)
+            xs = torch.randn(B, T, F, generator=xgen, device=dev).to(dtype)
             h0 = (0.5 * torch.randn(2, B, U, generator=gen) if seeded
                   else torch.zeros(2, B, U)).to(dev)
             c0 = (0.5 * torch.randn(2, B, U, generator=gen) if seeded
                   else torch.zeros(2, B, U)).to(dev)
+            padded = cuda_lib.launches["bilstm_padded"]
             got = bilstm_layer(xs, wx, wh, b, h0, c0, layout)
             ref = bilstm_layer_plain(xs, wx, wh, b, h0, c0)
             torch.cuda.synchronize()
             require(got[0].dtype == dtype and got[1].dtype == torch.float32,
                     f"{name}: bad dtypes")
+            require(got[0].shape == (B, T, 2 * U) and got[1].shape == (2, B, U),
+                    f"{name}: bad shapes")
+            require(cuda_lib.launches["bilstm_padded"] - padded == (U not in KERNEL_UNITS),
+                    f"{name}: the padded route's count is off")
             err_out = (got[0].float() - ref[0].float()).abs().max().item()
             err_state = max((g - r).abs().max().item() for g, r in zip(got[1:], ref[1:]))
             rel = max(((g.float() - r.float()).abs() / r.float().abs().clamp(min=1.0)).max().item()
@@ -462,7 +494,8 @@ def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
             lib_err = (lib_out.float() - ref[0].float()).abs().max().item()
             bound, by = bilstm_bounds(B, T, F, U, dtype)
             bound_by.add(by)
-            print(f"  {name} U={U} B={B} {lname} T={T} F={F}: out max_abs_err {err_out:.3e} (tol "
+            print(f"  {name} U={U}{'' if U in KERNEL_UNITS else f' (padded to {padded_units(U)})'}"
+                  f" B={B} {lname} T={T} F={F}: out max_abs_err {err_out:.3e} (tol "
                   f"{tol_out:g}), final states {err_state:.3e} (tol {tol_state:g}), max_rel_err "
                   f"{rel:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.nn.LSTM "
                   f"{lib_ms:.3f} ms (its out err vs plain {lib_err:.3e}), bound {bound:.3f} ms "
@@ -2348,10 +2381,12 @@ def xla_top_tokens(engine, mem, max_len: int) -> torch.Tensor:
     return res.tokens[:, :max_len - 1, 0].cpu()
 
 
-def card_vs_cpu(card, cpu, sig, rr, ev, er, max_len: int, aux=None) -> tuple:
+def card_vs_cpu(card, cpu, sig, rr, ev, er, max_len: int, aux=None, rows=None) -> tuple:
     """Card and CPU engines on the same first 64 snippets of a read: token
     agreement decoding the card's memory on both devices, and end to end
-    through predict_beam_compact. Returns (same memory, end to end)."""
+    through predict_beam_compact. Returns (same memory, end to end); the
+    rows whose tokens differ end to end are added to ``rows`` when it is a
+    list."""
     rr, er = rr[:64], er[:64]
     with torch.inference_mode():
         raw_c, event_c = next(iter(card.compact_snippets(sig, rr, ev, er, aux)))
@@ -2364,14 +2399,38 @@ def card_vs_cpu(card, cpu, sig, rr, ev, er, max_len: int, aux=None) -> tuple:
     require(t_gpu.shape == (rr.shape[0], card._fetch_width(max_len)) and np.isfinite(p_gpu).all(),
             "bad result shape or probs")
     require(((t_gpu >= 0) & (t_gpu < card.cfg.vocab_size)).all(), "token out of the vocabulary")
+    if rows is not None:
+        rows.extend(np.nonzero((t_gpu != t_cpu).any(axis=1))[0].tolist())
     return same, float((t_gpu == t_cpu).mean())
 
 
-def width_run(card, cpu, snippets, max_len: int, aux) -> tuple:
+def encoder_vs_cpu(card, cpu, snippets) -> float:
+    """The card engine's and the CPU engine's encoders (encode_input on each
+    engine's laid-out weights, inputs cast to its stream as its memory()
+    casts them) on a read's first 64 snippets: the largest difference of
+    their outputs."""
+    from ravvent_tpu_torch.models.basecaller import encode_input
+
+    sig, rr, ev, er = snippets
+    outs = []
+    for eng in (card, cpu):
+        with torch.inference_mode():
+            raw, event = next(iter(eng.compact_snippets(sig, rr[:64], ev, er[:64], None)))
+            if eng.encoder_dtype is not None:
+                raw, event = raw.to(eng.encoder_dtype), event.to(eng.encoder_dtype)
+            enc = encode_input(eng.params, raw, event, eng.cfg, eng._enc_weights)[0]
+            outs.append(enc.float().cpu())
+    require(outs[0].shape == outs[1].shape and torch.isfinite(outs[0]).all(),
+            "bad encoder output on the card")
+    return (outs[0] - outs[1]).abs().max().item()
+
+
+def width_run(card, cpu, snippets, max_len: int, aux, rows=None) -> tuple:
     """One read's snippets through ``card``'s predict_beam_compact (beam 5)
     after a warm-up, with the launches counted from 0 just before it, then
-    card_vs_cpu on its first 64 snippets. Returns (the launches, the run's
-    seconds, same memory, end to end)."""
+    card_vs_cpu on its first 64 snippets (its differing rows added to
+    ``rows``). Returns (the launches, the run's seconds, same memory, end to
+    end)."""
     from ravvent_tpu_torch.ops import cuda_lib
 
     sig, rr, ev, er = snippets
@@ -2383,7 +2442,7 @@ def width_run(card, cpu, snippets, max_len: int, aux) -> tuple:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return (dict(cuda_lib.launches), seconds) + card_vs_cpu(card, cpu, sig, rr, ev, er, max_len,
-                                                            aux)
+                                                            aux, rows)
 
 
 def phase_configs(smi: str) -> dict:
@@ -2399,13 +2458,16 @@ def phase_configs(smi: str) -> dict:
     lstm on raw input and the flagship with Bahdanau attention: decode ms a
     chunk of 512 snippets, card against CPU on 64; (c) "step" and "loop"
     refuse (a)'s configuration; (d) a 64-unit encoder on the BiLSTM kernels
-    at 64 units (f32, then bf16) beside the beam kernels, then a 48-unit
-    one on the counted plain route, card against CPU on 64 snippets; (e) a
+    at 64 units (f32, then bf16) beside the beam kernels, then encoders of
+    the other compiled widths (32, 96, 192) and of padded ones (48, 80, 160,
+    200) on each stream's kernel, and a 264-unit one on the counted plain
+    route, card against CPU on 64 snippets; (e) a
     256-unit encoder at the bench's settings (bf16 kernel at 256 units),
     then on the f32 stream, card against CPU on 64 snippets; (f) the beam
     step's kernels at other decoder and beam widths (phase_decoder_widths).
     Returns the launch counts of (a) ("cli", "bench"), (d) ("enc64",
-    "enc64_bf16", "enc48"), (e) ("enc256", "enc256_f32") and (f) ("dec256",
+    "enc64_bf16", "enc<U>" and "enc<U>_bf16" of each other width U,
+    "enc264"), (e) ("enc256", "enc256_f32") and (f) ("dec256",
     "dec64", "beam10")."""
     import dataclasses
     import tempfile
@@ -2418,6 +2480,7 @@ def phase_configs(smi: str) -> dict:
     from ravvent_tpu_torch.evaluation.performance import PerformanceEvaluator
     from ravvent_tpu_torch.models.basecaller import init_basecaller
     from ravvent_tpu_torch.ops import cuda_lib
+    from ravvent_tpu_torch.ops.rnn_cuda import padded_units
     from ravvent_tpu_torch.ops.beam_loop_cuda import beam_loop
     from ravvent_tpu_torch.tools import profile_decode as pd
     from ravvent_tpu_torch.tools.basecall import MAX_OUTPUT_LEN, basecall_read
@@ -2582,25 +2645,65 @@ def phase_configs(smi: str) -> dict:
     require(c["bilstm_bf16"] == 4 * n_chunks and c["bilstm_plain_route"] == c["bilstm"] == 0,
             "the 64-unit encoder did not run the bf16 BiLSTM kernel 4 times a chunk")
     require(same >= 0.998 and e2e >= 0.99, "card and CPU disagree on the 64-unit bf16 encoder")
-    # a width the kernels are not compiled for (48 units; f32 stream and
-    # memory as above): every layer on its plain version on the card,
-    # counted under bilstm_plain_route, beside the beam kernels
-    pcfg = ModelConfig(enc_units=48)
+    # the other widths, f32 then bf16 stream and memory: the padded ones (48,
+    # 80, 160, 200) on the next compiled width's kernel and the other
+    # compiled ones, each encoder's 4 layers on the stream's kernel
+    # (bilstm_padded 4 a chunk where padded), beside the beam kernels
+    for U in (48, 32, 80, 96, 160, 192, 200):
+        for key, settings in ((f"enc{U}", narrow), (f"enc{U}_bf16", stream)):
+            f32 = settings is narrow
+            kernel = "bilstm" if f32 else "bilstm_bf16"
+            pcfg = ModelConfig(enc_units=U)
+            pparams = init_basecaller(pcfg, torch.Generator().manual_seed(SEED))
+            rows = []
+            card = BasecallEngine(pparams, pcfg, **settings)
+            cpu = BasecallEngine(pparams, pcfg, device="cpu", **settings)
+            c, secs, same, e2e = width_run(card, cpu, (sig, rr, ev, er), MAX_OUTPUT_LEN, None,
+                                           rows)
+            enc_err = encoder_vs_cpu(card, cpu, (sig, rr, ev, er))
+            out[key] = c
+            padded = 4 * n_chunks if U in PADDED_UNITS else 0
+            # the encoder against the CPU's at phase 2's / 9's bar; end to end
+            # held on f32, and on bf16 printed with the rows that part: a
+            # seeded model's near-tied tokens follow the bf16 stream's last
+            # bits (phase 15 holds the trained flagship at that noise), while
+            # the same memory decodes alike
+            enc_bar = 1e-4 if f32 else 1e-2
+            print(f"  {U}-unit encoder ({'f32' if f32 else 'bf16'} stream and memory, step"
+                  f"{f', padded to {padded_units(U)} units' if padded else ''}): {secs:.3f} s; "
+                  f"launches {dict((k, v) for k, v in c.items() if v)} ({kernel} need 4 a chunk "
+                  f"over {n_chunks}, bilstm_padded {padded}, bilstm_plain_route 0); card vs CPU "
+                  f"on 64 snippets: encoder output max_abs_err {enc_err:.3e} (need <= "
+                  f"{enc_bar:g}), same memory {same:.5f} (need >= 0.998), end to end {e2e:.5f}"
+                  f"{' (need >= 0.998)' if f32 else ''}, rows that part {rows} [{smi}]")
+            other = "bilstm_bf16" if f32 else "bilstm"
+            require(c[kernel] == 4 * n_chunks and c["bilstm_padded"] == padded
+                    and c["bilstm_plain_route"] == c[other] == 0,
+                    f"the {U}-unit encoder did not run {kernel} 4 times a chunk")
+            require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] > 0,
+                    f"the {U}-unit encoder's engine did not run the beam kernels")
+            require(enc_err <= enc_bar and same >= 0.998 and (e2e >= 0.998 or not f32),
+                    f"card and CPU disagree on the {U}-unit {'f32' if f32 else 'bf16'} encoder")
+    # past the widest compiled width (264 units; f32 stream and memory): every
+    # layer on its plain version on the card, counted under
+    # bilstm_plain_route, beside the beam kernels
+    pcfg = ModelConfig(enc_units=264)
     pparams = init_basecaller(pcfg, torch.Generator().manual_seed(SEED))
     c, secs, same, agree = width_run(BasecallEngine(pparams, pcfg, **narrow),
                                      BasecallEngine(pparams, pcfg, device="cpu", **narrow),
                                      (sig, rr, ev, er), MAX_OUTPUT_LEN, None)
-    out["enc48"] = c
-    print(f"  48-unit encoder (uncompiled width; f32 stream and memory, step): {secs:.3f} s; "
-          f"launches {dict((k, v) for k, v in c.items() if v)} (bilstm_plain_route need 4 a "
-          f"chunk over {n_chunks}, bilstm and bilstm_bf16 0); card vs CPU on 64 snippets: tokens "
-          f"agree {agree:.5f} (need >= 0.998), same memory {same:.5f} (need >= 0.998) [{smi}]")
+    out["enc264"] = c
+    print(f"  264-unit encoder (past the widest compiled width; f32 stream and memory, step): "
+          f"{secs:.3f} s; launches {dict((k, v) for k, v in c.items() if v)} (bilstm_plain_route "
+          f"need 4 a chunk over {n_chunks}, bilstm and bilstm_bf16 0); card vs CPU on 64 "
+          f"snippets: tokens agree {agree:.5f} (need >= 0.998), same memory {same:.5f} (need >= "
+          f"0.998) [{smi}]")
     require(c["bilstm_plain_route"] == 4 * n_chunks and c["bilstm"] == c["bilstm_bf16"] == 0,
-            "the 48-unit encoder did not take the plain route 4 times a chunk")
+            "the 264-unit encoder did not take the plain route 4 times a chunk")
     require(c["beam_cell"] == c["beam_attend"] == c["beam_step"] > 0,
-            "the 48-unit encoder's engine did not run the beam kernels")
+            "the 264-unit encoder's engine did not run the beam kernels")
     require(agree >= 0.998 and same >= 0.998,
-            "card and CPU disagree on the 48-unit encoder's tokens")
+            "card and CPU disagree on the 264-unit encoder's tokens")
 
     # (e) the slice's path at full width: a 256-unit encoder (joint, 2 x
     # BiLSTM(256), LSTM(128) + Luong) at the bench's settings over the first
@@ -3941,12 +4044,14 @@ def main() -> int:
         require(c["bilstm_plain_route"] == 0, f"phase {name} ran a BiLSTM layer of the "
                 "flagship's shape on its plain route")
     # launches of each kernel on its own path's run; the BiLSTM kernels' at
-    # 64 and 256 units on phase 18 (d) and (e)
-    runs = {"bilstm": counts, "bilstm_u64": counts_cfg["enc64"],
-            "bilstm_u256": counts_cfg["enc256_f32"], "bilstm_bf16": counts_bench,
-            "bilstm_bf16_u64": counts_cfg["enc64_bf16"], "bilstm_bf16_u256": counts_cfg["enc256"]}
+    # the other widths on phase 18 (d) and (e) (at a padded width also
+    # counted under bilstm_padded there)
+    runs = {"bilstm": counts, "bilstm_u256": counts_cfg["enc256_f32"],
+            "bilstm_bf16": counts_bench, "bilstm_bf16_u256": counts_cfg["enc256"]}
     for kd in k_bilstm + k_bf16:
-        kd["launches"] = runs[kd["name"]][kd["name"].partition("_u")[0]]
+        kernel, _, units = kd["name"].partition("_u")
+        run = runs.get(kd["name"]) or counts_cfg[f"enc{units}{kernel.removeprefix('bilstm')}"]
+        kd["launches"] = run[kernel]
         require(kd["launches"] > 0, f"{kd['name']} did not launch on its path's run")
     # the beam step's kernels: the flagship's on phase 4, the other widths' on
     # phase 18 (f)

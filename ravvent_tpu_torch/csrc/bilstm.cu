@@ -23,13 +23,14 @@
 // thread), and the 512 CTAs of 4096 rows ran in two waves.
 //
 // Design: one CTA per (direction, tile of R batch rows), U R / 16 threads,
-// for U = 64, 128 or 256 units (a template on U; the C entry takes U and
-// refuses any other). The C entry picks the fewest rows R = 16, 32, ... with
-// which both directions' CTAs fit the SMs at once, up to 64 rows for U <= 128
-// (4096 rows: 128 CTAs of 64; 2858: 120 of 48) and up to 32 for U = 256,
-// where 64 rows would take 1024 threads at 64 registers for the 64
-// accumulators, and A (below) would not fit beside the ring; there 4096 rows
-// run 256 CTAs of 32 in two waves. A step is one product
+// for U = 32, 64, 96, 128, 192 or 256 units (a template on U, a multiple of
+// 16; bilstm_units.cuh lists the widths, and the C entry refuses any other).
+// The C entry picks the fewest rows R = 16, 32, ... with which both
+// directions' CTAs fit the SMs at once, up to 64 rows for U <= 128 (4096
+// rows: 128 CTAs of 64; 2858: 120 of 48) and up to 32 for U = 192 and 256,
+// where 64 rows would take 768 or 1024 threads at 85 or 64 registers for the
+// 64 accumulators, and A (below) would not fit beside the ring; there 4096
+// rows run 256 CTAs of 32 in two waves. A step is one product
 // z = [x_t | h_{t-1}] . [Wx; Wh] + b of R rows by 4U columns:
 // - Thread (u, r0) owns units u and u + U/2 of rows [r0, r0 + 8): all four
 //   gates, 64 accumulators, so the cell needs no exchange. For each k it
@@ -42,9 +43,12 @@
 //   lies there too, so that the registers go to the accumulators.
 // - The weights, (F + U) x 4U f32 a direction (768 KiB at U = 128 and F =
 //   256, 3 MiB at U = 256 and F = 512), exceed shared memory, so they stream
-//   through a ring of two k-tiles of 16 rows (32 KiB each at U = 128; 8 rows
-//   at U = 256, 32 KiB each, so that A at Kx = 512 and R = 32, 108 KiB, fits
-//   beside them): every CTA reads them from L2 once a step, one bulk copy
+//   through a ring of two k-tiles of 16 rows (U KiB / 4 each: 8 KiB at U =
+//   32, 32 KiB at 128, 48 KiB at 192, where A at Kx = 384 and R = 32, 81 KiB,
+//   and c, 24 KiB, fit beside the ring's 96 KiB, and at R = 64 A's 153 KiB
+//   would not; 8 rows at U = 256, 32 KiB each, so that A at Kx = 512 and R =
+//   32, 108 KiB, fits beside them): every CTA reads them from L2 once a
+//   step, one bulk copy
 //   (TMA) a k-tile, asked for by one thread and landing on the slot's
 //   mbarrier while the other k-tile is used. They come laid out once per
 //   engine (ops/rnn_cuda.py:kernel_layout): row k's 4 gates of a unit are 16
@@ -77,11 +81,12 @@ namespace {
 constexpr int kSlots = 2;  // k-tiles in the ring
 
 // weight rows of a k-tile: 16, or 8 at U = 256, where a k-tile of 4U columns
-// is 32 KiB at 8 rows
+// is 32 KiB at 8 rows (a k-tile is U / 4 KiB a row octet)
 __host__ __device__ constexpr int kt_rows(int U) { return U >= 256 ? 8 : 16; }
 // the most rows a CTA: U R / 16 threads of 64 accumulators stay at 512 and
-// 128 registers, and A fits beside the ring
-__host__ __device__ constexpr int max_rows(int U) { return U >= 256 ? 32 : 64; }
+// 128 registers, and A fits beside the ring; 32 past 128 units, where 64 rows
+// would be 768 threads (U = 192) or 1024 (U = 256)
+__host__ __device__ constexpr int max_rows(int U) { return U > 128 ? 32 : 64; }
 
 constexpr int kPhases = 5;
 #ifdef RV_BILSTM_PHASES
@@ -383,11 +388,12 @@ int launch_rows(int sms, const float* xs, int B, int T, int F, int Kx, const voi
 
 }  // namespace
 
-// Launches on `stream`; returns a cudaError_t (0 = launched). U = 64, 128 or
-// 256 units; xs [B, T, F] f32 (F <= 2U); Kx = F rounded up to 4; wxL [2, Kx,
-// U, 4], whL [2, U, U, 4] the weights with each row's gate columns grouped
-// by unit, 16-byte aligned (ops/rnn_cuda.py:kernel_layout); bias [2, 4U];
-// h0, c0, hN, cN [2, B, U]; out [B, T, 2U].
+// Launches on `stream`; returns a cudaError_t (0 = launched). U one of
+// RV_BILSTM_UNITS (bilstm_units.cuh); xs [B, T, F] f32 (F <= 2U); Kx = F
+// rounded up to 4; wxL [2, Kx, U, 4], whL [2, U, U, 4] the weights with each
+// row's gate columns grouped by unit, 16-byte aligned
+// (ops/rnn_cuda.py:kernel_layout); bias [2, 4U]; h0, c0, hN, cN [2, B, U];
+// out [B, T, 2U].
 #ifdef RV_BILSTM_PHASES
 extern "C" const char* rv_bilstm_phase_names() { return RV_BILSTM_PHASE_NAMES; }
 extern "C" int rv_bilstm_layer_phases(const float* xs, int B, int T, int F, int Kx, int U,

@@ -25,27 +25,31 @@
 // barrier cost nothing.
 //
 // Design: one CTA per (direction, tile of 16*MT batch rows), U / 8 warps
-// for U = 64, 128 or 256 units (a template on U; the C entry takes U and
-// refuses any other), warp w owning units [8w, 8w + 8) of all four gates, so
-// the i, f, g, o sums of a (row, unit) land in one thread and the cell needs
-// no exchange; at U = 128, 4 warps a sub-partition hide the cell's and the
-// products' latencies.
+// for U = 32, 64, 96, 128, 192 or 256 units (a template on U, a multiple of
+// 16, so that h.Wh runs U / 16 k-tiles; bilstm_units.cuh lists the widths,
+// and the C entry refuses any other), warp w owning units [8w, 8w + 8) of
+// all four gates, so the i, f, g, o sums of a (row, unit) land in one thread
+// and the cell needs no exchange; at U = 128, 4 warps a sub-partition hide
+// the cell's and the products' latencies.
 // - The grid fits the card: the C entry picks the fewest rows a CTA (16,
 //   32, 48 or 64) with which 2*ceil(B / rows) CTAs fit the SMs in one wave
-//   (2858 rows: 120 CTAs of 48). At U = 256 a CTA is 32 warps, 1024 threads
-//   at 64 registers, which hold one m-tile's 16 accumulators and no more: 16
-//   rows a CTA, and 4096 rows run 512 CTAs in four waves.
+//   (2858 rows: 120 CTAs of 48). Past 128 units a CTA is 24 warps (U = 192),
+//   768 threads at 80 registers, or 32 (U = 256), 1024 threads at 64: one
+//   m-tile's 16 accumulators fit beside the streamed B fragments and no
+//   more (at 256 units one m-tile already takes all 64), so 16 rows a CTA,
+//   and 4096 rows run 512 CTAs in four waves.
 // - The weights come in mma-fragment order, made once per engine
 //   (ops/rnn_cuda.py:kernel_layout): for warp w, k-tile kt and gate, lane l's
 //   B fragment is one 8-byte word, a warp's 32 words 256 contiguous bytes.
-//   Wh (128 KiB at U = 128, 32 KiB at 64) stays in shared memory; Wx stays
-//   there too for F <= 16, else is read from L2 by coalesced loads, two
-//   k-tiles in flight, the first two issued at the step's start so that
-//   they land during h.Wh. At U = 256 Wh is 512 KiB a direction, past
-//   shared memory: its k-tiles stream from L2 by the same two-in-flight
-//   loads, ahead of Wx's in one sequence (a simple design; a cluster that
-//   splits the units and trades bf16(h) through distributed shared memory
-//   would keep it on chip).
+//   Wh (U^2 / 128 KiB: 8 KiB at U = 32, 32 at 64, 72 at 96, 128 at 128)
+//   stays in shared memory up to 128 units; Wx stays there too for F <= 16,
+//   else is read from L2 by coalesced loads, two k-tiles in flight, the
+//   first two issued at the step's start so that they land during h.Wh. At
+//   U = 192 and 256 Wh is 288 and 512 KiB a direction, past shared memory:
+//   its k-tiles stream from L2 by the same two-in-flight loads, ahead of
+//   Wx's in one sequence (a simple design; a cluster that splits the units
+//   and trades bf16(h) through distributed shared memory would keep it on
+//   chip).
 // - bf16(h) lives in shared memory in A-fragment order: warp w's cell output
 //   for m-tile mt is half of lane l's A fragment of k-tile w / 2, and an A
 //   fragment is one 16-byte load.
@@ -80,9 +84,9 @@ namespace {
 constexpr int kSmallK = 16;        // Wx stays in shared memory for F <= 16 (one k-tile)
 constexpr int kFrag = 4 * 32;      // 8-byte words of one (warp, k-tile): 4 gates x 32 lanes
 
-// the most m-tiles (16 rows) a CTA: 4, or 1 at U = 256, whose 1024 threads
-// have 64 registers each
-__host__ __device__ constexpr int max_mtiles(int U) { return U >= 256 ? 1 : 4; }
+// the most m-tiles (16 rows) a CTA: 4, or 1 past 128 units, whose 768 (U =
+// 192) or 1024 (U = 256) threads have 80 or 64 registers each
+__host__ __device__ constexpr int max_mtiles(int U) { return U > 128 ? 1 : 4; }
 
 typedef __nv_bfloat16 bf16;
 
@@ -471,11 +475,12 @@ int launch_units(int sms, const void* xs, int B, int T, int F, int Kx, const voi
 
 }  // namespace
 
-// Launches on `stream`; returns a cudaError_t (0 = launched). U = 64, 128 or
-// 256 units; xs [B, T, F] bf16 (F <= 16, or a multiple of 8 up to 2U,
-// 16-byte aligned); Kx = F rounded up to 16; wxF, whF the weights in
-// fragment order (ops/rnn_cuda.py:kernel_layout); bias [2, 4U] f32; h0, c0
-// [2, B, U] f32; out [B, T, 2U] bf16; hN, cN [2, B, U] f32.
+// Launches on `stream`; returns a cudaError_t (0 = launched). U one of
+// RV_BILSTM_UNITS (bilstm_units.cuh); xs [B, T, F] bf16 (F <= 16, or a
+// multiple of 8 up to 2U, 16-byte aligned); Kx = F rounded up to 16; wxF,
+// whF the weights in fragment order (ops/rnn_cuda.py:kernel_layout); bias
+// [2, 4U] f32; h0, c0 [2, B, U] f32; out [B, T, 2U] bf16; hN, cN [2, B, U]
+// f32.
 #ifdef RV_BILSTM_PHASES
 extern "C" const char* rv_bilstm_phase_names() { return RV_BILSTM_PHASE_NAMES; }
 extern "C" int rv_bilstm_layer_bf16_phases(const void* xs, int B, int T, int F, int Kx, int U,

@@ -10,9 +10,10 @@ forward seeds forward and backward seeds backward. The encoder takes no
 mask: padded timesteps run as zero inputs, as in the reference.
 
 A bidirectional LSTM layer runs the BiLSTM kernel on a CUDA tensor
-(ops/rnn_cuda.py); GRU layers and unidirectional layers run the plain scan
-on any device, as the JAX package runs ``lax.scan`` for them (its Pallas
-layer is the BiLSTM's alone, models/rnn.py:330-347 there).
+(ops/rnn_cuda.py), at the next compiled width where its own is not one;
+GRU layers and unidirectional layers run the plain scan on any device, as
+the JAX package runs ``lax.scan`` for them (its Pallas layer is the
+BiLSTM's alone, models/rnn.py:330-347 there).
 
 Parameters are nested dicts of tensors with the JAX tree's keys, per
 direction: LSTM ``{"kernel": [F, 4U], "recurrent": [U, 4U], "bias": [4U]}``,
@@ -29,7 +30,7 @@ import torch
 
 from ravvent_tpu_torch.ops import cuda_lib
 from ravvent_tpu_torch.ops.rnn_cuda import (
-    bilstm_layer, bilstm_layer_plain, kernel_layout, kernel_takes,
+    bilstm_layer, bilstm_layer_plain, kernel_layout, kernel_takes, padded_units, unpad_outputs,
 )
 
 Params = Dict[str, Any]
@@ -239,10 +240,22 @@ def stream_weights(layers: List[Params], dtype=torch.float32) -> List[Tuple[torc
 def kernel_weights(weights: List[Tuple[torch.Tensor, ...]]) -> List[Tuple[Any, ...]]:
     """:func:`stream_weights` with each layer's weights in its stream's
     kernel layout (ops/rnn_cuda.py:kernel_layout) as a fourth item, made
-    once so that no layer call re-lays them out. Layers of other shapes
-    than the kernels take (ops/rnn_cuda.py:kernel_takes) stay as they are."""
-    return [(wx, wh, b, kernel_layout(wx, wh)) if kernel_takes(wh.shape[1], wx.shape[1], wx.dtype)
-            else (wx, wh, b) for wx, wh, b in weights]
+    once so that no layer call re-lays or pads them. A layer of an
+    uncompiled width is laid out zero-padded to the next compiled one, and
+    the layer after it for the padded outputs it then gets (the activations
+    between the encoder's layers stay padded). Layers of other shapes than
+    the kernels take (ops/rnn_cuda.py:kernel_takes, on the input they get)
+    stay as they are."""
+    out, fed = [], None  # fed: the units of the laid-out layer before, whose outputs come padded
+    for wx, wh, b in weights:
+        f_in = wx.shape[1] if fed is None else 2 * padded_units(fed)
+        if kernel_takes(wh.shape[1], f_in, wx.dtype):
+            out.append((wx, wh, b, kernel_layout(wx, wh, b, fed)))
+            fed = wh.shape[1]
+        else:
+            out.append((wx, wh, b))
+            fed = None
+    return out
 
 
 def _zero_state(xs: torch.Tensor, units: int):
@@ -278,13 +291,18 @@ def encoder_apply(layers: List[Params], xs: torch.Tensor,
 
     Bidirectional LSTM: every layer of a CUDA tensor runs the BiLSTM kernel
     (ops/rnn_cuda.py) where the kernels take its shape
-    (``kernel_takes``), else its plain version, counted under
-    ``cuda_lib.launches["bilstm_plain_route"]``, as the reference runs its
-    scan where the Pallas layer does not fit (models/rnn.py:304-311 there);
-    a CPU tensor runs the plain version. ``weights``:
-    :func:`stream_weights` of ``layers`` in the stream dtype, or
-    :func:`kernel_weights` of them, made once by the caller; made here when
-    None. ``trainable=True`` runs every layer's plain version on any device,
+    (``kernel_takes``, through :func:`kernel_weights`), else its plain
+    version, counted under ``cuda_lib.launches["bilstm_plain_route"]``, as
+    the reference runs its scan where the Pallas layer does not fit
+    (models/rnn.py:304-311 there); a CPU tensor runs the plain version. A
+    layer of an uncompiled width runs the kernel's compiled width on its
+    padded weights, and its outputs and states pass to the next layer at
+    that width; the encoder's outputs and final states are sliced back to
+    the layers' own width once, at its end. ``weights``:
+    :func:`kernel_weights` of :func:`stream_weights` of ``layers`` in the
+    stream dtype, made once by the caller, or the stream weights alone,
+    laid out here on each call on a card; made here when None.
+    ``trainable=True`` runs every layer's plain version on any device,
     with the weights stacked from ``layers`` on each call so that autograd
     reaches them, as the reference trains through its scan because the
     Pallas layer has no VJP (ravvent_tpu/models/rnn.py:325-326).
@@ -316,14 +334,24 @@ def encoder_apply(layers: List[Params], xs: torch.Tensor,
         return out, state
     if weights is None:
         weights = stream_weights(layers, xs.dtype)
+    card = on_card(out)
+    if card and all(len(w) == 3 for w in weights):
+        weights = kernel_weights(weights)  # laid out here, once a call
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    units = None  # the layers' own width while their outputs run padded
     for wx, wh, b, *layout in weights:
+        lay = layout[0] if card and layout else None
+        if lay is not None and lay.padded is not None:  # the padded layer the kernel runs
+            wx, wh, b = lay.padded
+        units = lay.units if lay is not None and lay.units < wh.shape[1] else None
         h0, c0 = state if state is not None else _zero_state(out, wh.shape[1])
         h0, c0 = h0.contiguous(), c0.contiguous()
-        if on_card(out) and not kernel_takes(wh.shape[1], wx.shape[1], out.dtype):
+        if card and lay is None:
             out, h, c = bilstm_layer_plain(out, wx, wh, b, h0, c0)
             cuda_lib.launches["bilstm_plain_route"] += 1
         else:
             out, h, c = bilstm_layer(out, wx, wh, b, h0, c0, *layout)
         state = (h, c)
+    if units is not None:
+        out, state = unpad_outputs(out, units), tuple(s[..., :units].contiguous() for s in state)
     return out, state

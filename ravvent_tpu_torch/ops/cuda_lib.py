@@ -15,9 +15,12 @@ and one ``beam_attend`` launch; ``beam_step_i8`` / ``beam_step_i8mxu`` the
 steps on int8 memory, each one ``beam_cell`` and one ``beam_attend_i8`` /
 ``beam_attend_i8mxu`` launch. ``peak_scan`` counts both kernels of
 ``csrc/peak_scan.cu``, so a call of its wrapper adds two (the scan, then the
-check). ``bilstm_plain_route`` is no kernel: it counts the BiLSTM layers
-of CUDA tensors that ran their plain version because the kernels do not take
-their shape (models/rnn.py:encoder_apply, ops/rnn_cuda.py:kernel_takes).
+check). ``bilstm_padded`` counts the ``bilstm`` / ``bilstm_bf16`` launches
+that ran a layer zero-padded to a compiled width (ops/rnn_cuda.py:
+kernel_layout), each also counted under its kernel. ``bilstm_plain_route``
+is no kernel: it counts the BiLSTM layers of CUDA tensors that ran their
+plain version because the kernels do not take their shape
+(models/rnn.py:encoder_apply, ops/rnn_cuda.py:kernel_takes).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 launches: Dict[str, int] = {"bilstm": 0, "bilstm_bf16": 0, "beam_step": 0, "beam_cell": 0,
                              "beam_attend": 0, "beam_step_i8": 0, "beam_step_i8mxu": 0,
                              "beam_attend_i8": 0, "beam_attend_i8mxu": 0, "beam_loop": 0,
-                             "decode_step": 0, "peak_scan": 0, "bilstm_plain_route": 0}
+                             "decode_step": 0, "peak_scan": 0, "bilstm_padded": 0,
+                             "bilstm_plain_route": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -16,7 +16,12 @@ Layouts (batch-major, as the model passes them):
   Each kernel reads its weights in its own layout (:func:`kernel_layout`:
   f32 grouped by unit, bf16 in mma-fragment order), which the engine makes
   once and passes as ``layout``. Both kernels are compiled for U in
-  :data:`KERNEL_UNITS`; :func:`kernel_takes` states the shapes they take.
+  :data:`KERNEL_UNITS`; a layer of another width U up to the widest runs at
+  the next compiled width Up (:func:`padded_units`), its weights
+  zero-padded once by :func:`kernel_layout` (:func:`pad_weights`): a padded
+  unit's pre-activations are exactly 0, so its c and h stay 0 and it adds
+  only exact zeros to the real units' sums. :func:`kernel_takes` states the
+  shapes the kernels take.
 """
 
 from __future__ import annotations
@@ -37,8 +42,14 @@ def _compiled_units() -> Tuple[int, ...]:
     return tuple(int(u) for u in re.findall(r"X\((\d+)\)", line))
 
 
-KERNEL_UNITS = _compiled_units()  # (64, 128, 256)
+KERNEL_UNITS = _compiled_units()  # (32, 64, 96, 128, 192, 256)
 STREAMS = (torch.float32, torch.bfloat16)
+
+
+def padded_units(U: int) -> Optional[int]:
+    """The compiled width a layer of ``U`` units runs at: the least of
+    :data:`KERNEL_UNITS` that is at least U; None past the widest."""
+    return next((u for u in KERNEL_UNITS if u >= U), None) if U > 0 else None
 
 
 def bilstm_layer_plain(xs, wx, wh, b, h0, c0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -70,15 +81,20 @@ def bilstm_layer_plain(xs, wx, wh, b, h0, c0) -> Tuple[torch.Tensor, torch.Tenso
 
 class KernelLayout(NamedTuple):
     """A layer's weights as its stream's kernel reads them
-    (:func:`kernel_layout`). f32 (``csrc/bilstm.cu``): ``kx`` is F rounded up
-    to 4; ``wx`` [2, kx, U, 4] and ``wh`` [2, U, U, 4] f32, row k's gate
-    columns i, f, g, o grouped by unit. bf16 (``csrc/bilstm_bf16.cu``):
-    ``kx`` is F rounded up to 16; ``wx`` and ``wh`` bf16 [2, U / 8 warps,
-    k-tiles, 4 gates, 32 lanes, 4] in mma-fragment order. Wx's rows past F
-    are zero."""
+    (:func:`kernel_layout`), at the compiled width U the kernel runs. f32
+    (``csrc/bilstm.cu``): ``kx`` is F rounded up to 4; ``wx`` [2, kx, U, 4]
+    and ``wh`` [2, U, U, 4] f32, row k's gate columns i, f, g, o grouped by
+    unit. bf16 (``csrc/bilstm_bf16.cu``): ``kx`` is F rounded up to 16;
+    ``wx`` and ``wh`` bf16 [2, U / 8 warps, k-tiles, 4 gates, 32 lanes, 4] in
+    mma-fragment order. Wx's rows past F are zero. ``units``: the layer's
+    own width (U, or less where the layer is padded). ``padded``: the padded
+    layer's (wx, wh, b) in the plain layout (:func:`pad_weights`), which the
+    kernel runs; None where nothing is padded."""
     kx: int
     wx: torch.Tensor
     wh: torch.Tensor
+    units: int
+    padded: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 def padded_k(F: int, dtype) -> int:
@@ -106,19 +122,61 @@ def _fragments(w: torch.Tensor) -> torch.Tensor:
     return w[:, k, n].reshape(2, U // 8, kt_n, 4, 32, 4).contiguous()
 
 
-def kernel_layout(wx: torch.Tensor, wh: torch.Tensor) -> KernelLayout:
+def _pad_gates(w: torch.Tensor, U: int, Up: int) -> torch.Tensor:
+    """[..., 4U] as [..., 4Up]: each gate's block of U columns followed by
+    Up - U zero columns."""
+    lead = w.shape[:-1]
+    return torch.nn.functional.pad(w.reshape(*lead, 4, U), (0, Up - U)).reshape(*lead, 4 * Up)
+
+
+def pad_weights(wx, wh, b, in_units: Optional[int] = None):
+    """A layer of U units as the layer of ``padded_units(U)`` = Up units
+    that the kernel runs: each gate's columns of ``wx`` [2, F, 4U], ``wh``
+    [2, U, 4U] and ``b`` [2, 4U] zero-padded to Up, and Wh's rows past U
+    zero. With ``in_units`` I, the layer's input is the previous padded
+    layer's output [B, T, 2 Ip] (Ip = padded_units(I), each direction's I
+    units first in its half): Wx's 2I rows go to those places and the rows
+    between are zero. Returns (wx [2, F or 2 Ip, 4Up], wh [2, Up, 4Up], b [2,
+    4Up])."""
+    U = wh.shape[1]
+    Up = padded_units(U)
+    if in_units is not None:
+        ip = padded_units(in_units)
+        if wx.shape[1] != 2 * in_units:
+            raise ValueError(f"pad_weights: Wx has {wx.shape[1]} rows, not 2 x {in_units} units")
+        placed = wx.new_zeros(2, 2 * ip, 4 * U)
+        placed[:, :in_units] = wx[:, :in_units]
+        placed[:, ip:ip + in_units] = wx[:, in_units:]
+        wx = placed
+    wh = torch.nn.functional.pad(_pad_gates(wh, U, Up), (0, 0, 0, Up - U))
+    return _pad_gates(wx, U, Up), wh, _pad_gates(b, U, Up)
+
+
+def kernel_layout(wx: torch.Tensor, wh: torch.Tensor, b: Optional[torch.Tensor] = None,
+                  in_units: Optional[int] = None) -> KernelLayout:
     """The stream's kernel's layout of plain ``wx`` [2, F, 4U] and ``wh``
     [2, U, 4U] (the stream is their dtype), Wx zero-padded to
-    :func:`padded_k` rows. Made once per engine (models/rnn.py:kernel_weights);
-    the wrapper makes it on each call when it is not given."""
-    F, U = wx.shape[1], wh.shape[1]
-    if U not in KERNEL_UNITS:
+    :func:`padded_k` rows. A layer of an uncompiled width U is laid out at
+    its compiled width from :func:`pad_weights` of ``wx``, ``wh`` and ``b``
+    (``in_units``: the width of the padded layer before it, whose outputs it
+    takes), which it keeps as ``padded``. Made once per engine
+    (models/rnn.py:kernel_weights); the wrapper makes it on each call when it
+    is not given."""
+    U = wh.shape[1]
+    Up = padded_units(U)
+    if Up is None:
         raise ValueError(f"bilstm kernels are compiled for {KERNEL_UNITS} units, got {U}")
-    kx = padded_k(F, wx.dtype)
-    wx = torch.nn.functional.pad(wx, (0, 0, 0, kx - F))
+    padded = None
+    if Up != U:
+        if b is None:
+            raise ValueError(f"kernel_layout: a layer padded to {Up} units needs its bias")
+        padded = pad_weights(wx, wh, b, in_units)
+        wx, wh = padded[:2]
+    kx = padded_k(wx.shape[1], wx.dtype)
+    wx = torch.nn.functional.pad(wx, (0, 0, 0, kx - wx.shape[1]))
     if wx.dtype == torch.float32:
-        return KernelLayout(kx, _by_unit(wx), _by_unit(wh))
-    return KernelLayout(kx, _fragments(wx), _fragments(wh))
+        return KernelLayout(kx, _by_unit(wx), _by_unit(wh), U, padded)
+    return KernelLayout(kx, _fragments(wx), _fragments(wh), U, padded)
 
 
 def launch(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> int:
@@ -135,30 +193,48 @@ def launch(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> i
 def kernel_takes(U: int, F: int, dtype) -> bool:
     """Whether the kernels take a layer of ``U`` units on ``F`` input
     features on a stream of ``dtype``: the shapes :func:`bilstm_layer`
-    accepts on a CUDA tensor (it raises on any other), those the C entries
-    take. U in :data:`KERNEL_UNITS`, F <= 2U, an f32 or bf16 stream, and on
-    bf16 F <= 16 or a multiple of 8 (the bf16 kernel also needs such an
-    input 16-byte aligned, which a contiguous tensor of its own allocation
-    is)."""
-    return (U in KERNEL_UNITS and 0 < F <= 2 * U and dtype in STREAMS
+    accepts on a CUDA tensor (it raises on any other). U at most the widest
+    of :data:`KERNEL_UNITS` (a width between runs zero-padded to the next,
+    Up = :func:`padded_units`), F <= 2 Up (what the C entries take at Up),
+    an f32 or bf16 stream, and on bf16 F <= 16 or a multiple of 8 (the bf16
+    kernel also needs such an input 16-byte aligned, which a contiguous
+    tensor of its own allocation is)."""
+    Up = padded_units(U)
+    return (Up is not None and 0 < F <= 2 * Up and dtype in STREAMS
             and (dtype == torch.float32 or F <= 16 or F % 8 == 0))
+
+
+def pad_units(t: torch.Tensor, Up: int) -> torch.Tensor:
+    """A state [2, B, U] as [2, B, Up], the padded units zero."""
+    return torch.nn.functional.pad(t, (0, Up - t.shape[-1])).contiguous()
+
+
+def unpad_outputs(out: torch.Tensor, U: int) -> torch.Tensor:
+    """Outputs [B, T, 2 Up] of a padded layer as [B, T, 2U]: each
+    direction's first U units."""
+    Up = out.shape[-1] // 2
+    return torch.cat([out[..., :U], out[..., Up:Up + U]], dim=-1)
 
 
 def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One BiLSTM layer: the CUDA kernel of the stream dtype for CUDA tensors,
     the plain version for CPU tensors. ``layout``: :func:`kernel_layout` of
-    the layer's ``wx`` and ``wh``, made once by the caller; made here when
-    None."""
+    the layer's ``wx`` and ``wh`` (and ``b``), made once by the caller; made
+    here when None. A layer of an uncompiled width runs the kernel at its
+    compiled width on the layout's padded weights, its states padded with
+    zeros, and returns its own width."""
     if not xs.is_cuda:
         return bilstm_layer_plain(xs, wx, wh, b, h0, c0)
     B, T, F = xs.shape
     U = wh.shape[1]
     dt, f32 = xs.dtype, torch.float32
     if not kernel_takes(U, F, dt):
+        Up = padded_units(U) or U
         raise ValueError(f"bilstm: the kernels take no layer of U = {U} units on F = {F} "
-                         f"features of {dt} (kernel_takes: U in {KERNEL_UNITS}, F <= {2 * U}, an "
-                         f"f32 or bf16 stream, on bf16 F <= 16 or a multiple of 8)")
+                         f"features of {dt} (kernel_takes: U <= {KERNEL_UNITS[-1]}, run at the "
+                         f"next of {KERNEL_UNITS}, F <= {2 * Up}, an f32 or bf16 stream, on bf16 "
+                         f"F <= 16 or a multiple of 8)")
     cuda_lib.check_tensors("bilstm", xs.device, [
         ("xs", xs, dt, (B, T, F)), ("wx", wx, dt, (2, F, 4 * U)), ("wh", wh, dt, (2, U, 4 * U)),
         ("b", b, f32, (2, 4 * U)), ("h0", h0, f32, (2, B, U)), ("c0", c0, f32, (2, B, U)),
@@ -166,7 +242,14 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
     if dt == torch.bfloat16 and F > 16 and xs.data_ptr() % 16:  # rows copied 16 bytes at a time
         raise ValueError("bilstm_bf16: xs must be 16-byte aligned")
     if layout is None:
-        layout = kernel_layout(wx, wh)
+        layout = kernel_layout(wx, wh, b)
+    Up = padded_units(U)
+    if Up != U:  # the compiled width's kernel on the padded layer
+        if layout.padded is None or layout.units != U:
+            raise ValueError(f"bilstm: the layout was not padded from {U} units")
+        out, h, c = bilstm_layer(xs, *layout.padded, pad_units(h0, Up), pad_units(c0, Up),
+                                 layout)
+        return unpad_outputs(out, U), h[..., :U].contiguous(), c[..., :U].contiguous()
     kx = padded_k(F, dt)
     name = "bilstm" if dt == f32 else "bilstm_bf16"
     if layout.kx != kx:
@@ -184,4 +267,6 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
     entry = cuda_lib.lib().rv_bilstm_layer if dt == f32 else cuda_lib.lib().rv_bilstm_layer_bf16
     cuda_lib.check(launch(entry, xs, layout, b, h0, c0, out, hN, cN), name)
     cuda_lib.launches[name] += 1
+    if layout.padded is not None:
+        cuda_lib.launches["bilstm_padded"] += 1
     return out, hN, cN

@@ -7,7 +7,7 @@ beside the production library, which it leaves alone. In that build lane 0
 of every warp sums ``clock64()`` cycles over the phases of each time step
 that the source names (``rv_bilstm_phase_names``) and writes its sums when
 the loop ends. For each of a chunk's four layer shapes at ``--units`` U
-(the flagship's 128 by default; the kernels take 64, 128 and 256): raw
+(the flagship's 128 by default; any compiled width, KERNEL_UNITS): raw
 layers 0 and 1 at T = 200 on F = 1 and 2U, event layers 0 and 1 at T = 30 on
 F = 5 and 2U; and each batch size it prints
 the mean cycles per step of each phase (mean over all warps), the
@@ -15,7 +15,7 @@ production kernel's time and the timing build's (CUDA events), and the
 card's SM clock that the two imply. Needs a CUDA device and nvcc.
 
 Usage: python -m ravvent_tpu_torch.tools.bilstm_phases [--stream bf16|f32]
-       [--units 64|128|256] [--batch 4096 2858] [--json out.json]
+       [--units 32|64|96|128|192|256] [--batch 4096 2858] [--json out.json]
 """
 
 from __future__ import annotations

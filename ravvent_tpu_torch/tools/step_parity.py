@@ -1,4 +1,4 @@
-"""Hold this checkout's decoder kernels against another checkout's, on the card.
+"""Hold this checkout's kernels against another checkout's, on the card.
 
 Runs the two kernels of the beam step (``beam_cell``, then ``beam_attend`` in
 each memory mode: bf16, f32, int8 quant and quant_mxu), the whole-loop
@@ -7,7 +7,10 @@ widths 1-5 and 8) and the greedy decode step (``decode_step``, f32 memory,
 E = 256) of two checkouts of the repository on the same inputs: chip_smoke.py
 phase 3's decoder and encoder-like memory (seed 1, B = 4096, S = 232,
 U = 128) and a seeded mid-decode state, the beam step at the beam widths 1
-and 5. Each checkout runs in a process of its own, in the order other, this,
+and 5; and the BiLSTM kernels (``bilstm``, ``bilstm_bf16``) at 64, 128 and
+256 units on a 4096-row chunk's four layer shapes (chip_smoke.py phase 2's:
+F = 1 and 2U at T = 200, F = 5 and 2U at T = 30; seeded weights, inputs and
+states). Each checkout runs in a process of its own, in the order other, this,
 this, other, and prints a digest (sha256) of every output tensor and each
 kernel's mean time by CUDA events over 100 launches (10 for the loop). The
 result says whether the outputs are equal bit for bit and how far the times
@@ -35,6 +38,7 @@ THIS = HERE.parents[2]
 WIDTHS = (5, 1)
 MODES = ("bf16", "f32", "quant", "quant_mxu")
 LOOP_WIDTHS = (1, 2, 3, 4, 5, 8)  # the whole-loop kernel's exact instances
+BILSTM_UNITS = (64, 128, 256)  # the BiLSTM kernels' widths since they took U
 
 
 def run_checkout(root: Path) -> dict:
@@ -134,6 +138,28 @@ def run_checkout(root: Path) -> dict:
 
     digests["decode_step E=256"] = digest(step())
     times["decode_step E=256"] = ms(step)
+    # the BiLSTM kernels on a chunk's four layer shapes, the weights laid out
+    # once (as the engine lays them out)
+    from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
+    from ravvent_tpu_torch.ops import rnn_cuda
+
+    for stream, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for U in BILSTM_UNITS:
+            g = torch.Generator().manual_seed(U)
+            for F, T, seeded in ((1, 200, False), (2 * U, 200, True), (5, 30, False),
+                                 (2 * U, 30, True)):
+                wx, wh, b = stream_weights(init_encoder(g, U, 1, F, dev), dtype)[0]
+                xs = torch.randn(B, T, F, generator=g).to(dev, dtype)
+                h0, c0 = ((0.5 * torch.randn(2, B, U, generator=g) if seeded
+                           else torch.zeros(2, B, U)).to(dev) for _ in range(2))
+                lay = rnn_cuda.kernel_layout(wx, wh)
+
+                def layer():
+                    return rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, lay)
+
+                name = f"bilstm {stream} U={U} F={F} T={T}"
+                digests[name] = digest(layer())
+                times[name] = ms(layer, reps=5, warmup=1)
     return {"build_s": build_s, "digests": digests, "ms": times}
 
 

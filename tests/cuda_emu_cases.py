@@ -2,7 +2,8 @@
 the module fixtures that build each kernel source's emulated library
 (ravvent_tpu_torch/tools/cuda_emu.py, g++ into ravvent_tpu_torch/build/emu/,
 once a source set), the beam step's seeded decoder weights, decode states
-and attention memories, the step kernels' C entries on host tensors, the
+and attention memories, the step kernels' and the BiLSTM kernels' C entries
+on host tensors and the BiLSTM layers' seeded cases, the
 attend kernel's cases and check (both attend files run them), and the peak
 scan's traces and inputs (synth, coupling_failure_trace, memory_trace,
 peak_scan_inputs), which tests/test_torch_event_detect.py,
@@ -20,8 +21,10 @@ import pytest
 import torch
 
 from ravvent_tpu_torch.models import attention as tattn
+from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
 from ravvent_tpu_torch.ops import beam_step_cuda as tstep
 from ravvent_tpu_torch.ops import event_detect as ted
+from ravvent_tpu_torch.ops import rnn_cuda
 
 torch.set_num_threads(1)
 U, V = 128, 7
@@ -171,6 +174,34 @@ def emu_cell(lib, st, w, U=None) -> tuple:
                           w.wh.data_ptr(), w.b.data_ptr(), w.watt_h.data_ptr(),
                           *(g.data_ptr() for g in got), None)
     return rc, got
+
+
+def bilstm_case(U, F, T, B, seeded, dtype):
+    """Seeded weights and inputs of one BiLSTM layer in the stream dtype, and
+    NaN-filled outputs, so that an output no thread writes shows."""
+    gen = torch.Generator().manual_seed(10 * F + T + U)
+    wx, wh, b = stream_weights(init_encoder(gen, U, 1, F), dtype)[0]
+    xs = torch.randn(B, T, F, generator=gen).to(dtype)
+    h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)) if seeded else torch.zeros(2, B, U)
+              for _ in range(2))
+    return (xs, wx, wh, b, h0, c0), nan_outputs(B, T, U, dtype)
+
+
+def nan_outputs(B, T, U, dtype):
+    """A BiLSTM layer's outputs (out, hN, cN) at U units, NaN-filled."""
+    return (torch.full((B, T, 2 * U), float("nan"), dtype=dtype),
+            torch.full((2, B, U), float("nan")), torch.full((2, B, U), float("nan")))
+
+
+def emu_layer(entry, ins, outs, layout=None) -> int:
+    """A BiLSTM kernel's C entry on host tensors, as ops/rnn_cuda.py:launch
+    calls it, on the weights in kernel_layout's order (``layout``, made from
+    ``ins``' weights when None)."""
+    xs, wx, wh, b, h0, c0 = ins
+    lay = rnn_cuda.kernel_layout(wx, wh) if layout is None else layout
+    return entry(xs.data_ptr(), *xs.shape, lay.kx, wh.shape[1], lay.wx.data_ptr(),
+                 lay.wh.data_ptr(), b.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                 *(t.data_ptr() for t in outs), None)
 
 
 def synth(rng, n_events=200, noise=8.0):

@@ -32,10 +32,15 @@ torch.set_num_threads(1)
 
 # (U, F, T, seeded) of the BiLSTM kernels' card tests: each compiled width
 # (ops/rnn_cuda.py:KERNEL_UNITS) on raw (1), event (5) and a stacked layer's
-# input (2U); the flagship's 128 units keep their ids
+# input (2U), then two widths the wrapper pads to a compiled one (48 to 64,
+# 200 to 256); the flagship's 128 units keep their ids
 LAYERS = [(128, 1, 200, False), (128, 5, 30, False), (128, 256, 40, True),
           (64, 1, 200, False), (64, 5, 30, False), (64, 128, 40, True),
-          (256, 1, 200, False), (256, 5, 30, False), (256, 512, 40, True)]
+          (256, 1, 200, False), (256, 5, 30, False), (256, 512, 40, True),
+          (32, 1, 200, False), (32, 5, 30, False), (32, 64, 40, True),
+          (96, 1, 200, False), (96, 5, 30, False), (96, 192, 40, True),
+          (192, 1, 200, False), (192, 5, 30, False), (192, 384, 40, True),
+          (48, 5, 30, False), (48, 96, 40, True), (200, 1, 200, False), (200, 400, 40, True)]
 LAYER_IDS = [("" if U == 128 else f"U{U}-") + f"{F}-{T}-{seeded}" for U, F, T, seeded in LAYERS]
 
 
@@ -51,23 +56,28 @@ def cuda():
 @pytest.mark.parametrize("B", [37, 130, 2858], ids=["one ragged tile", "ragged tiles", "2858 rows"])
 @pytest.mark.parametrize("U,F,T,seeded", LAYERS, ids=LAYER_IDS)
 def test_bilstm_kernel_matches_plain(cuda, U, F, T, seeded, B):
-    """The f32 stream within 1e-4 (chip_smoke.py phase 2's bar). At 64 and
+    """The f32 stream within 1e-4 (chip_smoke.py phase 2's bar). At 32 to
     128 units 37, 130 and 2858 rows run 3, 9 and 60 tiles of 16, 16 and 48
-    rows; at 256, 3 and 9 of 16 and 90 of 32; the last one ragged. The
-    weights laid out once (kernel_layout, as the engine does) give the same
-    result as the layout the wrapper makes."""
+    rows; at 192 and 256, 3 and 9 of 16 and 90 of 32; the last one ragged.
+    A padded width runs its compiled one's kernel, counted under
+    ``bilstm_padded``, and returns its own. The weights laid out once
+    (kernel_layout, as the engine does) give the same result as the layout
+    the wrapper makes."""
     gen = torch.Generator().manual_seed(F)
     wx, wh, b = stacked_weights(init_encoder(gen, U, 1, F, cuda)[0])
     xs = torch.randn(B, T, F, generator=gen).to(cuda)
     h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)).to(cuda) if seeded
               else torch.zeros(2, B, U, device=cuda) for _ in range(2))
-    before = cuda_lib.launches["bilstm"]
+    before = dict(cuda_lib.launches)
     got = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0)
-    assert cuda_lib.launches["bilstm"] == before + 1
+    assert cuda_lib.launches["bilstm"] == before["bilstm"] + 1
+    padded = U not in rnn_cuda.KERNEL_UNITS
+    assert cuda_lib.launches["bilstm_padded"] == before["bilstm_padded"] + padded
+    assert got[0].shape == (B, T, 2 * U) and got[1].shape == got[2].shape == (2, B, U)
     ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
-    again = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, rnn_cuda.kernel_layout(wx, wh))
+    again = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, rnn_cuda.kernel_layout(wx, wh, b))
     for g, r in zip(again, got):
         assert torch.equal(g, r)
 
@@ -93,14 +103,17 @@ def test_bilstm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert cuda_lib.launches["bilstm"] == before
 
 
-def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda):
-    """A 16-unit BiLSTM encoder, which the kernels do not take: encode_input
-    on the card runs its 4 layers on the plain route (counted, no kernel
-    launched) and equals the CPU's within 1e-5 relative."""
+@pytest.mark.parametrize("U", [16, 264])
+def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda, U):
+    """A 16-unit BiLSTM encoder, an uncompiled width: encode_input on the
+    card runs its 4 layers on the f32 kernel at 32 units, padded (bilstm and
+    bilstm_padded 4, no plain route); a 264-unit one, past the widest
+    compiled width, on the plain route (bilstm_plain_route 4, no kernel).
+    Either equals the CPU's within 1e-5 relative."""
     from ravvent_tpu_torch.config import ModelConfig
     from ravvent_tpu_torch.models.basecaller import encode_input, init_basecaller
 
-    cfg = ModelConfig(enc_units=16)
+    cfg = ModelConfig(enc_units=U)
     params = init_basecaller(cfg, torch.Generator().manual_seed(16))
     gen = torch.Generator().manual_seed(17)
     raw, event = torch.randn(64, 200, 1, generator=gen), torch.randn(64, 30, 5, generator=gen)
@@ -109,8 +122,8 @@ def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda):
     got, mask = encode_input(to_device(params, cuda), raw.to(cuda), event.to(cuda), cfg)
     torch.cuda.synchronize()
     delta = {k: v - before[k] for k, v in cuda_lib.launches.items() if v != before[k]}
-    assert delta == {"bilstm_plain_route": 4}
-    assert torch.equal(mask.cpu(), ref_mask)
+    assert delta == ({"bilstm": 4, "bilstm_padded": 4} if U == 16 else {"bilstm_plain_route": 4})
+    assert got.shape == ref.shape and torch.equal(mask.cpu(), ref_mask)
     scale = ref.abs().max().item()
     assert (got.cpu() - ref).abs().max().item() <= 1e-5 * scale
 
@@ -119,26 +132,30 @@ def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda):
 @pytest.mark.parametrize("U,F,T,seeded", LAYERS, ids=LAYER_IDS)
 def test_bilstm_bf16_kernel_matches_plain(cuda, U, F, T, seeded, B):
     """The bf16 stream: outputs within two bf16 ulps, f32 final states 1e-3
-    (chip_smoke.py phase 9's bars). At 64 and 128 units 37, 130 and 2858
+    (chip_smoke.py phase 9's bars). At 32 to 128 units 37, 130 and 2858
     rows run 3, 9 and 60 tiles of 16, 16 and 48 rows (the ids name the
-    64-row tiles of an earlier design); at 256, 3, 9 and 179 tiles of 16;
-    the last one ragged. At 256 units Wh streams from L2. The weights laid
-    out once (kernel_layout, as the engine passes them) give the same
-    bits."""
+    64-row tiles of an earlier design); at 192 and 256, 3, 9 and 179 tiles
+    of 16; the last one ragged. At 192 and 256 units Wh streams from L2. A
+    padded width runs its compiled one's kernel, counted under
+    ``bilstm_padded``. The weights laid out once (kernel_layout, as the
+    engine passes them) give the same bits."""
     gen = torch.Generator().manual_seed(100 + F)
     wx, wh, b = stream_weights([init_encoder(gen, U, 1, F, cuda)[0]], torch.bfloat16)[0]
     xs = torch.randn(B, T, F, generator=gen).to(cuda, torch.bfloat16)
     h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)).to(cuda) if seeded
               else torch.zeros(2, B, U, device=cuda) for _ in range(2))
-    before = cuda_lib.launches["bilstm_bf16"]
+    before = dict(cuda_lib.launches)
     out, h, c = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0)
-    assert cuda_lib.launches["bilstm_bf16"] == before + 1
+    assert cuda_lib.launches["bilstm_bf16"] == before["bilstm_bf16"] + 1
+    padded = U not in rnn_cuda.KERNEL_UNITS
+    assert cuda_lib.launches["bilstm_padded"] == before["bilstm_padded"] + padded
     assert out.dtype == torch.bfloat16 and h.dtype == c.dtype == torch.float32
+    assert out.shape == (B, T, 2 * U) and h.shape == c.shape == (2, B, U)
     ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)
     assert (out.float() - ref[0].float()).abs().max().item() <= 1e-2
     for g, r in zip((h, c), ref[1:]):
         assert (g - r).abs().max().item() <= 1e-3
-    again = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, rnn_cuda.kernel_layout(wx, wh))
+    again = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, rnn_cuda.kernel_layout(wx, wh, b))
     for g, r in zip(again, (out, h, c)):
         assert torch.equal(g, r)
 
@@ -222,11 +239,12 @@ def test_beam_step_decode_on_card_matches_cpu(cuda):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    """The BiLSTM wrapper raises for a width the kernels are not compiled
-    for (48 units; they take 64, 128 and 256), naming the shape."""
-    B, T, F, U = 2, 3, 4, 48
+    """The BiLSTM wrapper raises for a width past the widest the kernels
+    are compiled for (264 units; they pad any width up to 256), naming the
+    shape."""
+    B, T, F, U = 2, 3, 4, 264
     xs = torch.zeros(B, T, F, device=cuda)
-    with pytest.raises(ValueError, match="U = 48 units on F = 4 features"):
+    with pytest.raises(ValueError, match="U = 264 units on F = 4 features"):
         rnn_cuda.bilstm_layer(xs, torch.zeros(2, F, 4 * U, device=cuda),
                               torch.zeros(2, U, 4 * U, device=cuda),
                               torch.zeros(2, 4 * U, device=cuda),

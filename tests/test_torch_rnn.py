@@ -300,10 +300,11 @@ class Launched(Exception):
 
 def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
     """``bilstm_layer`` on a card's tensor gets past its checks to the launch
-    on the compiled widths' shapes (64, 128 and 256 units, F <= 2U), and
-    raises a ValueError naming the shape where ``kernel_takes`` is false: an
-    uncompiled width (16, 48), too many features, an unaligned bf16 feature
-    count, another dtype."""
+    on the shapes the kernels take (64, 128 and 256 units, F <= 2U; 16 and
+    48 units, padded to 32 and 64), and raises a ValueError naming the shape
+    where ``kernel_takes`` is false: a width past the widest compiled one
+    (264, 288), too many features, an unaligned bf16 feature count, another
+    dtype."""
     from ravvent_tpu_torch.ops import cuda_lib
 
     def launch():
@@ -314,8 +315,9 @@ def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
     B, T = 3, 2
     f32, bf16 = torch.float32, torch.bfloat16
     taken = [(128, 1, f32), (128, 5, bf16), (128, 24, bf16), (128, 256, f32), (128, 256, bf16),
-             (64, 5, f32), (64, 128, bf16), (256, 1, bf16), (256, 512, f32)]
-    refused = [(16, 5, f32), (48, 96, bf16), (64, 256, bf16), (64, 136, f32), (128, 264, f32),
+             (64, 5, f32), (64, 128, bf16), (256, 1, bf16), (256, 512, f32), (16, 5, f32),
+             (48, 96, bf16)]
+    refused = [(264, 5, f32), (288, 96, bf16), (64, 256, bf16), (64, 136, f32), (128, 264, f32),
                (128, 17, bf16), (256, 520, bf16), (128, 5, torch.float16)]
     for U, F, dt in taken + refused:
         wx, wh = torch.zeros(2, F, 4 * U, dtype=dt), torch.zeros(2, U, 4 * U, dtype=dt)
@@ -332,35 +334,49 @@ def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_encoder_apply_routes_other_widths_to_the_plain_layer(dtype, monkeypatch):
-    """On a card (the predicate patched), a 16- or 48-unit encoder, widths
-    the kernels are not compiled for, runs every layer on the plain version
-    and counts each under ``bilstm_plain_route``, with the CPU encoder's
-    output bit for bit; a 64-, 128- or 256-unit one calls the kernels'
-    wrapper and counts nothing."""
+    """On a card (the predicate patched), a 264- or 288-unit encoder, past
+    the widest width the kernels are compiled for, runs every layer on the
+    plain version and counts each under ``bilstm_plain_route``, with the CPU
+    encoder's output bit for bit; a 64-, 128- or 256-unit one calls the
+    kernels' wrapper, bit for bit, and counts nothing; a 16- or 48-unit one
+    calls it at the padded width (32, 64) on the padded weights, counts
+    nothing, and is sliced back to its own width: equal within 1e-5 on f32
+    and the bf16 bars on bf16, the padding's exact zeros moving only the
+    sums' association."""
     from ravvent_tpu_torch.ops import cuda_lib
 
     gen = torch.Generator().manual_seed(4)
     xs = torch.randn(6, 9, 5, generator=gen).to(dtype)
     cases = []
-    for U, routed in ((16, 2), (48, 2), (64, 0), (128, 0), (256, 0)):
+    for U, routed in ((16, 0), (48, 0), (64, 0), (128, 0), (256, 0), (264, 2), (288, 2)):
         layers = trnn.init_encoder(gen, U, 2, 5)
         weights = trnn.kernel_weights(trnn.stream_weights(layers, dtype))
-        cases.append((layers, weights, routed, trnn.encoder_apply(layers, xs, weights)))
+        cases.append((U, layers, weights, routed, trnn.encoder_apply(layers, xs, weights)))
 
     wrapped = []
 
     def wrapper(*a):
-        wrapped.append(a[0].shape)
+        wrapped.append(a[2].shape[1])
         return rnn_cuda.bilstm_layer_plain(*a[:6])
 
     monkeypatch.setattr(trnn, "on_card", lambda t: True)
     monkeypatch.setattr(trnn, "bilstm_layer", wrapper)
-    for layers, weights, routed, (ref, ref_state) in cases:
+    for U, layers, weights, routed, (ref, ref_state) in cases:
         cuda_lib.reset_launches()
         wrapped.clear()
         out, state = trnn.encoder_apply(layers, xs, weights)
         assert cuda_lib.launches["bilstm_plain_route"] == routed
-        assert len(wrapped) == 2 - routed
-        assert out.dtype == dtype and torch.equal(out, ref)
-        assert all(torch.equal(a, b) for a, b in zip(state, ref_state))
+        assert wrapped == [rnn_cuda.padded_units(U)] * (2 - routed)
+        assert out.dtype == dtype and out.shape == ref.shape
+        assert all(s.shape == r.shape == (2, 6, U) for s, r in zip(state, ref_state))
+        if U in rnn_cuda.KERNEL_UNITS or routed:
+            assert torch.equal(out, ref)
+            assert all(torch.equal(a, b) for a, b in zip(state, ref_state))
+        elif dtype == torch.float32:
+            torch.testing.assert_close(out, ref, **TOL)
+            for a, b in zip(state, ref_state):
+                torch.testing.assert_close(a, b, **TOL)
+        else:
+            assert (out.float() - ref.float()).abs().max().item() <= BF16_OUT
+            assert all((a - b).abs().max().item() <= BF16_STATE for a, b in zip(state, ref_state))
     cuda_lib.reset_launches()
