@@ -2,9 +2,10 @@
 // the decoder units U and the beam widths, and the helpers it shares with
 // the cell kernel (beam_step_f.cu). Each memory mode's instances live in a
 // source of their own (beam_attend_bf16.cu, beam_attend_f32.cu,
-// beam_attend_i8.cu, beam_attend_i8mxu.cu), so that nvcc compiles them in
+// beam_attend_i8.cu, beam_attend_i8mxu.cu), and its instances of 32 beams in
+// another (beam_attend_<mode>_w32.cu), so that nvcc compiles them in
 // parallel; beam_step_f.cu's C entries rv_beam_attend / rv_beam_attend_i8
-// call each source's rv_attend_<mode>.
+// call each mode's rv_attend_<mode>.
 //
 // Replaces the attention-to-permutation part of the TPU kernel
 // ravvent_tpu/ops/beam_loop_pallas.py::_beam_step_kernel (:333), in all its
@@ -48,18 +49,29 @@
 // swizzle, the context's position groups and its partial sums follow from
 // that count (Mode). Beam widths: exact instances for W = 1 and W = 5, the
 // widths the main path and the evaluate-side tools run; the others run an
-// instance of a compile-time maximum WM (8 or 16) on a runtime W. Such an
+// instance of a compile-time maximum WM (8, 16 or 32) on a runtime W. Such an
 // instance splits the WM hypotheses into groups of G (8 on bf16/f32, 4 on
 // int8), one 64-thread group of the CTA each, so that a thread's context
 // sums stay at G x kEl registers: every group reads every key and value
 // block from shared memory for its own hypotheses, and the row's other
 // work (the state, the sums, the logits, the permutation) spreads over all
-// the CTA's threads. The top-W runs on one warp, 4 WM candidate columns a
-// lane; the columns of hypotheses >= W hold -inf, above every valid index,
-// so they are never picked. Shared memory holds 4 W U floats of state, W S
-// of scores and two blocks (about 150 KB at U = 256, W = 16, S = 232 on
-// f32); rv_attend_<mode>'s query gives it, with the occupancy, and a shape
-// whose CTA does not fit in 227 KB is refused, never launched.
+// the CTA's threads. The top-W runs on one warp. Up to 16 beams it holds
+// 4 WM candidate columns a lane in registers; the columns of hypotheses >= W
+// hold -inf, above every valid index, so they are never picked. Shared
+// memory holds 4 W U floats of state, W S of scores and two blocks (about
+// 150 KB at U = 256, W = 16, S = 232 on f32). The 32-beam instance (W =
+// 17-32; 256 threads on bf16/f32, 512 on int8) would need 234 KB there, so
+// it holds no copy of c': the permutation reads the parents' c' from the
+// cell's scratch in global memory (the same bytes the copy read), 3 W U
+// floats of state (202 KB at U = 256, W = 32, S = 232). Its top-W keeps the
+// candidates that can win in shared memory, the V real columns and the
+// first W padding columns of each hypothesis, in the flattened row's order:
+// a hypothesis's padding columns all hold cum + finfo.min, so they are
+// picked in index order, at most W of them (a pick becomes finfo.min, as in
+// the reference). Each lane keeps the best of its own candidates, and only
+// the winner's lane scans its own again after a pick. rv_attend_<mode>'s
+// query gives the shared memory, with the occupancy, and a shape whose CTA
+// does not fit in 227 KB is refused, never launched.
 //
 // Numerics as the reference: att in f32; h rounded to the memory's type
 // before the score dot and the alignments before the context dot, f32
@@ -93,10 +105,16 @@ struct RvAttendArgs {
 // for (U, W) on `stream` and returns cudaGetLastError(); or, with `info`,
 // launches nothing and writes the instance's shared memory a CTA in bytes
 // (dynamic and static), its threads a CTA and the CTAs an SM holds (0 when
-// one does not fit). cudaErrorInvalidValue for a U or W not compiled.
+// one does not fit). cudaErrorInvalidValue for a U or W not compiled. W =
+// 17-32 goes to the mode's rv_attend_<mode>_w32, whose instances of 32
+// beams live in a source of their own (beam_attend_<mode>_w32.cu): the
+// kernels' build runs one nvcc a source on 8 cores, and a mode's 15
+// instances in one source were its longest.
 #define RV_ATTEND_MODES(X) X(bf16) X(f32) X(i8) X(i8mxu)
 #define RV_ATTEND_DECL(m)                                                               \
-  extern "C" int rv_attend_##m(int U, int W, const RvAttendArgs* a, int* info, void* stream);
+  extern "C" int rv_attend_##m(int U, int W, const RvAttendArgs* a, int* info, void* stream); \
+  extern "C" int rv_attend_##m##_w32(int U, int W, const RvAttendArgs* a, int* info,      \
+                                     void* stream);
 RV_ATTEND_MODES(RV_ATTEND_DECL)
 #undef RV_ATTEND_DECL
 
@@ -219,10 +237,20 @@ __device__ __forceinline__ void transpose4(const unsigned v[4], int t[4]) {
 }
 
 struct AttSmem {
-  int kbuf, part, hq, hs, cs, att, sc, aq, ks, vs, wfc, logit, total;  // offsets in floats
+  int kbuf, part, hq, hs, cs, att, sc, aq, ks, vs, wfc, logit, cand, total;  // offsets in floats
 };
 
-template <class Md>
+// Whether an instance of at most WM beams keeps a copy of c' in shared
+// memory (up to 16 beams), or reads it from global memory in the
+// permutation and keeps the top-W's candidates in shared memory (32).
+template <int WM>
+__host__ __device__ constexpr bool att_wide() { return WM > 16; }
+
+// The candidate columns a hypothesis of the 32-beam instance's top-W keeps:
+// the V real ones and the first W padding ones.
+__host__ __device__ inline int att_cand_cols(int W, int V) { return V + W < kVP ? V + W : kVP; }
+
+template <class Md, bool kWide>
 __host__ __device__ inline AttSmem att_layout(int W, int S, int V) {
   constexpr int U = Md::kU;
   const int SP = (S + 3) & ~3;
@@ -233,7 +261,7 @@ __host__ __device__ inline AttSmem att_layout(int W, int S, int V) {
   if (Md::kPartSlots * W * U > o) o = Md::kPartSlots * W * U;  // blocks between the context and att
   s.hq = o;    o += Md::kMxu ? W * U / 4 : W * U;  // [W][U] h' for the scores (mxu: codes)
   s.hs = o;    o += W * U;                  // [W][U] h'
-  s.cs = o;    o += W * U;                  // [W][U] c'
+  s.cs = o;    o += kWide ? 0 : W * U;      // [W][U] c'
   s.att = o;   o += W * U;                  // [W][U] h'.watt_h, then the new attention vector
   s.sc = o;    o += W * SP;                 // [W][S] scores, then alignments
   s.aq = o;    o += Md::kMxu ? (W * SP / 4 + 3) & ~3 : 0;  // [W][S] quantized alignments
@@ -241,6 +269,7 @@ __host__ __device__ inline AttSmem att_layout(int W, int S, int V) {
   s.vs = o;    o += Md::kQuant ? SP : 0;    // [S] value scales of the row
   s.wfc = o;   o += U * V;                  // [U][V]
   s.logit = o; o += W * V;                  // [W][V]
+  s.cand = o;  o += kWide ? W * att_cand_cols(W, V) : 0;  // [W][V + W] the top-W's candidates
   s.total = o;
   return s;
 }
@@ -282,11 +311,11 @@ __device__ __forceinline__ void fetch_block(float* kbuf, const typename Md::M* K
   cp_async_commit();
 }
 
-// cp.async of batch row b's h', c' and h'.watt_h ([W][U] each) into hs, cs,
-// att, and for int8 memory its S key and value scales (4-byte copies: a
-// row of scales is 16-byte aligned only when S % 4 == 0) into ks, vs; one
-// group.
-template <class Md, int NT>
+// cp.async of batch row b's h', c' (not in the 32-beam instance) and
+// h'.watt_h ([W][U] each) into hs, cs, att, and for int8 memory its S key
+// and value scales (4-byte copies: a row of scales is 16-byte aligned only
+// when S % 4 == 0) into ks, vs; one group.
+template <class Md, int NT, bool kWide>
 __device__ __forceinline__ void fetch_state(float* smem, const AttSmem& L, const float* hn,
                                             const float* cn, const float* ath,
                                             const float* kscale, const float* vscale, size_t b,
@@ -295,7 +324,7 @@ __device__ __forceinline__ void fetch_state(float* smem, const AttSmem& L, const
   const size_t bw = b * W;
   for (int i = threadIdx.x; i < W * U / 4; i += NT) {
     cp_async16(smem + L.hs + 4 * i, hn + bw * U + 4 * i);
-    cp_async16(smem + L.cs + 4 * i, cn + bw * U + 4 * i);
+    if constexpr (!kWide) cp_async16(smem + L.cs + 4 * i, cn + bw * U + 4 * i);
     cp_async16(smem + L.att + 4 * i, ath + bw * U + 4 * i);
   }
   if constexpr (Md::kQuant) {
@@ -316,6 +345,68 @@ __host__ __device__ constexpr int att_group() {
 template <class Md, int WM, bool kFixed>
 __host__ __device__ constexpr int att_threads() {
   return kGroupThreads * ((WM + att_group<Md, WM, kFixed>() - 1) / att_group<Md, WM, kFixed>());
+}
+
+// The 32-beam instance's choice, by one warp (lane w holds hypothesis w's
+// log-sum-exp): the candidates that can win, hypothesis w's V real columns
+// and its first W padding columns (nc of them), are written to `cand` in
+// the flattened row's order, candidate e = w * nc + v standing for column w
+// * kVP + v; each lane keeps the best of its candidates e = lane + 32 i
+// (the first on a tie), the warp picks the best of the lanes' (the smallest
+// index on a tie), the pick becomes finfo.min and its lane looks again.
+// Writes the row's W picks (cum, token, parent, finished) to global memory
+// and the parents to `par`.
+__device__ __forceinline__ void choose_wide(float* cand, const float* logit, const float* cum,
+                                            const int* fin, int* par, float lse, int W, int V,
+                                            int end_token, int lane, float* cum_out,
+                                            int32_t* tok_out, int32_t* par_out,
+                                            uint8_t* fin_out) {
+  const int nc = att_cand_cols(W, V), ne = W * nc;
+  for (int e0 = 0; e0 < ne; e0 += 32) {  // whole warps: the shuffle
+    const int e = e0 + lane;
+    const int w = min(e / nc, W - 1), v = e - w * nc;
+    const float lse_w = __shfl_sync(0xffffffffu, lse, w);
+    if (e < ne) {
+      float lp;
+      if (v >= V) lp = kNegMax;
+      else if (fin[w]) lp = v == end_token ? 0.f : kNegMax;
+      else lp = logit[w * V + v] - lse_w;
+      cand[e] = cum[w] + lp;
+    }
+  }
+  __syncwarp();
+  auto lane_best = [&](float& best, int& bi) {
+    best = __int_as_float(0xff800000);  // -inf
+    bi = 0x7fffffff;                    // no candidate: never picked
+    for (int e = lane; e < ne; e += 32)
+      if (bi == 0x7fffffff || cand[e] > best) { best = cand[e]; bi = e; }
+  };
+  float lb;
+  int li;
+  lane_best(lb, li);
+  for (int k = 0; k < W; ++k) {
+    float best = lb;
+    int bi = li;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+    }
+    const int parent = bi / nc, token = bi - parent * nc;
+    if (lane == 0) {
+      cum_out[k] = best;
+      tok_out[k] = token;
+      par_out[k] = parent;
+      fin_out[k] = (fin[parent] || token == end_token) ? 1 : 0;
+      par[k] = parent;
+    }
+    if (lane == bi % 32) {  // the winner leaves the row
+      cand[bi] = kNegMax;
+      lane_best(lb, li);
+    }
+    __syncwarp();
+  }
 }
 
 // A persistent grid: CTA i takes batch rows i, i + gridDim.x, ... W beams:
@@ -348,9 +439,10 @@ beam_attend_kernel(int W_arg, int B, int S, int V, int end_token,
   constexpr int G = att_group<Md, WM, kFixed>();   // hypotheses a group
   constexpr int kH = (WM + G - 1) / G;             // groups
   constexpr int NT = kGroupThreads * kH;           // threads
+  constexpr bool kWide = att_wide<WM>();
   const int W = kFixed ? WM : W_arg;
   extern __shared__ __align__(16) float smem[];
-  const AttSmem L = att_layout<Md>(W, S, V);
+  const AttSmem L = att_layout<Md, kWide>(W, S, V);
   const int SP = (S + 3) & ~3;
   float* kbuf = smem + L.kbuf;
   float* part = smem + L.part;
@@ -364,6 +456,7 @@ beam_attend_kernel(int W_arg, int B, int S, int V, int end_token,
   const float* vs = smem + L.vs;
   float* wfs = smem + L.wfc;
   float* logit = smem + L.logit;
+  float* cand = smem + L.cand;
   __shared__ AttStatic<WM> sh;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -381,7 +474,7 @@ beam_attend_kernel(int W_arg, int B, int S, int V, int end_token,
   if (b >= (size_t)B) return;
   fetch_block<Md, NT>(kbuf, keys + b * S * U, S, 0);
   fetch_block<Md, NT>(kbuf, keys + b * S * U, S, 1);
-  fetch_state<Md, NT>(smem, L, hn, cn, ath, kscale, vscale, b, W, S);
+  fetch_state<Md, NT, kWide>(smem, L, hn, cn, ath, kscale, vscale, b, W, S);
   for (int i = tid; i < U * V; i += NT) wfs[i] = __ldg(wfc + i);
 
   for (; b < (size_t)B; b += gridDim.x) {
@@ -727,7 +820,8 @@ beam_attend_kernel(int W_arg, int B, int S, int V, int end_token,
     // step log-prob of the flattened WM x VP row, lane l holding columns
     // l + 32 t (finished beams continue only through the end token; padding
     // columns carry cum + finfo.min; hypotheses >= W -inf); top-W by
-    // iterated first-index argmax
+    // iterated first-index argmax (the 32-beam instance: over the
+    // candidates that can win, in shared memory)
     if (warp == 0) {
       float lse = 0.f;
       if (lane < W) {
@@ -738,75 +832,82 @@ beam_attend_kernel(int W_arg, int B, int S, int V, int end_token,
         for (int v = 0; v < V; ++v) sum += expf(l[v] - m);
         lse = logf(sum) + m;
       }
-      constexpr int kT = WM * kVP / 32;
-      float f[kT];
+      if constexpr (kWide) {
+        choose_wide(cand, logit, sh.cum, sh.fin, sh.par, lse, W, V, end_token, lane,
+                    cum_out + bw, tok_out + bw, par_out + bw, fin_out + bw);
+      } else {
+        constexpr int kT = WM * kVP / 32;
+        float f[kT];
 #pragma unroll
-      for (int tt = 0; tt < kT; ++tt) {
-        const int w = tt / (kVP / 32), v = lane + 32 * (tt % (kVP / 32));
-        const float lse_w = __shfl_sync(0xffffffffu, lse, w);
-        if (!kFixed && w >= W) {
-          f[tt] = __int_as_float(0xff800000);  // -inf
-          continue;
+        for (int tt = 0; tt < kT; ++tt) {
+          const int w = tt / (kVP / 32), v = lane + 32 * (tt % (kVP / 32));
+          const float lse_w = __shfl_sync(0xffffffffu, lse, w);
+          if (!kFixed && w >= W) {
+            f[tt] = __int_as_float(0xff800000);  // -inf
+            continue;
+          }
+          float lp;
+          if (v >= V) lp = kNegMax;
+          else if (sh.fin[w]) lp = v == end_token ? 0.f : kNegMax;
+          else lp = logit[w * V + v] - lse_w;
+          f[tt] = sh.cum[w] + lp;
         }
-        float lp;
-        if (v >= V) lp = kNegMax;
-        else if (sh.fin[w]) lp = v == end_token ? 0.f : kNegMax;
-        else lp = logit[w * V + v] - lse_w;
-        f[tt] = sh.cum[w] + lp;
-      }
-      // the lane's best (first index on a tie: tt ascending is index ascending)
-      auto lane_best = [&](float& best, int& bt) {
-        best = f[0];
-        bt = 0;
+        // the lane's best (first index on a tie: tt ascending is index ascending)
+        auto lane_best = [&](float& best, int& bt) {
+          best = f[0];
+          bt = 0;
 #pragma unroll
-        for (int tt = 1; tt < kT; ++tt)
-          if (f[tt] > best) { best = f[tt]; bt = tt; }
-      };
-      float lb;
-      int lt;
-      lane_best(lb, lt);
-      for (int k = 0; k < W; ++k) {
-        float best = lb;
-        int bi = lane + 32 * lt;
+          for (int tt = 1; tt < kT; ++tt)
+            if (f[tt] > best) { best = f[tt]; bt = tt; }
+        };
+        float lb;
+        int lt;
+        lane_best(lb, lt);
+        for (int k = 0; k < W; ++k) {
+          float best = lb;
+          int bi = lane + 32 * lt;
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-          if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
-        }
-        const int parent = bi / kVP, token = bi - parent * kVP;
-        if (lane == 0) {
-          cum_out[bw + k] = best;
-          tok_out[bw + k] = token;
-          par_out[bw + k] = parent;
-          fin_out[bw + k] = (sh.fin[parent] || token == end_token) ? 1 : 0;
-          sh.par[k] = parent;
-        }
-        if (lane == bi % 32) {  // the winner's column leaves the row
-          const int tw = bi / 32;
+          for (int o = 16; o > 0; o >>= 1) {
+            const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+            const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+            if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+          }
+          const int parent = bi / kVP, token = bi - parent * kVP;
+          if (lane == 0) {
+            cum_out[bw + k] = best;
+            tok_out[bw + k] = token;
+            par_out[bw + k] = parent;
+            fin_out[bw + k] = (sh.fin[parent] || token == end_token) ? 1 : 0;
+            sh.par[k] = parent;
+          }
+          if (lane == bi % 32) {  // the winner's column leaves the row
+            const int tw = bi / 32;
 #pragma unroll
-          for (int tt = 0; tt < kT; ++tt)
-            if (tt == tw) f[tt] = kNegMax;
-          lane_best(lb, lt);
+            for (int tt = 0; tt < kT; ++tt)
+              if (tt == tw) f[tt] = kNegMax;
+            lane_best(lb, lt);
+          }
         }
       }
     }
     __syncthreads();
 
-    // ---- beam permutation of the recurrent state, 16 bytes a thread
+    // ---- beam permutation of the recurrent state, 16 bytes a thread (the
+    // 32-beam instance reads c' from the cell's scratch)
     for (int i = tid; i < W * U / 4; i += NT) {
       const int k = 4 * i / U, u = 4 * i - k * U;
       const int src = sh.par[k] * U + u;
       const size_t dst = (bw + k) * U + u;
       const float4 h = *reinterpret_cast<const float4*>(hs + src);
-      const float4 c = *reinterpret_cast<const float4*>(cs + src);
+      const float4 c = kWide ? __ldg(reinterpret_cast<const float4*>(cn + bw * U + src))
+                             : *reinterpret_cast<const float4*>(cs + src);
       const float4 a = *reinterpret_cast<const float4*>(att + src);
       *reinterpret_cast<float4*>(h_out + dst) = h;
       *reinterpret_cast<float4*>(c_out + dst) = c;
       *reinterpret_cast<float4*>(att_out + dst) = a;
     }
     __syncthreads();  // hs, cs, att are free: the next row's state goes out
-    if (nb < (size_t)B) fetch_state<Md, NT>(smem, L, hn, cn, ath, kscale, vscale, nb, W, S);
+    if (nb < (size_t)B) fetch_state<Md, NT, kWide>(smem, L, hn, cn, ath, kscale, vscale, nb, W, S);
   }
 }
 
@@ -818,7 +919,8 @@ int launch_attend(int W, const RvAttendArgs& a, int* info, cudaStream_t stream) 
   constexpr int NT = att_threads<Md, WM, kFixed>();
   static int allowed[kMaxDevices] = {};
   auto kernel = beam_attend_kernel<Md, WM, kFixed>;
-  const size_t smem = (size_t)att_layout<Md>(W, a.S, a.V).total * sizeof(float);
+  const size_t smem =
+      (size_t)att_layout<Md, att_wide<WM>()>(W, a.S, a.V).total * sizeof(float);
   const bool fits = smem + sizeof(AttStatic<WM>) <= (size_t)kSmemLimit;
   int rc = 0, device = 0, sms = 0, per_sm = 0;
   if (fits) {
@@ -846,11 +948,10 @@ int launch_attend(int W, const RvAttendArgs& a, int* info, cudaStream_t stream) 
   return (int)cudaGetLastError();
 }
 
-// The instance of W beams: exact at 1 and 5, else the smallest maximum of
-// 8 and 16 that holds W.
+// The instance of W beams up to 16: exact at 1 and 5, else the smallest
+// maximum of 8 and 16 that holds W.
 template <class Md>
 int dispatch_beams(int W, const RvAttendArgs& a, int* info, cudaStream_t st) {
-  static_assert(RV_STEP_MAX_BEAMS == 16, "the beam buckets below end at RV_STEP_MAX_BEAMS");
   if (W == 1) return launch_attend<Md, 1, true>(W, a, info, st);
   if (W == 5) return launch_attend<Md, 5, true>(W, a, info, st);
   if (W >= 2 && W <= 8) return launch_attend<Md, 8, false>(W, a, info, st);
@@ -858,15 +959,33 @@ int dispatch_beams(int W, const RvAttendArgs& a, int* info, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The instance of 32 beams, for W = 17 to RV_STEP_MAX_BEAMS.
+template <class Md>
+int dispatch_wide(int W, const RvAttendArgs& a, int* info, cudaStream_t st) {
+  static_assert(RV_STEP_MAX_BEAMS == 32, "the beam buckets end at RV_STEP_MAX_BEAMS");
+  if (W >= 17 && W <= 32) return launch_attend<Md, 32, false>(W, a, info, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// A memory mode's entry rv_attend_<m> over its Mode template MODE, one case
-// a compiled unit count (beam_step_shapes.cuh).
+// A memory mode's entries over its Mode template MODE, one case a compiled
+// unit count (beam_step_shapes.cuh): rv_attend_<m> (beam_attend_<m>.cu),
+// which hands W past 16 to rv_attend_<m>_w32 (beam_attend_<m>_w32.cu).
 #define RV_ATTEND_UNIT_CASE(u) \
   case u: return dispatch_beams<MODE<u>>(W, *a, info, (cudaStream_t)stream);
 #define RV_ATTEND_ENTRY(m)                                                                \
   extern "C" int rv_attend_##m(int U, int W, const RvAttendArgs* a, int* info,            \
                                void* stream) {                                            \
+    if (W > 16) return rv_attend_##m##_w32(U, W, a, info, stream);                        \
     switch (U) { RV_STEP_UNITS(RV_ATTEND_UNIT_CASE) }                                     \
+    return (int)cudaErrorInvalidValue;                                                    \
+  }
+#define RV_ATTEND_WIDE_CASE(u) \
+  case u: return dispatch_wide<MODE<u>>(W, *a, info, (cudaStream_t)stream);
+#define RV_ATTEND_WIDE_ENTRY(m)                                                           \
+  extern "C" int rv_attend_##m##_w32(int U, int W, const RvAttendArgs* a, int* info,      \
+                                     void* stream) {                                      \
+    switch (U) { RV_STEP_UNITS(RV_ATTEND_WIDE_CASE) }                                     \
     return (int)cudaErrorInvalidValue;                                                    \
   }

@@ -813,7 +813,8 @@ enum { kLayoutAuto = 0, kLayoutResident = 1, kLayoutStreamed = 2 };
 #define RV_LOOP_UNIT_EQ(u) || U == (u)
 bool takes(int U, int W, int B, int S, int V, int T, int eff, int start_token, int end_token) {
   return (false RV_STEP_UNITS(RV_LOOP_UNIT_EQ)) && W >= 1 && W <= RV_STEP_MAX_BEAMS && B > 0 &&
-         S > 0 && V > 0 && V + W <= kMaxCand && end_token >= 0 && end_token < V &&
+         S > 0 && V > 0 && V <= 32 && V + W <= (W <= 16 ? kMaxCand : 2 * kMaxCand) &&
+         end_token >= 0 && end_token < V &&
          start_token >= 0 && start_token < kVP && eff >= 0 && eff <= T;
 }
 #undef RV_LOOP_UNIT_EQ
@@ -878,9 +879,10 @@ extern "C" int rv_beam_loop_clusters(int mem_bf16, int U, int W, int S, int V, i
 }
 
 // mem_bf16: 1 when keys/values are bf16, 0 when f32. U in
-// beam_step_shapes.cuh, beam widths 1 to RV_STEP_MAX_BEAMS; V + W <= 32; S
-// such that a layout fits the card's shared memory; keys, values, wx, wh,
-// bias and watt_h 16-byte aligned; layout as rv_beam_loop_clusters takes it.
+// beam_step_shapes.cuh, beam widths 1 to RV_STEP_MAX_BEAMS; V + W <= 32 (64
+// past 16 beams, V <= 32); S such that a layout fits the card's shared
+// memory; keys, values, wx, wh, bias and watt_h 16-byte aligned; layout as
+// rv_beam_loop_clusters takes it.
 // Outputs [T, B, W]: steps [0, eff) are written, the rest left as they are.
 // Launches on `stream`; returns a cudaError_t (0 = launched). The timing
 // build's entry (rv_beam_loop_phases) takes the same arguments and the

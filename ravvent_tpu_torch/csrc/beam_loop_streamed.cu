@@ -24,7 +24,11 @@
 // floats no longer fit beside the keys. Here one CTA of 512 threads owns one
 // row and its W hypotheses; its shared memory holds only the step's floats
 // (h', att, c [W][U], the gates [W][4U], the scores [W][S], the candidates),
-// about 130 KB at U = 256, W = 16, S = 232. Every step reads the decoder
+// about 130 KB at U = 256, W = 16, S = 232. Where that does not fit in 227
+// KB (U = 256, W > 27 at S = 232: 267 KB at W = 32), the scores and the
+// candidates of beam j lie in its gates' row past the first U columns, which
+// are dead from the gates on until the next step's products (7 W U floats:
+// 225 KB at U = 256, W = 32). Every step reads the decoder
 // weights from L2 (2.4 MB at 256 units, 0.6 MB at 128) and the row's keys
 // and values from L2 or HBM.
 //
@@ -42,8 +46,17 @@
 // log-sum-exp and the candidates, a warp a beam; the top-W, one warp, as the
 // resident kernel picks.
 //
+// Candidates: a beam's V real columns and its first W padding columns (its
+// padding columns all hold cum + finfo.min, so they are picked in index
+// order, at most W of them), V + W of them: at most 32, one a lane, in the
+// instances of 8 and 16 beams, whose top-W warp holds a lane's share of the
+// row's candidates in registers; at most 64, two a lane, in the instance of
+// 32 beams (V <= 32), whose top-W reads them from shared memory, and whose
+// scores take the beams 16 at a time, so that its code and registers stay
+// at the 16-beam instance's (the keys are read once a pass).
+//
 // Instances: bf16 and f32 memory, U in beam_step_shapes.cuh, and a maximum
-// of WM = 8 or 16 beams on a runtime W <= WM.
+// of WM = 8, 16 or 32 beams on a runtime W <= WM.
 //
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py). Its C
@@ -56,28 +69,46 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxCand = 32;  // V + W candidate columns a beam (one warp)
+constexpr int kSmemLimit = 232448;  // shared memory a block may use on Hopper (227 KB)
+
+// V + W candidate columns a beam of an instance of at most WM beams: one
+// warp's lanes up to 16 beams, two a lane at 32
+__host__ __device__ constexpr int max_cand(int WM) { return WM <= 16 ? 32 : 64; }
 
 // float offsets into the dynamic shared buffer; the mask and the total in
-// bytes; the scores' row stride
+// bytes; the scores' row stride sp, and the row strides of the scores and
+// the candidates as they lie (scs, ccs)
 struct StreamSmem {
-  int hn, an, cn, z, sc, cand, cum, tok, par, fin, mask, total, sp;
+  int hn, an, cn, z, sc, cand, cum, tok, par, fin, mask, total, sp, scs, ccs;
 };
 
 // h' [WM][U], att [WM][U] (h'.watt_h, then att), c [WM][U], z [WM][4U] (the
 // gate pre-activations; h' rounded to the memory's type in its first U
-// columns), the scores [WM][sp], the candidates [WM][32], the beams' cum,
-// token, parent and finished flag; the mask.
+// columns), the scores [WM][sp], the candidates [WM][max_cand], the beams'
+// cum, token, parent and finished flag; the mask. Where that passes the
+// limit and they fit there, the scores and candidates of beam j lie in z's
+// row j past its first U columns.
 __host__ __device__ inline StreamSmem stream_smem_layout(int U, int WM, int S) {
   StreamSmem L;
   L.sp = (S + 3) / 4 * 4;
+  const int mc = max_cand(WM);
+  const int fixed = WM * (7 * U + 4) * 4 + (S + 15) / 16 * 16;  // all but scores, candidates
+  const bool alias = fixed + WM * (L.sp + mc) * 4 > kSmemLimit && L.sp + mc <= 3 * U;
   int o = 0;
   L.hn = o;   o += WM * U;
   L.an = o;   o += WM * U;
   L.cn = o;   o += WM * U;
   L.z = o;    o += WM * 4 * U;
-  L.sc = o;   o += WM * L.sp;
-  L.cand = o; o += WM * kMaxCand;
+  if (alias) {
+    L.sc = L.z + U;
+    L.cand = L.sc + L.sp;
+    L.scs = L.ccs = 4 * U;
+  } else {
+    L.sc = o;   o += WM * L.sp;
+    L.cand = o; o += WM * mc;
+    L.scs = L.sp;
+    L.ccs = mc;
+  }
   L.cum = o;  o += WM;
   L.tok = o;  o += WM;
   L.par = o;  o += WM;
@@ -121,7 +152,8 @@ beam_loop_streamed_kernel(int B, int S, int V, int W, int eff, int start_token, 
   int* s_par = reinterpret_cast<int*>(F + L.par);
   int* s_fin = reinterpret_cast<int*>(F + L.fin);
   uint8_t* smask = smem_raw + L.mask;
-  const int sp = L.sp;
+  const int scs = L.scs, ccs = L.ccs;  // the scores' and the candidates' row strides
+  constexpr int kMaxCand = max_cand(WM);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t row = blockIdx.x;
@@ -244,44 +276,51 @@ beam_loop_streamed_kernel(int B, int S, int V, int W, int eff, int start_token, 
     }
 
     // ---- scores from the keys in global memory: 8 lanes a position (U / 8
-    // units each, interleaved by 32), 4 positions a warp
+    // units each, interleaved by 32), 4 positions a warp; 16 beams a pass
+    // past 16 (the keys read once a pass), which keeps the instance of 32
+    // beams' code and registers at the 16-beam instance's
     {
+      constexpr int kSJ = WM > 16 ? 16 : WM;  // beams a pass
       const int sub = lane & 7, pq = lane >> 3;
-      for (int b = 4 * warp; b < S; b += 4 * kWarps) {  // warp-uniform
-        const int s = b + pq;
-        const bool v = s < S;
-        float a[WM];
+#pragma unroll 1
+      for (int j0 = 0; j0 < (WM > 16 ? W : kSJ); j0 += kSJ) {
+        for (int b = 4 * warp; b < S; b += 4 * kWarps) {  // warp-uniform
+          const int s = b + pq;
+          const bool v = s < S;
+          float a[kSJ];
 #pragma unroll
-        for (int j = 0; j < WM; ++j) a[j] = 0.f;
+          for (int j = 0; j < kSJ; ++j) a[j] = 0.f;
 #pragma unroll
-        for (int m = 0; m < U / 32; ++m) {
-          const int u = 4 * sub + 32 * m;
-          float k4[4] = {0.f, 0.f, 0.f, 0.f};
-          if (v) load4(krow + (size_t)s * U + u, k4);
+          for (int m = 0; m < U / 32; ++m) {
+            const int u = 4 * sub + 32 * m;
+            float k4[4] = {0.f, 0.f, 0.f, 0.f};
+            if (v) load4(krow + (size_t)s * U + u, k4);
 #pragma unroll
-          for (int j = 0; j < WM; ++j) {
-            if (j < W) {
-              float q[4];
-              lds4(z + j * kG + u, q);
+            for (int j = 0; j < kSJ; ++j) {
+              if (j0 + j < W) {
+                float q[4];
+                lds4(z + (j0 + j) * kG + u, q);
 #pragma unroll
-              for (int c = 0; c < 4; ++c) a[j] = fmaf(q[c], k4[c], a[j]);
+                for (int c = 0; c < 4; ++c) a[j] = fmaf(q[c], k4[c], a[j]);
+              }
             }
           }
-        }
 #pragma unroll
-        for (int j = 0; j < WM; ++j) {
-          if (j < W) {
+          for (int j = 0; j < kSJ; ++j) {
+            if (j0 + j < W) {
 #pragma unroll
-            for (int o = 1; o < 8; o <<= 1) a[j] += __shfl_xor_sync(0xffffffffu, a[j], o);
-            if (v && (j & 7) == sub) sc[j * sp + s] = smask[s] ? a[j] : kNegMax;
+              for (int o = 1; o < 8; o <<= 1) a[j] += __shfl_xor_sync(0xffffffffu, a[j], o);
+              if (v && (j & 7) == sub) sc[(j0 + j) * scs + s] = smask[s] ? a[j] : kNegMax;
+            }
           }
         }
       }
     }
     __syncthreads();
 
-    // ---- softmax, a warp a beam (rounded to the memory's type)
-    if (warp < W) warp_softmax<M>(sc + warp * sp, S, lane);
+    // ---- softmax, a warp a beam (rounded to the memory's type; the 16 warps
+    // take beams 16-31 too)
+    for (int j = warp; j < W; j += kWarps) warp_softmax<M>(sc + j * scs, S, lane);
     __syncthreads();
 
     // ---- context from the values in global memory, added to att: a thread a
@@ -295,7 +334,7 @@ beam_loop_streamed_kernel(int B, int S, int V, int W, int eff, int start_token, 
         const float v = to_float(__ldg(vrow + (size_t)s * U + ut));
 #pragma unroll
         for (int r = 0; r < kJU; ++r)
-          if (ub + r * kUB < W) acc[r] = fmaf(sc[(ub + r * kUB) * sp + s], v, acc[r]);
+          if (ub + r * kUB < W) acc[r] = fmaf(sc[(ub + r * kUB) * scs + s], v, acc[r]);
       }
 #pragma unroll
       for (int r = 0; r < kJU; ++r)
@@ -307,10 +346,10 @@ beam_loop_streamed_kernel(int B, int S, int V, int W, int eff, int start_token, 
     __syncthreads();
 
     // ---- a warp a beam: the logits, the log-sum-exp and the candidates that
-    // can win (V real columns, then the first W padding columns); finished
-    // beams continue only through the end token
-    if (warp < W) {
-      const int j = warp;
+    // can win (V real columns, then the first W padding columns; past 32, a
+    // lane's second; the 16 warps take beams 16-31 too); finished beams
+    // continue only through the end token
+    for (int j = warp; j < W; j += kWarps) {
       constexpr int kPL = U / 32;
       float a[kPL];
 #pragma unroll
@@ -326,44 +365,77 @@ beam_loop_streamed_kernel(int B, int S, int V, int W, int eff, int start_token, 
       const float m = warp_max(lane < V ? logit : kNegMax);
       const float sum = warp_sum(lane < V ? expf(logit - m) : 0.f);
       const float lse = logf(sum) + m;
-      if (lane < V + W) {
+      for (int col = lane; col < V + W; col += 32) {  // V <= 32: a real column is its lane's
         float lp;
-        if (lane >= V) lp = kNegMax;
-        else if (s_fin[j]) lp = lane == end_token ? 0.f : kNegMax;
+        if (col >= V) lp = kNegMax;
+        else if (s_fin[j]) lp = col == end_token ? 0.f : kNegMax;
         else lp = logit - lse;
-        cand[j * kMaxCand + lane] = s_cum[j] + lp;
+        cand[j * ccs + col] = s_cum[j] + lp;
       }
     }
     __syncthreads();
 
     // ---- top-W by iterated first-index argmax over the W x (V + W)
-    // candidates, in the flattened row's order (warp 0)
+    // candidates, in the flattened row's order (warp 0); a lane holds the
+    // candidates e = lane + 32 i, in registers up to 16 beams, past them in
+    // shared memory with the lane's best, which only the winner's lane
+    // finds again after a pick
     if (warp == 0) {
       const int nc = V + W, ne = W * nc;
-      float val[WM];
-#pragma unroll
-      for (int i = 0; i < WM; ++i) {
-        const int e = lane + 32 * i;
-        val[i] = e < ne ? cand[(e / nc) * kMaxCand + e % nc] : 0.f;
-      }
       float pick_v = 0.f;
       int pick_e = 0;
-      for (int k = 0; k < W; ++k) {
-        float best = 0.f;
-        int bi = -1;
-#pragma unroll
-        for (int i = 0; i < WM; ++i) {
-          const int e = lane + 32 * i;
-          if (e < ne && (bi < 0 || val[i] > best)) { best = val[i]; bi = e; }
+      if constexpr (WM > 16) {
+        auto lane_best = [&](float& best, int& bi) {
+          best = 0.f;
+          bi = -1;
+          int r = lane / nc, c = lane - r * nc;  // candidate e's beam and column
+          for (int e = lane; e < ne; e += 32) {
+            const float x = cand[r * ccs + c];
+            if (bi < 0 || x > best) { best = x; bi = e; }
+            for (c += 32; c >= nc; c -= nc) ++r;
+          }
+        };
+        float lb;
+        int li;
+        lane_best(lb, li);
+        for (int k = 0; k < W; ++k) {
+          const unsigned key = li < 0 ? 0u : order_key(lb);
+          const unsigned top = __reduce_max_sync(0xffffffffu, key);
+          const int e = (int)__reduce_min_sync(0xffffffffu,
+                                               li >= 0 && key == top ? (unsigned)li : 0xffffffffu);
+          if (lane == k) { pick_v = from_key(top); pick_e = e; }
+          if (lane == e % 32) {  // the pick becomes finfo.min; its lane looks again
+            const int r = e / nc;
+            cand[r * ccs + e - r * nc] = kNegMax;
+            lane_best(lb, li);
+          }
+          __syncwarp();
         }
-        const unsigned key = bi < 0 ? 0u : order_key(best);
-        const unsigned top = __reduce_max_sync(0xffffffffu, key);
-        const int e = (int)__reduce_min_sync(0xffffffffu,
-                                             bi >= 0 && key == top ? (unsigned)bi : 0xffffffffu);
-        if (lane == k) { pick_v = from_key(top); pick_e = e; }
+      } else {
+        constexpr int kPer = WM * kMaxCand / 32;  // candidates a lane
+        float val[kPer];
 #pragma unroll
-        for (int i = 0; i < WM; ++i)
-          if (lane + 32 * i == e) val[i] = kNegMax;
+        for (int i = 0; i < kPer; ++i) {
+          const int e = lane + 32 * i;
+          val[i] = e < ne ? cand[(e / nc) * ccs + e % nc] : 0.f;
+        }
+        for (int k = 0; k < W; ++k) {
+          float best = 0.f;
+          int bi = -1;
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) {
+            const int e = lane + 32 * i;
+            if (e < ne && (bi < 0 || val[i] > best)) { best = val[i]; bi = e; }
+          }
+          const unsigned key = bi < 0 ? 0u : order_key(best);
+          const unsigned top = __reduce_max_sync(0xffffffffu, key);
+          const int e = (int)__reduce_min_sync(0xffffffffu,
+                                               bi >= 0 && key == top ? (unsigned)bi : 0xffffffffu);
+          if (lane == k) { pick_v = from_key(top); pick_e = e; }
+#pragma unroll
+          for (int i = 0; i < kPer; ++i)
+            if (lane + 32 * i == e) val[i] = kNegMax;
+        }
       }
       const int parent = pick_e / nc, token = pick_e - parent * nc;
       int nfin = 0;
@@ -429,14 +501,17 @@ int dispatch_wm(int B, int S, int V, int W, int eff, int start_token, int end_to
   if (W <= 8)
     return launch<M, U, 8>(B, S, V, W, eff, start_token, end_token, a0, a1, a2, a3, a4, a5, a6,
                            a7, a8, o0, o1, o2, info, st);
-  return launch<M, U, 16>(B, S, V, W, eff, start_token, end_token, a0, a1, a2, a3, a4, a5, a6,
+  if (W <= 16)
+    return launch<M, U, 16>(B, S, V, W, eff, start_token, end_token, a0, a1, a2, a3, a4, a5,
+                            a6, a7, a8, o0, o1, o2, info, st);
+  return launch<M, U, 32>(B, S, V, W, eff, start_token, end_token, a0, a1, a2, a3, a4, a5, a6,
                           a7, a8, o0, o1, o2, info, st);
 }
 
 }  // namespace
 
-// The streamed layout at U units (beam_step_shapes.cuh) and 1 <= W <=
-// RV_STEP_MAX_BEAMS beams; the caller (rv_beam_loop in beam_loop.cu) has
+// The streamed layout at U units (beam_step_shapes.cuh), 1 <= W <=
+// RV_STEP_MAX_BEAMS beams and V + W <= max_cand(W) candidates; the caller (rv_beam_loop in beam_loop.cu) has
 // checked the rest of the shape. With `info` null: launches one CTA a row on
 // `stream` and returns cudaGetLastError(); else launches nothing and writes
 // info[0] = the dynamic shared memory a CTA, info[1] = the CTAs the card
@@ -448,7 +523,8 @@ extern "C" int rv_beam_loop_streamed(int mem_bf16, int U, int W, int B, int S, i
                                      const void* wh, const void* bias, const void* watt_h,
                                      const void* wfc, const void* bfc, void* tok_out,
                                      void* par_out, void* score_out, int* info, void* stream) {
-  if (W < 1 || W > RV_STEP_MAX_BEAMS) return (int)cudaErrorInvalidValue;
+  if (W < 1 || W > RV_STEP_MAX_BEAMS || V > 32 || V + W > max_cand(W))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
 #define RV_STREAM_CASE(u)                                                                       \
   case u:                                                                                       \

@@ -6,7 +6,7 @@
 // (bf16, f32), quant (int8 codes with per-(row, position) scales, dequantized
 // dots) and quant_mxu (s8 x s8 -> s32 dots). Both kernels are compiled for
 // the decoder units of beam_step_shapes.cuh (64, 128, 256) and the attend
-// kernel for beam widths 1 to RV_STEP_MAX_BEAMS (16), as the TPU kernel
+// kernel for beam widths 1 to RV_STEP_MAX_BEAMS (32), as the TPU kernel
 // takes any U and any W that fits its lanes.
 //
 // beam_cell (here): the LSTM cell and h'.watt_h for every hypothesis. A

@@ -9,4 +9,4 @@
 #pragma once
 
 #define RV_STEP_UNITS(X) X(64) X(128) X(256)
-#define RV_STEP_MAX_BEAMS 16
+#define RV_STEP_MAX_BEAMS 32

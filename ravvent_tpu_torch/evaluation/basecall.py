@@ -32,7 +32,10 @@ chunk by chunk (:meth:`BasecallEngine.finish_beam_signal`).
 On a CUDA device a bidirectional LSTM encoder runs the BiLSTM kernel of its
 stream (ops/rnn_cuda.py) and the decoder the beam-step kernel
 (ops/beam_step_cuda.py) or the beam-loop kernel (ops/beam_loop_cuda.py); on
-the CPU each runs its plain version. GRU and unidirectional encoders run
+the CPU each runs its plain version. A decoder width the decode kernels are
+not compiled for, up to the widest, runs the next compiled width: the
+engine zero-pads the decoder's weights once (ops/decoder_pad.py,
+:attr:`BasecallEngine.dec_params`), so that its memory comes out padded. GRU and unidirectional encoders run
 their plain scan, and ``beam_impl="xla"`` the plain beam decode
 (decode/beam.py), on any device, as the JAX package runs ``lax.scan`` and
 XLA for them. The JAX engine pads each slab to a
@@ -75,7 +78,9 @@ from ravvent_tpu_torch.ops.beam_loop_cuda import LOOP_BEAMS, LOOP_UNITS, beam_lo
 from ravvent_tpu_torch.ops.beam_step_cuda import (
     STEP_BEAMS, STEP_UNITS, beam_step_loop, fused_beam_decode, widths,
 )
+from ravvent_tpu_torch.ops import cuda_lib
 from ravvent_tpu_torch.ops.decode_step_cuda import GREEDY_MEMORY_DIMS, GREEDY_UNITS
+from ravvent_tpu_torch.ops.decoder_pad import pad_decoder_params, padded_width
 from ravvent_tpu_torch.ops.event_detect import detect_boundaries_device, fired_to_event_lens
 from ravvent_tpu_torch.ops.gather_rows import gather_rows
 from ravvent_tpu_torch.parallel.mesh import Mesh, replicate, row_bounds, shard_batch
@@ -95,7 +100,9 @@ _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
 
 # the decoder units and beam widths each implementation's kernels are
 # compiled for: the beam step's two kernels, the whole-loop kernel, and the
-# fused greedy step (no beams; its memory widths are GREEDY_MEMORY_DIMS)
+# fused greedy step (no beams; its memory widths are GREEDY_MEMORY_DIMS).
+# Every decoder width up to the widest, and every memory width up to the
+# widest, runs on the next compiled one, zero-padded (ops/decoder_pad.py)
 KERNEL_SHAPES = {"step": (STEP_UNITS, STEP_BEAMS), "loop": (LOOP_UNITS, LOOP_BEAMS),
                  "greedy": (GREEDY_UNITS, ())}
 
@@ -106,17 +113,18 @@ def kernels_serve(cfg: ModelConfig, beams: Iterable[int] = (),
     """Whether the decode kernels of ``impl`` ("step", the beam step; "loop",
     the whole-loop kernel; or, with ``greedy``, the fused greedy step) serve
     ``cfg``'s decoder, a depth-1 LSTM with Luong attention, and every beam
-    width in ``beams`` (:data:`KERNEL_SHAPES`). On a CUDA ``device`` the
-    kernels' compiled decoder widths too, and for the fused greedy step an
-    encoder output (``enc_out_dim``) in :data:`GREEDY_MEMORY_DIMS`; their
-    plain versions, which a CPU tensor runs, take any width."""
+    width in ``beams`` (:data:`KERNEL_SHAPES`). On a CUDA ``device`` also a
+    decoder width up to the widest compiled one (the others zero-padded),
+    and for the fused greedy step an encoder output (``enc_out_dim``) up to
+    the widest of :data:`GREEDY_MEMORY_DIMS`; their plain versions, which a
+    CPU tensor runs, take any width."""
     units, kernel_beams = KERNEL_SHAPES["greedy" if greedy else impl]
     serve = (cfg.cell_type == "lstm" and cfg.effective_attention == "luong"
              and cfg.decoder_depth == 1 and all(b in kernel_beams for b in beams))
     if device is None or torch.device(device).type != "cuda":
         return serve
-    return (serve and cfg.dec_units in units
-            and (not greedy or cfg.enc_out_dim in GREEDY_MEMORY_DIMS))
+    return (serve and cfg.dec_units <= max(units)
+            and (not greedy or cfg.enc_out_dim <= max(GREEDY_MEMORY_DIMS)))
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -412,12 +420,14 @@ class BasecallEngine:
             units, beams = KERNEL_SHAPES[beam_impl]
             raise ValueError(
                 f"beam_impl={beam_impl!r} runs the beam kernels, which take a depth-1 LSTM "
-                f"decoder with Luong attention, of {widths(units)} units on a card (beam "
-                f"widths {widths(beams)}); got rnn_type={cfg.rnn_type!r}, attention "
+                f"decoder with Luong attention, of up to {max(units)} units on a card "
+                f"({widths(units)} compiled, the others zero-padded; beam widths "
+                f"{widths(beams)}); got rnn_type={cfg.rnn_type!r}, attention "
                 f"{cfg.effective_attention!r}, decoder_depth={cfg.decoder_depth}, "
                 f"dec_units={cfg.dec_units} on {self.device}: use beam_impl='xla'")
         self.params = to_device(params, self.device)
         self.cfg = cfg
+        self.dec_params = self._decoder_params()
         self.chunk_size = chunk_size
         self.quant_mxu = memory_dtype == "i8mxu"
         self.memory_dtype = "i8" if self.quant_mxu else memory_dtype
@@ -446,14 +456,31 @@ class BasecallEngine:
                                                  self.encoder_dtype or torch.float32))
                 for k in ("encoder_raw", "encoder_event")} if self.cfg.rnn_type == "bilstm" else {}
 
+    def _decoder_params(self) -> dict:
+        """The decoder's parameters as the engine decodes with them: on a
+        card, for the decode kernels ("step", "loop"), zero-padded to the
+        next compiled width where ``dec_units`` is not one
+        (ops/decoder_pad.py), else the parameters themselves."""
+        dec = self.params.get("decoder")
+        if self.beam_impl == "xla" or self.device.type != "cuda":
+            return dec
+        units = KERNEL_SHAPES[self.beam_impl][0]
+        return pad_decoder_params(dec, padded_width(self.cfg.dec_units, units, "dec_units"))
+
+    @property
+    def decoder_padded(self) -> bool:
+        """Whether :attr:`dec_params` are zero-padded past ``dec_units``."""
+        return self.dec_params is not self.params.get("decoder")
+
     def _replica(self, device: torch.device, params) -> "BasecallEngine":
         """This engine's single-device program on ``device``: its settings,
-        with ``params`` (its parameters there) and encoder weights laid out
-        from them."""
+        with ``params`` (its parameters there) and encoder and decoder
+        weights laid out from them."""
         r = copy.copy(self)
         r.device, r.mesh = device, None
         r.params = params
         r._enc_weights = r._encoder_weights()
+        r.dec_params = r._decoder_params()
         r._shards = [r]
         return r
 
@@ -482,8 +509,9 @@ class BasecallEngine:
         scales for "i8"/"i8mxu"), the values pre-projected with
         ``project_values`` (always for the kernels), as the JAX engine's
         ``_setup`` makes it; else un-projected f32 keys and values, as fused
-        greedy decode takes them."""
-        dec = self.params["decoder"]
+        greedy decode takes them. Both from :attr:`dec_params` (keys and
+        pre-projected values at the padded width where it is padded)."""
+        dec = self.dec_params
         if self.encoder_dtype is not None:  # the masks come from the cast inputs
             raw, event = raw.to(self.encoder_dtype), event.to(self.encoder_dtype)
         enc_out, mask = encode_input(self.params, raw, event, self.cfg, self._enc_weights)
@@ -512,7 +540,9 @@ class BasecallEngine:
                               cfg.cell_type, NUC_TOKENIZER.start_id, NUC_TOKENIZER.end_id)
         else:
             loop = beam_loop if self.beam_impl == "loop" else beam_step_loop
-            res = fused_beam_decode(self.params["decoder"], mem, cfg.vocab_size, beam_width,
+            if self.decoder_padded:
+                cuda_lib.launches["decoder_padded"] += 1
+            res = fused_beam_decode(self.dec_params, mem, cfg.vocab_size, beam_width,
                                     self.total_steps, max_steps,
                                     start_token=NUC_TOKENIZER.start_id,
                                     end_token=NUC_TOKENIZER.end_id, loop=loop,
@@ -577,7 +607,7 @@ class BasecallEngine:
         toks, logits = [], []
         for eng, r, e in self._device_chunks(raw, event):
             with eng._on_device():
-                t, lg = greedy_decode(eng.params["decoder"], eng.memory(r, e), self.cfg.vocab_size,
+                t, lg = greedy_decode(eng.dec_params, eng.memory(r, e), self.cfg.vocab_size,
                                       self.total_steps, max_output_len - 1,
                                       self.cfg.effective_attention, self.cfg.cell_type,
                                       NUC_TOKENIZER.start_id, NUC_TOKENIZER.end_id)

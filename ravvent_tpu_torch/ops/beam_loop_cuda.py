@@ -44,7 +44,14 @@ from ravvent_tpu_torch.ops.beam_step_cuda import (
 # the shapes the loop's kernels are compiled for: the beam step's one list
 # (csrc/beam_step_shapes.cuh), so that the two cannot drift
 LOOP_UNITS, LOOP_BEAMS = STEP_UNITS, STEP_BEAMS
-MAX_CANDIDATES = 32  # V + W: a beam's candidates that can win lie on one warp's lanes
+
+
+def max_candidates(W: int) -> int:
+    """The most candidate columns V + W a beam may have at W beams: a
+    warp's lanes up to 16 beams, two a lane past them (V <= 32 there), as
+    csrc/beam_loop_streamed.cu's max_cand and csrc/beam_loop.cu's takes
+    rule."""
+    return 32 if W <= 16 else 64
 # the C entry's layout numbers: "auto" is the resident layout where it exists
 # and fits the card, else the streamed one
 LAYOUTS = ("auto", "resident", "streamed")
@@ -108,8 +115,9 @@ def beam_loop(keys, values, mask, w: DecoderWeights, W: int, total_steps: int, e
     check_aligned("beam_loop", w.wx, w.wh, w.b, w.watt_h)
     if not 0 <= start_token < VP:
         raise ValueError(f"beam_loop: need 0 <= start_token < {VP}")
-    if V + W > MAX_CANDIDATES:
-        raise ValueError(f"beam_loop: the kernel takes V + W <= {MAX_CANDIDATES}, got {V + W}")
+    if V + W > max_candidates(W) or V > 32:
+        raise ValueError(f"beam_loop: the kernel takes V + W <= {max_candidates(W)} and V <= 32 "
+                         f"at W = {W}, got V = {V}")
     if not 0 <= eff <= total_steps:
         raise ValueError(f"beam_loop: need 0 <= eff <= total_steps, got {eff}, {total_steps}")
     plan(keys.dtype, U, W, S, V, layout)  # raises, naming the shape, where none fits

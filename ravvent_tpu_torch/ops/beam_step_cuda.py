@@ -15,7 +15,10 @@ are compiled for the decoder units :data:`STEP_UNITS` and the beam widths
 :data:`STEP_BEAMS` (``csrc/beam_step_shapes.cuh``). :func:`beam_step`
 launches them for CUDA tensors and runs :func:`beam_step_plain`, the
 composition of the two plain versions, for CPU tensors only; a CUDA tensor
-of another shape raises ValueError, naming it.
+of another shape raises ValueError, naming it. :func:`fused_beam_decode`
+runs a decoder of any other width up to the widest compiled one on the
+next compiled width, its weights and memory zero-padded
+(ops/decoder_pad.py), and counts it as ``decoder_padded``.
 
 int8 memory (``setup_memory(dtype="i8")``) comes with its per-(row,
 position) scales ``scales = (kscale, vscale)`` and runs one of the
@@ -48,6 +51,7 @@ from ravvent_tpu_torch.decode.beam import (
 )
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.ops import cuda_lib
+from ravvent_tpu_torch.ops import decoder_pad
 
 
 def _compiled_shapes() -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -60,7 +64,7 @@ def _compiled_shapes() -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
             tuple(range(1, max_beams + 1)))
 
 
-STEP_UNITS, STEP_BEAMS = _compiled_shapes()  # (64, 128, 256), (1, ..., 16)
+STEP_UNITS, STEP_BEAMS = _compiled_shapes()  # (64, 128, 256), (1, ..., 32)
 VP = 128  # padded vocabulary width of the flattened top-W row
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (227 KB)
 ATTEND_MODES = ("bf16", "f32", "quant", "quant_mxu")  # rv_beam_attend_info's mode numbers
@@ -218,7 +222,7 @@ def beam_step_plain(st: StepState, keys, values, mask, w: DecoderWeights, end_to
 
 
 def widths(sizes) -> str:
-    """A set of compiled sizes as a message names it: ``1-16`` for a run."""
+    """A set of compiled sizes as a message names it: ``1-32`` for a run."""
     sizes = tuple(sizes)
     if len(sizes) > 2 and sizes == tuple(range(sizes[0], sizes[-1] + 1)):
         return f"{sizes[0]}-{sizes[-1]}"
@@ -465,9 +469,18 @@ def fused_beam_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, beam_wi
     backtracks. Requires pre-projected memory, a depth-1 LSTM decoder and
     Luong attention. On int8 memory ``quant_mxu`` picks the step's integer
     dots, as the reference's ``beam_step_decode(..., quant_mxu=)``; it is
-    ignored otherwise."""
+    ignored otherwise. On the card a decoder of a width the kernels are not
+    compiled for, up to the widest, runs the next compiled width on its
+    weights and memory zero-padded (ops/decoder_pad.py; counted as
+    ``decoder_padded``); a wider one raises ValueError."""
     if vocab_size > VP:
         raise ValueError(f"vocab_size must be <= {VP}")
+    U = mem.keys.shape[2]
+    if decoder_pad.on_card(mem.keys) and U not in STEP_UNITS:
+        Up = decoder_pad.padded_width(U, STEP_UNITS, "the beam kernels' decoder width")
+        dec_params = decoder_pad.pad_decoder_params(dec_params, Up)
+        mem = decoder_pad.pad_memory_units(mem, Up)
+        cuda_lib.launches["decoder_padded"] += 1
     w = pack_decoder_weights(dec_params, mem)
     eff = effective_steps(total_steps, max_steps)
     scales = (mem.kscale.contiguous(), mem.vscale.contiguous()) if mem.quantized else None

@@ -21,6 +21,11 @@ kernel_layout), each also counted under its kernel. ``bilstm_plain_route``
 is no kernel: it counts the BiLSTM layers of CUDA tensors that ran their
 plain version because the kernels do not take their shape
 (models/rnn.py:encoder_apply, ops/rnn_cuda.py:kernel_takes).
+``decoder_padded`` is no kernel either: it counts the decodes (a chunk's
+beam or fused greedy decode) whose decoder ran at a compiled width on
+weights and memory zero-padded from its own (ops/decoder_pad.py), their
+launches counted under their kernels; ``greedy_memory_padded`` counts the
+fused greedy decodes whose memory width was zero-padded to a compiled one.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ launches: Dict[str, int] = {"bilstm": 0, "bilstm_bf16": 0, "beam_step": 0, "beam
                              "beam_attend": 0, "beam_step_i8": 0, "beam_step_i8mxu": 0,
                              "beam_attend_i8": 0, "beam_attend_i8mxu": 0, "beam_loop": 0,
                              "decode_step": 0, "peak_scan": 0, "bilstm_padded": 0,
-                             "bilstm_plain_route": 0}
+                             "bilstm_plain_route": 0, "decoder_padded": 0,
+                             "greedy_memory_padded": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

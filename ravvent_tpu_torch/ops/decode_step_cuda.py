@@ -9,7 +9,13 @@ widths :data:`GREEDY_MEMORY_DIMS` (``csrc/decode_step_shapes.cuh``);
 :func:`fused_decode_step` launches it for CUDA tensors, raises ValueError
 naming the shape for a CUDA tensor of another width, and runs
 :func:`fused_decode_step_plain`, which takes any width, for CPU tensors
-only.
+only. :func:`fused_greedy_decode` runs any decoder width up to the widest
+compiled one and any memory width up to the widest on the next compiled
+ones, zero-padded (ops/decoder_pad.py): the decoder's weights (and a
+true-width memory's keys) once a decode, counted as ``decoder_padded``, and
+the values' columns with the attention layer's context rows, a copy of the
+f32 values a decode (about one step's value bytes over the decode's
+steps), counted as ``greedy_memory_padded``.
 
 Per row: LSTM cell on [one-hot token | previous attention vector], Luong
 scores of h against the keys [S, U], softmax masked with finfo(f32).min,
@@ -33,6 +39,7 @@ from ravvent_tpu_torch.decode.greedy import greedy_loop
 from ravvent_tpu_torch.models import attention as attn
 from ravvent_tpu_torch.ops import cuda_lib
 from ravvent_tpu_torch.ops.beam_step_cuda import lstm_cell_plain, widths
+from ravvent_tpu_torch.ops import decoder_pad
 
 
 def _compiled_shapes() -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -128,10 +135,22 @@ def fused_greedy_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, total
     """Greedy decode with one fused step per iteration, the semantics of
     decode/greedy.py:greedy_decode. Requires un-projected memory and a
     depth-1 LSTM decoder with Luong attention; keys and values are cast to
-    f32. Returns (tokens [B, total_steps] int32, logits [B, total_steps, V])."""
+    f32. On the card a decoder or memory width the kernel is not compiled
+    for, up to the widest, runs the next compiled one, zero-padded (the
+    module's docstring); a wider one raises ValueError. Returns (tokens
+    [B, total_steps] int32, logits [B, total_steps, V])."""
     if mem.projected:
         raise ValueError("fused_greedy_decode takes un-projected memory "
                          "(setup_memory without attention_layer)")
+    U, E = mem.keys.shape[2], mem.values.shape[2]
+    Ep = E
+    if decoder_pad.on_card(mem.keys):
+        Up = decoder_pad.padded_width(U, GREEDY_UNITS, "the greedy step's decoder width")
+        Ep = decoder_pad.padded_width(E, GREEDY_MEMORY_DIMS, "the greedy step's memory width")
+        if Up != U:
+            dec_params = decoder_pad.pad_decoder_params(dec_params, Up)
+            mem = decoder_pad.pad_memory_units(mem, Up)
+            cuda_lib.launches["decoder_padded"] += 1
     w = pack_decoder_weights(dec_params)
     if w.wfc.shape[1] != vocab_size:
         raise ValueError(f"vocab_size {vocab_size} != the decoder's {w.wfc.shape[1]}")
@@ -140,6 +159,10 @@ def fused_greedy_decode(dec_params, mem: attn.AttnMemory, vocab_size: int, total
     dev = mem.keys.device
     keys = mem.keys.to(torch.float32).contiguous()
     values = mem.values.to(torch.float32).contiguous()
+    if Ep != E:
+        values, watt = decoder_pad.pad_values(values, w.watt, Ep)
+        w = w._replace(watt=watt.contiguous())
+        cuda_lib.launches["greedy_memory_padded"] += 1
     mask = mem.mask.contiguous()
     h = torch.zeros(B, U, device=dev)
     c = torch.zeros(B, U, device=dev)

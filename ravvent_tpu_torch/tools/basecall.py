@@ -11,10 +11,12 @@ ravvent_tpu_torch/weights.py) or are drawn from ``--seed`` at the configured
 widths. Runs on the first CUDA device unless ``--cpu`` is given. The memory
 is bf16 and pre-projected, as the JAX CLI sets it. ``--beam-impl step`` and
 ``loop`` run the beam kernels, which take the flagship's depth-1 decoder
-(on the card, ``step`` at ``--dec-units`` 64, 128 or 256 and ``--beam`` 1
-to 16, ``loop`` at 128 units and beams 1-5 or 8; other shapes raise);
-``xla`` runs the plain beam decode and serves any depth, e.g. the 3-layer
-encoder, 2-layer decoder flagship32.
+(on the card at ``--dec-units`` up to 256, the widths other than 64, 128
+and 256 on weights the engine zero-pads to the next of them, and ``--beam``
+1 to 32; ``loop`` on its resident layout at 128 units and beams 1-5 or 8,
+on its streamed one elsewhere; wider shapes raise); ``xla`` runs the plain
+beam decode and serves any depth, e.g. the 3-layer encoder, 2-layer decoder
+flagship32.
 
 Usage:
   python -m ravvent_tpu_torch.tools.basecall --weights flagship.npz \

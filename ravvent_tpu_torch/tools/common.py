@@ -72,8 +72,9 @@ def default_beam_impl(cfg: ModelConfig, beams: Iterable[int],
                       device: Union[str, torch.device, None] = None) -> str:
     """``"step"`` (the beam-step kernels) where ``kernels_serve(cfg, beams,
     device)``, ``"xla"`` (the plain beam decode) otherwise: for beam widths
-    outside ``STEP_BEAMS`` and, on a CUDA device, for decoder widths outside
-    ``STEP_UNITS`` (ops/beam_step_cuda.py)."""
+    outside ``STEP_BEAMS`` and, on a CUDA device, for decoder widths past
+    the widest of ``STEP_UNITS`` (ops/beam_step_cuda.py; the widths between
+    them run zero-padded)."""
     return "step" if kernels_serve(cfg, beams, device) else "xla"
 
 

@@ -31,7 +31,7 @@ tensor maps).
 
 Usage::
 
-    lib = cuda_emu.load(*cuda_emu.STEP_SOURCES)  # the beam step's five sources
+    lib = cuda_emu.load(*cuda_emu.STEP_SOURCES)  # the beam step's nine sources
     rc = lib.rv_beam_attend_i8(...)  # as cuda_lib.lib().rv_beam_attend_i8
     loop = cuda_emu.load(*cuda_emu.LOOP_SOURCES)  # the whole-loop kernel's two layouts
     step = cuda_emu.load("decode_step.cu")  # the greedy decode step
@@ -50,9 +50,10 @@ from ravvent_tpu_torch.ops import cuda_lib
 
 HEADER = Path(__file__).resolve().with_name("cuda_emu.h")
 # the beam step's sources: the cell and the C entries, then the attend
-# kernel's instances a memory mode
+# kernel's instances a memory mode, those of 32 beams apart
 STEP_SOURCES = ("beam_step_f.cu", "beam_attend_bf16.cu", "beam_attend_f32.cu",
-                "beam_attend_i8.cu", "beam_attend_i8mxu.cu")
+                "beam_attend_i8.cu", "beam_attend_i8mxu.cu", "beam_attend_bf16_w32.cu",
+                "beam_attend_f32_w32.cu", "beam_attend_i8_w32.cu", "beam_attend_i8mxu_w32.cu")
 # the whole-loop kernel's sources: the resident layout and the C entries,
 # then the streamed layout
 LOOP_SOURCES = ("beam_loop.cu", "beam_loop_streamed.cu")

@@ -15,8 +15,9 @@ when it holds neither. The engine keeps
 the JAX tool's numerics: f32 memory and encoder, chunks of 1024 rows; it
 decodes with the beam-step kernels where the configuration allows it (a
 depth-1 LSTM decoder with Luong attention, every beam width in
-``STEP_BEAMS``, 1-16, and on a card ``dec_units`` in ``STEP_UNITS``, 64,
-128 or 256: ops/beam_step_cuda.py) and with the plain beam decode otherwise
+``STEP_BEAMS``, 1-32, and on a card ``dec_units`` up to 256, the widths
+between ``STEP_UNITS``' 64, 128 and 256 zero-padded: ops/beam_step_cuda.py,
+ops/decoder_pad.py) and with the plain beam decode otherwise
 (evaluation/basecall.py:kernels_serve), or as ``--beam-impl`` says. Runs on
 the first CUDA device unless ``--cpu`` is given.
 

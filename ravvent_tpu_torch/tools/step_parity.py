@@ -3,11 +3,13 @@
 Runs the two kernels of the beam step (``beam_cell``, then ``beam_attend`` in
 each memory mode: bf16, f32, int8 quant and quant_mxu), the whole-loop
 kernel (``beam_loop``, bf16 and f32 memory, 39 live steps of 47, at the beam
-widths 1-5 and 8) and the greedy decode step (``decode_step``, f32 memory,
-E = 256) of two checkouts of the repository on the same inputs: chip_smoke.py
-phase 3's decoder and encoder-like memory (seed 1, B = 4096, S = 232,
-U = 128) and a seeded mid-decode state, the beam step at the beam widths 1
-and 5; and the BiLSTM kernels (``bilstm``, ``bilstm_bf16``) at 64, 128 and
+widths 1-5 and 8 on its resident layout and 6, 10 and 16 on its streamed
+one) and the greedy decode step (``decode_step``, f32 memory, E = 256) of
+two checkouts of the repository on the same inputs: chip_smoke.py phase 3's
+decoder and encoder-like memory (seed 1, B = 4096, S = 232, U = 128) and a
+seeded mid-decode state, the beam step at the beam widths 1 and 5 (its exact
+instances) and 6, 10 and 16 (its instances of 8 and 16 beams); and the
+BiLSTM kernels (``bilstm``, ``bilstm_bf16``) at 64, 128 and
 256 units on a 4096-row chunk's four layer shapes (chip_smoke.py phase 2's:
 F = 1 and 2U at T = 200, F = 5 and 2U at T = 30; seeded weights, inputs and
 states). Each checkout runs in a process of its own, in the order other, this,
@@ -35,9 +37,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve()
 THIS = HERE.parents[2]
-WIDTHS = (5, 1)
+WIDTHS = (5, 1, 6, 10, 16)
 MODES = ("bf16", "f32", "quant", "quant_mxu")
-LOOP_WIDTHS = (1, 2, 3, 4, 5, 8)  # the whole-loop kernel's exact instances
+# the whole-loop kernel's resident instances, then widths of its streamed layout
+LOOP_WIDTHS = (1, 2, 3, 4, 5, 8, 6, 10, 16)
 BILSTM_UNITS = (64, 128, 256)  # the BiLSTM kernels' widths since they took U
 
 

@@ -254,10 +254,11 @@ def test_sweep_epochs_matches_jax(trained, tmp_path, monkeypatch):
 def test_default_beam_impl_takes_the_kernels_where_they_serve(monkeypatch):
     """The tools' default follows the engine's own rule, ``kernels_serve``:
     "step" where it holds, and the engine refuses "step" where it does not.
-    The beam step's kernels and the beam loop's take beam widths 1-16 and,
-    on a card, 64, 128 or 256 decoder units (one list), and the engine's
-    refusal names the sets; the fused greedy step takes those decoder widths
-    and the memory widths 64-512."""
+    The beam step's kernels and the beam loop's take beam widths 1-32 and,
+    on a card, decoder widths up to 256 units (64, 128 and 256 compiled, one
+    list, the others zero-padded), and the engine's refusal names the sets;
+    the fused greedy step takes those decoder widths and memory widths up to
+    512 (64-512 compiled)."""
     from ravvent_tpu_torch.config import ModelConfig
     from ravvent_tpu_torch.evaluation import basecall
     from ravvent_tpu_torch.evaluation.basecall import BasecallEngine, kernels_serve
@@ -265,28 +266,29 @@ def test_default_beam_impl_takes_the_kernels_where_they_serve(monkeypatch):
 
     assert default_beam_impl(ModelConfig(), [5, 1]) == "step"
     assert default_beam_impl(ModelConfig(), [5, 6]) == "step"
-    assert default_beam_impl(ModelConfig(), [5, 20]) == "xla"  # 20 is not a kernel width
-    assert kernels_serve(ModelConfig()) and not kernels_serve(ModelConfig(), [17])
-    assert kernels_serve(ModelConfig(), [1, 6, 7, 10, 16])
-    for U in (64, 256):  # the other decoder widths, and beam 10, on a card
+    assert default_beam_impl(ModelConfig(), [5, 20]) == "step"
+    assert default_beam_impl(ModelConfig(), [5, 33]) == "xla"  # 33 is not a kernel width
+    assert kernels_serve(ModelConfig()) and not kernels_serve(ModelConfig(), [33])
+    assert kernels_serve(ModelConfig(), [1, 6, 7, 10, 16, 17, 32])
+    for U in (64, 256, 16, 96, 200):  # the other decoder widths, and beam 10, on a card
         assert default_beam_impl(ModelConfig(dec_units=U), [5], "cuda") == "step", U
         assert kernels_serve(ModelConfig(dec_units=U), device="cuda", impl="loop"), U
     assert default_beam_impl(ModelConfig(), [10], "cuda") == "step"
-    assert default_beam_impl(ModelConfig(dec_units=16), [5], "cuda") == "xla"
-    assert default_beam_impl(ModelConfig(), [20], "cuda") == "xla"
+    assert default_beam_impl(ModelConfig(dec_units=264), [5], "cuda") == "xla"
+    assert default_beam_impl(ModelConfig(), [20], "cuda") == "step"
+    assert default_beam_impl(ModelConfig(), [33], "cuda") == "xla"
     assert kernels_serve(ModelConfig(), [8], device="cuda", impl="loop")
-    for beams in ([6], [10], [16]):  # the loop's widths are the step's, 1-16
+    for beams in ([6], [10], [16], [17], [32]):  # the loop's widths are the step's, 1-32
         assert kernels_serve(ModelConfig(), beams, device="cuda", impl="loop"), beams
         assert kernels_serve(ModelConfig(), beams, impl="loop"), beams
-    assert not kernels_serve(ModelConfig(), [17], device="cuda", impl="loop")
-    assert not kernels_serve(ModelConfig(dec_units=16), device="cuda", impl="loop")
+    assert not kernels_serve(ModelConfig(), [33], device="cuda", impl="loop")
+    assert not kernels_serve(ModelConfig(dec_units=264), device="cuda", impl="loop")
     monkeypatch.setattr(basecall, "resolve_device", lambda device: torch.device("cuda", 0))
-    with pytest.raises(ValueError, match=r"of 64, 128, 256 units on a card \(beam widths "
-                                         r"1-16\).*dec_units=96"):
-        BasecallEngine({}, ModelConfig(dec_units=96), beam_impl="loop")
-    with pytest.raises(ValueError, match=r"of 64, 128, 256 units on a card \(beam widths "
-                                         r"1-16\).*dec_units=96"):
-        BasecallEngine({}, ModelConfig(dec_units=96), beam_impl="step")
+    for impl in ("loop", "step"):
+        with pytest.raises(ValueError, match=r"of up to 256 units on a card \(64, 128, 256 "
+                                             r"compiled, the others zero-padded; beam widths "
+                                             r"1-32\).*dec_units=264"):
+            BasecallEngine({}, ModelConfig(dec_units=264), beam_impl=impl)
     monkeypatch.undo()
     for cfg in (ModelConfig(decoder_depth=2), ModelConfig(rnn_type="bigru"),
                 ModelConfig(attention_type="bahdanau")):
@@ -294,32 +296,40 @@ def test_default_beam_impl_takes_the_kernels_where_they_serve(monkeypatch):
         assert not kernels_serve(cfg), cfg
         with pytest.raises(ValueError, match="depth-1 LSTM"):
             BasecallEngine({}, cfg, beam_impl="step", device="cpu")
-    # on a card the kernels' compiled widths too; the CPU runs the plain
-    # versions at any width, so its choice does not change
+    # on a card the kernels' widths too, up to the widest compiled one; the
+    # CPU runs the plain versions at any width, so its choice does not change
     narrow = ModelConfig(enc_units=16, dec_units=16)
+    wide = ModelConfig(enc_units=16, dec_units=264)
     assert default_beam_impl(narrow, [5, 1]) == default_beam_impl(narrow, [5, 1], "cpu") == "step"
-    assert default_beam_impl(narrow, [5, 1], "cuda") == "xla"
+    assert default_beam_impl(narrow, [5, 1], "cuda") == "step"
+    assert default_beam_impl(wide, [5, 1]) == "step"
+    assert default_beam_impl(wide, [5], "cuda") == "xla"
     assert default_beam_impl(ModelConfig(enc_units=16), [5, 1], "cuda") == "step"
     assert default_beam_impl(ModelConfig(), [5, 1], torch.device("cuda", 0)) == "step"
     assert kernels_serve(ModelConfig(), device="cuda", greedy=True)
     for cfg in (narrow, ModelConfig(enc_units=16), ModelConfig(rnn_type="lstm")):
         assert kernels_serve(cfg, device="cpu", greedy=True), cfg
-        # memory widths 32 and 32 are refused on a card; a unidirectional
-        # 128-unit encoder's 128 is taken
-        assert kernels_serve(cfg, device="cuda", greedy=True) == (cfg.enc_out_dim == 128), cfg
+        # memory widths 32 and 32 run padded to 64 on a card; a
+        # unidirectional 128-unit encoder's 128 is compiled
+        assert kernels_serve(cfg, device="cuda", greedy=True), cfg
     assert kernels_serve(ModelConfig(rnn_type="lstm", enc_units=256), device="cuda", greedy=True)
     for cfg in (ModelConfig(dec_units=64), ModelConfig(enc_units=64), ModelConfig(enc_units=256),
-                ModelConfig(dec_units=256, enc_units=32)):
+                ModelConfig(dec_units=256, enc_units=32), ModelConfig(enc_units=96),
+                ModelConfig(enc_units=192, dec_units=200)):
         assert kernels_serve(cfg, device="cuda", greedy=True), cfg
+    for cfg in (ModelConfig(enc_units=264), wide):  # memory width 528; 264 decoder units
+        assert kernels_serve(cfg, device="cpu", greedy=True), cfg
+        assert not kernels_serve(cfg, device="cuda", greedy=True), cfg
 
 
 def test_tools_take_the_plain_decode_on_a_card_for_other_widths(monkeypatch):
-    """On a card, eval_token_acc decodes a 16-unit model greedily with the
+    """On a card, eval_token_acc decodes a model wider than the fused step
+    takes (264 decoder units, or a memory width of 528) greedily with the
     plain decode, and the flagship's widths, a 64-unit decoder and a 64-unit
-    encoder (memory width 128) with the fused step; the engine refuses
-    "step" and "loop" for a 16-unit decoder at construction, naming the
-    width (the card stood in for: the checks run before anything reaches
-    it)."""
+    encoder (memory width 128), and the padded widths (16 decoder units, a
+    memory width of 32) with the fused step; the engine refuses "step" and
+    "loop" for a 264-unit decoder at construction, naming the width (the
+    card stood in for: the checks run before anything reaches it)."""
     from types import SimpleNamespace
 
     from ravvent_tpu_torch.config import ModelConfig
@@ -332,17 +342,19 @@ def test_tools_take_the_plain_decode_on_a_card_for_other_widths(monkeypatch):
     on_card = SimpleNamespace(keys=SimpleNamespace(device=torch.device("cuda", 0)))
     on_cpu = SimpleNamespace(keys=SimpleNamespace(device=torch.device("cpu")))
     params = {"decoder": {}}
-    for cfg, mem in ((ModelConfig(enc_units=16, dec_units=16), on_card),
+    for cfg, mem in ((ModelConfig(enc_units=16, dec_units=264), on_card),
+                     (ModelConfig(enc_units=264), on_card),
+                     (ModelConfig(enc_units=16, dec_units=16), on_card),
                      (ModelConfig(dec_units=16), on_card), (ModelConfig(enc_units=16), on_card),
-                     (ModelConfig(), on_card), (ModelConfig(enc_units=16, dec_units=16), on_cpu),
+                     (ModelConfig(), on_card), (ModelConfig(enc_units=16, dec_units=264), on_cpu),
                      (ModelConfig(dec_units=64), on_card), (ModelConfig(enc_units=64), on_card)):
         eval_token_acc.greedy_tokens(params, cfg, mem, 3)
-    assert picked == ["plain", "plain", "plain", "fused", "fused", "fused", "fused"]
+    assert picked == ["plain", "plain"] + ["fused"] * 7
 
     monkeypatch.setattr(basecall, "resolve_device", lambda device: torch.device("cuda", 0))
     for impl in ("step", "loop"):
-        with pytest.raises(ValueError, match="dec_units=16"):
-            basecall.BasecallEngine({}, ModelConfig(enc_units=16, dec_units=16), beam_impl=impl)
+        with pytest.raises(ValueError, match="dec_units=264"):
+            basecall.BasecallEngine({}, ModelConfig(enc_units=16, dec_units=264), beam_impl=impl)
 
 
 def test_evaluate_cli_refuses_a_missing_checkpoint(tmp_path):

@@ -110,7 +110,7 @@ def test_emulated_beam_loop_matches_plain(emu_loop, case):
 def test_emulated_beam_loop_refuses_what_it_does_not_take(emu_loop):
     """The C entry returns cudaErrorInvalidValue (1 in the emulation),
     launching nothing, for a beam width or unit count it has no instance of
-    (W = 0 and 17, U = 96), a layout that does not exist for the shape (the
+    (W = 0 and 33, U = 96), a layout that does not exist for the shape (the
     resident one at W = 6 or at 64 units, an unknown layout), V + W past 32,
     an S whose layout fits no shared memory (S = 2000 fits the emulated
     card's 1 MiB only streamed, S = 40000 not even so), eff past T, and
@@ -127,7 +127,7 @@ def test_emulated_beam_loop_refuses_what_it_does_not_take(emu_loop):
                                      w.wfc.data_ptr(), w.bfc.data_ptr(),
                                      *(o.data_ptr() for o in out), None)
 
-    for W in (0, 17):
+    for W in (0, 33):
         assert W not in tloop.LOOP_BEAMS and call(W=W) == 1
     assert 96 not in tloop.LOOP_UNITS and call(U=96) == 1
     assert call(W=6, layout=1) == 1
@@ -139,7 +139,7 @@ def test_emulated_beam_loop_refuses_what_it_does_not_take(emu_loop):
     assert call(eff=5) == 1
     assert call(wx=w.wx.data_ptr() + 4) == 1
     assert all(not o.any() for o in out)  # nothing launched
-    for U_, W, S, layout in ((96, 5, 8, "auto"), (128, 17, 8, "auto"), (128, 6, 8, "resident"),
+    for U_, W, S, layout in ((96, 5, 8, "auto"), (128, 33, 8, "auto"), (128, 6, 8, "resident"),
                              (128, 5, 40000, "auto")):
         assert emu_loop_plan(emu_loop, "bf16", U_, W, S, layout)[0] == 1, (U_, W, S, layout)
     assert emu_loop_plan(emu_loop, "bf16", 128, 5, 232)[1:3] == ("resident", 2)

@@ -45,14 +45,14 @@ def test_emulated_beam_cell_matches_plain(emu, U, B, W):
 def test_emulated_beam_step_refuses_shapes_not_compiled(emu, mode):
     """The C entries return cudaErrorInvalidValue (1 in the emulation),
     launching nothing, for what beam_step_shapes.cuh does not list: 96 units
-    (the cell and the attend) and 17 or 0 beams; rv_beam_attend_info says
+    (the cell and the attend) and 33 or 0 beams; rv_beam_attend_info says
     a CTA of S = 4000 positions at 256 units and 16 beams does not fit."""
     rng = np.random.default_rng(3)
     mem = memory(rng, 3, 16, mode)
     w = decoder_weights(rng)._replace(watt_h=mem.watt_h)
     st = mid_decode_state(rng, 3, 5)
     cell = tstep.cell_plain(st, w)
-    for u, beams in ((96, None), (None, 17), (None, 0)):
+    for u, beams in ((96, None), (None, 33), (None, 0)):
         rc, got, _ = emu_attend(emu, st, cell, mem, w, mode, W=beams, U=u)
         assert rc == 1, (u, beams)
     rc, got = emu_cell(emu, st, w, U=96)

@@ -264,15 +264,18 @@ def _decoder_and_memory(seed, B, S, mem_dtype, projected, device, U=128, E=256):
 
 # (B, W, memory dtype[, U, layout]) of the whole-loop kernel's card test:
 # the resident layout's cases at 128 units keep their ids; then the streamed
-# layout at the other decoder widths, at W = 6, 10 and 16, and asked for at
-# the flagship's shape
+# layout at the other decoder widths, at W = 6, 10 and 16, asked for at the
+# flagship's shape, and its instance of 32 beams at W = 17 and 32 on f32 (at
+# 256 units its scores and candidates in the gates' dead columns; on bf16
+# in test_beam_loop_wide_bf16_kernel_matches_plain)
 LOOP_DTYPES = (torch.bfloat16, torch.float32)
 LOOP_CASES = ([(B, W, d) for B, W in ((9, 1), (9, 5), (130, 1), (130, 5), (130, 8))
                for d in LOOP_DTYPES]
               + [(130, W, d, U, layout) for U, W, layout in (
                   (64, 5, "auto"), (256, 5, "auto"), (128, 6, "auto"), (128, 10, "auto"),
                   (128, 16, "auto"), (64, 16, "auto"), (256, 16, "auto"), (128, 5, "streamed"))
-                 for d in LOOP_DTYPES])
+                 for d in LOOP_DTYPES]
+              + [(130, W, torch.float32, U, "auto") for U, W in ((128, 17), (128, 32), (256, 32))])
 LOOP_IDS = [f"{c[0]}-{c[1]}-mem_dtype{LOOP_DTYPES.index(c[2])}" if len(c) == 3 else
             f"U{c[3]}-W{c[1]}-{c[4]}-{'bf16' if c[2] == torch.bfloat16 else 'f32'}"
             for c in LOOP_CASES]
@@ -325,6 +328,36 @@ def test_beam_loop_kernel_matches_plain(cuda, case):
         torch.testing.assert_close(sc[prefix], rsc[prefix], rtol=0, atol=1e-2)
 
 
+@pytest.mark.parametrize("U,W", [(128, 17), (128, 32), (256, 32)],
+                         ids=["U128-W17", "U128-W32", "U256-W32"])
+def test_beam_loop_wide_bf16_kernel_matches_plain(cuda, U, W):
+    """The streamed layout's instance of 32 beams on bf16 memory, 130 rows,
+    the end token pushed down: every live step replayed through the plain
+    step (replay_plain), picks distinct, rank and score errors within 1e-2,
+    as test_beam_loop_kernel_matches_plain holds the narrower widths. Its
+    share of picks equal to the plain top-W measures how dense the near ties
+    are past 16 beams (an h' a few f32 ulps off rounds to another bf16
+    query): the plain loop itself, run on the CPU on the same inputs and
+    replayed on the card, does not reach 0.99 there (0.99125 at 128 units,
+    W = 32, 0.98627 at 256; 4096 rows on an H100). So the kernel's share is
+    held to that of the plain loop on the CPU, less 0.01."""
+    B, S, T, eff = 130, 232, 14, 12
+    dec_p, mem = _decoder_and_memory(W, B, S, torch.bfloat16, True, cuda, U=U)
+    assert beam_loop_cuda.plan(torch.bfloat16, U, W, S, 7).layout == "streamed"
+    dec_p["fc"]["bias"][1] -= 20.0
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    got = beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, W, T, eff, 2, 1)
+    assert not any(x[eff:].any() for x in got)
+    rep = beam_loop_cuda.replay_plain(*got, mem.keys, mem.values, mem.mask, w, eff, 2, 1)
+    cpu = beam_loop_cuda.beam_loop_plain(*(t.cpu() for t in (mem.keys, mem.values, mem.mask)),
+                                         beam_step_cuda.DecoderWeights(*(t.cpu() for t in w)), W,
+                                         T, eff, 2, 1)
+    ref = beam_loop_cuda.replay_plain(*(x.to(cuda) for x in cpu), mem.keys, mem.values, mem.mask,
+                                      w, eff, 2, 1)
+    assert rep.distinct and rep.exact >= ref.exact - 0.01
+    assert rep.rank_err <= 1e-2 and rep.score_err <= 1e-2
+
+
 def test_beam_loop_decode_on_card_matches_cpu(cuda):
     B, S = 16, 56
     dec_p, mem = _decoder_and_memory(0, B, S, None, True, "cpu")
@@ -374,11 +407,57 @@ def test_fused_greedy_decode_on_card_matches_cpu(cuda):
     assert (card_tok.cpu() == cpu_tok).float().mean().item() >= 0.99
 
 
+@pytest.mark.parametrize("U,W,mem_dtype", [(96, 5, torch.bfloat16), (200, 17, torch.float32)],
+                         ids=["U96-W5-bf16", "U200-W17-f32"])
+@pytest.mark.parametrize("impl", ["step", "loop"])
+def test_beam_decode_of_another_decoder_width_runs_the_padded_kernels(cuda, impl, U, W,
+                                                                      mem_dtype):
+    """A decoder width between the compiled ones on the card: the decode pads
+    the weights and the memory to the next compiled width once
+    (decoder_padded), and the beam step's kernels once a step, or the loop
+    kernel once, run there; against the plain decode at the true width on
+    the CPU, tokens >= 0.99 (bf16: near ties)."""
+    B, S = 24, 64
+    dec_p, mem = _decoder_and_memory(U, B, S, mem_dtype, True, "cpu", U=U)
+    decode = beam_step_cuda.beam_step_decode if impl == "step" else beam_loop_cuda.beam_loop_decode
+    cpu = decode(dec_p, mem, 7, W, 47, 20)
+    before = dict(cuda_lib.launches)
+    card = decode(to_device(dec_p, cuda), mem.to(cuda), 7, W, 47, 20)
+    assert cuda_lib.launches["decoder_padded"] == before["decoder_padded"] + 1
+    if impl == "step":
+        assert cuda_lib.launches["beam_step"] - before["beam_step"] == 20
+    else:
+        assert cuda_lib.launches["beam_loop"] == before["beam_loop"] + 1
+    assert torch.isfinite(card.scores).all()
+    assert (card.tokens.cpu() == cpu.tokens).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("U,E", [(96, 192), (128, 384), (200, 64)],
+                         ids=["U96-E192", "U128-E384", "U200-E64"])
+def test_fused_greedy_decode_of_other_widths_runs_the_padded_kernel(cuda, U, E):
+    """Fused greedy decode at a decoder or memory width between the compiled
+    ones: the weights and keys padded to the next compiled units once
+    (decoder_padded), the values' columns to the next memory width once
+    (greedy_memory_padded), the kernel once a step; against plain
+    greedy_decode on the CPU at the true widths, tokens >= 0.99."""
+    B, S = 24, 64
+    dec_p, mem = _decoder_and_memory(E, B, S, None, False, "cpu", U=U, E=E)
+    cpu_tok, _ = greedy_decode(dec_p, mem, 7, 47, 39)
+    before = dict(cuda_lib.launches)
+    card_tok, card_logits = decode_step_cuda.fused_greedy_decode(to_device(dec_p, cuda),
+                                                                 mem.to(cuda), 7, 47, 39)
+    assert cuda_lib.launches["decoder_padded"] == before["decoder_padded"] + (U == 96 or U == 200)
+    assert cuda_lib.launches["greedy_memory_padded"] == before["greedy_memory_padded"] + (E != 64)
+    assert cuda_lib.launches["decode_step"] > before["decode_step"]
+    assert torch.isfinite(card_logits).all()
+    assert (card_tok.cpu() == cpu_tok).float().mean().item() >= 0.99
+
+
 def test_loop_and_decode_step_wrappers_reject_what_the_kernels_do_not_take(cuda):
     dec_p, mem = _decoder_and_memory(0, 4, 16, torch.bfloat16, True, cuda)
     w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
-    for W in (0, 17):  # the step's kernels and the loop's take 1-16
-        with pytest.raises(ValueError, match=f"beam widths 1-16, got W = {W}"):
+    for W in (0, 33):  # the step's kernels and the loop's take 1-32
+        with pytest.raises(ValueError, match=f"beam widths 1-32, got W = {W}"):
             beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, W, 5, 5, 2, 1)
     with pytest.raises(ValueError, match="no resident layout .* W = 6"):
         beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, 6, 5, 5, 2, 1,
@@ -489,7 +568,7 @@ def test_int8_step_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="both int8"):
         step(st)  # int8 memory without its scales
     with pytest.raises(ValueError, match="beam widths"):
-        step(beam_step_cuda.initial_state(B, 17, 128, 2, cuda), scales=(ks, vs))
+        step(beam_step_cuda.initial_state(B, 33, 128, 2, cuda), scales=(ks, vs))
     with pytest.raises(ValueError, match="int8 memory"):
         beam_loop_cuda.beam_loop(mem.keys, mem.values, mem.mask, w, 5, 5, 5, 2, 1, (ks, vs))
 
@@ -510,15 +589,23 @@ def _mid_decode_state(gen, B: int, W: int, V: int, device, U: int = 128
 # (U, B, W) of the beam step's kernels on the card: the flagship's 128 units
 # at W 1, 5, 8 keep their ids "B-W"; the other compiled decoder widths (ids
 # U64-, U256-) and beam widths (W10-, W16-: the attend kernel's instance of
-# 16 beams on a runtime W)
+# 16 beams on a runtime W); then the attend kernel's instance of 32 beams
+# (WIDE_CASES: W17-, W32-, U64-37-32, U256-37-32)
 STEP_CASES = ([(128, B, W) for B in (9, 37, 130) for W in (1, 5, 8)]
               + [(64, 37, 5), (64, 130, 5), (256, 37, 5), (256, 130, 5), (128, 37, 10),
                  (128, 130, 16)])
-STEP_IDS = [f"{B}-{W}" if U == 128 and W <= 8 else
-            (f"U{U}-{B}-{W}" if U != 128 else f"W{W}-{B}") for U, B, W in STEP_CASES]
+WIDE_CASES = [(128, 37, 17), (128, 130, 32), (64, 37, 32), (256, 37, 32)]
 
 
-@pytest.mark.parametrize("U,B,W", STEP_CASES, ids=STEP_IDS)
+def step_ids(cases) -> list:
+    return [f"{B}-{W}" if U == 128 and W <= 8 else
+            (f"U{U}-{B}-{W}" if U != 128 else f"W{W}-{B}") for U, B, W in cases]
+
+
+STEP_IDS = step_ids(STEP_CASES)
+
+
+@pytest.mark.parametrize("U,B,W", STEP_CASES + WIDE_CASES, ids=step_ids(STEP_CASES + WIDE_CASES))
 def test_beam_cell_kernel_matches_plain(cuda, U, B, W):
     """h', c' and att_h against cell_plain: f32 sums of 2U (cell) and U
     (att_h) terms in another order, within 1e-5; the last tile is ragged."""
@@ -572,8 +659,60 @@ def test_beam_attend_kernel_matches_plain(cuda, U, B, W, mem_dtype, S):
 
 
 @pytest.mark.parametrize("S", [8, 232, 300], ids=["S8", "S232", "S300 (position loop)"])
+@pytest.mark.parametrize("mem_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("U,B,W", WIDE_CASES, ids=step_ids(WIDE_CASES))
+def test_beam_attend_wide_kernel_matches_plain(cuda, U, B, W, mem_dtype, S):
+    """The attend kernel's instance of 32 beams against attend_plain on the
+    same cell outputs, as test_beam_attend_kernel_matches_plain holds the
+    others: picks part on a near-tie at most one in a hundred; where the
+    parents agree the state rows are copied exactly; on f32 memory att and
+    (where the picks agree) the scores within 1e-4. On bf16 memory an
+    alignment that rounds the other way (the softmax's sums in another
+    order) moves its hypothesis's att by one bf16 ulp of that alignment
+    times the value row; over the 4160 hypotheses of W = 32 at B = 130 that
+    is more than 1e-3 for one hypothesis (measured on an H100: 2.4e-3, one
+    row of 4160). So on bf16 at most one hypothesis in a thousand (and one
+    at least) may pass 1e-3, and none one bf16 ulp of an alignment of 1
+    (2^-8) times the largest |value|; the scores where the picks agree
+    within 1e-3 but on those hypotheses' rows, and within phase 3's
+    cumulative bar of 1e-2 there. Row 3 is all padding."""
+    gen = torch.Generator().manual_seed(1000 + 10 * B + W + (U != 128) * U)
+    dec_p = init_decoder(gen, 7, 1, U, 256, cuda)
+    memory = torch.tanh(torch.randn(B, S, 256, generator=gen)).to(cuda)
+    mask = (torch.rand(B, S, generator=gen) > 0.2).to(cuda)
+    mask[3] = False
+    mem = attn.setup_memory(dec_p["attention"], memory, mask, mem_dtype,
+                            attention_layer=dec_p["attention_layer"])
+    w = beam_step_cuda.pack_decoder_weights(dec_p, mem)
+    st = _mid_decode_state(gen, B, W, 7, cuda, U)
+    cell = beam_step_cuda.cell_plain(st, w)
+    before = dict(cuda_lib.launches)
+    got, gpar = beam_step_cuda.beam_attend(st, *cell, mem.keys, mem.values, mask, w, 1)
+    assert cuda_lib.launches["beam_attend"] == before["beam_attend"] + 1
+    ref, rpar = beam_step_cuda.attend_plain(st, *cell, mem.keys, mem.values, mask, w, 1)
+    par_eq = gpar == rpar
+    same = (got.tok.reshape(B, W) == ref.tok.reshape(B, W)) & par_eq
+    assert (~same).sum().item() <= max(1, B * W // 100)
+    rows = lambda t: t.reshape(B, W, U)[par_eq]  # noqa: E731
+    assert torch.equal(rows(got.h), rows(ref.h)) and torch.equal(rows(got.c), rows(ref.c))
+    if mem_dtype == torch.float32:
+        torch.testing.assert_close(rows(got.att), rows(ref.att), rtol=0, atol=1e-4)
+        torch.testing.assert_close(got.cum[same], ref.cum[same], rtol=0, atol=1e-4)
+    else:
+        d_att = (got.att - ref.att).reshape(B, W, U).abs().amax(dim=2)  # [B, W]
+        moved = par_eq & (d_att > 1e-3)
+        assert moved.sum().item() <= max(1, B * W // 1000)
+        ulp_bound = 2.0 ** -8 * mem.values.float().abs().max().item()
+        assert d_att[par_eq].max().item() <= ulp_bound
+        d_cum = (got.cum - ref.cum).abs()
+        assert d_cum[same & ~moved].max().item() <= 1e-3
+        assert d_cum[same].max().item() <= 1e-2
+    assert torch.equal(got.fin[same], ref.fin[same])
+
+
+@pytest.mark.parametrize("S", [8, 232, 300], ids=["S8", "S232", "S300 (position loop)"])
 @pytest.mark.parametrize("mxu", [False, True], ids=["quant", "quant_mxu"])
-@pytest.mark.parametrize("U,B,W", STEP_CASES, ids=STEP_IDS)
+@pytest.mark.parametrize("U,B,W", STEP_CASES + WIDE_CASES, ids=step_ids(STEP_CASES + WIDE_CASES))
 def test_beam_attend_int8_kernel_matches_plain(cuda, U, B, W, mxu, S):
     """The int8 attend kernel against attend_plain with the scales, on the
     same cell outputs. The scores are computed in the reference's order, so
@@ -630,14 +769,14 @@ def test_beam_step_launches_cell_then_attend(cuda):
 
 def test_beam_cell_and_attend_launch_failures_raise(cuda):
     """The C entry points refuse what they do not take (no rows, 96 units,
-    beam widths 17 and 0, an end token outside the vocabulary), and
+    beam widths 33 and 0, an end token outside the vocabulary), and
     cuda_lib.check raises on their return code; the wrappers refuse it
     before launching, naming the shape, and never take a plain route."""
     lib = cuda_lib.lib()
     for U, N in ((128, 0), (96, 5)):
         with pytest.raises(RuntimeError, match="beam_cell"):
             cuda_lib.check(lib.rv_beam_cell(U, N, 7, *[None] * 12), "beam_cell")
-    for U, W, end in ((128, 17, 1), (128, 0, 1), (96, 5, 1), (128, 5, 7)):
+    for U, W, end in ((128, 33, 1), (128, 0, 1), (96, 5, 1), (128, 5, 7)):
         with pytest.raises(RuntimeError, match="beam_attend"):
             cuda_lib.check(lib.rv_beam_attend(1, U, W, 2, 8, 7, 128, end, *[None] * 18),
                            "beam_attend")
@@ -654,8 +793,8 @@ def test_beam_cell_and_attend_launch_failures_raise(cuda):
     with pytest.raises(ValueError, match="64, 128, 256 units, got U = 96"):
         beam_step_cuda.beam_cell(st._replace(h=st.h[:, :96].contiguous()), w)
     before = dict(cuda_lib.launches)
-    wide = beam_step_cuda.initial_state(B, 17, 128, 2, cuda)
-    with pytest.raises(ValueError, match="beam widths 1-16, got W = 17"):
+    wide = beam_step_cuda.initial_state(B, 33, 128, 2, cuda)
+    with pytest.raises(ValueError, match="beam widths 1-32, got W = 33"):
         beam_step_cuda.beam_step(wide, mem.keys, mem.values, mem.mask, w, 1)
     long_keys = torch.zeros(B, 4000, 256, dtype=torch.float32, device=cuda)
     dec_w, mem_w = _decoder_and_memory(0, B, 16, torch.float32, True, cuda, U=256)
@@ -671,7 +810,7 @@ def test_beam_cell_and_attend_launch_failures_raise(cuda):
 
 
 def test_beam_attend_int8_launch_failures_raise(cuda):
-    """The int8 attend's C entry refuses beam width 17, 96 units, an end token
+    """The int8 attend's C entry refuses beam width 33, 96 units, an end token
     outside the vocabulary, missing scales and a state that is not 16-byte
     aligned (none of these launches); the wrapper refuses missing or
     misshapen scales and a misaligned state before launching."""
@@ -691,7 +830,7 @@ def test_beam_attend_int8_launch_failures_raise(cuda):
     scales = (ks.data_ptr(), vs.data_ptr())
     with pytest.raises(RuntimeError, match="beam_attend_i8"):  # no 96-unit instance
         cuda_lib.check(entry(5, 1, *scales, U=96), "beam_attend_i8")
-    for args, why in (((17, 1, *scales), "no beam width 17"),
+    for args, why in (((33, 1, *scales), "no beam width 33"),
                       ((5, 7, *scales), "end token outside the vocabulary"),
                       ((5, 1, None, vs.data_ptr()), "no key scales"),
                       ((5, 1, ks.data_ptr(), None), "no value scales")):
