@@ -57,7 +57,7 @@
 //   by 4-byte cp.async (a transposing copy) in one piece per h k-tile, and
 //   h_t is stored after the next step's first barrier: one block barrier a
 //   k-tile and no other.
-// - The cell runs on ex2.approx and rcp.approx in f32, as in bilstm_bf16.cu.
+// - The cell runs on ex2.approx and rcp.approx in f32 (bilstm_cell.cuh).
 // What bounds a step now (PERF.md, U = 128): the FMA pipe, which the
 // products' loop (1024 FFMA and 64 LDS.128 a k-tile and warp, no other
 // instruction to speak of) keeps at about two thirds of its issue rate, with
@@ -71,9 +71,7 @@
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+#include "bilstm_cell.cuh"
 #include "bilstm_units.cuh"
 
 namespace {
@@ -108,79 +106,6 @@ constexpr int kPhases = 5;
 #define RV_STAMP(k)
 #define RV_PHASES_STORE
 #endif
-
-// The cell in f32 with ex2.approx (__expf) and rcp.approx (__fdividef), five
-// exponentials and three reciprocals a (row, unit): with E(x) = e^-x,
-// sigmoid(i) * tanh(g) = (1 - E(2g)) / ((1 + E(i)) (1 + E(2g))) and
-// sigmoid(o) * tanh(c) likewise, sigmoid(f) c = c / (1 + E(f)). The
-// arguments are clamped where the factors would overflow (i, o >= -40,
-// 2g, 2c >= -30: e^40 e^30 < 2^126, where __fdividef still divides), which
-// moves no result by more than 1e-17.
-__device__ __forceinline__ float exp_neg(float x, float lo) { return __expf(-fmaxf(x, lo)); }
-__device__ __forceinline__ float sig_tanh(float s, float t) {  // sigmoid(s) * tanh(t)
-  const float es = exp_neg(s, -40.f), et = exp_neg(2.f * t, -30.f);
-  return __fdividef(1.f - et, (1.f + es) * (1.f + et));
-}
-__device__ __forceinline__ void lstm_cell(float zi, float zf, float zg, float zo, float& c,
-                                          float& h) {
-  c = __fdividef(c, 1.f + exp_neg(zf, -88.f)) + sig_tanh(zi, zg);
-  h = sig_tanh(zo, c);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// The weight k-tiles by the Tensor Memory Accelerator: one thread asks for a
-// whole k-tile (contiguous in global and in shared memory), and the copy
-// completes on the slot's mbarrier, which every thread waits on.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-               ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// acc[q][gate][i] += a[k][i] * w[k][unit q][gate] for the k-rows [0, K) of
-// a k-tile: a points at row 0 of A's rows for this thread (stride AS), w at
-// the thread's first unit in the k-tile, its second unit U/2 float4s further
-template <int U, int K, int AS>
-__device__ __forceinline__ void fma_rows(float (&acc)[2][4][8], const float* a, const float4* w) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float4 w0 = w[k * U], w1 = w[k * U + U / 2];
-    const float4 xa = *reinterpret_cast<const float4*>(a + k * AS);
-    const float4 xb = *reinterpret_cast<const float4*>(a + k * AS + 4);
-    const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      acc[0][0][i] = fmaf(xv[i], w0.x, acc[0][0][i]);
-      acc[0][1][i] = fmaf(xv[i], w0.y, acc[0][1][i]);
-      acc[0][2][i] = fmaf(xv[i], w0.z, acc[0][2][i]);
-      acc[0][3][i] = fmaf(xv[i], w0.w, acc[0][3][i]);
-      acc[1][0][i] = fmaf(xv[i], w1.x, acc[1][0][i]);
-      acc[1][1][i] = fmaf(xv[i], w1.y, acc[1][1][i]);
-      acc[1][2][i] = fmaf(xv[i], w1.z, acc[1][2][i]);
-      acc[1][3][i] = fmaf(xv[i], w1.w, acc[1][3][i]);
-    }
-  }
-}
 
 template <int U, int R>
 __global__ void __launch_bounds__(U * R / 16, 1)
@@ -314,10 +239,10 @@ bilstm_kernel(const float* __restrict__ xs,    // [B, T, F]
       const float* a = A + k0_of(j) * AS + r0;
       const int rows = rows_of(j);
       if (rows == kKT) {
-        fma_rows<U, kKT, AS>(acc, a, wt);
+        fma_rows<kKT, AS>(acc, a, wt, U);
       } else {
 #pragma unroll 1
-        for (int k = 0; k < rows; k += 4) fma_rows<U, 4, AS>(acc, a + k * AS, wt + k * U);
+        for (int k = 0; k < rows; k += 4) fma_rows<4, AS>(acc, a + k * AS, wt + k * U, U);
       }
       if (j < nx) RV_STAMP(2);
       else RV_STAMP(3);

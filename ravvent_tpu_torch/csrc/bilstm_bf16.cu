@@ -59,7 +59,7 @@
 //   one block barrier a step.
 // - The cell runs on ex2.approx and rcp.approx (__expf, __fdividef) in f32,
 //   eight of them a (row, unit) where sigmoid and tanh one by one take ten
-//   (lstm_cell below): these run 16 a clock an SM and set the cell's time.
+//   (lstm_cell, bilstm_cell.cuh): these run 16 a clock an SM and set the cell's time.
 //   PERF.md records the error this adds.
 // What bounds a step now (PERF.md): the cell at the SFU's rate, h.Wh at
 // mma.sync's, and on a wide input x.Wx at L2's rate for Wx (every CTA reads
@@ -73,22 +73,16 @@
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and bound with ctypes (ravvent_tpu_torch/ops/cuda_lib.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+#include "bilstm_cell.cuh"
 #include "bilstm_units.cuh"
 
 namespace {
 
 constexpr int kSmallK = 16;        // Wx stays in shared memory for F <= 16 (one k-tile)
-constexpr int kFrag = 4 * 32;      // 8-byte words of one (warp, k-tile): 4 gates x 32 lanes
 
 // the most m-tiles (16 rows) a CTA: 4, or 1 past 128 units, whose 768 (U =
 // 192) or 1024 (U = 256) threads have 80 or 64 registers each
 __host__ __device__ constexpr int max_mtiles(int U) { return U > 128 ? 1 : 4; }
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kPhases = 6;
 #ifdef RV_BILSTM_PHASES
@@ -110,53 +104,6 @@ constexpr int kPhases = 6;
 #define RV_STAMP(k)
 #define RV_PHASES_STORE
 #endif
-
-// The cell in f32 with ex2.approx (__expf) and rcp.approx (__fdividef), five
-// exponentials and three reciprocals a (row, unit): with E(x) = e^-x,
-// sigmoid(i) * tanh(g) = (1 - E(2g)) / ((1 + E(i)) (1 + E(2g))) and
-// sigmoid(o) * tanh(c) likewise, sigmoid(f) c = c / (1 + E(f)). The
-// arguments are clamped where the factors would overflow (i, o >= -40,
-// 2g, 2c >= -30: e^40 e^30 < 2^126, where __fdividef still divides), which
-// moves no result by more than 1e-17.
-__device__ __forceinline__ float exp_neg(float x, float lo) { return __expf(-fmaxf(x, lo)); }
-__device__ __forceinline__ float sig_tanh(float s, float t) {  // sigmoid(s) * tanh(t)
-  const float es = exp_neg(s, -40.f), et = exp_neg(2.f * t, -30.f);
-  return __fdividef(1.f - et, (1.f + es) * (1.f + et));
-}
-__device__ __forceinline__ void lstm_cell(float zi, float zf, float zg, float zo, float& c,
-                                          float& h) {
-  c = __fdividef(c, 1.f + exp_neg(zf, -88.f)) + sig_tanh(zi, zg);
-  h = sig_tanh(zo, c);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// d += a . b for one m16n8k16 tile, bf16 operands, f32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, const uint2& b) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
-}
-
-// A fragment of m-tile mt, k-tile kt of the row-major x tile (row stride xsr).
-__device__ __forceinline__ uint4 x_frag(const bf16* x, int xsr, int mt, int kt, int g, int tg) {
-  const bf16* p = x + (16 * mt + g) * xsr + 16 * kt + 2 * tg;
-  return make_uint4(lds32(p), lds32(p + 8 * xsr), lds32(p + 8), lds32(p + 8 * xsr + 8));
-}
 
 template <int U, int MT, bool kWxSmem>
 __global__ void __launch_bounds__(4 * U, 1)

@@ -5,7 +5,9 @@ Counterpart of ravvent_tpu/ops/rnn_pallas.py (the TPU kernel
 is the input's: an f32 stream runs ``csrc/bilstm.cu``, a bf16 stream
 ``csrc/bilstm_bf16.cu`` (bf16 x, Wx and Wh, f32 bias, state and
 accumulation, bf16 outputs, as the TPU kernel runs it when its input is
-bf16). :func:`bilstm_layer` launches the kernel for CUDA tensors and runs
+bf16); past 256 units (:data:`WIDE_UNITS`) ``csrc/bilstm_wide.cu`` and
+``csrc/bilstm_bf16_wide.cu``, which take the same layouts and arguments.
+:func:`bilstm_layer` launches the kernel for CUDA tensors and runs
 :func:`bilstm_layer_plain` for CPU tensors only.
 
 Layouts (batch-major, as the model passes them):
@@ -26,6 +28,7 @@ Layouts (batch-major, as the model passes them):
 
 from __future__ import annotations
 
+import ctypes
 import re
 from typing import NamedTuple, Optional, Tuple
 
@@ -34,15 +37,20 @@ import torch
 from ravvent_tpu_torch.ops import cuda_lib
 
 
-def _compiled_units() -> Tuple[int, ...]:
-    """The unit counts the kernels are compiled for, from their one list
-    (``RV_BILSTM_UNITS`` in ``csrc/bilstm_units.cuh``)."""
+def _compiled_units(macro: str) -> Tuple[int, ...]:
+    """The unit counts of one of the kernels' lists in
+    ``csrc/bilstm_units.cuh`` (``RV_BILSTM_UNITS``, ``RV_BILSTM_WIDE_UNITS``)."""
     text = (cuda_lib.CSRC / "bilstm_units.cuh").read_text()
-    line = re.search(r"^#define RV_BILSTM_UNITS\(X\) (.*)$", text, re.M).group(1)
+    line = re.search(rf"^#define {macro}\(X\) (.*)$", text, re.M).group(1)
     return tuple(int(u) for u in re.findall(r"X\((\d+)\)", line))
 
 
-KERNEL_UNITS = _compiled_units()  # (32, 64, 96, 128, 192, 256)
+# the widths csrc/bilstm_wide.cu and csrc/bilstm_bf16_wide.cu run: (320,
+# 384, 448, 512)
+WIDE_UNITS = _compiled_units("RV_BILSTM_WIDE_UNITS")
+# every compiled width, increasing: (32, 64, 96, 128, 192, 256) in
+# csrc/bilstm.cu and csrc/bilstm_bf16.cu, then WIDE_UNITS
+KERNEL_UNITS = _compiled_units("RV_BILSTM_UNITS") + WIDE_UNITS
 STREAMS = (torch.float32, torch.bfloat16)
 
 
@@ -190,6 +198,19 @@ def launch(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> i
                  torch.cuda.current_stream(xs.device).cuda_stream)
 
 
+def wide_cta(U: int, F: int, dtype) -> dict:
+    """What one CTA of the wide kernel (csrc/bilstm_wide.cu,
+    csrc/bilstm_bf16_wide.cu) takes for a layer of ``U`` units (one of
+    :data:`WIDE_UNITS`) on ``F`` input features of ``dtype``: threads,
+    dynamic shared memory bytes, batch rows, registers and local memory
+    bytes a thread. Needs the card."""
+    info = (ctypes.c_int * 5)()
+    entry = ("rv_bilstm_layer_wide_cta" if dtype == torch.float32
+             else "rv_bilstm_layer_bf16_wide_cta")
+    cuda_lib.check(getattr(cuda_lib.lib(), entry)(U, padded_k(F, dtype), info), entry)
+    return dict(zip(("threads", "smem_bytes", "rows", "registers", "local_bytes"), info))
+
+
 def kernel_takes(U: int, F: int, dtype) -> bool:
     """Whether the kernels take a layer of ``U`` units on ``F`` input
     features on a stream of ``dtype``: the shapes :func:`bilstm_layer`
@@ -264,7 +285,8 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
     out = torch.empty(B, T, 2 * U, device=xs.device, dtype=dt)
     hN = torch.empty(2, B, U, device=xs.device, dtype=f32)
     cN = torch.empty_like(hN)
-    entry = cuda_lib.lib().rv_bilstm_layer if dt == f32 else cuda_lib.lib().rv_bilstm_layer_bf16
+    entry = getattr(cuda_lib.lib(), ("rv_bilstm_layer" if dt == f32 else "rv_bilstm_layer_bf16")
+                    + ("_wide" if U in WIDE_UNITS else ""))
     cuda_lib.check(launch(entry, xs, layout, b, h0, c0, out, hN, cN), name)
     cuda_lib.launches[name] += 1
     if layout.padded is not None:

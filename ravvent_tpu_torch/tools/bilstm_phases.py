@@ -7,10 +7,10 @@ beside the production library, which it leaves alone. In that build lane 0
 of every warp sums ``clock64()`` cycles over the phases of each time step
 that the source names (``rv_bilstm_phase_names``) and writes its sums when
 the loop ends. For each of a chunk's four layer shapes at ``--units`` U
-(the flagship's 128 by default; any compiled width, KERNEL_UNITS): raw
-layers 0 and 1 at T = 200 on F = 1 and 2U, event layers 0 and 1 at T = 30 on
-F = 5 and 2U; and each batch size it prints
-the mean cycles per step of each phase (mean over all warps), the
+(the flagship's 128 by default; any width these two sources are compiled
+for, KERNEL_UNITS up to 256; the wide kernels past it have no timing
+build): raw layers 0 and 1 at T = 200 on F = 1 and 2U, event layers 0 and
+1 at T = 30 on F = 5 and 2U; and each batch size it prints the mean cycles per step of each phase (mean over all warps), the
 production kernel's time and the timing build's (CUDA events), and the
 card's SM clock that the two imply. Needs a CUDA device and nvcc.
 
@@ -127,7 +127,8 @@ def split(entry, names, dtype, B: int, U: int, F: int, T: int, seeded: bool, see
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stream", choices=sorted(STREAMS), default="bf16")
-    ap.add_argument("--units", type=int, choices=rnn_cuda.KERNEL_UNITS, default=128)
+    ap.add_argument("--units", type=int, default=128,
+                    choices=[u for u in rnn_cuda.KERNEL_UNITS if u not in rnn_cuda.WIDE_UNITS])
     ap.add_argument("--batch", type=int, nargs="+", default=[4096, 2858])
     ap.add_argument("--json", help="also write the rows to this file")
     args = ap.parse_args(argv)

@@ -114,6 +114,14 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerBlockOptin };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+// a kernel's attributes: the emulation compiles no kernel, so it reports
+// no registers and no local memory
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  *a = cudaFuncAttributes{0, 0};
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
   *v = a == cudaDevAttrMultiProcessorCount ? 2 : 1 << 20;  // 2 SMs; 1 MiB of shared memory a block

@@ -103,13 +103,13 @@ def test_bilstm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert cuda_lib.launches["bilstm"] == before
 
 
-@pytest.mark.parametrize("U", [16, 264])
+@pytest.mark.parametrize("U", [16, 520])
 def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda, U):
     """A 16-unit BiLSTM encoder, an uncompiled width: encode_input on the
     card runs its 4 layers on the f32 kernel at 32 units, padded (bilstm and
-    bilstm_padded 4, no plain route); a 264-unit one, past the widest
-    compiled width, on the plain route (bilstm_plain_route 4, no kernel).
-    Either equals the CPU's within 1e-5 relative."""
+    bilstm_padded 4, no plain route); a 520-unit one, past the widest
+    compiled width (512), on the plain route (bilstm_plain_route 4, no
+    kernel). Either equals the CPU's within 1e-5 relative."""
     from ravvent_tpu_torch.config import ModelConfig
     from ravvent_tpu_torch.models.basecaller import encode_input, init_basecaller
 
@@ -126,6 +126,53 @@ def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda, U):
     assert got.shape == ref.shape and torch.equal(mask.cpu(), ref_mask)
     scale = ref.abs().max().item()
     assert (got.cpu() - ref).abs().max().item() <= 1e-5 * scale
+
+
+# (U, F, T, seeded) of the wide kernels' card tests (csrc/bilstm_wide.cu,
+# csrc/bilstm_bf16_wide.cu): each compiled width past 256 units
+# (ops/rnn_cuda.py:WIDE_UNITS) on raw (1), event (5) or a stacked layer's
+# input (2U), and 300 units, which the wrapper pads to 320
+WIDE_LAYERS = [(320, 1, 200, False), (320, 640, 40, True), (384, 5, 30, False),
+               (384, 768, 40, True), (448, 1, 200, True), (448, 896, 30, False),
+               (512, 5, 30, True), (512, 1024, 40, False), (300, 1, 200, False),
+               (300, 600, 40, True)]
+
+
+@pytest.mark.parametrize("B", [37, 130, 4096], ids=["one ragged tile", "ragged tiles", "4096 rows"])
+@pytest.mark.parametrize("U,F,T,seeded", WIDE_LAYERS,
+                         ids=[f"U{U}-{F}-{T}-{seeded}" for U, F, T, seeded in WIDE_LAYERS])
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+def test_bilstm_wide_kernel_matches_plain(cuda, stream, U, F, T, seeded, B):
+    """Past 256 units, each stream against its plain version at phase 2's /
+    phase 9's bars (f32 1e-4; bf16 outputs two bf16 ulps, f32 final states
+    1e-3): a CTA of 16 rows on f32, 32 on bf16, the last one ragged. The
+    launch counts under the stream's kernel (and ``bilstm_padded`` at 300
+    units), and the layout made once gives the same bits."""
+    dtype = torch.float32 if stream == "f32" else torch.bfloat16
+    kernel = "bilstm" if stream == "f32" else "bilstm_bf16"
+    gen = torch.Generator().manual_seed(U + F)
+    wx, wh, b = stream_weights([init_encoder(gen, U, 1, F, cuda)[0]], dtype)[0]
+    xs = torch.randn(B, T, F, generator=gen).to(cuda, dtype)
+    h0, c0 = ((0.5 * torch.randn(2, B, U, generator=gen)).to(cuda) if seeded
+              else torch.zeros(2, B, U, device=cuda) for _ in range(2))
+    before = dict(cuda_lib.launches)
+    out, h, c = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0)
+    assert cuda_lib.launches[kernel] == before[kernel] + 1
+    padded = U not in rnn_cuda.KERNEL_UNITS
+    assert cuda_lib.launches["bilstm_padded"] == before["bilstm_padded"] + padded
+    assert out.dtype == dtype and h.dtype == c.dtype == torch.float32
+    assert out.shape == (B, T, 2 * U) and h.shape == c.shape == (2, B, U)
+    ref = rnn_cuda.bilstm_layer_plain(xs, wx, wh, b, h0, c0)
+    if stream == "f32":
+        for g, r in zip((out, h, c), ref):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    else:
+        assert (out.float() - ref[0].float()).abs().max().item() <= 1e-2
+        for g, r in zip((h, c), ref[1:]):
+            assert (g - r).abs().max().item() <= 1e-3
+    again = rnn_cuda.bilstm_layer(xs, wx, wh, b, h0, c0, rnn_cuda.kernel_layout(wx, wh, b))
+    for g, r in zip(again, (out, h, c)):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("B", [37, 130, 2858], ids=["one ragged tile", "three tiles", "2858 rows"])
@@ -240,11 +287,11 @@ def test_beam_step_decode_on_card_matches_cpu(cuda):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     """The BiLSTM wrapper raises for a width past the widest the kernels
-    are compiled for (264 units; they pad any width up to 256), naming the
+    are compiled for (520 units; they pad any width up to 512), naming the
     shape."""
-    B, T, F, U = 2, 3, 4, 264
+    B, T, F, U = 2, 3, 4, 520
     xs = torch.zeros(B, T, F, device=cuda)
-    with pytest.raises(ValueError, match="U = 264 units on F = 4 features"):
+    with pytest.raises(ValueError, match="U = 520 units on F = 4 features"):
         rnn_cuda.bilstm_layer(xs, torch.zeros(2, F, 4 * U, device=cuda),
                               torch.zeros(2, U, 4 * U, device=cuda),
                               torch.zeros(2, 4 * U, device=cuda),

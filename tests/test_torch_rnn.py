@@ -301,9 +301,10 @@ class Launched(Exception):
 def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
     """``bilstm_layer`` on a card's tensor gets past its checks to the launch
     on the shapes the kernels take (64, 128 and 256 units, F <= 2U; 16 and
-    48 units, padded to 32 and 64), and raises a ValueError naming the shape
-    where ``kernel_takes`` is false: a width past the widest compiled one
-    (264, 288), too many features, an unaligned bf16 feature count, another
+    48 units, padded to 32 and 64; past 256 units 384 and 512, and 300,
+    padded to 320), and raises a ValueError naming the shape where
+    ``kernel_takes`` is false: a width past the widest compiled one (520,
+    544), too many features, an unaligned bf16 feature count, another
     dtype."""
     from ravvent_tpu_torch.ops import cuda_lib
 
@@ -316,8 +317,8 @@ def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
     f32, bf16 = torch.float32, torch.bfloat16
     taken = [(128, 1, f32), (128, 5, bf16), (128, 24, bf16), (128, 256, f32), (128, 256, bf16),
              (64, 5, f32), (64, 128, bf16), (256, 1, bf16), (256, 512, f32), (16, 5, f32),
-             (48, 96, bf16)]
-    refused = [(264, 5, f32), (288, 96, bf16), (64, 256, bf16), (64, 136, f32), (128, 264, f32),
+             (48, 96, bf16), (300, 5, f32), (384, 768, bf16), (512, 1024, f32)]
+    refused = [(520, 5, f32), (544, 96, bf16), (64, 256, bf16), (64, 136, f32), (128, 264, f32),
                (128, 17, bf16), (256, 520, bf16), (128, 5, torch.float16)]
     for U, F, dt in taken + refused:
         wx, wh = torch.zeros(2, F, 4 * U, dtype=dt), torch.zeros(2, U, 4 * U, dtype=dt)
@@ -334,13 +335,13 @@ def test_kernel_takes_states_what_the_wrapper_accepts(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_encoder_apply_routes_other_widths_to_the_plain_layer(dtype, monkeypatch):
-    """On a card (the predicate patched), a 264- or 288-unit encoder, past
-    the widest width the kernels are compiled for, runs every layer on the
-    plain version and counts each under ``bilstm_plain_route``, with the CPU
-    encoder's output bit for bit; a 64-, 128- or 256-unit one calls the
-    kernels' wrapper, bit for bit, and counts nothing; a 16- or 48-unit one
-    calls it at the padded width (32, 64) on the padded weights, counts
-    nothing, and is sliced back to its own width: equal within 1e-5 on f32
+    """On a card (the predicate patched), a 520- or 544-unit encoder, past
+    the widest width the kernels are compiled for (512), runs every layer on
+    the plain version and counts each under ``bilstm_plain_route``, with the
+    CPU encoder's output bit for bit; a 64-, 128- or 256-unit one calls the
+    kernels' wrapper, bit for bit, and counts nothing; a 16-, 48- or
+    300-unit one calls it at the padded width (32, 64, 320) on the padded
+    weights, counts nothing, and is sliced back to its own width: equal within 1e-5 on f32
     and the bf16 bars on bf16, the padding's exact zeros moving only the
     sums' association."""
     from ravvent_tpu_torch.ops import cuda_lib
@@ -348,7 +349,8 @@ def test_encoder_apply_routes_other_widths_to_the_plain_layer(dtype, monkeypatch
     gen = torch.Generator().manual_seed(4)
     xs = torch.randn(6, 9, 5, generator=gen).to(dtype)
     cases = []
-    for U, routed in ((16, 0), (48, 0), (64, 0), (128, 0), (256, 0), (264, 2), (288, 2)):
+    for U, routed in ((16, 0), (48, 0), (64, 0), (128, 0), (256, 0), (300, 0), (520, 2),
+                      (544, 2)):
         layers = trnn.init_encoder(gen, U, 2, 5)
         weights = trnn.kernel_weights(trnn.stream_weights(layers, dtype))
         cases.append((U, layers, weights, routed, trnn.encoder_apply(layers, xs, weights)))
