@@ -31,6 +31,10 @@ hand-written kernel against its plain PyTorch version on the card:
      then at the padded widths 48, 80, 160 and 200 (the kernel of 64, 96,
      192 and 256 units on zero-padded weights) against the plain version at
      the true width, each timed beside torch.nn.LSTM in f32 at its width;
+     past 256 units (csrc/bilstm_wide.cu) the same at 320, 384, 448 and 512
+     units and at 264 padded to 320, each layer's projection GEMM and its
+     recurrence also timed alone, beside the card's plan (cluster size C,
+     rows R, the window, the clusters at once);
   3. the bf16/f32 beam step, two kernels (beam_cell, then beam_attend),
      against its plain version at B=4096, S=232, U=128, W=5: bf16 memory
      over 40 steps, each kernel also against its own plain version on the
@@ -86,7 +90,8 @@ hand-written kernel against its plain PyTorch version on the card:
      checked against plain greedy_decode on the CPU on 64 snippets;
   9. the bf16-stream BiLSTM kernel against its plain version as phase 2
      holds the f32 one (each compiled and padded width at B=4096, 128 units
-     also at B=2858), timed beside torch.nn.LSTM in bf16;
+     also at B=2858; past 256 units csrc/bilstm_bf16_wide.cu, 300 padded to
+     320, each with its CTA), timed beside torch.nn.LSTM in bf16;
  10. end to end, bench.py's main path: PerformanceEvaluator (evaluate_files,
      then run_pipelined with 8 reads in flight and 4 finishers) over the
      engine with the bench's settings (i8dev wire, bf16 encoder stream on
@@ -476,6 +481,25 @@ def phase_bilstm(dtype) -> list:
     return [bilstm_width(dtype, U, gen, flagship if U == 128 else (4096,)) for U in widths]
 
 
+def wide_parts_ms(xs, layout, b, h0, c0, reps: int, warmup: int) -> tuple:
+    """(projection ms, recurrence ms) of an f32 layer on the wide kernels
+    (csrc/bilstm_wide.cu), each part launched alone on the same buffers
+    (ops/rnn_cuda.py:wide_launch; at a padded width on the layout's padded
+    weights and zero-padded states); no projection on F <= 16, which keeps
+    x.Wx inline."""
+    from ravvent_tpu_torch.ops.rnn_cuda import pad_units, wide_launch
+
+    if layout.padded is not None:
+        Up = layout.padded[1].shape[1]
+        b, h0, c0 = layout.padded[2], pad_units(h0, Up), pad_units(c0, Up)
+    bufs = wide_launch(xs, layout, b, h0, c0)
+    proj = (time_ms(lambda: wide_launch(xs, layout, b, h0, c0, parts=1, bufs=bufs), reps, warmup)
+            if xs.shape[-1] > 16 else 0.0)
+    rec = time_ms(lambda: wide_launch(xs, layout, b, h0, c0, parts=2, bufs=bufs), reps, warmup)
+    del bufs
+    return proj, rec
+
+
 def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
     """phase_bilstm at one width U: the kernels-line entry of its 4096-row
     chunk, named ``bilstm`` / ``bilstm_bf16`` at 128 units and with
@@ -485,8 +509,8 @@ def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
     from ravvent_tpu_torch.models.rnn import init_encoder, stream_weights
     from ravvent_tpu_torch.ops import cuda_lib
     from ravvent_tpu_torch.ops.rnn_cuda import (
-        KERNEL_UNITS, WIDE_UNITS, bilstm_layer, bilstm_layer_plain, kernel_layout, padded_units,
-        wide_cta,
+        KERNEL_UNITS, WIDE_UNITS, bf16_wide_cta, bilstm_layer, bilstm_layer_plain, kernel_layout,
+        padded_units, wide_plan,
     )
 
     dev, f32 = torch.device("cuda"), dtype == torch.float32
@@ -540,9 +564,23 @@ def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
             lib_err = (lib_out.float() - ref[0].float()).abs().max().item()
             bound, by = bilstm_bounds(B, T, F, U, dtype)
             bound_by.add(by)
-            # a wide CTA: threads, shared memory, rows, registers and local
-            # memory a thread (spills), as the runtime reports them
-            cta = f", CTA {wide_cta(padded_units(U), F, dtype)}" if wide else ""
+            # past 256 units on f32: the projection's and the recurrence's
+            # ms, each launched alone, and the card's plan: cluster size C,
+            # rows R, the window, the clusters the card holds at once, and a
+            # CTA's threads, shared memory, registers and local memory a
+            # thread (spills); on bf16 the CTA
+            cta = ""
+            if wide and f32:
+                proj_ms, rec_ms = wide_parts_ms(xs, layout, b, h0, c0, reps, warmup)
+                tot["proj_ms"] = tot.get("proj_ms", 0.0) + proj_ms
+                tot["rec_ms"] = tot.get("rec_ms", 0.0) + rec_ms
+                p = wide_plan(padded_units(U), F, B, T)
+                cta = (f"; projection {proj_ms:.3f} ms, recurrence {rec_ms:.3f} ms; C {p.cluster},"
+                       f" R {p.rows}, window {p.window}, {p.clusters} clusters at once; CTA "
+                       f"{p.threads} threads, {p.smem_bytes} B shared, {p.registers} registers, "
+                       f"{p.local_bytes} B local (projection {p.proj_registers} registers)")
+            elif wide:
+                cta = f", CTA {bf16_wide_cta(padded_units(U), F)}"
             print(f"  {name} U={U}{'' if U in KERNEL_UNITS else f' (padded to {padded_units(U)})'}"
                   f" B={B} {lname} T={T} F={F}: out max_abs_err {err_out:.3e} (tol "
                   f"{tol_out:g}), final states {err_state:.3e} (tol {tol_state:g}), max_rel_err "
@@ -560,8 +598,10 @@ def bilstm_width(dtype, U: int, gen: torch.Generator, batches) -> dict:
             tot["library_ms"] += lib_ms
             tot["bound_ms"] += bound
             err = max(err, err_out, err_state)
-        print(f"  {name} U={U} B={B}, one chunk's four layers: kernel {tot['ms']:.3f} ms, plain "
-              f"{tot['plain_ms']:.3f} ms, torch.nn.LSTM {tot['library_ms']:.3f} ms, bound "
+        parts = (f" (projection {tot['proj_ms']:.3f} ms, recurrence {tot['rec_ms']:.3f} ms, "
+                 f"each alone)" if "proj_ms" in tot else "")
+        print(f"  {name} U={U} B={B}, one chunk's four layers: kernel {tot['ms']:.3f} ms{parts}, "
+              f"plain {tot['plain_ms']:.3f} ms, torch.nn.LSTM {tot['library_ms']:.3f} ms, bound "
               f"{tot['bound_ms']:.3f} ms", flush=True)
         chunks[B] = (tot, bound_by)
         errs[B] = err

@@ -17,7 +17,8 @@ steps on int8 memory, each one ``beam_cell`` and one ``beam_attend_i8`` /
 ``csrc/peak_scan.cu``, so a call of its wrapper adds two (the scan, then the
 check). ``bilstm`` / ``bilstm_bf16`` count the BiLSTM launches of each
 stream at every width, past 256 units too (``csrc/bilstm_wide.cu``,
-``csrc/bilstm_bf16_wide.cu``). ``bilstm_padded`` counts the ``bilstm`` /
+``csrc/bilstm_bf16_wide.cu``; one a layer, whatever the f32 source's
+projection and recurrence kernels a window). ``bilstm_padded`` counts the ``bilstm`` /
 ``bilstm_bf16`` launches that ran a layer zero-padded to a compiled width
 (ops/rnn_cuda.py:kernel_layout), each also counted under its kernel. ``bilstm_plain_route``
 is no kernel: it counts the BiLSTM layers of CUDA tensors that ran their
@@ -132,9 +133,11 @@ _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 ENTRIES = {
     "rv_bilstm_layer": [_P] + [_I] * 5 + [_P] * 8 + [_P],
     "rv_bilstm_layer_bf16": [_P] + [_I] * 5 + [_P] * 8 + [_P],
-    "rv_bilstm_layer_wide": [_P] + [_I] * 5 + [_P] * 8 + [_P],
+    # the wide f32 entry also takes the scratch, then C, R, Tw and the parts
+    # to launch
+    "rv_bilstm_layer_wide": [_P] + [_I] * 5 + [_P] * 9 + [_I] * 4 + [_P],
     "rv_bilstm_layer_bf16_wide": [_P] + [_I] * 5 + [_P] * 8 + [_P],
-    "rv_bilstm_layer_wide_cta": [_I] * 2 + [_P],
+    "rv_bilstm_layer_wide_cta": [_I] * 6 + [_P],
     "rv_bilstm_layer_bf16_wide_cta": [_I] * 2 + [_P],
     "rv_beam_cell": [_I] * 3 + [_P] * 12,
     "rv_beam_attend": [_I] * 8 + [_P] * 18,

@@ -5,9 +5,13 @@ Counterpart of ravvent_tpu/ops/rnn_pallas.py (the TPU kernel
 is the input's: an f32 stream runs ``csrc/bilstm.cu``, a bf16 stream
 ``csrc/bilstm_bf16.cu`` (bf16 x, Wx and Wh, f32 bias, state and
 accumulation, bf16 outputs, as the TPU kernel runs it when its input is
-bf16); past 256 units (:data:`WIDE_UNITS`) ``csrc/bilstm_wide.cu`` and
-``csrc/bilstm_bf16_wide.cu``, which take the same layouts and arguments.
-:func:`bilstm_layer` launches the kernel for CUDA tensors and runs
+bf16); past 256 units (:data:`WIDE_UNITS`) ``csrc/bilstm_bf16_wide.cu``,
+which takes the same layouts and arguments, and ``csrc/bilstm_wide.cu``: on
+an input of more than 16 features a GEMM kernel computes x.Wx + b into an
+f32 scratch a window of time steps at a time, then a kernel runs the
+recurrence over thread-block clusters, its cluster size C, rows R and
+window taken from the card's plan (:func:`wide_plan`). :func:`bilstm_layer`
+launches the kernels for CUDA tensors (one counted launch a layer) and runs
 :func:`bilstm_layer_plain` for CPU tensors only.
 
 Layouts (batch-major, as the model passes them):
@@ -29,6 +33,7 @@ Layouts (batch-major, as the model passes them):
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 from typing import NamedTuple, Optional, Tuple
 
@@ -90,10 +95,11 @@ def bilstm_layer_plain(xs, wx, wh, b, h0, c0) -> Tuple[torch.Tensor, torch.Tenso
 class KernelLayout(NamedTuple):
     """A layer's weights as its stream's kernel reads them
     (:func:`kernel_layout`), at the compiled width U the kernel runs. f32
-    (``csrc/bilstm.cu``): ``kx`` is F rounded up to 4; ``wx`` [2, kx, U, 4]
-    and ``wh`` [2, U, U, 4] f32, row k's gate columns i, f, g, o grouped by
-    unit. bf16 (``csrc/bilstm_bf16.cu``): ``kx`` is F rounded up to 16;
-    ``wx`` and ``wh`` bf16 [2, U / 8 warps, k-tiles, 4 gates, 32 lanes, 4] in
+    (``csrc/bilstm.cu``, ``csrc/bilstm_wide.cu``): ``kx`` is F rounded up to
+    4; ``wx`` [2, kx, U, 4] and ``wh`` [2, U, U, 4] f32, row k's gate
+    columns i, f, g, o grouped by unit. bf16 (``csrc/bilstm_bf16.cu``,
+    ``csrc/bilstm_bf16_wide.cu``): ``kx`` is F rounded up to 16; ``wx`` and
+    ``wh`` bf16 [2, U / 8 warps, k-tiles, 4 gates, 32 lanes, 4] in
     mma-fragment order. Wx's rows past F are zero. ``units``: the layer's
     own width (U, or less where the layer is padded). ``padded``: the padded
     layer's (wx, wh, b) in the plain layout (:func:`pad_weights`), which the
@@ -189,8 +195,8 @@ def kernel_layout(wx: torch.Tensor, wh: torch.Tensor, b: Optional[torch.Tensor] 
 
 def launch(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> int:
     """Call a BiLSTM kernel's C entry ``entry`` (both streams take the same
-    arguments) on PyTorch's current stream; ``extra`` pointers go before the
-    stream (the timing build's stamps)."""
+    arguments) on PyTorch's current stream; ``extra`` arguments go before the
+    stream (the wide kernels' scratch and plan, the timing build's stamps)."""
     B, T, F = xs.shape
     return entry(xs.data_ptr(), B, T, F, layout.kx, h0.shape[-1], layout.wx.data_ptr(),
                  layout.wh.data_ptr(), b.data_ptr(), h0.data_ptr(), c0.data_ptr(),
@@ -198,17 +204,84 @@ def launch(entry, xs, layout: KernelLayout, b, h0, c0, out, hN, cN, *extra) -> i
                  torch.cuda.current_stream(xs.device).cuda_stream)
 
 
-def wide_cta(U: int, F: int, dtype) -> dict:
-    """What one CTA of the wide kernel (csrc/bilstm_wide.cu,
-    csrc/bilstm_bf16_wide.cu) takes for a layer of ``U`` units (one of
-    :data:`WIDE_UNITS`) on ``F`` input features of ``dtype``: threads,
-    dynamic shared memory bytes, batch rows, registers and local memory
-    bytes a thread. Needs the card."""
+def bf16_wide_cta(U: int, F: int) -> dict:
+    """What one CTA of the wide bf16 kernel (csrc/bilstm_bf16_wide.cu) takes
+    for a layer of ``U`` units (one of :data:`WIDE_UNITS`) on ``F`` input
+    features: threads, dynamic shared memory bytes, batch rows, registers
+    and local memory bytes a thread. Needs the card."""
     info = (ctypes.c_int * 5)()
-    entry = ("rv_bilstm_layer_wide_cta" if dtype == torch.float32
-             else "rv_bilstm_layer_bf16_wide_cta")
-    cuda_lib.check(getattr(cuda_lib.lib(), entry)(U, padded_k(F, dtype), info), entry)
+    entry = "rv_bilstm_layer_bf16_wide_cta"
+    cuda_lib.check(getattr(cuda_lib.lib(), entry)(U, padded_k(F, torch.bfloat16), info), entry)
     return dict(zip(("threads", "smem_bytes", "rows", "registers", "local_bytes"), info))
+
+
+class WidePlan(NamedTuple):
+    """How the wide f32 kernels (csrc/bilstm_wide.cu) run a layer on this
+    card (its C entry ``rv_bilstm_layer_wide_cta``): the recurrence's CTA
+    (threads, dynamic shared memory bytes, batch rows R, registers and local
+    memory bytes a thread), the cluster size C, the time steps a window (the
+    scratch holds one), the clusters the card holds at once and the
+    projection GEMM's registers a thread."""
+    threads: int
+    smem_bytes: int
+    rows: int
+    registers: int
+    local_bytes: int
+    cluster: int
+    window: int
+    clusters: int
+    proj_registers: int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(U: int, kx: int, B: int, T: int, cluster: int, rows: int, device: int) -> WidePlan:
+    info = (ctypes.c_int * 9)()
+    entry = "rv_bilstm_layer_wide_cta"
+    with torch.cuda.device(device):
+        cuda_lib.check(getattr(cuda_lib.lib(), entry)(U, kx, B, T, cluster, rows, info), entry)
+    return WidePlan(*info)
+
+
+def wide_plan(U: int, F: int, B: int, T: int, device=None, cluster: int = 0,
+              rows: int = 0) -> WidePlan:
+    """The card's plan for an f32 layer of ``U`` units (one of
+    :data:`WIDE_UNITS`) on ``F`` input features, ``B`` rows and ``T`` steps
+    (made once a shape and card): the C entry's rule, or, with ``cluster``
+    > 0, the given cluster size and ``rows``. Needs the card."""
+    cuda_lib.lib()  # the kernels built and loaded before the card is asked
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _plan(U, padded_k(F, torch.float32), B, T, cluster, rows, index)
+
+
+def wide_launch(xs, layout: "KernelLayout", b, h0, c0, parts: int = 3, bufs=None,
+                entry=None, extra=(), plan: Optional[WidePlan] = None):
+    """Launch the wide f32 kernels on a layer at a compiled width of
+    :data:`WIDE_UNITS` (``layout`` not padded, the tensors checked by the
+    caller) on ``plan`` (:func:`wide_plan`'s rule when None): ``parts`` 1
+    the projection alone, 2 the recurrence alone (on the scratch as it
+    stands), 3 both. ``bufs`` (out, hN, cN, scratch) are allocated when None
+    (the scratch [2, Tw, B, U, 4] f32 on an input of more than 16 features,
+    else None) and returned. ``entry``: another C entry of the same
+    arguments (the timing build), ``extra`` pointers after them (its
+    stamps)."""
+    B, T, F = xs.shape
+    U = h0.shape[-1]
+    if plan is None:
+        plan = wide_plan(U, F, B, T, xs.device)
+    if bufs is None:
+        scratch = (torch.empty(2, plan.window, B, U, 4, device=xs.device)
+                   if F > 16 else None)
+        bufs = (torch.empty(B, T, 2 * U, device=xs.device),
+                torch.empty(2, B, U, device=xs.device), torch.empty(2, B, U, device=xs.device),
+                scratch)
+    out, hN, cN, scratch = bufs
+    if entry is None:
+        entry = cuda_lib.lib().rv_bilstm_layer_wide
+    cuda_lib.check(launch(entry, xs, layout, b, h0, c0, out, hN, cN,
+                          scratch.data_ptr() if scratch is not None else None, plan.cluster,
+                          plan.rows, plan.window, parts, *extra), "bilstm")
+    return bufs
 
 
 def kernel_takes(U: int, F: int, dtype) -> bool:
@@ -275,6 +348,7 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
     name = "bilstm" if dt == f32 else "bilstm_bf16"
     if layout.kx != kx:
         raise ValueError(f"{name}: the layout was made for kx {layout.kx}, F = {F} needs {kx}")
+    wide = U in WIDE_UNITS
     lay_shape = ((lambda k: (2, k, U, 4)) if dt == f32
                  else (lambda k: (2, U // 8, k // 16, 4, 32, 4)))
     cuda_lib.check_tensors(name, xs.device, [
@@ -282,12 +356,16 @@ def bilstm_layer(xs, wx, wh, b, h0, c0, layout: Optional[KernelLayout] = None,
     ])
     if layout.wx.data_ptr() % 16 or layout.wh.data_ptr() % 16:  # read 16 bytes at a time
         raise ValueError(f"{name}: the layout's tensors must be 16-byte aligned")
-    out = torch.empty(B, T, 2 * U, device=xs.device, dtype=dt)
-    hN = torch.empty(2, B, U, device=xs.device, dtype=f32)
-    cN = torch.empty_like(hN)
-    entry = getattr(cuda_lib.lib(), ("rv_bilstm_layer" if dt == f32 else "rv_bilstm_layer_bf16")
-                    + ("_wide" if U in WIDE_UNITS else ""))
-    cuda_lib.check(launch(entry, xs, layout, b, h0, c0, out, hN, cN), name)
+    if wide and dt == f32:
+        out, hN, cN, _ = wide_launch(xs, layout, b, h0, c0)
+    else:
+        out = torch.empty(B, T, 2 * U, device=xs.device, dtype=dt)
+        hN = torch.empty(2, B, U, device=xs.device, dtype=f32)
+        cN = torch.empty_like(hN)
+        entry = ("rv_bilstm_layer" if dt == f32 else "rv_bilstm_layer_bf16") + (
+            "_wide" if wide else "")
+        cuda_lib.check(launch(getattr(cuda_lib.lib(), entry), xs, layout, b, h0, c0, out, hN,
+                              cN), name)
     cuda_lib.launches[name] += 1
     if layout.padded is not None:
         cuda_lib.launches["bilstm_padded"] += 1

@@ -24,10 +24,12 @@
 // is the byte offset in the CTA's dynamic shared buffer; mapa.u64 moves a
 // generic pointer into it to the same place in a peer CTA's buffer, which
 // the kernel then reads and writes as distributed shared memory. The
-// beam-loop kernel's mbarriers (init, arrive.expect_tx, complete_tx,
-// try_wait.parity) keep their phase and transaction count, and a wait
-// blocks until its phase completes; a multicast bulk copy copies into every
-// CTA of its mask at once and completes its bytes on each one's mbarrier.
+// beam-loop kernel's and the wide f32 BiLSTM kernel's mbarriers (init,
+// arrive.expect_tx, complete_tx, try_wait.parity) keep their phase and
+// transaction count, and a wait blocks until its phase completes; a
+// multicast bulk copy copies into every CTA of its mask at once and
+// completes its bytes on each one's mbarrier, and a bulk copy from a CTA's
+// shared memory into a peer's on the peer's.
 // The card's 1 MiB of shared memory a block lets a cluster of 2 hold what
 // a cluster of 8 holds on the H100.
 #pragma once
@@ -110,7 +112,12 @@ cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t* 
   *n = emu_cluster_dim(cfg) <= 2 ? 1 : 0;  // clusters of 2 at most, one at a time
   return cudaSuccess;
 }
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+// the non-portable cluster size (past 8 CTAs) that the wide f32 BiLSTM
+// kernel asks for: accepted, and the emulation runs a cluster of any size
+// together
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize, cudaFuncAttributeNonPortableClusterSizeAllowed
+};
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerBlockOptin };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
@@ -269,6 +276,17 @@ inline void emu_bulk_multicast(unsigned dst, const void* src, unsigned bytes, un
       m.tx -= bytes;
       emu_mbar_complete(m);
     }
+}
+
+// the bulk copy of bytes at this CTA's shared address src into the shared
+// address dst (a peer's, by emu_rank), completing them on the mbarrier at
+// bar (the peer's)
+inline void emu_bulk_to_peer(unsigned dst, unsigned src, unsigned bytes, unsigned bar) {
+  memcpy(emu_shared(dst), emu_shared(src), bytes);
+  std::lock_guard<std::mutex> lk(g_mbar_mu);
+  EmuMbar& m = g_mbars.at(emu_shared(bar));
+  m.tx -= bytes;
+  emu_mbar_complete(m);
 }
 
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {d0..d3}, {a0..a3},

@@ -16,11 +16,13 @@ the CTA's threads, and a loaded host does not stall its barriers; a
 barrier no thread can complete aborts the process with
 ``cuda_emu: deadlock`` on stderr; ``cp.async`` copies at once, and so does a
 1-D bulk copy (TMA, ``cp.async.bulk`` on an mbarrier), whose mbarrier wait
-returns at once. The cluster kernel's PTX (csrc/beam_loop.cu: the cluster
+returns at once. The cluster kernels' PTX (csrc/beam_loop.cu: the cluster
 barrier, ``mapa.u64`` to a peer CTA's shared memory, read and written as
 distributed shared memory, the multicast bulk copy into every CTA of its
-mask) runs on mbarriers that keep their phase and transaction count, whose
-waits block until the phase completes;
+mask; the wide f32 BiLSTM kernel's h exchange: ``mapa.shared::cluster.u32`` and
+the bulk copy from a CTA's shared memory into a peer's) runs on mbarriers
+that keep their phase and transaction count, whose waits block until the
+phase completes;
 ``mma.sync.m16n8k16`` on bf16 (f32 accumulator) exchanges the warp's
 fragments as ``__shfl_sync`` does. So the emulation shows a kernel's
 indexing, shared-memory and fragment layouts and control flow against its
@@ -73,8 +75,9 @@ _BULK = re.compile(r'asm volatile\("cp\.async\.bulk\.shared::cluster\.global\.mb
 # an mbarrier's try_wait into its output register: done at once here
 _TRY_WAIT = re.compile(r'asm volatile\("[^"]*mbarrier\.try_wait[^"]*"\s*:\s*"=r"\((\w+)\)[^;]*\);')
 
-# The cluster kernel's PTX (csrc/beam_loop.cu), each as the emulation's call
-# on the statement's operands, in order; its mbarriers keep real phases.
+# The cluster kernels' PTX (csrc/beam_loop.cu; the wide f32 BiLSTM kernel's h
+# exchange, csrc/bilstm_wide.cu), each as the emulation's call on the
+# statement's operands, in order; their mbarriers keep real phases.
 _OPERAND = r'\s*"[+=]?[rlh]"\((\w+)\)'
 _CLUSTER_PTX = [
     (r"mbarrier\.init\.shared::cta\.b64 \[%0\], %1;", "emu_mbar_init({0}, {1});"),
@@ -84,6 +87,9 @@ _CLUSTER_PTX = [
     (r"[^\"]*mbarrier\.try_wait\.parity\.acquire\.cta[^\"]*", "{0} = emu_mbar_try_wait({1}, {2});"),
     (r"cp\.async\.bulk\.shared::cluster\.global\.mbarrier::complete_tx::bytes\.multicast::cluster "
      r"\[%0\], \[%1\], %2, \[%3\], %4;", "emu_bulk_multicast({0}, {1}, {2}, {3}, {4});"),
+    (r"mapa\.shared::cluster\.u32 %0, %1, %2;", "{0} = emu_rank({1}, {2});"),
+    (r"cp\.async\.bulk\.shared::cluster\.shared::cta\.mbarrier::complete_tx::bytes "
+     r"\[%0\], \[%1\], %2, \[%3\];", "emu_bulk_to_peer({0}, {1}, {2}, {3});"),
     (r"barrier\.cluster\.arrive\.release\.aligned;", "emu_cluster_arrive();"),
     (r"barrier\.cluster\.wait\.acquire\.aligned;", "emu_cluster_wait();"),
 ]

@@ -131,11 +131,13 @@ def test_encoder_of_another_width_runs_its_plain_layers_on_the_card(cuda, U):
 # (U, F, T, seeded) of the wide kernels' card tests (csrc/bilstm_wide.cu,
 # csrc/bilstm_bf16_wide.cu): each compiled width past 256 units
 # (ops/rnn_cuda.py:WIDE_UNITS) on raw (1), event (5) or a stacked layer's
-# input (2U), and 300 units, which the wrapper pads to 320
+# input (2U), and 300 units, which the wrapper pads to 320; the last, a
+# stacked 448-unit layer over 200 steps, crosses the projection's windows at
+# 4096 rows (18 steps a window: eleven, then one of 2)
 WIDE_LAYERS = [(320, 1, 200, False), (320, 640, 40, True), (384, 5, 30, False),
                (384, 768, 40, True), (448, 1, 200, True), (448, 896, 30, False),
                (512, 5, 30, True), (512, 1024, 40, False), (300, 1, 200, False),
-               (300, 600, 40, True)]
+               (300, 600, 40, True), (448, 896, 200, True)]
 
 
 @pytest.mark.parametrize("B", [37, 130, 4096], ids=["one ragged tile", "ragged tiles", "4096 rows"])
@@ -145,9 +147,11 @@ WIDE_LAYERS = [(320, 1, 200, False), (320, 640, 40, True), (384, 5, 30, False),
 def test_bilstm_wide_kernel_matches_plain(cuda, stream, U, F, T, seeded, B):
     """Past 256 units, each stream against its plain version at phase 2's /
     phase 9's bars (f32 1e-4; bf16 outputs two bf16 ulps, f32 final states
-    1e-3): a CTA of 16 rows on f32, 32 on bf16, the last one ragged. The
-    launch counts under the stream's kernel (and ``bilstm_padded`` at 300
-    units), and the layout made once gives the same bits."""
+    1e-3), on the card's plan (ops/rnn_cuda.py:wide_plan: clusters of R
+    rows, the last tile ragged; on F = 2U the projection a window of steps
+    at a time). One launch counted under the stream's kernel (and
+    ``bilstm_padded`` at 300 units), whatever the inner kernels, and the
+    layout made once gives the same bits."""
     dtype = torch.float32 if stream == "f32" else torch.bfloat16
     kernel = "bilstm" if stream == "f32" else "bilstm_bf16"
     gen = torch.Generator().manual_seed(U + F)
